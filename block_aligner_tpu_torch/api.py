@@ -1,0 +1,252 @@
+"""Batched alignment API of the port (counterpart of ``block_aligner_tpu/api.py``).
+
+``BatchAligner`` serves the route ``pick_route`` calls "lane": fixed block
+sizes (min == max <= 512), global alignment, no trace, with an amino-acid or
+nucleotide table.  Every other configuration raises ``NotImplementedError``
+naming the ROADMAP slice that brings it.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .core.result import AlignResult
+from .core.scores import ByteMatrix, Gaps
+from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane
+
+__all__ = ["BatchAligner", "pick_route", "round_up"]
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pick_route(min_size: int, max_size: int, seq_cap: int, *,
+               trace: bool = False, x_drop: Optional[int] = None,
+               local_start: bool = False,
+               free_query_start_gaps: bool = False,
+               free_query_end_gaps: bool = False,
+               is_byte: bool = False):
+    """The JAX package's kernel-routing decision, unchanged.
+
+    Returns ``(path, reasons)``: path is one of "adaptive", "big", "lane",
+    "long", "long_lane" or "engine"; ``reasons`` is non-empty exactly when
+    path == "engine" and says why no kernel serves the configuration."""
+    min_size = max(min_size, 16)
+    max_size = max(max_size, min_size)
+    capv = round_up(max(1 + seq_cap + max_size + 16, 256), 128)
+    if (min_size < max_size and max_size <= 512
+            and (max_size < 512 or trace) and capv <= 16384):
+        return "adaptive", []
+    if ((512 < max_size <= 8192
+         or (max_size == 512 and min_size < max_size))
+            and capv <= 16384):
+        return "big", []
+    if min_size == max_size and min_size <= 512 and capv <= 16384:
+        return "lane", []
+    if (not free_query_end_gaps and 128 <= max_size <= 16384
+            and (min_size < max_size or max_size > 512)):
+        return "long", []
+    if (not free_query_end_gaps and not is_byte
+            and min_size == max_size and min_size <= 512):
+        return "long_lane", []
+    reasons = []
+    if max_size > 16384:
+        reasons.append(
+            "max block size > 16384 (past percent_len's clamp)"
+        )
+    elif free_query_end_gaps:
+        reasons.append(
+            "free_query_end_gaps past the resident budget (requires min "
+            "block > query length, so never legitimately over-budget)"
+        )
+    elif is_byte:
+        reasons.append(
+            "segmented ByteMatrix -- the lane driver's equality scoring "
+            "does not stream byte codes"
+        )
+    elif max_size < 128:
+        reasons.append(
+            "adaptive bands under 128 past the code budget (big kernel "
+            "floor is 128)"
+        )
+    return "engine", reasons or ["unrouted configuration"]
+
+
+# ROADMAP.md slice that brings each configuration the port lacks
+_SLICE = {
+    "adaptive": "queue 1 item 5, kernel B (adaptive sizing)",
+    "big": "queue 1 item 6, kernel C (big blocks)",
+    "long": "queue 1 item 7 (long-sequence API)",
+    "long_lane": "queue 1 item 7 (long-sequence API)",
+    "engine": "queue 1 item 4 (PyTorch lockstep engine)",
+    "x_drop": "queue 2 slice A2 (x-drop)",
+    "trace": "queue 2 slice A3 (trace)",
+    "byte": "queue 2 slice A5 (ByteMatrix)",
+    "flags": "queue 2 slice A6 (local-start and free gaps)",
+    "mesh": "queue 1 item 8 (multi-GPU)",
+}
+
+
+def _not_yet(what: str, key: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md {_SLICE[key]}")
+
+
+class BatchAligner:
+    """Batched fixed-block global aligner on one device.
+
+    Same surface as the JAX package's ``BatchAligner`` for the lane route:
+    ``align_batch``, ``align_all``, ``stage``/``align_staged``,
+    ``last_suspect`` (per-pair y-drop suspect flags of the last call: True
+    where the reference's adaptive heuristic would have grown the block),
+    ``batch_size`` and ``seq_capacity``.  ``device`` places the packed
+    tensors: a CUDA device runs the kernel, the CPU its plain version.
+    """
+
+    def __init__(
+        self,
+        matrix,
+        gaps: Gaps,
+        size: Tuple[int, int] = (32, 256),
+        *,
+        batch: int = 256,
+        seq_cap: int = 1024,
+        trace: bool = False,
+        x_drop: Optional[int] = None,
+        local_start: bool = False,
+        free_query_start_gaps: bool = False,
+        free_query_end_gaps: bool = False,
+        mesh=None,
+        use_lane_kernel: Optional[bool] = None,
+        device="cuda",
+    ):
+        if not (gaps.open < 0 and gaps.extend < 0):
+            raise ValueError("Gap costs must be negative!")
+        if not gaps.open < gaps.extend:
+            raise ValueError("Gap open must cost more than gap extend!")
+        if batch < 1:
+            raise ValueError(f"batch must be positive, got {batch}")
+        min_size = max(size[0], 16)
+        max_size = max(size[1], min_size)
+        is_byte = isinstance(matrix, ByteMatrix)
+        route, _ = pick_route(
+            min_size, max_size, seq_cap, trace=trace, x_drop=x_drop,
+            local_start=local_start,
+            free_query_start_gaps=free_query_start_gaps,
+            free_query_end_gaps=free_query_end_gaps, is_byte=is_byte,
+        )
+        if route != "lane":
+            _not_yet(f"route {route!r} (size {size}, seq_cap {seq_cap})", route)
+        if use_lane_kernel is False:
+            _not_yet("use_lane_kernel=False", "engine")
+        if trace:
+            _not_yet("trace", "trace")
+        if x_drop is not None:
+            _not_yet("x_drop", "x_drop")
+        if local_start or free_query_start_gaps or free_query_end_gaps:
+            _not_yet("local_start / free_query_start_gaps / "
+                     "free_query_end_gaps", "flags")
+        if is_byte:
+            _not_yet("ByteMatrix", "byte")
+        if mesh is not None:
+            _not_yet("mesh", "mesh")
+        self.matrix = matrix
+        self.gaps = gaps
+        self.device = torch.device(device)
+        self._batch = batch
+        cap = round_up(max(1 + seq_cap + max_size + 16, 256), 128)
+        self.cfg = LaneKernelConfig(
+            block=min_size, seq_cap=cap,
+            alpha=32 if matrix.kind != "nuc" else 16,
+        )
+        self.last_suspect: Optional[np.ndarray] = None
+
+    @property
+    def batch_size(self) -> int:
+        return self._batch
+
+    @property
+    def seq_capacity(self) -> int:
+        return self.cfg.seq_cap - self.cfg.block - 17
+
+    def _check_lengths(self, pairs):
+        cap = self.seq_capacity
+        for q, r in pairs:
+            if max(len(q), len(r)) > cap:
+                raise ValueError(
+                    "sequence too long for this BatchAligner's seq_cap")
+
+    def align_batch(self, pairs: Sequence[Tuple[bytes, bytes]]) -> List[AlignResult]:
+        """Align up to ``batch_size`` pairs."""
+        return self.align_staged(self.stage(pairs))
+
+    def stage(self, pairs):
+        """Pack a batch onto the device; ``align_staged`` runs it, as often
+        as wanted, without packing again."""
+        if len(pairs) > self.batch_size:
+            raise ValueError(
+                f"{len(pairs)} pairs exceed batch_size {self.batch_size}")
+        self._check_lengths(pairs)
+        return pack_lane(pairs, self.matrix, self.cfg, self.gaps, self.device)
+
+    def align_staged(self, staged) -> List[AlignResult]:
+        """Run a batch prepared with ``stage``."""
+        return self._decode(staged, self._dispatch(staged))
+
+    def _dispatch(self, staged):
+        """Launch the device work for a staged batch (asynchronous on CUDA)."""
+        return lane_align(staged.codes, staged.qlen, staged.rlen,
+                          staged.table, staged.gaps, self.cfg)
+
+    def _decode(self, staged, out) -> List[AlignResult]:
+        """Fetch a dispatched batch's results and set ``last_suspect``."""
+        out = out.cpu().numpy()
+        ql = staged.qlen.cpu().numpy()
+        rl = staged.rlen.cpu().numpy()
+        self.last_suspect = out[:, 1].astype(bool)
+        return [AlignResult(int(sc), int(q), int(r))
+                for sc, q, r in zip(out[:, 0], ql, rl)]
+
+    def align_all(self, pairs: Sequence[Tuple[bytes, bytes]],
+                  sort: bool = True) -> List[AlignResult]:
+        """Align any number of pairs in batches of ``batch_size``.
+
+        ``sort=True`` aligns in length-sorted order and unsorts the
+        results, so the pairs of one batch have similar lengths.  The next
+        batch is packed while the device aligns the current one."""
+        self._check_lengths(pairs)
+        sort = sort and len(pairs) > 1
+        if sort:
+            order = sorted(range(len(pairs)),
+                           key=lambda k: len(pairs[k][0]) + len(pairs[k][1]))
+            work = [pairs[k] for k in order]
+        else:
+            order = None
+            work = pairs
+        got: List[AlignResult] = []
+        flags = []
+        pending = None
+        for k in range(0, len(work), self.batch_size):
+            staged = self.stage(work[k : k + self.batch_size])
+            disp = self._dispatch(staged)
+            if pending is not None:
+                got.extend(self._decode(*pending))
+                flags.append(self.last_suspect)
+            pending = (staged, disp)
+        if pending is not None:
+            got.extend(self._decode(*pending))
+            flags.append(self.last_suspect)
+        sus = np.concatenate(flags) if flags else np.zeros(0, bool)
+        if order is None:
+            self.last_suspect = sus
+            return got
+        out: List[Optional[AlignResult]] = [None] * len(pairs)
+        for pos, k in enumerate(order):
+            out[k] = got[pos]
+        self.last_suspect = np.zeros(len(pairs), bool)
+        self.last_suspect[np.asarray(order)] = sus
+        return out

@@ -1,0 +1,324 @@
+// Fixed-block global alignment of a batch of sequence pairs, for Hopper
+// (sm_90a).  Plain C interface, loaded with ctypes by ops/lane_kernel.py.
+//
+// Replaces: block_aligner_tpu/ops/lane_kernel.py::build_lane_engine (its
+// Pallas `kernel`) in global mode without trace.  It computes the same
+// score and the same y-drop suspect flag, bit for bit; the step machine is
+// described in ops/lane_kernel.py, whose lane_align_plain is the plain
+// PyTorch version of this kernel.
+//
+// What bounds it: integer ALU work (a handful of adds and maxes per DP
+// cell) and, above all, latency: each of a pair's 8 columns per step
+// depends on the one before, and each column carries a max-plus prefix
+// scan down the block, a chain of dependent warp shuffles.  Bytes are not
+// the limit: a pair reads its codes once per step and writes 8 bytes.
+//
+// What the design does about it:
+// * one warp per pair, and each pair runs its own step loop and leaves as
+//   soon as its block freezes, so no pair waits for the longest one in a
+//   batch (the TPU kernel ran 128-pair lanes in lockstep);
+// * the S block rows sit in registers, S/32 contiguous rows per lane
+//   (S = 16 leaves half the warp idle), so the D00 diagonal shift is one
+//   shuffle per column and the prefix scan is serial inside a lane plus
+//   log2(lanes) shuffles across lanes;
+// * the score table sits in shared memory and each lane looks up
+//   table[column code][own row code] directly, which replaces the TPU's
+//   packed score stacks and one-hot matrix products;
+// * many warps per SM hide the chain's latency: a warp's registers are
+//   its only state, so occupancy is set by registers alone.
+// i16x2 packing, DPX instructions and several pairs per warp are left to
+// later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int STEP = 8;             // columns per step
+constexpr int ZERO = 1 << 14;       // score bias
+constexpr int NEG = -32768;         // the i16 lower rail
+constexpr int INT_MIN_ = -2147483647 - 1;
+constexpr int MAX_ALPHA = 32;
+constexpr int WARPS = 4;            // pairs per thread block
+constexpr unsigned FULL = 0xffffffffu;
+
+// only the lower rail is reachable: block maxima are rebased to ZERO
+__device__ __forceinline__ int sat(int x) { return max(x, NEG); }
+
+// Passive border shift: row r <- row r + 8, rows S-8..S-1 <- tail.
+template <int NL, int RPL>
+__device__ __forceinline__ void shift_tail(int (&x)[RPL], const int* tail,
+                                           int lane) {
+  if constexpr (RPL >= STEP) {
+    int nx[RPL];
+#pragma unroll
+    for (int k = 0; k < RPL; ++k) {
+      if (k + STEP < RPL) {
+        nx[k] = x[k + STEP];
+      } else {
+        const int v = __shfl_down_sync(FULL, x[k + STEP - RPL], 1);
+        nx[k] = lane == NL - 1 ? tail[k + STEP - RPL] : v;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < RPL; ++k) x[k] = nx[k];
+  } else {
+    constexpr int D = STEP / RPL;  // lanes per 8 rows
+#pragma unroll
+    for (int k = 0; k < RPL; ++k) {
+      const int v = __shfl_down_sync(FULL, x[k], D);
+      x[k] = (lane >= NL - D && lane < NL) ? tail[(lane - (NL - D)) * RPL + k]
+                                           : v;
+    }
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(WARPS * 32)
+lane_align_kernel(const uint8_t* __restrict__ codes,
+                  const int* __restrict__ qlen, const int* __restrict__ rlen,
+                  const int* __restrict__ table, int* __restrict__ out, int B,
+                  int cap, int alpha, int max_steps, int gopen, int gext) {
+  constexpr int NL = S < 32 ? S : 32;  // lanes holding block rows
+  constexpr int RPL = S / NL;          // rows per lane, contiguous
+  constexpr int PRO = S / STEP;        // prologue steps (the initial grow)
+
+  __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
+  __shared__ int tails[WARPS][2][STEP];  // a step's bottom D and R cells
+
+  for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
+    tab[k] = table[k];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
+  if (b >= B) return;
+  int* tailD = tails[warp][0];
+  int* tailR = tails[warp][1];
+  const bool on = lane < NL;
+  const int row0 = lane * RPL;
+  const int ql = qlen[b], rl = rlen[b];
+  const uint8_t* qs = codes + (size_t)b * 2 * cap;
+  const uint8_t* rs = qs + cap;
+
+  int actD[RPL], actC[RPL], pasD[RPL], pasR[RPL], zc[RPL];
+#pragma unroll
+  for (int k = 0; k < RPL; ++k) {
+    actD[k] = actC[k] = pasD[k] = pasR[k] = 0;
+    zc[k] = gext * (((row0 + k) & 7) + 1);  // scan zero correction
+  }
+
+  int I = 0, J = 0, off = 0, offmax = 0, dir = 2, pdir = 2, corn = NEG;
+  int ybest = -(1 << 30), yiter = 0, susp = 0, score = 0;
+  int dmax = INT_MIN_;
+  bool done = false;
+  // freeze predicate of the current block (prologue: lanes = query)
+  bool fra = S > ql;
+  int frt = rl, fridx = min(max(ql, 0), S - 1);
+
+  for (int s = 0; s < max_steps && !done; ++s) {
+    const bool in_pro = s < PRO;
+    int oa = 0, cvec = NEG, lstart = 0, cpos0 = s * STEP;
+    const uint8_t* lseq = qs;
+    const uint8_t* cseq = rs;
+    if (!in_pro) {
+      // offset rebase (reference: src/scan_block.rs:148-151)
+      oa = min(max(off - offmax, NEG), 32767);
+      off = offmax;
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) {
+        actD[k] = sat(actD[k] + oa);
+        actC[k] = sat(actC[k] + oa);
+      }
+      const bool flip = (dir == 0 && pdir == 1) || (dir == 1 && pdir == 0);
+      cvec = flip ? sat(corn + oa) : NEG;
+      const bool right = dir != 1;
+      lstart = right ? I : J;
+      cpos0 = (right ? J : I) + S - STEP;
+      const int lane_len = right ? ql : rl, col_len = right ? rl : ql;
+      fra = lstart + S > lane_len;
+      frt = col_len - cpos0;
+      fridx = min(max(lane_len - lstart, 0), S - 1);
+      lseq = right ? qs : rs;
+      cseq = right ? rs : qs;
+    }
+    int lc[RPL], cc[STEP];
+#pragma unroll
+    for (int k = 0; k < RPL; ++k)
+      lc[k] = on ? min((int)lseq[min(lstart + row0 + k, cap - 1)], alpha - 1)
+                 : 0;
+#pragma unroll
+    for (int w = 0; w < STEP; ++w)
+      cc[w] = min((int)cseq[min(cpos0 + w, cap - 1)], alpha - 1);
+
+#pragma unroll
+    for (int w = 0; w < STEP; ++w) {
+      const int* trow = tab + cc[w] * alpha;
+      int up = __shfl_up_sync(FULL, actD[RPL - 1], 1);
+      if (lane == 0) up = w == 0 ? cvec : NEG;
+      int D[RPL], C[RPL], T[RPL];
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) {
+        int d = sat((k == 0 ? up : actD[k - 1]) + trow[lc[k]]);
+        if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
+        C[k] = max(sat(actC[k] + gext), sat(actD[k] + gopen));
+        D[k] = max(d, C[k]);
+      }
+      // max-plus prefix scan of D + (open - extend) down the block: serial
+      // inside the lane, log-step across lanes, then the zero correction
+      T[0] = D[0] + (gopen - gext);
+#pragma unroll
+      for (int k = 1; k < RPL; ++k)
+        T[k] = max(D[k] + (gopen - gext), T[k - 1] + gext);
+      int carry = T[RPL - 1];
+#pragma unroll
+      for (int d = 1; d < NL; d <<= 1) {
+        const int o = __shfl_up_sync(FULL, carry, d);
+        if (lane >= d) carry = max(carry, o + gext * RPL * d);
+      }
+      const int prev = __shfl_up_sync(FULL, carry, 1);
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) {
+        const int t = lane > 0 ? max(T[k], prev + gext * (k + 1)) : T[k];
+        T[k] = max(t, zc[k]);  // R
+        D[k] = max(D[k], T[k]);
+        actD[k] = D[k];
+        actC[k] = C[k];
+        if (on) dmax = max(dmax, D[k]);
+      }
+      if (lane == NL - 1) {
+        tailD[w] = D[RPL - 1];
+        tailR[w] = T[RPL - 1];
+      }
+      // freeze: the block covering (qlen, rlen) reached the last column
+      const int wloc = in_pro ? s * STEP + w : w;
+      if (fra && wloc >= frt) {
+        const int src = fridx / RPL, idx = fridx - src * RPL;
+        int v = D[0];
+#pragma unroll
+        for (int k = 1; k < RPL; ++k)
+          if (k == idx) v = D[k];
+        score = off + __shfl_sync(FULL, v, src) - ZERO;
+        done = true;
+        break;
+      }
+    }
+    if (done) break;
+    __syncwarp();  // the step's tail cells are visible to the warp
+
+    if (in_pro) {
+      // the prologue's bottom cells fill passive rows 8s..8s+7
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) {
+        const int row = row0 + k;
+        if ((row >> 3) == s) {
+          pasD[k] = tailD[row & 7];
+          pasR[k] = tailR[row & 7];
+        }
+      }
+    }
+    if (s >= PRO - 1) {
+      if (s != PRO - 1) {
+#pragma unroll
+        for (int k = 0; k < RPL; ++k) {
+          pasD[k] = sat(pasD[k] + oa);
+          pasR[k] = sat(pasR[k] + oa);
+        }
+        // the pre-splice row 7 is the next step's corner
+        corn = __shfl_sync(FULL, pasD[7 % RPL], 7 / RPL);
+        shift_tail<NL, RPL>(pasD, tailD, lane);
+        shift_tail<NL, RPL>(pasR, tailR, lane);
+      }
+      const int off_max = off + __reduce_max_sync(FULL, dmax) - ZERO;
+      dmax = INT_MIN_;
+      offmax = off_max;
+      // y-drop stall tracking (reference: src/scan_block.rs:470-487)
+      const int y_iter = off_max > ybest ? 0 : yiter + 1;
+      ybest = max(ybest, off_max);
+      yiter = y_iter;
+      // direction from the first 8 rows of both borders
+      int ah = INT_MIN_, ph = INT_MIN_;
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) {
+        if (row0 + k < STEP) {
+          ah = max(ah, actD[k]);
+          ph = max(ph, pasD[k]);
+        }
+      }
+      ah = __reduce_max_sync(FULL, ah);
+      ph = __reduce_max_sync(FULL, ph);
+      const bool right_now = dir != 1;
+      const int right_max = right_now ? ah : ph;
+      const int down_max = right_now ? ph : ah;
+      const bool forced_down = J + S > rl;
+      const bool forced_right = !forced_down && I + S > ql;
+      const bool free_step = !forced_down && !forced_right;
+      // the grow trigger is only reachable on free steps
+      if (free_step && y_iter > PRO - 1) susp = 1;
+      const bool godown = forced_down || (free_step && down_max > right_max);
+      pdir = dir;
+      if (godown) I += STEP; else J += STEP;
+      const int new_dir = godown ? 1 : 0;
+      if ((dir != 1) != (new_dir != 1)) {
+        // the lane axis flipped: the borders trade roles
+#pragma unroll
+        for (int k = 0; k < RPL; ++k) {
+          const int d = actD[k], c = actC[k];
+          actD[k] = pasD[k];
+          actC[k] = pasR[k];
+          pasD[k] = d;
+          pasR[k] = c;
+        }
+      }
+      dir = new_dir;
+    }
+    __syncwarp();  // tail cells read before the next step writes them
+  }
+  if (lane == 0) {
+    out[2 * b] = score;
+    out[2 * b + 1] = susp;
+  }
+}
+
+template <int S>
+cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
+                   const int* table, int* out, int B, int cap, int alpha,
+                   int max_steps, int gopen, int gext, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
+  lane_align_kernel<S><<<grid, WARPS * 32, 0, stream>>>(
+      codes, qlen, rlen, table, out, B, cap, alpha, max_steps, gopen, gext);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32,
+// out (B, 2) int32 = (score, suspect).  Returns the launch's cudaError_t.
+extern "C" int lane_align_launch(const void* codes, const void* qlen,
+                                 const void* rlen, const void* table,
+                                 void* out, int B, int cap, int alpha,
+                                 int block, int max_steps, int gopen,
+                                 int gext, void* stream) {
+  if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA)
+    return (int)cudaErrorInvalidValue;
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* q = static_cast<const int*>(qlen);
+  const auto* r = static_cast<const int*>(rlen);
+  const auto* t = static_cast<const int*>(table);
+  auto* o = static_cast<int*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (block) {
+    case 16: return (int)launch<16>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
+    case 32: return (int)launch<32>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
+    case 64: return (int)launch<64>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
+    case 128: return (int)launch<128>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
+    case 256: return (int)launch<256>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
+    case 512: return (int)launch<512>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* lane_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

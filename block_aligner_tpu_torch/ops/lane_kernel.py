@@ -1,0 +1,346 @@
+"""Fixed-block global alignment of a batch of pairs: packing, the plain
+PyTorch version, and the wrapper of the CUDA kernel.
+
+Counterpart of ``block_aligner_tpu/ops/lane_kernel.py``: ``build_lane_engine``
+in global mode without trace (min == max block size S, a power of two in
+16..512).  Both versions here compute what that kernel computes, bit for
+bit: the final score and the y-drop "suspect" flag of every pair.
+
+The step machine (reference: src/scan_block.rs:94-595 with min == max).  A
+pair's state is an S-cell block whose active border ACT (D and C values
+along the block's lane axis) advances 8 columns per step, and whose passive
+border PAS (D and R values along the other axis) records the bottom cells.
+Values are i16 relative to ``ZERO`` plus a per-pair i32 offset, rebased to
+the previous step's maximum each step; only the lower i16 rail saturates.
+
+* The first S/8 steps are the reference's initial grow: lanes are the
+  query, columns 0..S-1 of the reference, bottom cells written straight
+  into PAS, the DP origin (0, 0) set to ZERO.
+* Every later step moves the block 8 right or 8 down: forced down once the
+  block covers the reference's end, then forced right once it covers the
+  query's end, else down exactly when the first 8 rows of the bottom
+  border beat those of the right border.  A change of lane axis swaps ACT
+  and PAS; a direction flip feeds the stored corner into column 0.
+* A pair freezes at the column where the block covering (qlen, rlen)
+  reaches rlen (qlen for down blocks); its score is the cell at the lane
+  of the other length, ``off + D - ZERO``.
+* The suspect flag is the reference's y-drop grow trigger: set on a free
+  step once the running maximum has not improved for S/8 steps.
+
+The TPU's layout work (pairs in 128 lanes, banks, row splits, packed score
+stacks scored on the MXU, VMEM budgets) does not exist here: the plain
+version runs all pairs in lockstep under masks on (B, S) int32 tensors, and
+the kernel runs one warp per pair (``csrc/lane_kernel.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
+from ..core.scores import INVALID
+from . import _build
+
+__all__ = ["LaneKernelConfig", "LanePack", "pack_lane", "lane_align_plain",
+           "lane_align"]
+
+NEG = I16_MIN
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneKernelConfig:
+    block: int  # S: fixed block size, a power of two in 16..512
+    seq_cap: int  # code positions per sequence (position 0 is the NULL row)
+    alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
+
+    def __post_init__(self):
+        S = self.block
+        if S & (S - 1) or not 16 <= S <= 512:
+            raise ValueError(f"block must be a power of two in 16..512, got {S}")
+        if self.seq_cap % STEP or self.seq_cap < S + 2 * STEP:
+            raise ValueError(
+                f"seq_cap must be a multiple of {STEP} and at least "
+                f"block + {2 * STEP}, got {self.seq_cap}")
+        if self.alpha not in (16, 32):
+            raise ValueError(f"alpha must be 16 or 32, got {self.alpha}")
+
+    @property
+    def max_steps(self) -> int:
+        """Step cap of a pair (the JAX kernel's loop bound)."""
+        return 2 * self.seq_cap // STEP + self.block // STEP + 2
+
+
+class LanePack(NamedTuple):
+    codes: torch.Tensor  # (B, 2, seq_cap) uint8: query row 0, reference row 1
+    qlen: torch.Tensor  # (B,) int32
+    rlen: torch.Tensor  # (B,) int32
+    table: torch.Tensor  # (alpha, alpha) int32: table[column code, lane code]
+    gaps: tuple  # (open, extend)
+
+
+def _as_bytes(s) -> bytes:
+    return s.encode("ascii") if isinstance(s, str) else bytes(s)
+
+
+def code_lut(matrix) -> np.ndarray:
+    """256-entry byte -> kernel code table (``INVALID`` for rejected bytes);
+    nucleotide codes fold to their low 4 bits as the JAX ``pack_lane`` does."""
+    if matrix.kind not in ("aa", "nuc"):
+        raise NotImplementedError(
+            f"{type(matrix).__name__}: the lane kernel scores through a "
+            "table (ByteMatrix comes with ROADMAP slice A5)")
+    lut = matrix.lut.copy()
+    if matrix.kind == "nuc":
+        ok = lut != INVALID
+        lut[ok] &= 15
+    return lut
+
+
+def score_table(matrix, alpha: int) -> np.ndarray:
+    """(alpha, alpha) int32 table, unused entries -128, as the JAX
+    ``pack_lane`` builds it (nucleotide rows fold with ``& 7``)."""
+    M = np.full((alpha, alpha), -128, dtype=np.int32)
+    tab = matrix.dense()
+    if matrix.kind == "nuc":
+        x = np.arange(16)
+        M[:16, :16] = tab[(x & 7)[:, None], x[None, :]]
+    else:
+        M[: tab.shape[0], : tab.shape[1]] = tab
+    return M
+
+
+def pack_lane(pairs, matrix, cfg: LaneKernelConfig, gaps, device) -> LanePack:
+    """Pack ``(query, reference)`` byte pairs for ``lane_align`` on ``device``.
+
+    The sequences travel as one byte buffer; the byte -> code lookup and the
+    scatter into the pair-major code block run on the device.  Codes start
+    at position 1 and every other position holds the NULL code."""
+    dev = torch.device(device)
+    n = len(pairs)
+    seqs = [_as_bytes(q) for q, _ in pairs] + [_as_bytes(r) for _, r in pairs]
+    lens = np.fromiter(map(len, seqs), np.int64, 2 * n)
+    if n and 1 + int(lens.max()) + cfg.block + STEP > cfg.seq_cap:
+        raise ValueError("sequence too long for seq_cap")
+    lut = code_lut(matrix)
+    codes = torch.full((n, 2, cfg.seq_cap), int(lut[matrix.NULL]),
+                       dtype=torch.uint8, device=dev)
+    total = int(lens.sum())
+    if total:
+        raw = torch.frombuffer(bytearray().join(seqs), dtype=torch.uint8)
+        mapped = torch.as_tensor(lut, device=dev)[raw.to(dev).int()]
+        if bool((mapped == INVALID).any()):
+            raise ValueError(matrix.ERROR)
+        lens_t = torch.as_tensor(lens, device=dev)
+        pair = torch.arange(n, device=dev) * 2
+        rows = torch.cat([pair, pair + 1])  # sequence k's row in (B*2, cap)
+        first = rows * cfg.seq_cap + 1 - (torch.cumsum(lens_t, 0) - lens_t)
+        dest = torch.repeat_interleave(first, lens_t, output_size=total)
+        dest += torch.arange(total, device=dev)
+        codes.view(-1)[dest] = mapped
+    qlen = torch.as_tensor(lens[:n], dtype=torch.int32).to(dev)
+    rlen = torch.as_tensor(lens[n:], dtype=torch.int32).to(dev)
+    table = torch.as_tensor(score_table(matrix, cfg.alpha)).to(dev)
+    return LanePack(codes, qlen, rlen, table, (int(gaps.open), int(gaps.extend)))
+
+
+def _sat(x):
+    # only the lower i16 rail is reachable: block maxima are rebased to
+    # ZERO every step
+    return x.clamp(min=NEG)
+
+
+def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
+    """Plain PyTorch version: all pairs in lockstep under masks.
+
+    Returns a (B, 2) int32 tensor of (score, suspect).  Code positions are
+    clamped to ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel
+    does; ``pack_lane`` output never needs either."""
+    S, A, cap = cfg.block, cfg.alpha, cfg.seq_cap
+    PRO = S // STEP
+    dev = codes.device
+    B = codes.shape[0]
+    open_, e = int(gaps[0]), int(gaps[1])
+    i32 = torch.int32
+    seqs = codes.long().clamp(max=A - 1)
+    tab = table.reshape(-1).to(i32)
+    ql, rl = qlen.to(i32), rlen.to(i32)
+    rows = torch.arange(S, device=dev)
+    cols = torch.arange(STEP, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None]
+    # the closed form of the chunked prefix scan's zero correction
+    zc = (e * (rows % STEP + 1)).to(i32)
+
+    def full(v, shape=(B,)):
+        return torch.full(shape, v, dtype=i32, device=dev)
+
+    actD, actC, pasD, pasR = (full(0, (B, S)) for _ in range(4))
+    tempD, tempR = full(0, (B, STEP)), full(0, (B, STEP))
+    I, J, off, offmax, yiter, susp, out = (full(0) for _ in range(7))
+    dirn, pdir = full(2), full(2)  # 2: the prologue (initial grow)
+    corn, dmax = full(NEG), full(NEG)
+    ybest = full(-(1 << 30))
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    # freeze predicate of the current rect, prologue values (lanes = query)
+    fra, frt, fridx = S > ql, rl.clone(), ql.clamp(0, S - 1)
+    oa = full(0)
+    s = 0
+    while s < cfg.max_steps and not bool(done.all()):
+        in_pro = s < PRO
+        if in_pro:
+            cvec = full(NEG)
+            lane_side = torch.zeros(B, dtype=torch.long, device=dev)
+            starti, colpos0 = full(0), full(s * STEP)
+        else:
+            # offset rebase (reference: src/scan_block.rs:148-151)
+            new_off = torch.where(done, off, offmax)
+            oa = (off - new_off).clamp(I16_MIN, I16_MAX)
+            off = new_off
+            actD = _sat(actD + oa[:, None])
+            actC = _sat(actC + oa[:, None])
+            flip = ((dirn == 0) & (pdir == 1)) | ((dirn == 1) & (pdir == 0))
+            cvec = torch.where(flip, _sat(corn + oa), NEG)
+            right = dirn != 1
+            starti = torch.where(right, I, J)
+            colpos0 = torch.where(right, J, I) + (S - STEP)
+            lane_len = torch.where(right, ql, rl)
+            col_len = torch.where(right, rl, ql)
+            fra = starti + S > lane_len
+            frt = col_len - colpos0
+            fridx = (lane_len - starti).clamp(0, S - 1)
+            lane_side = (~right).long()
+        lpos = (starti[:, None] + rows).clamp(max=cap - 1)
+        cpos = (colpos0[:, None] + cols).clamp(max=cap - 1)
+        lanec = seqs[bidx, lane_side[:, None], lpos]  # (B, S)
+        colc = seqs[bidx, 1 - lane_side[:, None], cpos]  # (B, STEP)
+        for w in range(STEP):
+            scores = tab[colc[:, w : w + 1] * A + lanec]
+            corner = cvec if w == 0 else full(NEG)
+            D11 = _sat(torch.cat([corner[:, None], actD[:, :-1]], 1) + scores)
+            if in_pro and s == 0 and w == 0:
+                D11[:, 0] = ZERO  # the DP origin cell
+            C11 = torch.maximum(_sat(actC + e), _sat(actD + open_))
+            D11 = torch.maximum(D11, C11)
+            # max-plus prefix scan in log steps, then the zero correction
+            t = D11 + (open_ - e)
+            k = 1
+            while k < S:
+                t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
+                k *= 2
+            R11 = torch.maximum(t, zc)
+            D11 = torch.maximum(D11, R11)
+            dmax = torch.maximum(dmax, D11.amax(1))
+            actD, actC = D11, C11
+            if in_pro:
+                pasD[:, s * STEP + w] = D11[:, -1]
+                pasR[:, s * STEP + w] = R11[:, -1]
+            else:
+                tempD[:, w] = D11[:, -1]
+                tempR[:, w] = R11[:, -1]
+            wloc = s * STEP + w if in_pro else w
+            fr_new = fra & (wloc >= frt) & ~done
+            val = D11.gather(1, fridx.long()[:, None])[:, 0]
+            out = torch.where(fr_new, off + val - ZERO, out)
+            done = done | fr_new
+        if s >= PRO - 1:
+            active = ~done
+            if s != PRO - 1:
+                # shift the passive border by 8 and splice in the new bottom
+                # cells; the pre-splice row 7 is the next corner
+                pd, pr = _sat(pasD + oa[:, None]), _sat(pasR + oa[:, None])
+                corn = torch.where(active, pd[:, STEP - 1], corn)
+                pasD = torch.cat([pd[:, STEP:], tempD], 1)
+                pasR = torch.cat([pr[:, STEP:], tempR], 1)
+            off_max = off + dmax - ZERO
+            offmax = torch.where(active, off_max, offmax)
+            dmax = full(NEG)
+            # y-drop stall tracking (reference: src/scan_block.rs:470-487)
+            improved = active & (off_max > ybest)
+            y_iter = torch.where(improved, 0, yiter + 1)
+            ybest = torch.where(improved, off_max, ybest)
+            yiter = torch.where(active, y_iter, yiter)
+            # direction (reference: src/scan_block.rs:447-462, 551-558)
+            right_now = dirn != 1
+            a8, p8 = actD[:, :STEP].amax(1), pasD[:, :STEP].amax(1)
+            right_max = torch.where(right_now, a8, p8)
+            down_max = torch.where(right_now, p8, a8)
+            forced_down = active & (J + S > rl)
+            forced_right = active & ~forced_down & (I + S > ql)
+            free = active & ~forced_down & ~forced_right
+            susp = torch.where(free & (y_iter > PRO - 1), 1, susp)
+            godown = forced_down | (free & (down_max > right_max))
+            goright = active & ~godown
+            pdir = torch.where(active, dirn, pdir)
+            I = torch.where(godown, I + STEP, I)
+            J = torch.where(goright, J + STEP, J)
+            new_dir = torch.where(godown, 1, torch.where(goright, 0, dirn))
+            swap = (active & ((dirn != 1) != (new_dir != 1)))[:, None]
+            dirn = torch.where(active, new_dir, dirn)
+            actD, pasD = torch.where(swap, pasD, actD), torch.where(swap, actD, pasD)
+            actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
+        s += 1
+    return torch.stack([out, susp], 1)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("lane_kernel")
+    lib.lane_align_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.lane_align_launch.restype = ctypes.c_int
+    lib.lane_error_string.argtypes = [ctypes.c_int]
+    lib.lane_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
+    """(score, suspect) per pair as a (B, 2) int32 tensor.
+
+    CPU tensors take ``lane_align_plain``; CUDA tensors launch the kernel of
+    ``csrc/lane_kernel.cu`` on the current stream (``lane_align.launches``
+    counts the launches) or raise."""
+    if codes.device.type == "cpu":
+        return lane_align_plain(codes, qlen, rlen, table, gaps, cfg)
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"no lane kernel for device {dev}")
+    B = codes.shape[0]
+    _check("codes", codes, torch.uint8, (B, 2, cfg.seq_cap), dev)
+    _check("qlen", qlen, torch.int32, (B,), dev)
+    _check("rlen", rlen, torch.int32, (B,), dev)
+    _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
+    out = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.lane_align_launch(
+            codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
+            table.data_ptr(), out.data_ptr(), B, cfg.seq_cap, cfg.alpha,
+            cfg.block, cfg.max_steps, int(gaps[0]), int(gaps[1]),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"lane kernel launch failed: {lib.lane_error_string(err).decode()}")
+    lane_align.launches += 1
+    return out
+
+
+lane_align.launches = 0
