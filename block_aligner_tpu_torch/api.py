@@ -1,9 +1,15 @@
 """Batched alignment API of the port (counterpart of ``block_aligner_tpu/api.py``).
 
-``BatchAligner`` serves the route ``pick_route`` calls "lane": fixed block
-sizes (min == max <= 512), global alignment, no trace, with an amino-acid or
-nucleotide table.  Every other configuration raises ``NotImplementedError``
-naming the ROADMAP slice that brings it.
+``BatchAligner`` serves two of the routes ``pick_route`` names, in global
+mode without trace, with an amino-acid or nucleotide table:
+
+* "lane": fixed block sizes (min == max <= 512), the lane kernel;
+* "adaptive": growing and shrinking blocks (min < max <= 256), the adaptive
+  kernel; the package's default size (32, 256) is one.
+
+``align_exp_all`` retries pairs with doubled min block sizes over both.
+Every other configuration raises ``NotImplementedError`` naming the ROADMAP
+slice that brings it.
 """
 
 from __future__ import annotations
@@ -15,9 +21,10 @@ import torch
 
 from .core.result import AlignResult
 from .core.scores import ByteMatrix, Gaps
+from .ops.adaptive_kernel import AdaptiveKernelConfig, adaptive_align
 from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane
 
-__all__ = ["BatchAligner", "pick_route", "round_up"]
+__all__ = ["BatchAligner", "align_exp_all", "pick_route", "round_up"]
 
 
 def round_up(x: int, m: int) -> int:
@@ -78,15 +85,14 @@ def pick_route(min_size: int, max_size: int, seq_cap: int, *,
 
 # ROADMAP.md slice that brings each configuration the port lacks
 _SLICE = {
-    "adaptive": "queue 1 item 5, kernel B (adaptive sizing)",
-    "big": "queue 1 item 6, kernel C (big blocks)",
+    "big": "queue 2 slice 6, kernel C (big blocks)",
     "long": "queue 1 item 7 (long-sequence API)",
     "long_lane": "queue 1 item 7 (long-sequence API)",
     "engine": "queue 1 item 4 (PyTorch lockstep engine)",
-    "x_drop": "queue 2 slice A2 (x-drop)",
-    "trace": "queue 2 slice A3 (trace)",
-    "byte": "queue 2 slice A5 (ByteMatrix)",
-    "flags": "queue 2 slice A6 (local-start and free gaps)",
+    "x_drop": "queue 2 slice 1 (x-drop: A2 + B)",
+    "trace": "queue 2 slice 2 (trace: A3 + B)",
+    "byte": "queue 2 slice 4 (ByteMatrix: A5 + B)",
+    "flags": "queue 2 slice 5 (local-start and free gaps: A6 + B)",
     "mesh": "queue 1 item 8 (multi-GPU)",
 }
 
@@ -97,14 +103,15 @@ def _not_yet(what: str, key: str):
 
 
 class BatchAligner:
-    """Batched fixed-block global aligner on one device.
+    """Batched global aligner on one device, on the lane or adaptive route.
 
-    Same surface as the JAX package's ``BatchAligner`` for the lane route:
+    Same surface as the JAX package's ``BatchAligner`` for those routes:
     ``align_batch``, ``align_all``, ``stage``/``align_staged``,
+    ``batch_size``, ``seq_capacity`` and, on the lane route only,
     ``last_suspect`` (per-pair y-drop suspect flags of the last call: True
-    where the reference's adaptive heuristic would have grown the block),
-    ``batch_size`` and ``seq_capacity``.  ``device`` places the packed
-    tensors: a CUDA device runs the kernel, the CPU its plain version.
+    where the reference's adaptive heuristic would have grown the block).
+    ``device`` places the packed tensors: a CUDA device runs the kernels,
+    the CPU their plain versions.
     """
 
     def __init__(
@@ -139,7 +146,7 @@ class BatchAligner:
             free_query_start_gaps=free_query_start_gaps,
             free_query_end_gaps=free_query_end_gaps, is_byte=is_byte,
         )
-        if route != "lane":
+        if route not in ("lane", "adaptive"):
             _not_yet(f"route {route!r} (size {size}, seq_cap {seq_cap})", route)
         if use_lane_kernel is False:
             _not_yet("use_lane_kernel=False", "engine")
@@ -158,11 +165,13 @@ class BatchAligner:
         self.gaps = gaps
         self.device = torch.device(device)
         self._batch = batch
+        self.route = route
         cap = round_up(max(1 + seq_cap + max_size + 16, 256), 128)
-        self.cfg = LaneKernelConfig(
-            block=min_size, seq_cap=cap,
-            alpha=32 if matrix.kind != "nuc" else 16,
-        )
+        alpha = 32 if matrix.kind != "nuc" else 16
+        if route == "lane":
+            self.cfg = LaneKernelConfig(block=min_size, seq_cap=cap, alpha=alpha)
+        else:
+            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha)
         self.last_suspect: Optional[np.ndarray] = None
 
     @property
@@ -199,15 +208,22 @@ class BatchAligner:
 
     def _dispatch(self, staged):
         """Launch the device work for a staged batch (asynchronous on CUDA)."""
-        return lane_align(staged.codes, staged.qlen, staged.rlen,
-                          staged.table, staged.gaps, self.cfg)
+        kernel = lane_align if self.route == "lane" else adaptive_align
+        return kernel(staged.codes, staged.qlen, staged.rlen, staged.table,
+                      staged.gaps, self.cfg)
 
     def _decode(self, staged, out) -> List[AlignResult]:
-        """Fetch a dispatched batch's results and set ``last_suspect``."""
+        """Fetch a dispatched batch's results; the lane route sets
+        ``last_suspect``, the adaptive route checks the step cap."""
         out = out.cpu().numpy()
         ql = staged.qlen.cpu().numpy()
         rl = staged.rlen.cpu().numpy()
-        self.last_suspect = out[:, 1].astype(bool)
+        if self.route == "lane":
+            self.last_suspect = out[:, 1].astype(bool)
+        elif out[:, 1].any():
+            raise RuntimeError(
+                f"{int(out[:, 1].sum())} pairs hit the adaptive kernel's step "
+                f"cap ({self.cfg.max_steps} steps); raise seq_cap")
         return [AlignResult(int(sc), int(q), int(r))
                 for sc, q, r in zip(out[:, 0], ql, rl)]
 
@@ -227,26 +243,68 @@ class BatchAligner:
         else:
             order = None
             work = pairs
+        lane = self.route == "lane"
         got: List[AlignResult] = []
         flags = []
+
+        def finish(staged, disp):
+            got.extend(self._decode(staged, disp))
+            if lane:
+                flags.append(self.last_suspect)
+
         pending = None
         for k in range(0, len(work), self.batch_size):
             staged = self.stage(work[k : k + self.batch_size])
             disp = self._dispatch(staged)
             if pending is not None:
-                got.extend(self._decode(*pending))
-                flags.append(self.last_suspect)
+                finish(*pending)
             pending = (staged, disp)
         if pending is not None:
-            got.extend(self._decode(*pending))
-            flags.append(self.last_suspect)
-        sus = np.concatenate(flags) if flags else np.zeros(0, bool)
-        if order is None:
-            self.last_suspect = sus
-            return got
-        out: List[Optional[AlignResult]] = [None] * len(pairs)
-        for pos, k in enumerate(order):
-            out[k] = got[pos]
-        self.last_suspect = np.zeros(len(pairs), bool)
-        self.last_suspect[np.asarray(order)] = sus
-        return out
+            finish(*pending)
+        if order is not None:
+            out: List[Optional[AlignResult]] = [None] * len(pairs)
+            for pos, k in enumerate(order):
+                out[k] = got[pos]
+            got = out
+        if lane:
+            sus = np.concatenate(flags) if flags else np.zeros(0, bool)
+            if order is not None:
+                self.last_suspect = np.zeros(len(pairs), bool)
+                self.last_suspect[np.asarray(order)] = sus
+            else:
+                self.last_suspect = sus
+        return got
+
+
+def align_exp_all(matrix, gaps: Gaps, pairs, target_scores,
+                  size: Tuple[int, int] = (32, 256), *,
+                  x_drop: Optional[int] = None, batch: int = 256,
+                  seq_cap: int = 1024, device="cuda"):
+    """Batched exponential search on the min block size (reference:
+    Block::align_exp, src/scan_block.rs:884-902).
+
+    Each pair is retried with a doubled min block size until its score
+    reaches its target or the min size passes the max.  Returns
+    ``(results, min_sizes)``: ``min_sizes[k]`` is the min size that reached
+    the target, or None.  Pairs under target are batched together at each
+    level, so the work per level shrinks with them."""
+    if x_drop is not None:
+        _not_yet("align_exp_all with x_drop", "x_drop")
+    min_size, max_size = size
+    results: List[Optional[AlignResult]] = [None] * len(pairs)
+    min_sizes: List[Optional[int]] = [None] * len(pairs)
+    pending = list(range(len(pairs)))
+    cur = max(min_size, 16)
+    while pending and cur <= max_size:
+        al = BatchAligner(matrix, gaps, (cur, max_size), batch=batch,
+                          seq_cap=seq_cap, device=device)
+        still = []
+        for k, got in zip(pending, al.align_all([pairs[k] for k in pending])):
+            results[k] = got
+            if got.score >= target_scores[k]:
+                min_sizes[k] = cur
+            else:
+                still.append(k)
+        pending = still
+        cur *= 2
+    return results, min_sizes

@@ -1,0 +1,386 @@
+"""Adaptive-block global alignment of a batch of pairs: the plain PyTorch
+version and the wrapper of the CUDA kernel.
+
+Counterpart of ``block_aligner_tpu/ops/adaptive_kernel.py``:
+``build_adaptive_engine`` in global mode without trace (min_size < max_size
+<= 256).  Both versions here compute what that kernel computes, bit for
+bit: the final score of every pair and whether the pair hit the step cap.
+
+The machine (reference: src/scan_block.rs:101-593).  A pair's state is the
+step machine of ``ops/lane_kernel.py`` (an ACT/PAS border pair, i16 values
+relative to ``ZERO`` plus an i32 offset) with a current block size
+``min_size <= sz <= max_size`` and one of four rect phases:
+
+* R and D: an 8-column shift right or down, as in the lane kernel; the
+  offset is rebased at its start and the passive border shifts by 8 at its
+  end.
+* GROW_D then GROW_R: a grow in two halves.  The block doubles and restarts
+  from the checkpoint ``(CK_I, CK_J, CK_OFF)`` and its four border planes:
+  GROW_D computes the new query rows ``psz..sz-1`` against the old width
+  (lanes = reference), then ACT and PAS swap and GROW_R computes the new
+  reference columns against the full height (lanes = query).  The initial
+  rect is a GROW_R with ``psz == 0``, where the DP origin is set.
+* After each rect but GROW_D: the running maximum drives the offset, the
+  y-drop counter and the checkpoint (saved on a new best while
+  ``sz < max_size``, and its borders again after every grow); forced moves
+  go down once the block covers the reference's end, then right once it
+  covers the query's; a free rect grows when the best stalled for sz/8
+  rects (or the last grow found no new best), else shrinks to half when its
+  border suffix holds the rect maximum, else moves towards the larger
+  8-row border head.
+* A pair freezes at the column where its rect covers (qlen, rlen) and
+  reaches the last column, never inside GROW_D.
+
+The TPU kernel keeps per-side score stacks that it rebuilds on every
+restore; here every lane re-reads its own code at the rect's lane start, so
+a restore only moves the anchor.  The plain version runs all pairs in
+lockstep under masks on (B, S) int32 tensors at the full width S, as the
+JAX kernel does; the kernel runs one warp per pair
+(``csrc/adaptive_kernel.cu``).  Rows at or past the rect height never feed
+rows below it, so what the two hold there may differ without changing any
+result.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
+from . import _build
+from .lane_kernel import _check
+
+__all__ = ["AdaptiveKernelConfig", "adaptive_align_plain", "adaptive_align"]
+
+NEG = I16_MIN
+INT_MIN = -(1 << 31)
+
+# rect phases; the initial rect is a GROW_R with psz == 0 (the reference's
+# direction = Grow start state)
+DIR_R, DIR_D, DIR_GD, DIR_GR = 0, 1, 2, 3
+
+SHRINK_SUFFIX_LEN = STEP // 4  # reference: src/scan_block.rs:786
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveKernelConfig:
+    min_size: int  # starting block size, a power of two >= 16
+    max_size: int  # S: block-size cap, a power of two <= 256
+    seq_cap: int  # code positions per sequence (position 0 is the NULL row)
+    alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
+
+    def __post_init__(self):
+        m, S = self.min_size, self.max_size
+        if m & (m - 1) or S & (S - 1) or not 16 <= m < S <= 256:
+            raise ValueError(
+                "min_size < max_size must be powers of two in 16..256, got "
+                f"({m}, {S})")
+        if self.seq_cap % STEP or self.seq_cap < S + 2 * STEP:
+            raise ValueError(
+                f"seq_cap must be a multiple of {STEP} and at least "
+                f"max_size + {2 * STEP}, got {self.seq_cap}")
+        if self.alpha not in (16, 32):
+            raise ValueError(f"alpha must be 16 or 32, got {self.alpha}")
+
+    @property
+    def block(self) -> int:
+        """``pack_lane`` packs for the largest block."""
+        return self.max_size
+
+    @property
+    def max_steps(self) -> int:
+        """Step cap of a pair (the JAX kernel's loop bound)."""
+        return (4 * self.seq_cap + 32 * self.max_size) // STEP
+
+
+def _sat(x):
+    # only the lower i16 rail is reachable: rect maxima are rebased to ZERO
+    return x.clamp(min=NEG)
+
+
+def adaptive_align_plain(codes, qlen, rlen, table, gaps,
+                         cfg: AdaptiveKernelConfig, count_cells: bool = False):
+    """Plain PyTorch version: all pairs in lockstep under masks.
+
+    Returns a (B, 2) int32 tensor of (score, overrun), overrun 1 where a
+    pair did not finish within ``cfg.max_steps`` steps.  Code positions are
+    clamped to ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel
+    does; ``pack_lane`` output never needs either.  With ``count_cells``
+    it also returns each pair's DP cell count, (B,) int64: the rect height
+    for every column up to and including the freeze column."""
+    S, MIN, A, cap = cfg.max_size, cfg.min_size, cfg.alpha, cfg.seq_cap
+    dev = codes.device
+    B = codes.shape[0]
+    open_, e = int(gaps[0]), int(gaps[1])
+    i32 = torch.int32
+    seqs = codes.long().clamp(max=A - 1)
+    tab = table.reshape(-1).to(i32)
+    ql, rl = qlen.to(i32), rlen.to(i32)
+    rows = torch.arange(S, device=dev)
+    cols = torch.arange(STEP, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None]
+    zc = (e * (rows % STEP + 1)).to(i32)
+
+    def full(v, shape=(B,)):
+        return torch.full(shape, v, dtype=i32, device=dev)
+
+    def col(x):
+        return x[:, None]
+
+    def down_by(x, k):
+        """row r <- row r + k[pair], rows past S filled with NEG."""
+        src = rows + col(k)
+        got = x.gather(1, src.clamp(max=S - 1))
+        return torch.where(src < S, got, NEG)
+
+    actD, actC, pasD, pasR = (full(0, (B, S)) for _ in range(4))
+    ckcD, ckcC, ckrD, ckrR = (full(0, (B, S)) for _ in range(4))
+    tempD, tempR = full(0, (B, STEP)), full(0, (B, STEP))
+    (I, J, off, offmax, out, psz, cpos, ckI, ckJ, ckOff, best,
+     yiter) = (full(0) for _ in range(12))
+    sz, gnm = full(MIN), full(1)  # the initial rect is a grow
+    dirn, pdir = full(DIR_GR), full(DIR_GR)
+    corn, dmax = full(NEG), full(NEG)
+    rest = torch.zeros(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    cells = torch.zeros(B, dtype=torch.int64, device=dev)
+    s = 0
+    while s < cfg.max_steps and not bool(done.all()):
+        # ---- rect step start ----
+        shift = (dirn == DIR_R) | (dirn == DIR_D)
+        right_or = (dirn == DIR_R) | (dirn == DIR_GR)  # lanes = query
+        # checkpoint restore, flagged by the last step's grow
+        r_ = col(rest)
+        actD, actC = torch.where(r_, ckrD, actD), torch.where(r_, ckrR, actC)
+        pasD, pasR = torch.where(r_, ckcD, pasD), torch.where(r_, ckcC, pasR)
+        rest = torch.zeros_like(rest)
+        # offset rebase at a shift's start (reference: src/scan_block.rs:148-151)
+        reb = shift & ~done
+        new_off = torch.where(reb, offmax, off)
+        oa = torch.where(reb, (off - new_off).clamp(I16_MIN, I16_MAX), 0)
+        off = new_off
+        actD, actC = _sat(actD + col(oa)), _sat(actC + col(oa))
+        corner_ok = reb & (((dirn == DIR_R) & (pdir == DIR_D))
+                           | ((dirn == DIR_D) & (pdir == DIR_R)))
+        cvec = torch.where(corner_ok, _sat(corn + oa), NEG)
+        # the rect maximum restarts with each rect; GROW_R continues GROW_D's
+        dmax = torch.where((cpos == 0) & (dirn != DIR_GR) & ~done, NEG, dmax)
+        # this step's geometry and freeze predicate
+        h = torch.where(dirn == DIR_GD, psz, sz)
+        ls = torch.where(right_or, I, J)
+        cstart = torch.where(
+            dirn == DIR_R, J + sz - STEP,
+            torch.where(dirn == DIR_D, I + sz - STEP,
+                        torch.where(dirn == DIR_GD, I + psz + cpos,
+                                    J + psz + cpos)))
+        lane_len = torch.where(right_or, ql, rl)
+        col_len = torch.where(right_or, rl, ql)
+        fra = (ls + h > lane_len) & (dirn != DIR_GD)
+        frt = col_len - cstart
+        fridx = (lane_len - ls).clamp(0, S - 1)
+        lane_side = col((~right_or).long())
+        lpos = (col(ls) + rows).clamp(max=cap - 1)
+        cp = (col(cstart) + cols).clamp(max=cap - 1)
+        lanec = seqs[bidx, lane_side, lpos]  # (B, S)
+        colc = seqs[bidx, 1 - lane_side, cp]  # (B, STEP)
+        origin = (dirn == DIR_GR) & (psz == 0) & (cpos == 0) & (J == 0)
+        inrect = rows < col(h)
+        hrow = col((h - 1).long())
+        gact = col(~shift & ~done)
+        for w in range(STEP):
+            scores = tab[colc[:, w : w + 1] * A + lanec]
+            corner = cvec if w == 0 else full(NEG)
+            D11 = _sat(torch.cat([col(corner), actD[:, :-1]], 1) + scores)
+            if w == 0:
+                D11[:, 0] = torch.where(origin, ZERO, D11[:, 0])
+            C11 = torch.maximum(_sat(actC + e), _sat(actD + open_))
+            D11 = torch.maximum(D11, C11)
+            # max-plus prefix scan in log steps, then the zero correction
+            t = D11 + (open_ - e)
+            k = 1
+            while k < S:
+                t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
+                k *= 2
+            R11 = torch.maximum(t, zc)
+            D11 = torch.maximum(D11, R11)
+            dmax = torch.maximum(dmax, torch.where(inrect, D11, NEG).amax(1))
+            actD, actC = D11, C11
+            bot_d, bot_r = D11.gather(1, hrow), R11.gather(1, hrow)
+            # a shift stages its bottom cells; a grow half writes them
+            # straight into the passive border at row psz + cpos + w
+            tempD[:, w], tempR[:, w] = bot_d[:, 0], bot_r[:, 0]
+            gm = gact & (rows == col(psz + cpos + w))
+            pasD = torch.where(gm, bot_d, pasD)
+            pasR = torch.where(gm, bot_r, pasR)
+            cells += torch.where(done, 0, h)
+            fr_new = fra & (w >= frt) & ~done
+            val = D11.gather(1, col(fridx.long()))[:, 0]
+            out = torch.where(fr_new, off + val - ZERO, out)
+            done = done | fr_new
+
+        # ---- rect step end ----
+        active = ~done
+        d0 = dirn
+        cpos_new = cpos + STEP
+        phase_done = cpos_new >= torch.where(shift, STEP, sz - psz)
+        cpos = torch.where(phase_done, 0, cpos_new)
+        # a shift's end: rebase the passive border, keep its row 7 as the
+        # next corner, shift it by 8 and splice in the staged bottom cells
+        # (reference: src/scan_block.rs:165-177, 349-355)
+        sdone = col(active & shift)
+        pd, pr = _sat(pasD + col(oa)), _sat(pasR + col(oa))
+        corn = torch.where(active & shift, pd[:, STEP - 1], corn)
+        win = (rows >= col(sz - STEP)) & (rows < col(sz))
+        pd = torch.where(win, tempD.repeat(1, S // STEP),
+                         F.pad(pd[:, STEP:], (0, STEP), value=NEG))
+        pr = torch.where(win, tempR.repeat(1, S // STEP),
+                         F.pad(pr[:, STEP:], (0, STEP), value=NEG))
+        pasD, pasR = torch.where(sdone, pd, pasD), torch.where(sdone, pr, pasR)
+        # GROW_D -> GROW_R: the lane axis flips to the query
+        gd = col(active & (d0 == DIR_GD) & phase_done)
+        actD, pasD = torch.where(gd, pasD, actD), torch.where(gd, actD, pasD)
+        actC, pasR = torch.where(gd, pasR, actC), torch.where(gd, actC, pasR)
+        dirn = torch.where(gd[:, 0], DIR_GR, dirn)
+
+        # rect completion: the reference's decision ladder
+        # (src/scan_block.rs:439-565)
+        rdone = active & phase_done & (d0 != DIR_GD)
+        was_grow = d0 == DIR_GR
+        ro = (d0 == DIR_R) | (d0 == DIR_GR)
+        off_max = off + dmax - ZERO
+        offmax = torch.where(rdone, off_max, offmax)
+        ydi = torch.where(rdone, yiter + 1, yiter)
+        gnm_ = torch.where(rdone, was_grow.to(i32), gnm)
+        new_best = rdone & (off_max > best)
+        save = new_best & (sz < S)
+        # a completed grow saves its doubled borders even without a new
+        # best (reference: src/scan_block.rs:432-435)
+        bsave = col(save | (rdone & was_grow & (sz < S)))
+        ckI = torch.where(save, I, ckI)
+        ckJ = torch.where(save, J, ckJ)
+        ckOff = torch.where(save, off, ckOff)
+
+        def save_borders(mask, ckcD, ckcC, ckrD, ckrR):
+            cD = torch.where(col(ro), actD, pasD)
+            cC = torch.where(col(ro), actC, pasR)
+            rD = torch.where(col(ro), pasD, actD)
+            rR = torch.where(col(ro), pasR, actC)
+            return (torch.where(mask, cD, ckcD), torch.where(mask, cC, ckcC),
+                    torch.where(mask, rD, ckrD), torch.where(mask, rR, ckrR))
+
+        ckcD, ckcC, ckrD, ckrR = save_borders(bsave, ckcD, ckcC, ckrD, ckrR)
+        gnm_ = torch.where(save, 0, gnm_)
+        best = torch.where(new_best, off_max, best)
+        ydi = torch.where(new_best, 0, ydi)
+        # forced moves skip both heuristics (reference: src/scan_block.rs:509-516)
+        forced_down = rdone & (J + sz > rl)
+        forced_right = rdone & ~forced_down & (I + sz > ql)
+        free = rdone & ~forced_down & ~forced_right
+        grow = free & (2 * sz <= S) & ((ydi > sz // STEP - 1) | (gnm_ == 1))
+        psz = torch.where(grow, sz, psz)
+        I = torch.where(grow, ckI, I)
+        J = torch.where(grow, ckJ, J)
+        off = torch.where(grow, ckOff, off)
+        rest = grow
+        dirn = torch.where(grow, DIR_GD, dirn)
+        ydi = torch.where(grow, 0, ydi)
+        # shrink (reference: src/scan_block.rs:534-559): halve and move into
+        # the suffix corner when the border suffix holds the rect maximum
+        suf = (rows >= col(sz - SHRINK_SUFFIX_LEN)) & (rows < col(sz))
+        sufmax = torch.maximum(torch.where(suf, actD, INT_MIN).amax(1),
+                               torch.where(suf, pasD, INT_MIN).amax(1))
+        shrink = free & ~grow & (sz > MIN) & (ydi == 0) & (sufmax >= dmax)
+        half = sz // 2
+        sh = col(shrink)
+        actD = torch.where(sh, down_by(actD, half), actD)
+        actC = torch.where(sh, down_by(actC, half), actC)
+        pasD = torch.where(sh, down_by(pasD, half), pasD)
+        pasR = torch.where(sh, down_by(pasR, half), pasR)
+        I = torch.where(shrink, I + half, I)
+        J = torch.where(shrink, J + half, J)
+        ckI = torch.where(shrink, I, ckI)
+        ckJ = torch.where(shrink, J, ckJ)
+        ckOff = torch.where(shrink, off, ckOff)
+        ckcD, ckcC, ckrD, ckrR = save_borders(sh, ckcD, ckcC, ckrD, ckrR)
+        ydi = torch.where(shrink, 0, ydi)
+        yiter = torch.where(rdone, ydi, yiter)
+        gnm = torch.where(rdone, gnm_, gnm)
+        # a shrink forces GROW_D as the previous direction, which kills the
+        # next rect's corner (reference: src/scan_block.rs:541)
+        pdir = torch.where(rdone, torch.where(shrink, DIR_GD, d0), pdir)
+        sz = torch.where(grow, 2 * sz, torch.where(shrink, half, sz))
+        # direction from the post-shrink borders' first 8 rows
+        # (reference: src/scan_block.rs:560-565)
+        free_ng = free & ~grow
+        a8, p8 = actD[:, :STEP].amax(1), pasD[:, :STEP].amax(1)
+        right_max = torch.where(ro, a8, p8)
+        down_max = torch.where(ro, p8, a8)
+        godown = forced_down | (free_ng & (down_max > right_max))
+        goright = (forced_right | free_ng) & ~godown
+        I = torch.where(godown, I + STEP, I)
+        J = torch.where(goright, J + STEP, J)
+        choose = godown | goright
+        new_dir = torch.where(godown, DIR_D, DIR_R)
+        dirn = torch.where(choose, new_dir, dirn)
+        swap = col(choose & (ro != (new_dir != DIR_D)))
+        actD, pasD = torch.where(swap, pasD, actD), torch.where(swap, actD, pasD)
+        actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
+        s += 1
+    out = torch.stack([out, (~done).to(i32)], 1)
+    return (out, cells) if count_cells else out
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from
+    ``csrc/adaptive_kernel.cu``."""
+    lib.adaptive_align_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.adaptive_align_launch.restype = ctypes.c_int
+    lib.adaptive_error_string.argtypes = [ctypes.c_int]
+    lib.adaptive_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("adaptive_kernel"))
+
+
+def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
+    """(score, overrun) per pair as a (B, 2) int32 tensor.
+
+    CPU tensors take ``adaptive_align_plain``; CUDA tensors launch the
+    kernel of ``csrc/adaptive_kernel.cu`` on the current stream
+    (``adaptive_align.launches`` counts the launches) or raise."""
+    if codes.device.type == "cpu":
+        return adaptive_align_plain(codes, qlen, rlen, table, gaps, cfg)
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"no adaptive kernel for device {dev}")
+    B = codes.shape[0]
+    _check("codes", codes, torch.uint8, (B, 2, cfg.seq_cap), dev)
+    _check("qlen", qlen, torch.int32, (B,), dev)
+    _check("rlen", rlen, torch.int32, (B,), dev)
+    _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
+    out = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.adaptive_align_launch(
+            codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
+            table.data_ptr(), out.data_ptr(), B, cfg.seq_cap, cfg.alpha,
+            cfg.min_size, cfg.max_size, cfg.max_steps, int(gaps[0]),
+            int(gaps[1]), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("adaptive kernel launch failed: "
+                           f"{lib.adaptive_error_string(err).decode()}")
+    adaptive_align.launches += 1
+    return out
+
+
+adaptive_align.launches = 0

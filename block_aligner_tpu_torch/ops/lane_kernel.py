@@ -156,12 +156,15 @@ def _sat(x):
     return x.clamp(min=NEG)
 
 
-def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
+def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
+                     count_cells: bool = False):
     """Plain PyTorch version: all pairs in lockstep under masks.
 
     Returns a (B, 2) int32 tensor of (score, suspect).  Code positions are
     clamped to ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel
-    does; ``pack_lane`` output never needs either."""
+    does; ``pack_lane`` output never needs either.  With ``count_cells``
+    it also returns each pair's DP cell count, (B,) int64: S cells for
+    every column up to and including the freeze column."""
     S, A, cap = cfg.block, cfg.alpha, cfg.seq_cap
     PRO = S // STEP
     dev = codes.device
@@ -187,6 +190,7 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
     corn, dmax = full(NEG), full(NEG)
     ybest = full(-(1 << 30))
     done = torch.zeros(B, dtype=torch.bool, device=dev)
+    cells = torch.zeros(B, dtype=torch.int64, device=dev)
     # freeze predicate of the current rect, prologue values (lanes = query)
     fra, frt, fridx = S > ql, rl.clone(), ql.clamp(0, S - 1)
     oa = full(0)
@@ -244,6 +248,7 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
                 tempD[:, w] = D11[:, -1]
                 tempR[:, w] = R11[:, -1]
             wloc = s * STEP + w if in_pro else w
+            cells += torch.where(done, 0, S)
             fr_new = fra & (wloc >= frt) & ~done
             val = D11.gather(1, fridx.long()[:, None])[:, 0]
             out = torch.where(fr_new, off + val - ZERO, out)
@@ -285,18 +290,24 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
             actD, pasD = torch.where(swap, pasD, actD), torch.where(swap, actD, pasD)
             actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
         s += 1
-    return torch.stack([out, susp], 1)
+    out = torch.stack([out, susp], 1)
+    return (out, cells) if count_cells else out
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("lane_kernel")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from
+    ``csrc/lane_kernel.cu``."""
     lib.lane_align_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.lane_align_launch.restype = ctypes.c_int
     lib.lane_error_string.argtypes = [ctypes.c_int]
     lib.lane_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("lane_kernel"))
 
 
 def _check(name, t, dtype, shape, device):

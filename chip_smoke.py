@@ -6,22 +6,39 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile ``block_aligner_tpu_torch/csrc/lane_kernel.cu`` into
-   ``build/`` (keyed on the sources) and load it;
-3. kernel vs plain: the CUDA kernel against its plain PyTorch version on
-   the card, exact equality of score and suspect flag at blocks 16..512 on
-   seeded random protein and DNA pairs, and the reference's golden scores;
-4. main path: 16384 random protein pairs 1000x1000 with k=100 mutations
-   (``bench.rand_protein_pairs``, seed 1234), BLOSUM62, gaps -11/-1, block
-   32, through ``BatchAligner.stage`` + ``align_staged`` and through
-   ``align_all`` on twice as many pairs; the kernel must have launched, and
-   its results must equal the plain version's; kernel time from CUDA
-   events, packing timed apart.
+2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``
+   into ``build/`` (keyed on the sources), one ``nvcc`` each, both started
+   together, and load them;
+3. lane kernel vs plain: the lane kernel against its plain PyTorch version
+   on the card, exact equality of score and suspect flag at blocks 16..512
+   on seeded random protein and DNA pairs, and the reference's golden
+   scores;
+4. adaptive kernel vs plain: the adaptive kernel against its plain version,
+   exact equality of score and overrun flag at ladders (16, 32) .. (64,
+   256) on seeded protein and DNA pairs (lengths 0..600, half of them
+   with structural indels), once more with a step cap low
+   enough to overrun, and pinned adaptive scores that
+   ``tests/test_torch_adaptive_kernel.py`` holds against ``BlockOracle``;
+5. lane main path: 16384 random protein pairs 1000x1000 with k=100
+   mutations (``bench.rand_protein_pairs``, seed 1234), BLOSUM62, gaps
+   -11/-1, block 32, through ``BatchAligner.stage`` + ``align_staged`` and
+   through ``align_all`` on twice as many pairs;
+6. adaptive main path: the package's default size (32, 256) on 7000
+   Uniclust30-style homolog pairs (``examples_tpu/common.py::load_uc_pairs``,
+   seed 1234) through ``stage`` + ``align_staged`` and ``align_all``, and on
+   16384 random protein pairs 1000x1000 k=100 (seed 1234);
+7. ``align_exp_all`` at (32, 256) on 1024 of those homolog pairs, with the
+   256-256 lane score as the target (and 8 unreachable targets, so the last
+   level runs): every result must equal a direct ``BatchAligner`` run at the
+   min size it reports.
 
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises, so the script exits
-non-zero and prints no result.  It needs the repository around it and a
-CUDA device; without either it fails.
+On every main path the kernels must have launched (their counts are set to
+0 just before the path and read just after) and every result must equal
+the plain version's; kernel times come from CUDA events, packing is timed
+apart.  The line before the last is a JSON summary of the kernels; the last
+line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
+script exits non-zero and prints no result.  It needs the repository around
+it and a CUDA device; without either it fails.
 """
 
 from __future__ import annotations
@@ -31,6 +48,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -59,6 +77,55 @@ GOLDEN = [
     ]),
 ]
 
+# adaptive scores pinned from BlockOracle (tests/test_torch_adaptive_kernel.py
+# asserts them): (matrix, gaps, (min, max), pairs).  All but the first and
+# the edge cases score higher than the oracle at the fixed min size, so
+# their blocks grew.
+GOLDEN_ADAPTIVE = [
+    ("BLOSUM62", (-11, -1), (16, 32), [
+        (b"CAGGATTAGCGGATCACG", b"CTGGAGTCTTTTAGCGGATCACGC", 77),
+        (b"QCFHHWSWYCDVCEEWIGELNTPYDLNQAFLCYPSMNHHDFSKTGRVTFIGS",
+         b"QCFGHWSGYCDVCEEWIGELGTISILLLLYFVECHFPEPTDLNQAFLCYPSMNHHDCSKTGR"
+         b"VTFILS", 235),
+        (b"AARILQNQDSTNIGKSNEGEKGDPRHDKGIFADTMMEQSWGAYVNYCNPFFMIMFKGMPLMG",
+         b"ITRPLPVWSMFDIPEPTIARILQNQDSTNIGKSNEGEKGDPRHLFGIFADTMMEWSWGAYVNY"
+         b"CNPFFMDMFKGMPLMG", 275),
+    ]),
+    ("BLOSUM62", (-11, -1), (16, 64), [
+        (b"AQENVQTILMHKGNVPLQETIEHFKHKWSPVDRHSRVFERYWVWALFHQESDFCITCHVFHVWD"
+         b"CDYGATFDQFTWHVSQMDMRHYIQ",
+         b"AQENVQTILMHKGNVPLQETIEHFKHKWSPVDRHSRPFERYWVWALVFHVKHCDYGATFDQFTW"
+         b"HVSRMDMRHYIQ", 386),
+    ]),
+    ("BLOSUM62", (-11, -1), (32, 256), [
+        (b"CWDYANARQSEKVYSQRNQSWEMDGCRDDPGHAAYNGYVLVFMERNHEKLWKYGCFTSSLKTAV"
+         b"LNQADMNTWEDLQPIMSI",
+         b"CWDYANARQPEKVYSQRNHSWELDGCRDDPGSSLKTAVLNQADMNTWEDLQPIMSI", 260),
+        (b"", b"", 0), (b"A", b"", -11), (b"", b"ACGT", -14),
+    ]),
+    ("NW1", (-2, -1), (16, 64), [
+        (b"GAGCAGGATATCCGGAACGAGCAACATTAGCGCTAGCACTCGGCTTCAGGAATGCTTC",
+         b"GAGCAGGATATCCGGAACGAGCAACATTAGCGCTAGCACTGTAGTATTGCAGCTAACTCATTTG"
+         b"ACATTGCTGGCGGCTTCAGGAATGCTTC", 23),
+        (b"", b"ACGT", -5),
+    ]),
+]
+
+# The least time for a kernel's work: bytes over the memory rate, integer
+# operations over the int32 rate.  3.35 TB/s is the H100 SXM's HBM rate
+# (NVIDIA's data sheet).  A Hopper SM issues 64 int32 operations per clock
+# (four sub-partitions of 16 INT32 lanes; NVIDIA's Hopper architecture white
+# paper); the SM count and the maximum SM clock are read from the card.
+# A DP cell of the recurrence needs 12 int32 adds and maxes, whatever the
+# kernel's layout: the score add (its clamp is absorbed by the merge with
+# C, which is never below the rail); for C two adds, one max and one clamp
+# (the two clamps fold into one); the merge max(D, C); a serial max-plus
+# scan's add, add and max; the zero correction; the final merge and the
+# rect maximum.  Carries between a kernel's scan segments are its own cost.
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_SM_CLOCK = 64
+OPS_PER_CELL = 12
+
 
 def random_pairs(rng, alphabet, n, max_len):
     """Half related (substitutions and indels), half unrelated pairs, with
@@ -79,6 +146,34 @@ def random_pairs(rng, alphabet, n, max_len):
     return pairs
 
 
+def structural_pairs(rng, alphabet, n, max_len):
+    """``random_pairs``, where every other pair's reference also gains or
+    loses 1..3 blocks of 8..len/3 residues, which makes adaptive blocks
+    grow."""
+    pairs = random_pairs(rng, alphabet, n, max_len)
+    for k in range(4, n, 2):
+        q, r = pairs[k]
+        r = np.frombuffer(r, dtype=np.uint8)
+        for _ in range(int(rng.integers(1, 4))):
+            ln = int(rng.integers(8, max(9, len(r) // 3 + 1)))
+            pos = int(rng.integers(0, max(len(r) - ln, 1)))
+            if rng.random() < 0.5 and len(r) > ln + 8:
+                r = np.concatenate([r[:pos], r[pos + ln:]])
+            else:
+                r = np.concatenate([r[:pos], rng.choice(alphabet, size=ln),
+                                    r[pos:]])
+        pairs[k] = (q, r[:max_len].tobytes())
+    return pairs
+
+
+def with_step_cap(cfg, steps):
+    """``cfg`` with its step cap lowered to ``steps``."""
+    class Capped(type(cfg)):
+        max_steps = steps
+
+    return Capped(cfg.min_size, cfg.max_size, cfg.seq_cap, cfg.alpha)
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn()`` on the card over ``reps`` runs."""
     import torch
@@ -94,6 +189,54 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn):
+    """Milliseconds of ``fn()`` on the host clock, ending in a synchronise;
+    returns (result, ms)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def bound(staged, cells, int32_per_s):
+    """(bound_ms, bound_by) for one launch on ``staged``: each input read
+    once and the (B, 2) int32 output written once, against the DP cells
+    the pairs need."""
+    nbytes = (staged.codes.numel() + 4 * (staged.qlen.numel()
+              + staged.rlen.numel() + staged.table.numel())
+              + 8 * staged.codes.shape[0])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = int(cells.sum()) * OPS_PER_CELL / int32_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_equal(got, want, what):
+    import torch
+
+    if not torch.equal(got, want):
+        bad = (got != want).any(1).nonzero()[:5, 0].tolist()
+        raise AssertionError(f"kernel != plain {what}: pairs {bad}: "
+                             f"{got[bad].tolist()} vs {want[bad].tolist()}")
+
+
+def check_goldens(golden, BatchAligner, Gaps, scores, dev):
+    n = 0
+    for name, (go, ge), size, cases in golden:
+        size = size if isinstance(size, tuple) else (size, size)
+        al = BatchAligner(getattr(scores, name), Gaps(go, ge), size=size,
+                          batch=len(cases), seq_cap=128, device=dev)
+        got = al.align_batch([(q, r) for q, r, _ in cases])
+        for (q, r, want), res in zip(cases, got):
+            if res.score != want:
+                raise AssertionError(f"golden {name} {size} {q!r} {r!r}: "
+                                     f"{res.score} != {want}")
+        n += len(cases)
+    return n
+
+
 def main():
     import torch
 
@@ -101,10 +244,12 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
     from bench import rand_protein_pairs
-    from block_aligner_tpu_torch import BatchAligner, Gaps
+    from block_aligner_tpu_torch import BatchAligner, Gaps, align_exp_all
     from block_aligner_tpu_torch.core import scores
     from block_aligner_tpu_torch.ops import _build
+    from block_aligner_tpu_torch.ops import adaptive_kernel as ak
     from block_aligner_tpu_torch.ops import lane_kernel as lk
+    from examples_tpu.common import load_uc_pairs
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -112,20 +257,31 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_per_s = sms * INT32_PER_SM_CLOCK * float(clock) * 1e6
     print(f"[device] torch: {kind}, count {torch.cuda.device_count()}, "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}; {sms} SMs, "
+          f"max SM clock {clock} MHz: int32 peak {int32_per_s / 1e12:.2f} "
+          "Tops/s")
     print(card)
     dev = torch.device("cuda")
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    lib_path = _build.build("lane_kernel")
+    names = ("lane_kernel", "adaptive_kernel")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(_build.build, names))
     lk._lib()
-    print(f"[build] {os.path.relpath(lib_path, ROOT)} built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
+    ak._lib()
+    print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
+          f"built and loaded in {time.perf_counter() - t0:.1f} s")
 
-    # 3. kernel vs plain version on the card (these launches are not the
-    # main path's and are not counted)
+    # 3. lane kernel vs plain version on the card (these launches are not
+    # a main path's and are not counted)
     rng = np.random.default_rng(7)
     checked = 0
     for S in (16, 32, 64, 256, 512):
@@ -137,48 +293,65 @@ def main():
                 32 if matrix.kind == "aa" else 16)
             pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev)
             got = lk.lane_align(*pk, cfg)
-            want = lk.lane_align_plain(*pk, cfg)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                bad = (got != want).any(1).nonzero()[:5, 0].tolist()
-                raise AssertionError(
-                    f"kernel != plain at S={S} {matrix.kind}: pairs {bad}: "
-                    f"{got[bad].tolist()} vs {want[bad].tolist()}")
+            check_equal(got, lk.lane_align_plain(*pk, cfg),
+                        f"at S={S} {matrix.kind}")
             checked += len(pairs)
-    print(f"[kernel-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
+    print(f"[lane-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
           "(protein and DNA, lengths 0..600): score and suspect equal")
-    n_gold = 0
-    for name, (go, ge), S, cases in GOLDEN:
-        al = BatchAligner(getattr(scores, name), Gaps(go, ge), size=(S, S),
-                          batch=len(cases), seq_cap=64, device=dev)
-        got = al.align_batch([(q, r) for q, r, _ in cases])
-        for (q, r, want), res in zip(cases, got):
-            if res.score != want:
-                raise AssertionError(f"golden {name} S={S} {q!r} {r!r}: "
-                                     f"{res.score} != {want}")
-        n_gold += len(cases)
-    print(f"[golden] {n_gold} pinned reference scores equal "
+    n_gold = check_goldens(GOLDEN, BatchAligner, Gaps, scores, dev)
+    print(f"[lane-golden] {n_gold} pinned reference scores equal "
           "(incl. README example NW1 -2/-1 block 32 -> 7)")
 
-    # 4. the main path
+    # 4. adaptive kernel vs plain version on the card
+    checked = overran = 0
+    ladders = ((16, 32), (16, 64), (32, 128), (32, 256), (64, 256))
+    for lo, hi in ladders:
+        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
+                                       (scores.NW1, Gaps(-2, -1), DNA)):
+            pairs = structural_pairs(rng, alphabet, 192, 600)
+            cfg = ak.AdaptiveKernelConfig(
+                lo, hi, -(-(1 + 600 + hi + 16) // 128) * 128,
+                32 if matrix.kind == "aa" else 16)
+            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev)
+            got = ak.adaptive_align(*pk, cfg)
+            torch.cuda.synchronize()
+            check_equal(got, ak.adaptive_align_plain(*pk, cfg),
+                        f"at ({lo}, {hi}) {matrix.kind}")
+            checked += len(pairs)
+
+    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768), 40)
+    pk = lk.pack_lane(structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
+                      cfg, Gaps(-11, -1), dev)
+    got = ak.adaptive_align(*pk, cfg)
+    torch.cuda.synchronize()
+    check_equal(got, ak.adaptive_align_plain(*pk, cfg), "with 40 steps")
+    overran = int(got[:, 1].sum())
+    if not 0 < overran < len(got):
+        raise AssertionError(f"{overran} of {len(got)} pairs overran 40 steps")
+    print(f"[adaptive-vs-plain] {checked} pairs at ladders "
+          f"{', '.join(map(str, ladders))} (protein and DNA, lengths 0..600, "
+          f"structural indels): score and overrun equal; and with a 40-step "
+          f"cap on {len(got)} pairs, {overran} of which overran")
+    n_gold = check_goldens(GOLDEN_ADAPTIVE, BatchAligner, Gaps, scores, dev)
+    print(f"[adaptive-golden] {n_gold} pinned adaptive scores equal")
+
+    # 5. the lane main path
     pairs = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
     more = rand_protein_pairs(np.random.default_rng(1235), 16384, 1000, 100)
     al = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
                       batch=16384, seq_cap=1024, device=dev)
     torch.cuda.synchronize()
-    lk.lane_align.launches = 0
-    t0 = time.perf_counter()
-    staged = al.stage(pairs)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = al.align_staged(staged)
-    run_s = time.perf_counter() - t0
+    lk.lane_align.launches = ak.adaptive_align.launches = 0
+    staged, pack_ms = host_ms(lambda: al.stage(pairs))
+    res, run_ms = host_ms(lambda: al.align_staged(staged))
     suspect = al.last_suspect.copy()
     res_all = al.align_all(pairs + more)
-    launches = lk.lane_align.launches
-    if launches < 1:
-        raise AssertionError("the main path launched no lane kernel")
+    lane_launches = lk.lane_align.launches
+    if lane_launches < 1 or ak.adaptive_align.launches:
+        raise AssertionError(
+            f"lane main path: {lane_launches} lane and "
+            f"{ak.adaptive_align.launches} adaptive launches")
     for k, (q, r) in enumerate(pairs):
         if (res[k].query_idx, res[k].reference_idx) != (len(q), len(r)):
             raise AssertionError(f"pair {k}: end {res[k]} != ({len(q)}, {len(r)})")
@@ -187,57 +360,172 @@ def main():
     if not np.array_equal(al.last_suspect[: len(pairs)], suspect):
         raise AssertionError("align_all suspect flags disagree")
     sc = np.array([x.score for x in res])
-    print(f"[main] {len(pairs)} pairs 1000x1000 k=100 BLOSUM62 -11/-1 block 32: "
-          f"stage+align_staged and align_all({len(pairs) + len(more)}) agree; "
-          f"lane_align launches {launches}; scores {sc.min()}..{sc.max()} "
-          f"(mean {sc.mean():.1f}); suspect {int(suspect.sum())}")
+    print(f"[lane-main] {len(pairs)} pairs 1000x1000 k=100 BLOSUM62 -11/-1 "
+          f"block 32: stage+align_staged and align_all({len(pairs) + len(more)}) "
+          f"agree; lane_align launches {lane_launches}; scores "
+          f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); suspect "
+          f"{int(suspect.sum())}")
 
     # the kernel against the plain version on the main path's own inputs
     cfg = al.cfg
     args = (staged.codes, staged.qlen, staged.rlen, staged.table, staged.gaps)
-    t0 = time.perf_counter()
-    want = lk.lane_align_plain(*args, cfg)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    (want, cells), plain_ms = host_ms(
+        lambda: lk.lane_align_plain(*args, cfg, count_cells=True))
     got = torch.from_numpy(np.stack([sc, suspect], 1).astype(np.int32))
-    max_abs_err = int((got - want.cpu()).abs().max())
-    if max_abs_err:
-        raise AssertionError(f"main path differs from the plain version: "
-                             f"max abs err {max_abs_err}")
+    lane_err = int((got - want.cpu()).abs().max())
+    if lane_err:
+        raise AssertionError(f"lane main path differs from the plain version: "
+                             f"max abs err {lane_err}")
     sub = al.stage(pairs[:512])
     sub_args = (sub.codes, sub.qlen, sub.rlen, sub.table, sub.gaps)
-    t0 = time.perf_counter()
-    want512 = lk.lane_align_plain(*sub_args, cfg)
-    torch.cuda.synchronize()
-    plain512_ms = (time.perf_counter() - t0) * 1e3
+    want512, plain512_ms = host_ms(lambda: lk.lane_align_plain(*sub_args, cfg))
     if not torch.equal(want512.cpu(), got[:512]):
         raise AssertionError("first 512 main-path results differ from plain")
-    print(f"[main-vs-plain] all {len(pairs)} results (incl. the first 512) "
-          "equal the plain version on the card")
+    print(f"[lane-main-vs-plain] all {len(pairs)} results (incl. the first "
+          "512) equal the plain version on the card")
 
-    kernel_ms = cuda_ms(lambda: lk.lane_align(*args, cfg), 10)
+    lane_ms = cuda_ms(lambda: lk.lane_align(*args, cfg), 10)
     kernel512_ms = cuda_ms(lambda: lk.lane_align(*sub_args, cfg), 10)
+    lane_bound, lane_by = bound(staged, cells, int32_per_s)
     B = len(pairs)
-    print(f"[time] {card}: kernel {kernel_ms * 1e3 / B:.4f} us/pair "
-          f"({kernel_ms:.3f} ms per launch of {B} pairs, CUDA events, mean of 10)")
-    print(f"[time] {card}: pack (stage, host clock) {pack_s * 1e6 / B:.4f} us/pair")
+    print(f"[time] {card}: lane kernel {lane_ms * 1e3 / B:.4f} us/pair "
+          f"({lane_ms:.3f} ms per launch of {B} pairs, CUDA events, mean of "
+          f"10); bound {lane_bound:.4f} ms by {lane_by} "
+          f"({int(cells.sum())} DP cells)")
+    print(f"[time] {card}: pack (stage, host clock) {pack_ms * 1e3 / B:.4f} us/pair")
     print(f"[time] {card}: align_staged (launch, kernel, copy back, decode; "
-          f"host clock) {run_s * 1e6 / B:.4f} us/pair")
-    print(f"[time] {card}: plain version {plain_ms * 1e3 / B:.4f} us/pair "
+          f"host clock) {run_ms * 1e3 / B:.4f} us/pair")
+    print(f"[time] {card}: lane plain version {plain_ms * 1e3 / B:.4f} us/pair "
           f"on all {B} pairs ({plain_ms:.1f} ms, host clock)")
     print(f"[time] {card}: 512-pair subset: plain {plain512_ms * 1e3 / 512:.4f} "
           f"us/pair, kernel {kernel512_ms * 1e3 / 512:.4f} us/pair")
+    lane_plain_ms = plain_ms
 
-    print(json.dumps({"kernels": [{
-        "name": "lane_align",
-        "route": "cuda",
-        "source": "block_aligner_tpu_torch/csrc/lane_kernel.cu",
-        "replaces": "block_aligner_tpu/ops/lane_kernel.py:381",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # 6. the adaptive main path: the default size on homolog pairs, then on
+    # the long random pairs
+    uc = [(q, r) for q, r, _ in load_uc_pairs("uc30", per_bucket=1000, seed=1234)]
+    ucal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
+                        batch=len(uc), seq_cap=512, device=dev)
+    lrand = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
+    lral = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
+                        batch=len(lrand), seq_cap=1024, device=dev)
+    if ucal.route != "adaptive" or lral.route != "adaptive":
+        raise AssertionError("(32, 256) did not take the adaptive route")
+    torch.cuda.synchronize()
+    lk.lane_align.launches = ak.adaptive_align.launches = 0
+    runs = []
+    for al, work, what in ((ucal, uc, "uc30 homologs 50-256 + indels"),
+                           (lral, lrand, "random 1000x1000 k=100")):
+        staged, pack_ms = host_ms(lambda: al.stage(work))
+        res, run_ms = host_ms(lambda: al.align_staged(staged))
+        res_all = al.align_all(work)
+        runs.append((al, work, what, staged, res, pack_ms, run_ms, res_all))
+    ad_launches = ak.adaptive_align.launches
+    if ad_launches < 1 or lk.lane_align.launches:
+        raise AssertionError(f"adaptive main path: {ad_launches} adaptive and "
+                             f"{lk.lane_align.launches} lane launches")
+    ad_err = 0
+    for al, work, what, staged, res, pack_ms, run_ms, res_all in runs:
+        B = len(work)
+        if res_all != res:
+            raise AssertionError(f"{what}: align_all disagrees with "
+                                 "stage + align_staged")
+        for k, (q, r) in enumerate(work):
+            if (res[k].query_idx, res[k].reference_idx) != (len(q), len(r)):
+                raise AssertionError(f"{what} pair {k}: end {res[k]}")
+        cfg = al.cfg
+        args = (staged.codes, staged.qlen, staged.rlen, staged.table,
+                staged.gaps)
+        (want, cells), plain_ms = host_ms(
+            lambda: ak.adaptive_align_plain(*args, cfg, count_cells=True))
+        sc = np.array([x.score for x in res])
+        got = torch.from_numpy(np.stack([sc, np.zeros_like(sc)], 1)
+                               .astype(np.int32))
+        err = int((got - want.cpu()).abs().max())
+        if err:
+            raise AssertionError(f"{what}: adaptive main path differs from the "
+                                 f"plain version: max abs err {err}")
+        ad_err = max(ad_err, err)
+        kernel_ms = cuda_ms(lambda: ak.adaptive_align(*args, cfg), 10)
+        bnd, by = bound(staged, cells, int32_per_s)
+        print(f"[adaptive-main] {B} pairs, {what}, BLOSUM62 -11/-1 (32, 256): "
+              "stage+align_staged and align_all agree and equal the plain "
+              f"version; scores {sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
+              f"{int(cells.sum())} DP cells, {int(cells.sum()) / B:.0f} per pair")
+        print(f"[time] {card}: adaptive, {what}: kernel "
+              f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
+              f"launch of {B} pairs, CUDA events, mean of 10); bound "
+              f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
+              f"align_staged {run_ms * 1e3 / B:.4f} us/pair; plain "
+              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
+        if what.startswith("uc30"):
+            ad_ms, ad_plain_ms, ad_bound, ad_by = kernel_ms, plain_ms, bnd, by
+    print(f"[adaptive-main] adaptive_align launches {ad_launches}")
+
+    # 7. align_exp_all at (32, 256) on 1024 homolog pairs
+    pick = np.random.default_rng(5).choice(len(uc), 1024, replace=False)
+    exp_pairs = [uc[k] for k in pick]
+    fixed = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(256, 256),
+                         batch=1024, seq_cap=512, device=dev)
+    targets = [x.score for x in fixed.align_all(exp_pairs)]
+    for k in range(8):
+        targets[k] = 1 << 30  # never reached: these pairs run every level
+    torch.cuda.synchronize()
+    lk.lane_align.launches = ak.adaptive_align.launches = 0
+    exp_res, exp_min = align_exp_all(scores.BLOSUM62, Gaps(-11, -1), exp_pairs,
+                                     targets, (32, 256), batch=1024,
+                                     seq_cap=512, device=dev)
+    exp_launches = (lk.lane_align.launches, ak.adaptive_align.launches)
+    if min(exp_launches) < 1:
+        raise AssertionError(f"align_exp_all launches (lane, adaptive) "
+                             f"{exp_launches}")
+    settled = {}
+    for m in (32, 64, 128, 256, None):
+        idx = [k for k in range(len(exp_pairs)) if exp_min[k] == m]
+        settled[m] = len(idx)
+        if not idx:
+            continue
+        direct = BatchAligner(scores.BLOSUM62, Gaps(-11, -1),
+                              size=(m or 256, 256), batch=1024, seq_cap=512,
+                              device=dev).align_all([exp_pairs[k] for k in idx])
+        for k, d in zip(idx, direct):
+            if exp_res[k] != d or (m is None) != (d.score < targets[k]):
+                raise AssertionError(f"align_exp_all pair {k} (min size {m}): "
+                                     f"{exp_res[k]} vs direct {d}, target "
+                                     f"{targets[k]}")
+    print(f"[align_exp_all] {len(exp_pairs)} uc30 pairs at (32, 256), target "
+          f"the 256-256 lane score: settled per min size {settled}; every "
+          f"result equals a direct BatchAligner run at its size; launches "
+          f"(lane, adaptive) {exp_launches}")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "lane_align",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/lane_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/lane_kernel.py:381",
+            "launches": lane_launches,
+            "max_abs_err": lane_err,
+            "ms": lane_ms,
+            "plain_ms": lane_plain_ms,
+            "bound_ms": lane_bound,
+            "bound_by": lane_by,
+            "library_ms": None,
+        },
+        {
+            "name": "adaptive_align",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/adaptive_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/adaptive_kernel.py:213",
+            "launches": ad_launches,
+            "max_abs_err": ad_err,
+            "ms": ad_ms,
+            "plain_ms": ad_plain_ms,
+            "bound_ms": ad_bound,
+            "bound_by": ad_by,
+            "library_ms": None,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

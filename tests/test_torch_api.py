@@ -1,6 +1,7 @@
-"""The slice as a whole: the port's ``BatchAligner`` on the CPU against the
-JAX package's ``BatchAligner`` (lane kernel, interpret mode) with tables
-carried over by ``convert.py``.  Every comparison is exact."""
+"""The slice as a whole: the port's ``BatchAligner`` and ``align_exp_all`` on
+the CPU against the JAX package's (lane and adaptive kernels, interpret
+mode) with tables carried over by ``convert.py``.  Every comparison is
+exact."""
 
 import os
 
@@ -10,7 +11,10 @@ import torch
 
 import block_aligner_tpu as jba
 import block_aligner_tpu_torch as tba
+from block_aligner_tpu.api import align_exp_all as jax_align_exp_all
 from block_aligner_tpu.api import pick_route as jax_pick_route
+from block_aligner_tpu.core.full_dp import global_align_score
+from test_torch_adaptive_kernel import protein_pairs as homolog_pairs
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -46,10 +50,10 @@ def jax_reference():
     return pairs, res, al.last_suspect.copy(), al.seq_capacity
 
 
-def port_aligner(batch, size=(32, 32)):
+def port_aligner(batch, size=(32, 32), seq_cap=256):
     return tba.BatchAligner(tba.matrix_from_jax(jba.BLOSUM62),
                             tba.gaps_from_jax(jba.Gaps(-11, -1)), size,
-                            batch=batch, seq_cap=256, device="cpu")
+                            batch=batch, seq_cap=seq_cap, device="cpu")
 
 
 def fields(results):
@@ -115,19 +119,95 @@ def test_pick_route_matches_jax(args):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(size=(32, 256)), dict(size=(64, 1024)), dict(seq_cap=20000),
+    dict(size=(64, 1024)), dict(seq_cap=20000),
     dict(trace=True), dict(x_drop=50), dict(local_start=True),
     dict(free_query_start_gaps=True), dict(free_query_end_gaps=True),
     dict(matrix=tba.BYTES1), dict(mesh=object()),
     dict(use_lane_kernel=False),
-], ids=["adaptive", "big", "long_lane", "trace", "x_drop", "local_start",
-        "free_start", "free_end", "byte", "mesh", "engine"])
+    dict(size=(32, 256), x_drop=50), dict(size=(32, 256), trace=True),
+    dict(size=(32, 256), local_start=True),
+    dict(size=(16, 64), free_query_end_gaps=True),
+    dict(size=(32, 256), matrix=tba.BYTES1),
+], ids=["big", "long_lane", "trace", "x_drop", "local_start",
+        "free_start", "free_end", "byte", "mesh", "engine",
+        "adaptive_x_drop", "adaptive_trace", "adaptive_local_start",
+        "adaptive_free_end", "adaptive_byte"])
 def test_unported_configurations_raise(kwargs):
     kw = dict(matrix=tba.BLOSUM62, gaps=tba.Gaps(-11, -1), size=(32, 32),
               device="cpu")
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         tba.BatchAligner(**kw)
+
+
+@pytest.fixture(scope="module", params=[(16, 64), (32, 128)],
+                ids=["16-64", "32-128"])
+def jax_adaptive(request):
+    """30 homolog, unrelated and edge-case pairs through the JAX
+    BatchAligner on the adaptive route."""
+    pairs = homolog_pairs(23, 30)
+    al = jba.BatchAligner(jba.BLOSUM62, jba.Gaps(-11, -1), request.param,
+                          batch=128, seq_cap=300)
+    assert al._adaptive
+    return request.param, pairs, al.align_batch(pairs), al.seq_capacity
+
+
+def test_adaptive_batch_aligner_matches_jax(jax_adaptive):
+    """align_batch, align_all over several batches (sorted and not) and a
+    staged batch run twice give the JAX package's results in order;
+    ``last_suspect`` stays unset, as the JAX package leaves it there."""
+    size, pairs, want, want_cap = jax_adaptive
+    al = port_aligner(64, size, 300)
+    assert al.route == "adaptive" and al.seq_capacity == want_cap
+    assert fields(al.align_batch(pairs)) == fields(want)
+    al = port_aligner(8, size, 300)
+    assert fields(al.align_all(pairs)) == fields(want)
+    assert fields(al.align_all(pairs, sort=False)) == fields(want)
+    staged = al.stage(pairs[-8:])
+    for _ in range(2):
+        assert fields(al.align_staged(staged)) == fields(want[-8:])
+    assert al.last_suspect is None
+
+
+def test_default_size_is_adaptive_and_runs():
+    """``BatchAligner(BLOSUM62, Gaps(-11, -1))``, the package's default
+    size (32, 256), takes the adaptive route and gives the oracle's
+    scores."""
+    al = tba.BatchAligner(tba.BLOSUM62, tba.Gaps(-11, -1), device="cpu")
+    assert al.route == "adaptive"
+    assert (al.cfg.min_size, al.cfg.max_size) == (32, 256)
+    pairs = homolog_pairs(29, 8)
+    orc = jba.BlockOracle()
+    for (q, r), got in zip(pairs, al.align_batch(pairs)):
+        orc.align(jba.PaddedBytes.from_bytes(q, 256, jba.BLOSUM62),
+                  jba.PaddedBytes.from_bytes(r, 256, jba.BLOSUM62),
+                  jba.BLOSUM62, jba.Gaps(-11, -1), (32, 256), 0)
+        assert (got.score, got.query_idx, got.reference_idx) == (
+            orc.res().score, len(q), len(r))
+
+
+def test_align_exp_all_matches_jax():
+    """The retry ladder 16, 32 (adaptive) and 64 (lane) with the exact
+    global scores as targets: the same results and min sizes as the JAX
+    package, including pairs that never reach their target."""
+    pairs = [(q[:90], r[:90]) for q, r in homolog_pairs(37, 24)]
+    targets = [global_align_score(q, r, jba.BLOSUM62, jba.Gaps(-11, -1))
+               for q, r in pairs]
+    targets[5] += 1  # unreachable
+    want, want_min = jax_align_exp_all(jba.BLOSUM62, jba.Gaps(-11, -1), pairs,
+                                       targets, (16, 64), batch=16, seq_cap=128)
+    got, got_min = tba.align_exp_all(tba.BLOSUM62, tba.Gaps(-11, -1), pairs,
+                                     targets, (16, 64), batch=16, seq_cap=128,
+                                     device="cpu")
+    assert got_min == want_min
+    assert fields(got) == fields(want)
+    assert got_min.count(None) == 1 and {16, 32, 64} <= set(got_min)
+
+
+def test_align_exp_all_x_drop_raises():
+    with pytest.raises(NotImplementedError, match="queue 2 slice 1"):
+        tba.align_exp_all(tba.BLOSUM62, tba.Gaps(-11, -1), [(b"A", b"A")],
+                          [5], x_drop=50, device="cpu")
 
 
 def test_invalid_input_raises():

@@ -103,10 +103,18 @@ def test_port_imports_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import block_aligner_tpu_torch as p\n"
-        "from block_aligner_tpu_torch.ops import lane_kernel\n"
+        "from block_aligner_tpu_torch.ops import adaptive_kernel, lane_kernel\n"
         "al = p.BatchAligner(p.BLOSUM62, p.Gaps(-11, -1), (16, 16), batch=2,"
         " seq_cap=64, device='cpu')\n"
         "assert al.align_batch([(b'AAAA', b'AARA')])[0].score == 11\n"
+        "ad = p.BatchAligner(p.BLOSUM62, p.Gaps(-11, -1), device='cpu')\n"
+        "assert ad.route == 'adaptive'\n"
+        "assert ad.align_batch([(b'AAAA', b'AARA')])[0].score == 11\n"
+        "res, mins = p.align_exp_all(p.BLOSUM62, p.Gaps(-11, -1),"
+        " [(b'AAAA', b'AARA')], [11], (16, 64), device='cpu')\n"
+        "assert (res[0].score, mins) == (11, [16])\n"
+        "import bench, chip_smoke\n"
+        "from examples_tpu.common import load_uc_pairs\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'block_aligner_tpu' or"
         " m.startswith(('block_aligner_tpu.', 'jax')))]\n"
