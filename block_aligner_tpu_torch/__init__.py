@@ -1,9 +1,9 @@
 """PyTorch and CUDA port of ``block_aligner_tpu`` for NVIDIA Hopper GPUs.
 
-It serves global alignment without trace on two routes of ``BatchAligner``
-and through ``align_exp_all``: fixed blocks (min == max, the lane kernel,
-``csrc/lane_kernel.cu``) and adaptive blocks (min < max, the adaptive
-kernel, ``csrc/adaptive_kernel.cu``).  Each hand-written CUDA kernel runs on
+It serves global and x-drop alignment without trace on two routes of
+``BatchAligner`` and through ``align_exp_all``: fixed blocks (min == max,
+the lane kernel, ``csrc/lane_kernel.cu``) and adaptive blocks (min < max,
+the adaptive kernel, ``csrc/adaptive_kernel.cu``).  Each hand-written CUDA kernel runs on
 the GPU and its plain PyTorch version on the CPU.  The package imports
 torch and numpy, never JAX or ``block_aligner_tpu``.
 """

@@ -1,15 +1,17 @@
 """Batched alignment API of the port (counterpart of ``block_aligner_tpu/api.py``).
 
 ``BatchAligner`` serves two of the routes ``pick_route`` names, in global
-mode without trace, with an amino-acid or nucleotide table:
+or x-drop mode (``x_drop=X``) without trace, with an amino-acid or
+nucleotide table:
 
 * "lane": fixed block sizes (min == max <= 512), the lane kernel;
 * "adaptive": growing and shrinking blocks (min < max <= 256), the adaptive
   kernel; the package's default size (32, 256) is one.
 
-``align_exp_all`` retries pairs with doubled min block sizes over both.
-Every other configuration raises ``NotImplementedError`` naming the ROADMAP
-slice that brings it.
+``align_exp_all`` retries pairs with doubled min block sizes over both, in
+either mode.  The other routes ("big", "long", "long_lane", "engine"),
+trace, ByteMatrix, the local-start and free-gap flags and a mesh raise
+``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
@@ -89,7 +91,6 @@ _SLICE = {
     "long": "queue 1 item 7 (long-sequence API)",
     "long_lane": "queue 1 item 7 (long-sequence API)",
     "engine": "queue 1 item 4 (PyTorch lockstep engine)",
-    "x_drop": "queue 2 slice 1 (x-drop: A2 + B)",
     "trace": "queue 2 slice 2 (trace: A3 + B)",
     "byte": "queue 2 slice 4 (ByteMatrix: A5 + B)",
     "flags": "queue 2 slice 5 (local-start and free gaps: A6 + B)",
@@ -103,13 +104,16 @@ def _not_yet(what: str, key: str):
 
 
 class BatchAligner:
-    """Batched global aligner on one device, on the lane or adaptive route.
+    """Batched aligner on one device, on the lane or adaptive route.
 
     Same surface as the JAX package's ``BatchAligner`` for those routes:
     ``align_batch``, ``align_all``, ``stage``/``align_staged``,
     ``batch_size``, ``seq_capacity`` and, on the lane route only,
     ``last_suspect`` (per-pair y-drop suspect flags of the last call: True
     where the reference's adaptive heuristic would have grown the block).
+    Global mode returns each pair's score at (qlen, rlen); with ``x_drop``
+    a pair ends once its block's maximum falls more than ``x_drop`` below
+    its best, and the result is the best score and its position.
     ``device`` places the packed tensors: a CUDA device runs the kernels,
     the CPU their plain versions.
     """
@@ -140,6 +144,16 @@ class BatchAligner:
         min_size = max(size[0], 16)
         max_size = max(size[1], min_size)
         is_byte = isinstance(matrix, ByteMatrix)
+        if x_drop is not None:
+            # the JAX package's and the reference's own rejections
+            if x_drop < 0:
+                raise ValueError(f"x_drop must be >= 0, got {x_drop}")
+            if free_query_end_gaps:
+                raise ValueError(
+                    "x_drop and free_query_end_gaps exclude each other")
+            if is_byte:
+                raise ValueError("x-drop with ByteMatrix is not supported "
+                                 "(same as the reference)")
         route, _ = pick_route(
             min_size, max_size, seq_cap, trace=trace, x_drop=x_drop,
             local_start=local_start,
@@ -152,8 +166,6 @@ class BatchAligner:
             _not_yet("use_lane_kernel=False", "engine")
         if trace:
             _not_yet("trace", "trace")
-        if x_drop is not None:
-            _not_yet("x_drop", "x_drop")
         if local_start or free_query_start_gaps or free_query_end_gaps:
             _not_yet("local_start / free_query_start_gaps / "
                      "free_query_end_gaps", "flags")
@@ -163,15 +175,17 @@ class BatchAligner:
             _not_yet("mesh", "mesh")
         self.matrix = matrix
         self.gaps = gaps
+        self.x_drop = x_drop
         self.device = torch.device(device)
         self._batch = batch
         self.route = route
         cap = round_up(max(1 + seq_cap + max_size + 16, 256), 128)
         alpha = 32 if matrix.kind != "nuc" else 16
+        xd = x_drop is not None
         if route == "lane":
-            self.cfg = LaneKernelConfig(block=min_size, seq_cap=cap, alpha=alpha)
+            self.cfg = LaneKernelConfig(min_size, cap, alpha, xd)
         else:
-            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha)
+            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha, xd)
         self.last_suspect: Optional[np.ndarray] = None
 
     @property
@@ -200,7 +214,8 @@ class BatchAligner:
             raise ValueError(
                 f"{len(pairs)} pairs exceed batch_size {self.batch_size}")
         self._check_lengths(pairs)
-        return pack_lane(pairs, self.matrix, self.cfg, self.gaps, self.device)
+        return pack_lane(pairs, self.matrix, self.cfg, self.gaps, self.device,
+                         self.x_drop or 0)
 
     def align_staged(self, staged) -> List[AlignResult]:
         """Run a batch prepared with ``stage``."""
@@ -214,16 +229,20 @@ class BatchAligner:
 
     def _decode(self, staged, out) -> List[AlignResult]:
         """Fetch a dispatched batch's results; the lane route sets
-        ``last_suspect``, the adaptive route checks the step cap."""
+        ``last_suspect``, the adaptive route checks the step cap.  Both
+        hold the flag in their output's last column; x-drop mode holds the
+        best position in columns 1 and 2."""
         out = out.cpu().numpy()
-        ql = staged.qlen.cpu().numpy()
-        rl = staged.rlen.cpu().numpy()
         if self.route == "lane":
-            self.last_suspect = out[:, 1].astype(bool)
-        elif out[:, 1].any():
+            self.last_suspect = out[:, -1].astype(bool)
+        elif out[:, -1].any():
             raise RuntimeError(
-                f"{int(out[:, 1].sum())} pairs hit the adaptive kernel's step "
+                f"{int(out[:, -1].sum())} pairs hit the adaptive kernel's step "
                 f"cap ({self.cfg.max_steps} steps); raise seq_cap")
+        if self.cfg.x_drop:
+            ql, rl = out[:, 1], out[:, 2]
+        else:
+            ql, rl = staged.qlen.cpu().numpy(), staged.rlen.cpu().numpy()
         return [AlignResult(int(sc), int(q), int(r))
                 for sc, q, r in zip(out[:, 0], ql, rl)]
 
@@ -281,15 +300,15 @@ def align_exp_all(matrix, gaps: Gaps, pairs, target_scores,
                   x_drop: Optional[int] = None, batch: int = 256,
                   seq_cap: int = 1024, device="cuda"):
     """Batched exponential search on the min block size (reference:
-    Block::align_exp, src/scan_block.rs:884-902).
+    Block::align_exp, src/scan_block.rs:884-902), global or with
+    ``x_drop``.
 
     Each pair is retried with a doubled min block size until its score
     reaches its target or the min size passes the max.  Returns
     ``(results, min_sizes)``: ``min_sizes[k]`` is the min size that reached
     the target, or None.  Pairs under target are batched together at each
-    level, so the work per level shrinks with them."""
-    if x_drop is not None:
-        _not_yet("align_exp_all with x_drop", "x_drop")
+    level, so the work per level shrinks with them; each level has one
+    aligner."""
     min_size, max_size = size
     results: List[Optional[AlignResult]] = [None] * len(pairs)
     min_sizes: List[Optional[int]] = [None] * len(pairs)
@@ -297,7 +316,7 @@ def align_exp_all(matrix, gaps: Gaps, pairs, target_scores,
     cur = max(min_size, 16)
     while pending and cur <= max_size:
         al = BatchAligner(matrix, gaps, (cur, max_size), batch=batch,
-                          seq_cap=seq_cap, device=device)
+                          seq_cap=seq_cap, x_drop=x_drop, device=device)
         still = []
         for k, got in zip(pending, al.align_all([pairs[k] for k in pending])):
             results[k] = got

@@ -1,12 +1,14 @@
-// Adaptive-block global alignment of a batch of sequence pairs, for Hopper
-// (sm_90a).  Plain C interface, loaded with ctypes by ops/adaptive_kernel.py.
+// Adaptive-block alignment of a batch of sequence pairs, global or x-drop,
+// for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// ops/adaptive_kernel.py.
 //
 // Replaces: block_aligner_tpu/ops/adaptive_kernel.py::build_adaptive_engine
-// (its Pallas `kernel`) in global mode without trace: the grow / shrink /
-// checkpoint machine for min_size < max_size <= 256.  It computes the same
-// score and the same step-cap overrun flag, bit for bit; the machine is
-// described in ops/adaptive_kernel.py, whose adaptive_align_plain is the
-// plain PyTorch version of this kernel.
+// (its Pallas `kernel`) without trace, in global and in x-drop mode: the
+// grow / shrink / checkpoint machine for min_size < max_size <= 256.  It
+// computes the same score (x-drop: the best score and its position) and the
+// same step-cap overrun flag, bit for bit; the machine is described in
+// ops/adaptive_kernel.py, whose adaptive_align_plain is the plain PyTorch
+// version of this kernel.
 //
 // What bounds it: integer ALU work (a handful of adds and maxes per DP
 // cell) and, above all, latency: each of a rect's 8 columns per step
@@ -38,6 +40,14 @@
 // * the four checkpoint border planes live in shared memory (4 KB per warp
 //   at S = 256), each lane keeping its own rows, so saves and restores are
 //   conflict-free and cost no registers; registers set occupancy.
+// * x-drop is a template flag, so the global instances keep their code and
+//   registers and the x-drop ones have no freeze.  Row k * 32 + lane has
+//   residue lane % 16 and chunk 2k + lane / 16, so the 16-residue tracker
+//   (running max per residue class, reached last at the highest chunk and
+//   the latest column) is three registers per lane, the same in lanes l and
+//   l ^ 16: each column folds a lane's rows into one key, value * 16 +
+//   chunk, whose max over the lane and its partner (one shuffle) is the
+//   column's max and the highest chunk holding it.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -137,6 +147,12 @@ struct Pair {  // one pair's step-machine state, the same in every lane
   int ckI, ckJ, ckOff, best, yiter, gnm, score;
   bool done, rest;
   int dmax;  // this lane's part of the rect maximum
+  // x-drop: the tracker of residue lane % 16 (running max, chunk origin,
+  // column), the GROW_D half's banked candidate, the best's position and
+  // the count of failing decisions
+  int vm = INT_MIN_, ai = 0, aj = 0;
+  int gdmax = INT_MIN_, gdbi = 0, gdbj = 0;
+  int xbi = 0, xbj = 0, xiter = 0;
 };
 
 struct Ctx {  // what a step reads and never changes
@@ -146,7 +162,7 @@ struct Ctx {  // what a step reads and never changes
   int* tailD;
   int* tailR;
   int* ck[4];  // checkpoint borders by row: column D, C; row D, R
-  int lane, ql, rl, cap, alpha, min_size, gopen, gext, zc;
+  int lane, ql, rl, cap, alpha, min_size, gopen, gext, zc, x;
 };
 
 // Checkpoint save of slots 0 .. NA-1: the column borders (D, C) and row
@@ -165,9 +181,20 @@ __device__ __forceinline__ void save_ckpt(const Ctx& c, const Planes<NS>& p,
   }
 }
 
+// The tracker's best residue: the max over residues (returned), and at the
+// lowest residue holding it the position in the rect's (lane, column) axes.
+__device__ __forceinline__ int tracker_best(const Pair& m, int lane, int& ai,
+                                            int& aj) {
+  const int cm = __reduce_max_sync(FULL, m.vm);
+  const int r = __reduce_min_sync(FULL, m.vm == cm ? (lane & 15) : 16);
+  ai = __shfl_sync(FULL, m.ai, r) + r;
+  aj = __shfl_sync(FULL, m.aj, r);
+  return cm;
+}
+
 // One step (8 columns and the decision after them) of a pair whose block
 // size sz has NA = ceil(sz / 32) slots.
-template <int S, int NA>
+template <int S, int NA, bool XDROP>
 __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
                                          const Ctx& c) {
   const int lane = c.lane;
@@ -268,11 +295,30 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
         c.tailR[w] = R;
       }
     }
-    // freeze: the rect covering (qlen, rlen) reached the last column
-    if (fra && w >= frt) {
-      m.score = m.off + row_value<NA>(p.actD, fridx) - ZERO;
-      m.done = true;
-      return;
+    if constexpr (XDROP) {
+      // rows at or past the height count as NEG, as in the JAX kernel,
+      // whose rows past the slots are NEG too: a column whose max is NEG
+      // ties there at the last chunk
+      int key = INT_MIN_;
+#pragma unroll
+      for (int k = 0; k < NA; ++k)
+        key = max(key, (k * 32 + lane < h ? D[k] : NEG) * 16 + 2 * k +
+                           (lane >> 4));
+      key = max(key, __shfl_xor_sync(FULL, key, 16));
+      const int cmax = key >> 4;
+      if (cmax >= m.vm) {
+        m.vm = cmax;
+        m.ai = ls + 16 * (cmax == NEG && 2 * NA < S / 16 ? S / 16 - 1
+                                                           : key & 15);
+        m.aj = cstart + w;
+      }
+    } else {
+      // freeze: the rect covering (qlen, rlen) reached the last column
+      if (fra && w >= frt) {
+        m.score = m.off + row_value<NA>(p.actD, fridx) - ZERO;
+        m.done = true;
+        return;
+      }
     }
   }
   __syncwarp();  // the step's bottom cells are visible to the warp
@@ -305,6 +351,15 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
     // GROW_D -> GROW_R: the lane axis flips to the query
     swap_planes<NA>(p);
     m.dir = DIR_GR;
+    if constexpr (XDROP) {
+      // bank the GROW_D half's candidate (lanes = reference) and restart
+      // the tracker for GROW_R
+      int ai, aj;
+      m.gdmax = tracker_best(m, lane, ai, aj);
+      m.gdbi = aj;
+      m.gdbj = ai;
+      m.vm = INT_MIN_;
+    }
     return;
   }
   // rect completion: the reference's decision ladder
@@ -331,6 +386,30 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   if (new_best) {
     m.best = off_max;
     ydi = 0;
+  }
+  if constexpr (XDROP) {
+    if (new_best) {
+      // the rect tracker's candidate; a grow takes the GROW_D half's when
+      // it beats the GROW_R half's strictly (reference:
+      // src/scan_block.rs:463-482)
+      int ai, aj;
+      const int cmr = tracker_best(m, lane, ai, aj);
+      const bool use_right = !was_grow || cmr >= m.gdmax;
+      m.xbi = use_right ? (ro ? ai : aj) : m.gdbi;
+      m.xbj = use_right ? (ro ? aj : ai) : m.gdbj;
+    }
+    m.vm = INT_MIN_;
+    m.gdmax = INT_MIN_;
+    // the end: the max fell more than x below the best at two decisions in
+    // a row (X_DROP_ITER = 2), or the rect covers both ends; it pre-empts
+    // this rect's grow, shrink and move (reference: src/scan_block.rs:497-507)
+    const bool xfail = off_max < m.best - c.x;
+    const bool stop = xfail && m.xiter >= 1;
+    m.xiter = xfail ? m.xiter + 1 : 0;
+    if (stop || (m.I + m.sz > c.ql && m.J + m.sz > c.rl)) {
+      m.done = true;
+      return;
+    }
   }
   // forced moves skip both heuristics (src/scan_block.rs:509-516)
   const bool forced_down = m.J + m.sz > c.rl;
@@ -392,14 +471,14 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   m.pdir = shrink ? DIR_GD : d0;
 }
 
-template <int S>
+template <int S, bool XDROP>
 __global__ void __launch_bounds__(WARPS * 32)
 adaptive_align_kernel(const uint8_t* __restrict__ codes,
                       const int* __restrict__ qlen,
                       const int* __restrict__ rlen,
                       const int* __restrict__ table, int* __restrict__ out,
                       int B, int cap, int alpha, int min_size, int max_steps,
-                      int gopen, int gext) {
+                      int gopen, int gext, int xdrop) {
   constexpr int NS = S / 32;  // row slots of the largest block
 
   __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
@@ -418,7 +497,8 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
   const Ctx c{qs, qs + cap, tab, tails[warp][0], tails[warp][1],
               {ckpt[warp][0], ckpt[warp][1], ckpt[warp][2], ckpt[warp][3]},
               lane, qlen[b], rlen[b], cap, alpha, min_size, gopen, gext,
-              gext * ((lane & 7) + 1)};  // the scan's zero correction
+              gext * ((lane & 7) + 1),  // the scan's zero correction
+              xdrop};
 
   Planes<NS> p;
 #pragma unroll
@@ -434,15 +514,22 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
 
   for (int s = 0; s < max_steps && !m.done; ++s) {
     switch ((m.sz + 31) >> 5) {
-      case 1: run_step<S, 1>(m, p, c); break;
-      case 2: if constexpr (NS >= 2) run_step<S, 2>(m, p, c); break;
-      case 4: if constexpr (NS >= 4) run_step<S, 4>(m, p, c); break;
-      default: if constexpr (NS >= 8) run_step<S, 8>(m, p, c); break;
+      case 1: run_step<S, 1, XDROP>(m, p, c); break;
+      case 2: if constexpr (NS >= 2) run_step<S, 2, XDROP>(m, p, c); break;
+      case 4: if constexpr (NS >= 4) run_step<S, 4, XDROP>(m, p, c); break;
+      default: if constexpr (NS >= 8) run_step<S, 8, XDROP>(m, p, c); break;
     }
   }
   if (lane == 0) {
-    out[2 * b] = m.score;
-    out[2 * b + 1] = m.done ? 0 : 1;
+    if constexpr (XDROP) {
+      out[4 * b] = m.best;
+      out[4 * b + 1] = m.xbi;
+      out[4 * b + 2] = m.xbj;
+      out[4 * b + 3] = m.done ? 0 : 1;
+    } else {
+      out[2 * b] = m.score;
+      out[2 * b + 1] = m.done ? 0 : 1;
+    }
   }
 }
 
@@ -450,24 +537,28 @@ template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, int B, int cap, int alpha,
                    int min_size, int max_steps, int gopen, int gext,
-                   cudaStream_t stream) {
+                   int xdrop, cudaStream_t stream) {
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
-  adaptive_align_kernel<S><<<grid, WARPS * 32, 0, stream>>>(
+  auto kernel = xdrop < 0 ? adaptive_align_kernel<S, false>
+                          : adaptive_align_kernel<S, true>;
+  kernel<<<grid, WARPS * 32, 0, stream>>>(
       codes, qlen, rlen, table, out, B, cap, alpha, min_size, max_steps,
-      gopen, gext);
+      gopen, gext, xdrop);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32,
-// out (B, 2) int32 = (score, overrun).  Returns the launch's cudaError_t.
+// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
+// x_drop < 0: global mode, out (B, 2) int32 = (score, overrun); else x-drop
+// with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
+// overrun).  Returns the launch's cudaError_t.
 extern "C" int adaptive_align_launch(const void* codes, const void* qlen,
                                      const void* rlen, const void* table,
                                      void* out, int B, int cap, int alpha,
                                      int min_size, int max_size,
                                      int max_steps, int gopen, int gext,
-                                     void* stream) {
+                                     int x_drop, void* stream) {
   if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA || min_size < 16 ||
       (min_size & (min_size - 1)) || min_size >= max_size)
     return (int)cudaErrorInvalidValue;
@@ -478,10 +569,10 @@ extern "C" int adaptive_align_launch(const void* codes, const void* qlen,
   auto* o = static_cast<int*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (max_size) {
-    case 32: return (int)launch<32>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, st);
-    case 64: return (int)launch<64>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, st);
-    case 128: return (int)launch<128>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, st);
-    case 256: return (int)launch<256>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, st);
+    case 32: return (int)launch<32>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 64: return (int)launch<64>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 128: return (int)launch<128>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 256: return (int)launch<256>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

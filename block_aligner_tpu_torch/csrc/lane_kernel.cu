@@ -1,11 +1,13 @@
-// Fixed-block global alignment of a batch of sequence pairs, for Hopper
-// (sm_90a).  Plain C interface, loaded with ctypes by ops/lane_kernel.py.
+// Fixed-block alignment of a batch of sequence pairs, global or x-drop, for
+// Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// ops/lane_kernel.py.
 //
 // Replaces: block_aligner_tpu/ops/lane_kernel.py::build_lane_engine (its
-// Pallas `kernel`) in global mode without trace.  It computes the same
-// score and the same y-drop suspect flag, bit for bit; the step machine is
-// described in ops/lane_kernel.py, whose lane_align_plain is the plain
-// PyTorch version of this kernel.
+// Pallas `kernel`) without trace, in global and in x-drop mode.  It
+// computes the same score (x-drop: the best score and its position) and
+// the same y-drop suspect flag, bit for bit; the step machine is described
+// in ops/lane_kernel.py, whose lane_align_plain is the plain PyTorch
+// version of this kernel.
 //
 // What bounds it: integer ALU work (a handful of adds and maxes per DP
 // cell) and, above all, latency: each of a pair's 8 columns per step
@@ -26,6 +28,18 @@
 //   packed score stacks and one-hot matrix products;
 // * many warps per SM hide the chain's latency: a warp's registers are
 //   its only state, so occupancy is set by registers alone.
+// X-drop is a template flag, so the global instances keep their code and
+// registers and the x-drop ones have no freeze.  The 16-residue tracker
+// (running max per residue class row % 16, reached last at the highest
+// 16-row chunk and the latest column) is kept per lane: a lane's rows lie
+// in one chunk, so each of its rows keeps its own running max and the
+// latest column that reached it, with no shuffle per column.  At a
+// decision the warp takes the max over lanes, then the latest column among
+// the lanes that reached it, then the highest chunk among those.  That is
+// the per-column rule of the JAX kernel: a running max only grows, so the
+// last column where the whole tracker is raised or reached again is the
+// last column where some lane reached the final max, and the lanes that
+// reached it there are exactly those whose own latest column it is.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -44,6 +58,14 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // only the lower rail is reachable: block maxima are rebased to ZERO
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
+
+// An int the optimizer cannot see through, so that a select among a row
+// array's entries stays a select and is not turned into an indexed copy
+// of the array in local memory.
+__device__ __forceinline__ int opaque(int v) {
+  asm("" : "+r"(v));
+  return v;
+}
 
 // Passive border shift: row r <- row r + 8, rows S-8..S-1 <- tail.
 template <int NL, int RPL>
@@ -73,12 +95,13 @@ __device__ __forceinline__ void shift_tail(int (&x)[RPL], const int* tail,
   }
 }
 
-template <int S>
+template <int S, bool XDROP>
 __global__ void __launch_bounds__(WARPS * 32)
 lane_align_kernel(const uint8_t* __restrict__ codes,
                   const int* __restrict__ qlen, const int* __restrict__ rlen,
                   const int* __restrict__ table, int* __restrict__ out, int B,
-                  int cap, int alpha, int max_steps, int gopen, int gext) {
+                  int cap, int alpha, int max_steps, int gopen, int gext,
+                  int xdrop) {
   constexpr int NL = S < 32 ? S : 32;  // lanes holding block rows
   constexpr int RPL = S / NL;          // rows per lane, contiguous
   constexpr int PRO = S / STEP;        // prologue steps (the initial grow)
@@ -103,11 +126,16 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   const uint8_t* rs = qs + cap;
 
   int actD[RPL], actC[RPL], pasD[RPL], pasR[RPL], zc[RPL];
+  // x-drop tracker of this lane's rows: running max, latest column
+  int vm[RPL], vj[RPL];
 #pragma unroll
   for (int k = 0; k < RPL; ++k) {
     actD[k] = actC[k] = pasD[k] = pasR[k] = 0;
     zc[k] = gext * (((row0 + k) & 7) + 1);  // scan zero correction
+    vm[k] = NEG;
+    vj[k] = 0;
   }
+  int xbest = 0, xbi = 0, xbj = 0, xiter = 0;
 
   int I = 0, J = 0, off = 0, offmax = 0, dir = 2, pdir = 2, corn = NEG;
   int ybest = -(1 << 30), yiter = 0, susp = 0, score = 0;
@@ -191,17 +219,28 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         tailD[w] = D[RPL - 1];
         tailR[w] = T[RPL - 1];
       }
-      // freeze: the block covering (qlen, rlen) reached the last column
-      const int wloc = in_pro ? s * STEP + w : w;
-      if (fra && wloc >= frt) {
-        const int src = fridx / RPL, idx = fridx - src * RPL;
-        int v = D[0];
+      if constexpr (XDROP) {
+        // a row reaching its running max again takes this column
 #pragma unroll
-        for (int k = 1; k < RPL; ++k)
-          if (k == idx) v = D[k];
-        score = off + __shfl_sync(FULL, v, src) - ZERO;
-        done = true;
-        break;
+        for (int k = 0; k < RPL; ++k) {
+          if (D[k] >= vm[k]) {
+            vm[k] = D[k];
+            vj[k] = cpos0 + w;
+          }
+        }
+      } else {
+        // freeze: the block covering (qlen, rlen) reached the last column
+        const int wloc = in_pro ? s * STEP + w : w;
+        if (fra && wloc >= frt) {
+          const int src = fridx / RPL, idx = fridx - src * RPL;
+          int v = D[0];
+#pragma unroll
+          for (int k = 1; k < RPL; ++k)
+            if (k == idx) v = D[k];
+          score = off + __shfl_sync(FULL, v, src) - ZERO;
+          done = true;
+          break;
+        }
       }
     }
     if (done) break;
@@ -230,13 +269,49 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         shift_tail<NL, RPL>(pasD, tailD, lane);
         shift_tail<NL, RPL>(pasR, tailR, lane);
       }
-      const int off_max = off + __reduce_max_sync(FULL, dmax) - ZERO;
+      const int cur = __reduce_max_sync(FULL, dmax);
+      const int off_max = off + cur - ZERO;
       dmax = INT_MIN_;
       offmax = off_max;
       // y-drop stall tracking (reference: src/scan_block.rs:470-487)
       const int y_iter = off_max > ybest ? 0 : yiter + 1;
       ybest = max(ybest, off_max);
       yiter = y_iter;
+      if constexpr (XDROP) {
+        if (off_max > xbest) {
+          // the new best's position: the lowest residue holding the
+          // step's max, then the latest column and the highest chunk
+          // reaching it (reference: src/avx2.rs:269-274)
+          int rlow = 16;
+#pragma unroll
+          for (int k = 0; k < RPL; ++k)
+            if (on && vm[k] == cur) rlow = min(rlow, (row0 + k) & 15);
+          const int r = __reduce_min_sync(FULL, rlow);
+          int col = INT_MIN_;
+#pragma unroll
+          for (int k = 0; k < RPL; ++k)
+            if (on && ((row0 + opaque(k)) & 15) == r && vm[k] == cur)
+              col = vj[k];
+          const int bj = __reduce_max_sync(FULL, col);
+          const int ch = __reduce_max_sync(FULL, col == bj ? row0 >> 4 : -1);
+          const int bi = lstart + 16 * ch + r;
+          xbest = off_max;
+          xbi = dir != 1 ? bi : bj;
+          xbj = dir != 1 ? bj : bi;
+        }
+#pragma unroll
+        for (int k = 0; k < RPL; ++k) vm[k] = NEG;
+        // the end: the max fell more than x below the best at two
+        // decisions in a row (X_DROP_ITER = 2), or the block covers both
+        // ends (reference: src/scan_block.rs:353-404, 434-445)
+        const bool xfail = off_max < xbest - xdrop;
+        const bool stop = xfail && xiter >= 1;
+        xiter = xfail ? xiter + 1 : 0;
+        if (stop || (I + S > ql && J + S > rl)) {
+          done = true;
+          break;
+        }
+      }
       // direction from the first 8 rows of both borders
       int ah = INT_MIN_, ph = INT_MIN_;
 #pragma unroll
@@ -276,30 +351,43 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
     __syncwarp();  // tail cells read before the next step writes them
   }
   if (lane == 0) {
-    out[2 * b] = score;
-    out[2 * b + 1] = susp;
+    if constexpr (XDROP) {
+      out[4 * b] = xbest;
+      out[4 * b + 1] = xbi;
+      out[4 * b + 2] = xbj;
+      out[4 * b + 3] = susp;
+    } else {
+      out[2 * b] = score;
+      out[2 * b + 1] = susp;
+    }
   }
 }
 
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, int B, int cap, int alpha,
-                   int max_steps, int gopen, int gext, cudaStream_t stream) {
+                   int max_steps, int gopen, int gext, int xdrop,
+                   cudaStream_t stream) {
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
-  lane_align_kernel<S><<<grid, WARPS * 32, 0, stream>>>(
-      codes, qlen, rlen, table, out, B, cap, alpha, max_steps, gopen, gext);
+  auto kernel = xdrop < 0 ? lane_align_kernel<S, false>
+                          : lane_align_kernel<S, true>;
+  kernel<<<grid, WARPS * 32, 0, stream>>>(
+      codes, qlen, rlen, table, out, B, cap, alpha, max_steps, gopen, gext,
+      xdrop);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32,
-// out (B, 2) int32 = (score, suspect).  Returns the launch's cudaError_t.
+// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
+// x_drop < 0: global mode, out (B, 2) int32 = (score, suspect); else x-drop
+// with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
+// suspect).  Returns the launch's cudaError_t.
 extern "C" int lane_align_launch(const void* codes, const void* qlen,
                                  const void* rlen, const void* table,
                                  void* out, int B, int cap, int alpha,
                                  int block, int max_steps, int gopen,
-                                 int gext, void* stream) {
+                                 int gext, int x_drop, void* stream) {
   if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA)
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
@@ -309,12 +397,12 @@ extern "C" int lane_align_launch(const void* codes, const void* qlen,
   auto* o = static_cast<int*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (block) {
-    case 16: return (int)launch<16>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
-    case 32: return (int)launch<32>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
-    case 64: return (int)launch<64>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
-    case 128: return (int)launch<128>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
-    case 256: return (int)launch<256>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
-    case 512: return (int)launch<512>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, st);
+    case 16: return (int)launch<16>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 32: return (int)launch<32>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 64: return (int)launch<64>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 128: return (int)launch<128>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 256: return (int)launch<256>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 512: return (int)launch<512>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

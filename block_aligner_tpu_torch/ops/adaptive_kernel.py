@@ -1,10 +1,11 @@
-"""Adaptive-block global alignment of a batch of pairs: the plain PyTorch
-version and the wrapper of the CUDA kernel.
+"""Adaptive-block alignment of a batch of pairs, global or x-drop: the plain
+PyTorch version and the wrapper of the CUDA kernel.
 
 Counterpart of ``block_aligner_tpu/ops/adaptive_kernel.py``:
-``build_adaptive_engine`` in global mode without trace (min_size < max_size
-<= 256).  Both versions here compute what that kernel computes, bit for
-bit: the final score of every pair and whether the pair hit the step cap.
+``build_adaptive_engine`` without trace (min_size < max_size <= 256), in
+global and in x-drop mode.  Both versions here compute what that kernel
+computes, bit for bit: the final score of every pair (x-drop: the best
+score and its position) and whether the pair hit the step cap.
 
 The machine (reference: src/scan_block.rs:101-593).  A pair's state is the
 step machine of ``ops/lane_kernel.py`` (an ACT/PAS border pair, i16 values
@@ -31,6 +32,15 @@ relative to ``ZERO`` plus an i32 offset) with a current block size
 * A pair freezes at the column where its rect covers (qlen, rlen) and
   reaches the last column, never inside GROW_D.
 
+X-drop mode has no freeze.  The lane kernel's 16-residue tracker
+(``ops/lane_kernel.py``) runs over the rows inside the rect height; GROW_D
+banks its candidate and GROW_R restarts the tracker, and a grow rect's new
+best takes the GROW_R position unless the GROW_D one is strictly higher
+(reference: src/scan_block.rs:463-482).  A pair ends at a rect's decision,
+after its checkpoint save and before its grow, shrink or move: when the
+rect maximum falls more than x below the best at two decisions in a row,
+or when the rect covers both ends.
+
 The TPU kernel keeps per-side score stacks that it rebuilds on every
 restore; here every lane re-reads its own code at the rect's lane start, so
 a restore only moves the anchor.  The plain version runs all pairs in
@@ -52,7 +62,7 @@ import torch.nn.functional as F
 
 from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
 from . import _build
-from .lane_kernel import _check
+from .lane_kernel import _check, x_value
 
 __all__ = ["AdaptiveKernelConfig", "adaptive_align_plain", "adaptive_align"]
 
@@ -72,6 +82,7 @@ class AdaptiveKernelConfig:
     max_size: int  # S: block-size cap, a power of two <= 256
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
+    x_drop: bool = False  # x-drop mode; the x value travels in the gaps
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
@@ -107,15 +118,19 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     """Plain PyTorch version: all pairs in lockstep under masks.
 
     Returns a (B, 2) int32 tensor of (score, overrun), overrun 1 where a
-    pair did not finish within ``cfg.max_steps`` steps.  Code positions are
-    clamped to ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel
-    does; ``pack_lane`` output never needs either.  With ``count_cells``
-    it also returns each pair's DP cell count, (B,) int64: the rect height
-    for every column up to and including the freeze column."""
+    pair did not finish within ``cfg.max_steps`` steps, or in x-drop mode
+    (x = ``gaps[2]``) a (B, 4) tensor of (best score, its query position,
+    its reference position, overrun).  Code positions are clamped to
+    ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel does;
+    ``pack_lane`` output never needs either.  With ``count_cells`` it also
+    returns each pair's DP cell count, (B,) int64: the rect height for
+    every column up to and including the freeze column (x-drop: every
+    column of every step up to the one that ends the pair)."""
     S, MIN, A, cap = cfg.max_size, cfg.min_size, cfg.alpha, cfg.seq_cap
     dev = codes.device
     B = codes.shape[0]
     open_, e = int(gaps[0]), int(gaps[1])
+    xd = cfg.x_drop
     i32 = torch.int32
     seqs = codes.long().clamp(max=A - 1)
     tab = table.reshape(-1).to(i32)
@@ -148,6 +163,24 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     rest = torch.zeros(B, dtype=torch.bool, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     cells = torch.zeros(B, dtype=torch.int64, device=dev)
+    if xd:
+        x = int(gaps[2])
+        r16 = torch.arange(16, dtype=i32, device=dev)
+        chunk = torch.arange(S // 16, dtype=i32, device=dev)[:, None]
+        # the tracker (running max, chunk origin, column per residue), the
+        # GROW_D half's banked candidate, the best's position
+        xvm, xai, xaj = full(INT_MIN, (B, 16)), full(0, (B, 16)), full(0, (B, 16))
+        gdmax, gdbi, gdbj = full(INT_MIN), full(0), full(0)
+        xbi, xbj, xiter = full(0), full(0), full(0)
+
+        def tracker_best():
+            """The max over residues, and at the lowest residue holding it
+            the position in the rect's (lane, column) axes."""
+            cm = xvm.amax(1)
+            ridx = torch.where(xvm == cm[:, None], r16, 16).amin(1, True)
+            sel = r16 == ridx
+            return (cm, torch.where(sel, xai + r16, INT_MIN).amax(1),
+                    torch.where(sel, xaj, INT_MIN).amax(1))
     s = 0
     while s < cfg.max_steps and not bool(done.all()):
         # ---- rect step start ----
@@ -217,6 +250,16 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             pasD = torch.where(gm, bot_d, pasD)
             pasR = torch.where(gm, bot_r, pasR)
             cells += torch.where(done, 0, h)
+            if xd:
+                # the lane kernel's tracker over the rows inside the height
+                Dr = torch.where(inrect, D11, NEG).view(B, S // 16, 16)
+                vm = torch.maximum(xvm, Dr.amax(1))
+                hit = torch.where(Dr == vm[:, None], chunk, -1).amax(1)
+                upd = hit >= 0
+                xai = torch.where(upd, ls[:, None] + 16 * hit, xai)
+                xaj = torch.where(upd, (cstart + w)[:, None], xaj)
+                xvm = vm
+                continue
             fr_new = fra & (w >= frt) & ~done
             val = D11.gather(1, col(fridx.long()))[:, 0]
             out = torch.where(fr_new, off + val - ZERO, out)
@@ -245,6 +288,14 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         actD, pasD = torch.where(gd, pasD, actD), torch.where(gd, actD, pasD)
         actC, pasR = torch.where(gd, pasR, actC), torch.where(gd, actC, pasR)
         dirn = torch.where(gd[:, 0], DIR_GR, dirn)
+        if xd:
+            # bank the GROW_D half's candidate (lanes = reference) and
+            # restart the tracker for GROW_R
+            cm, ai, aj = tracker_best()
+            gdmax = torch.where(gd[:, 0], cm, gdmax)
+            gdbi = torch.where(gd[:, 0], aj, gdbi)
+            gdbj = torch.where(gd[:, 0], ai, gdbj)
+            xvm = torch.where(gd, INT_MIN, xvm)
 
         # rect completion: the reference's decision ladder
         # (src/scan_block.rs:439-565)
@@ -276,6 +327,25 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         gnm_ = torch.where(save, 0, gnm_)
         best = torch.where(new_best, off_max, best)
         ydi = torch.where(new_best, 0, ydi)
+        if xd:
+            # a grow's new best takes the GROW_D half's position only when
+            # it is strictly higher (reference: src/scan_block.rs:463-482)
+            cmr, ai, aj = tracker_best()
+            right = ~was_grow | (cmr >= gdmax)
+            xbi = torch.where(new_best, torch.where(
+                right, torch.where(ro, ai, aj), gdbi), xbi)
+            xbj = torch.where(new_best, torch.where(
+                right, torch.where(ro, aj, ai), gdbj), xbj)
+            xvm = torch.where(col(rdone), INT_MIN, xvm)
+            gdmax = torch.where(rdone, INT_MIN, gdmax)
+            # the end, before this rect's grow, shrink or move (reference:
+            # src/scan_block.rs:497-507)
+            xfail = rdone & (off_max < best - x)
+            stop = xfail & (xiter >= 1)
+            xiter = torch.where(xfail, xiter + 1, torch.where(rdone, 0, xiter))
+            stop |= rdone & (I + sz > ql) & (J + sz > rl)
+            done = done | stop
+            rdone = rdone & ~stop
         # forced moves skip both heuristics (reference: src/scan_block.rs:509-516)
         forced_down = rdone & (J + sz > rl)
         forced_right = rdone & ~forced_down & (I + sz > ql)
@@ -330,7 +400,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         actD, pasD = torch.where(swap, pasD, actD), torch.where(swap, actD, pasD)
         actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
         s += 1
-    out = torch.stack([out, (~done).to(i32)], 1)
+    over = (~done).to(i32)
+    out = torch.stack([best, xbi, xbj, over] if xd else [out, over], 1)
     return (out, cells) if count_cells else out
 
 
@@ -338,7 +409,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a library built from
     ``csrc/adaptive_kernel.cu``."""
     lib.adaptive_align_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.adaptive_align_launch.restype = ctypes.c_int
     lib.adaptive_error_string.argtypes = [ctypes.c_int]
     lib.adaptive_error_string.restype = ctypes.c_char_p
@@ -351,11 +422,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
-    """(score, overrun) per pair as a (B, 2) int32 tensor.
+    """(score, overrun) per pair as a (B, 2) int32 tensor; in x-drop mode
+    (best score, query position, reference position, overrun) as (B, 4).
 
     CPU tensors take ``adaptive_align_plain``; CUDA tensors launch the
-    kernel of ``csrc/adaptive_kernel.cu`` on the current stream
-    (``adaptive_align.launches`` counts the launches) or raise."""
+    kernel of ``csrc/adaptive_kernel.cu`` on the current stream or raise.
+    ``adaptive_align.launches`` counts the global-mode launches,
+    ``adaptive_align.xdrop_launches`` the x-drop ones."""
     if codes.device.type == "cpu":
         return adaptive_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -366,7 +439,8 @@ def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
     _check("qlen", qlen, torch.int32, (B,), dev)
     _check("rlen", rlen, torch.int32, (B,), dev)
     _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
-    out = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    out = torch.empty((B, 4 if cfg.x_drop else 2), dtype=torch.int32,
+                      device=dev)
     if B == 0:
         return out
     lib = _lib()
@@ -375,12 +449,16 @@ def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
             table.data_ptr(), out.data_ptr(), B, cfg.seq_cap, cfg.alpha,
             cfg.min_size, cfg.max_size, cfg.max_steps, int(gaps[0]),
-            int(gaps[1]), torch.cuda.current_stream().cuda_stream)
+            int(gaps[1]), x_value(gaps, cfg),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("adaptive kernel launch failed: "
                            f"{lib.adaptive_error_string(err).decode()}")
-    adaptive_align.launches += 1
+    if cfg.x_drop:
+        adaptive_align.xdrop_launches += 1
+    else:
+        adaptive_align.launches += 1
     return out
 
 
-adaptive_align.launches = 0
+adaptive_align.launches = adaptive_align.xdrop_launches = 0

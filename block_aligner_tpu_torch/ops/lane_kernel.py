@@ -1,10 +1,11 @@
-"""Fixed-block global alignment of a batch of pairs: packing, the plain
-PyTorch version, and the wrapper of the CUDA kernel.
+"""Fixed-block alignment of a batch of pairs, global or x-drop: packing, the
+plain PyTorch version, and the wrapper of the CUDA kernel.
 
 Counterpart of ``block_aligner_tpu/ops/lane_kernel.py``: ``build_lane_engine``
-in global mode without trace (min == max block size S, a power of two in
-16..512).  Both versions here compute what that kernel computes, bit for
-bit: the final score and the y-drop "suspect" flag of every pair.
+without trace (min == max block size S, a power of two in 16..512), in global
+and in x-drop mode.  Both versions here compute what that kernel computes,
+bit for bit: the final score (x-drop: the best score and its position) and
+the y-drop "suspect" flag of every pair.
 
 The step machine (reference: src/scan_block.rs:94-595 with min == max).  A
 pair's state is an S-cell block whose active border ACT (D and C values
@@ -26,6 +27,14 @@ the previous step's maximum each step; only the lower i16 rail saturates.
   of the other length, ``off + D - ZERO``.
 * The suspect flag is the reference's y-drop grow trigger: set on a free
   step once the running maximum has not improved for S/8 steps.
+
+X-drop mode (reference: src/scan_block.rs:353-404, 434-445, 1192-1201) has
+no freeze.  A 16-residue tracker keeps, for each residue class row % 16, the
+running maximum since the last decision and where it was last reached (the
+highest 16-row chunk, the latest column).  At each decision a new best
+score takes the position of the lowest residue holding the step's maximum;
+a pair ends when its maximum falls more than x below the best at two
+decisions in a row (X_DROP_ITER = 2), or when the block covers both ends.
 
 The TPU's layout work (pairs in 128 lanes, banks, row splits, packed score
 stacks scored on the MXU, VMEM budgets) does not exist here: the plain
@@ -52,6 +61,7 @@ __all__ = ["LaneKernelConfig", "LanePack", "pack_lane", "lane_align_plain",
            "lane_align"]
 
 NEG = I16_MIN
+INT_MIN = -(1 << 31)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +69,7 @@ class LaneKernelConfig:
     block: int  # S: fixed block size, a power of two in 16..512
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
+    x_drop: bool = False  # x-drop mode; the x value travels in the gaps
 
     def __post_init__(self):
         S = self.block
@@ -82,7 +93,7 @@ class LanePack(NamedTuple):
     qlen: torch.Tensor  # (B,) int32
     rlen: torch.Tensor  # (B,) int32
     table: torch.Tensor  # (alpha, alpha) int32: table[column code, lane code]
-    gaps: tuple  # (open, extend)
+    gaps: tuple  # (open, extend, x): x is read in x-drop mode only
 
 
 def _as_bytes(s) -> bytes:
@@ -116,7 +127,8 @@ def score_table(matrix, alpha: int) -> np.ndarray:
     return M
 
 
-def pack_lane(pairs, matrix, cfg: LaneKernelConfig, gaps, device) -> LanePack:
+def pack_lane(pairs, matrix, cfg: LaneKernelConfig, gaps, device,
+              x_drop: int = 0) -> LanePack:
     """Pack ``(query, reference)`` byte pairs for ``lane_align`` on ``device``.
 
     The sequences travel as one byte buffer; the byte -> code lookup and the
@@ -147,7 +159,8 @@ def pack_lane(pairs, matrix, cfg: LaneKernelConfig, gaps, device) -> LanePack:
     qlen = torch.as_tensor(lens[:n], dtype=torch.int32).to(dev)
     rlen = torch.as_tensor(lens[n:], dtype=torch.int32).to(dev)
     table = torch.as_tensor(score_table(matrix, cfg.alpha)).to(dev)
-    return LanePack(codes, qlen, rlen, table, (int(gaps.open), int(gaps.extend)))
+    return LanePack(codes, qlen, rlen, table,
+                    (int(gaps.open), int(gaps.extend), int(x_drop)))
 
 
 def _sat(x):
@@ -160,16 +173,20 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
                      count_cells: bool = False):
     """Plain PyTorch version: all pairs in lockstep under masks.
 
-    Returns a (B, 2) int32 tensor of (score, suspect).  Code positions are
-    clamped to ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel
-    does; ``pack_lane`` output never needs either.  With ``count_cells``
-    it also returns each pair's DP cell count, (B,) int64: S cells for
-    every column up to and including the freeze column."""
+    Returns a (B, 2) int32 tensor of (score, suspect), or in x-drop mode
+    (x = ``gaps[2]``) a (B, 4) tensor of (best score, its query position,
+    its reference position, suspect).  Code positions are clamped to
+    ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel does;
+    ``pack_lane`` output never needs either.  With ``count_cells`` it also
+    returns each pair's DP cell count, (B,) int64: S cells for every column
+    up to and including the freeze column (x-drop: every column of every
+    step up to the one that ends the pair)."""
     S, A, cap = cfg.block, cfg.alpha, cfg.seq_cap
     PRO = S // STEP
     dev = codes.device
     B = codes.shape[0]
     open_, e = int(gaps[0]), int(gaps[1])
+    xd = cfg.x_drop
     i32 = torch.int32
     seqs = codes.long().clamp(max=A - 1)
     tab = table.reshape(-1).to(i32)
@@ -194,6 +211,13 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
     # freeze predicate of the current rect, prologue values (lanes = query)
     fra, frt, fridx = S > ql, rl.clone(), ql.clamp(0, S - 1)
     oa = full(0)
+    if xd:
+        x = int(gaps[2])
+        r16 = torch.arange(16, dtype=i32, device=dev)
+        chunk = torch.arange(S // 16, dtype=i32, device=dev)[:, None]
+        # the tracker: running max, chunk origin and column per residue
+        xvm, xai, xaj = full(NEG, (B, 16)), full(0, (B, 16)), full(0, (B, 16))
+        xbest, xbi, xbj, xiter = (full(0) for _ in range(4))
     s = 0
     while s < cfg.max_steps and not bool(done.all()):
         in_pro = s < PRO
@@ -247,8 +271,20 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
             else:
                 tempD[:, w] = D11[:, -1]
                 tempR[:, w] = R11[:, -1]
-            wloc = s * STEP + w if in_pro else w
             cells += torch.where(done, 0, S)
+            if xd:
+                # a residue's max is reached again or raised: the highest
+                # chunk holding it, at this column (reference:
+                # src/scan_block.rs:1192-1201)
+                Dr = D11.view(B, S // 16, 16)
+                vm = torch.maximum(xvm, Dr.amax(1))
+                hit = torch.where(Dr == vm[:, None], chunk, -1).amax(1)
+                upd = hit >= 0
+                xai = torch.where(upd, starti[:, None] + 16 * hit, xai)
+                xaj = torch.where(upd, (colpos0 + w)[:, None], xaj)
+                xvm = vm
+                continue
+            wloc = s * STEP + w if in_pro else w
             fr_new = fra & (wloc >= frt) & ~done
             val = D11.gather(1, fridx.long()[:, None])[:, 0]
             out = torch.where(fr_new, off + val - ZERO, out)
@@ -262,14 +298,35 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
                 corn = torch.where(active, pd[:, STEP - 1], corn)
                 pasD = torch.cat([pd[:, STEP:], tempD], 1)
                 pasR = torch.cat([pr[:, STEP:], tempR], 1)
-            off_max = off + dmax - ZERO
+            cur, dmax = dmax, full(NEG)
+            off_max = off + cur - ZERO
             offmax = torch.where(active, off_max, offmax)
-            dmax = full(NEG)
             # y-drop stall tracking (reference: src/scan_block.rs:470-487)
             improved = active & (off_max > ybest)
             y_iter = torch.where(improved, 0, yiter + 1)
             ybest = torch.where(improved, off_max, ybest)
             yiter = torch.where(active, y_iter, yiter)
+            if xd:
+                # a new best takes the position of the lowest residue
+                # holding the step's max (reference: src/avx2.rs:269-274)
+                ridx = torch.where(xvm == cur[:, None], r16, 16).amin(1, True)
+                sel = r16 == ridx
+                ai = torch.where(sel, xai + r16, INT_MIN).amax(1)
+                aj = torch.where(sel, xaj, INT_MIN).amax(1)
+                rx = dirn != 1
+                improved = active & (off_max > xbest)
+                xbest = torch.where(improved, off_max, xbest)
+                xbi = torch.where(improved, torch.where(rx, ai, aj), xbi)
+                xbj = torch.where(improved, torch.where(rx, aj, ai), xbj)
+                xvm = full(NEG, (B, 16))  # the chunk origins and columns stay
+                # the end: two failing decisions in a row, or both ends
+                # covered (reference: src/scan_block.rs:353-404, 434-445)
+                xfail = active & (off_max < xbest - x)
+                stop = xfail & (xiter >= 1)
+                xiter = torch.where(xfail, xiter + 1, torch.where(active, 0, xiter))
+                stop |= active & (I + S > ql) & (J + S > rl)
+                done = done | stop
+                active = ~done
             # direction (reference: src/scan_block.rs:447-462, 551-558)
             right_now = dirn != 1
             a8, p8 = actD[:, :STEP].amax(1), pasD[:, :STEP].amax(1)
@@ -290,7 +347,7 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
             actD, pasD = torch.where(swap, pasD, actD), torch.where(swap, actD, pasD)
             actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
         s += 1
-    out = torch.stack([out, susp], 1)
+    out = torch.stack([xbest, xbi, xbj, susp] if xd else [out, susp], 1)
     return (out, cells) if count_cells else out
 
 
@@ -298,7 +355,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a library built from
     ``csrc/lane_kernel.cu``."""
     lib.lane_align_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.lane_align_launch.restype = ctypes.c_int
     lib.lane_error_string.argtypes = [ctypes.c_int]
     lib.lane_error_string.restype = ctypes.c_char_p
@@ -308,6 +365,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return bind(_build.load("lane_kernel"))
+
+
+def x_value(gaps, cfg) -> int:
+    """The kernels' ``x_drop`` argument: x in x-drop mode, -1 in global."""
+    if not cfg.x_drop:
+        return -1
+    if int(gaps[2]) < 0:
+        raise ValueError(f"x_drop must be >= 0, got {gaps[2]}")
+    return int(gaps[2])
 
 
 def _check(name, t, dtype, shape, device):
@@ -322,11 +388,13 @@ def _check(name, t, dtype, shape, device):
 
 
 def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
-    """(score, suspect) per pair as a (B, 2) int32 tensor.
+    """(score, suspect) per pair as a (B, 2) int32 tensor; in x-drop mode
+    (best score, query position, reference position, suspect) as (B, 4).
 
     CPU tensors take ``lane_align_plain``; CUDA tensors launch the kernel of
-    ``csrc/lane_kernel.cu`` on the current stream (``lane_align.launches``
-    counts the launches) or raise."""
+    ``csrc/lane_kernel.cu`` on the current stream or raise.
+    ``lane_align.launches`` counts the global-mode launches,
+    ``lane_align.xdrop_launches`` the x-drop ones."""
     if codes.device.type == "cpu":
         return lane_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -337,7 +405,8 @@ def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
     _check("qlen", qlen, torch.int32, (B,), dev)
     _check("rlen", rlen, torch.int32, (B,), dev)
     _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
-    out = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    out = torch.empty((B, 4 if cfg.x_drop else 2), dtype=torch.int32,
+                      device=dev)
     if B == 0:
         return out
     lib = _lib()
@@ -346,12 +415,15 @@ def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
             table.data_ptr(), out.data_ptr(), B, cfg.seq_cap, cfg.alpha,
             cfg.block, cfg.max_steps, int(gaps[0]), int(gaps[1]),
-            torch.cuda.current_stream().cuda_stream)
+            x_value(gaps, cfg), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"lane kernel launch failed: {lib.lane_error_string(err).decode()}")
-    lane_align.launches += 1
+    if cfg.x_drop:
+        lane_align.xdrop_launches += 1
+    else:
+        lane_align.launches += 1
     return out
 
 
-lane_align.launches = 0
+lane_align.launches = lane_align.xdrop_launches = 0

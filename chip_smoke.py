@@ -7,18 +7,22 @@ Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``
-   into ``build/`` (keyed on the sources), one ``nvcc`` each, both started
-   together, and load them;
+   into ``build/`` (keyed on the sources), one ``nvcc`` each, and beside
+   them one ``nvcc -Xptxas -v`` each for the registers, stack and spills
+   of every kernel instance, all four started together; load the builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
    on the card, exact equality of score and suspect flag at blocks 16..512
    on seeded random protein and DNA pairs, and the reference's golden
-   scores;
+   scores; then in x-drop mode (protein x 50, DNA x 100), equality of all
+   four outputs (best score, its position, suspect), with the count of
+   pairs whose best lies short of (qlen, rlen);
 4. adaptive kernel vs plain: the adaptive kernel against its plain version,
    exact equality of score and overrun flag at ladders (16, 32) .. (64,
    256) on seeded protein and DNA pairs (lengths 0..600, half of them
    with structural indels), once more with a step cap low
    enough to overrun, and pinned adaptive scores that
    ``tests/test_torch_adaptive_kernel.py`` holds against ``BlockOracle``;
+   then the same ladders and a capped run in x-drop mode, as in phase 3;
 5. lane main path: 16384 random protein pairs 1000x1000 with k=100
    mutations (``bench.rand_protein_pairs``, seed 1234), BLOSUM62, gaps
    -11/-1, block 32, through ``BatchAligner.stage`` + ``align_staged`` and
@@ -30,7 +34,19 @@ Phases, each reported on its own line:
 7. ``align_exp_all`` at (32, 256) on 1024 of those homolog pairs, with the
    256-256 lane score as the target (and 8 unreachable targets, so the last
    level runs): every result must equal a direct ``BatchAligner`` run at the
-   min size it reports.
+   min size it reports;
+8. lane x-drop main path: the JAX package's x-drop workload
+   (``examples_tpu/run_results.py::bench_xdrop``): 8192 protein pairs of
+   800..999 residues with len/10 substitutions (seed 7), BLOSUM62 -11/-1,
+   x_drop 50, size (32, 32), seq_cap 1100, through ``stage`` +
+   ``align_staged`` and ``align_all``;
+9. adaptive x-drop main path: the reference's ``x_drop_accuracy``
+   configuration (``examples_tpu/x_drop_accuracy.py``): 8192 DNA pairs of
+   300 bases with 30 edits (seed 1234), ``NucMatrix.new_simple(1, -1)``,
+   gaps -2/-1, x_drop 50, size (32, 64); and the default size (32, 256)
+   with x_drop 50 on the 7000 homolog pairs of phase 6;
+10. ``align_exp_all`` with x_drop 50 at (32, 256) on the 1024 pairs of
+   phase 7, the target the x-drop 256-256 lane score, checked as there.
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal
@@ -45,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -125,6 +142,9 @@ GOLDEN_ADAPTIVE = [
 HBM_BYTES_PER_S = 3.35e12
 INT32_PER_SM_CLOCK = 64
 OPS_PER_CELL = 12
+# x-drop adds the 16-residue tracker: the cell's max into its residue's
+# running max, and the compare that says whether the cell reached it
+OPS_PER_CELL_XDROP = OPS_PER_CELL + 2
 
 
 def random_pairs(rng, alphabet, n, max_len):
@@ -143,6 +163,22 @@ def random_pairs(rng, alphabet, n, max_len):
             r = np.insert(r, rng.integers(0, len(r) + 1, size=k // 4),
                           rng.choice(alphabet, size=k // 4))[:max_len]
         pairs.append((q.tobytes(), r.tobytes()))
+    return pairs
+
+
+def xdrop_protein_pairs(rng, n):
+    """The JAX package's x-drop workload (examples_tpu/run_results.py::
+    bench_xdrop, seed 7 there): protein pairs of 800..999 residues, the
+    reference a copy of the query with len/10 random substitutions."""
+    aa = list(b"ACDEFGHIKLMNPQRSTVWY")
+    pairs = []
+    for _ in range(n):
+        k = int(rng.integers(800, 1000))
+        q = bytes(rng.choice(aa, size=k).tolist())
+        r = bytearray(q)
+        for _ in range(k // 10):
+            r[int(rng.integers(0, len(r)))] = int(rng.choice(aa))
+        pairs.append((q, bytes(r)))
     return pairs
 
 
@@ -166,12 +202,52 @@ def structural_pairs(rng, alphabet, n, max_len):
     return pairs
 
 
+def x_dropped(out, staged):
+    """How many pairs of an x-drop run ended short of (qlen, rlen): their
+    best position lies before the end of the query or the reference."""
+    ends = (out[:, 1].cpu() < staged.qlen.cpu()) | (out[:, 2].cpu()
+                                                     < staged.rlen.cpu())
+    return int(ends.sum())
+
+
 def with_step_cap(cfg, steps):
     """``cfg`` with its step cap lowered to ``steps``."""
     class Capped(type(cfg)):
         max_steps = steps
 
-    return Capped(cfg.min_size, cfg.max_size, cfg.seq_cap, cfg.alpha)
+    return Capped(cfg.min_size, cfg.max_size, cfg.seq_cap, cfg.alpha,
+                  cfg.x_drop)
+
+
+def ptxas_report(_build, name):
+    """One line per kernel instance of ``csrc/<name>.cu``: its registers,
+    stack frame and spills as ``nvcc -Xptxas -v`` reports them with the
+    build's flags (compiled to a cubin under ``build/``)."""
+    flags = [f for f in _build.FLAGS if f not in ("-shared", "-Xcompiler",
+                                                  "-fPIC")]
+    _build.BUILD.mkdir(exist_ok=True)
+    proc = subprocess.run(
+        [_build.nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+         str(_build.BUILD / f"{name}.cubin"), str(_build.CSRC / f"{name}.cu")],
+        capture_output=True, text=True, check=True)
+    lines, fn, frame = [], None, ""
+    for line in proc.stderr.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                      r"ILi(\d+)ELb([01])E", line)
+        if m:
+            fn = f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}>"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"{m[1]} bytes stack, {m[2]} bytes spill stores, {m[3]} "
+                     "bytes spill loads")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            lines.append(f"{fn}: {m[1]} registers, {frame}")
+            fn = None
+    if not lines:
+        raise AssertionError(f"no ptxas report for {name}:\n{proc.stderr}")
+    return lines
 
 
 def cuda_ms(fn, reps):
@@ -201,16 +277,35 @@ def host_ms(fn):
     return got, (time.perf_counter() - t0) * 1e3
 
 
-def bound(staged, cells, int32_per_s):
+def bound(staged, cells, int32_per_s, x_drop=False):
     """(bound_ms, bound_by) for one launch on ``staged``: each input read
-    once and the (B, 2) int32 output written once, against the DP cells
-    the pairs need."""
+    once and the int32 output, (B, 2) or in x-drop mode (B, 4), written
+    once, against the DP cells the pairs need."""
     nbytes = (staged.codes.numel() + 4 * (staged.qlen.numel()
               + staged.rlen.numel() + staged.table.numel())
-              + 8 * staged.codes.shape[0])
+              + (16 if x_drop else 8) * staged.codes.shape[0])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = int(cells.sum()) * OPS_PER_CELL / int32_per_s * 1e3
+    ops = OPS_PER_CELL_XDROP if x_drop else OPS_PER_CELL
+    t_ops = int(cells.sum()) * ops / int32_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_launches(lk, ak):
+    lk.lane_align.launches = lk.lane_align.xdrop_launches = 0
+    ak.adaptive_align.launches = ak.adaptive_align.xdrop_launches = 0
+
+
+def expect_launches(lk, ak, what, *launched):
+    """The launch counts by kernel instance since ``reset_launches``; fails
+    unless exactly the instances named in ``launched`` ran."""
+    counts = {"lane_align": lk.lane_align.launches,
+              "adaptive_align": ak.adaptive_align.launches,
+              "lane_align_xdrop": lk.lane_align.xdrop_launches,
+              "adaptive_align_xdrop": ak.adaptive_align.xdrop_launches}
+    if any((counts[k] > 0) != (k in launched) for k in counts):
+        raise AssertionError(f"{what}: launches {counts}, expected only "
+                             f"{launched}")
+    return counts
 
 
 def check_equal(got, want, what):
@@ -249,7 +344,7 @@ def main():
     from block_aligner_tpu_torch.ops import _build
     from block_aligner_tpu_torch.ops import adaptive_kernel as ak
     from block_aligner_tpu_torch.ops import lane_kernel as lk
-    from examples_tpu.common import load_uc_pairs
+    from examples_tpu.common import load_uc_pairs, rand_mutate, rand_seq
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -270,15 +365,20 @@ def main():
     print(card)
     dev = torch.device("cuda")
 
-    # 2. build: one nvcc per source, started together
+    # 2. build: one nvcc per source, and one per source for ptxas's
+    # report, all started together
     t0 = time.perf_counter()
     names = ("lane_kernel", "adaptive_kernel")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(2 * len(names)) as pool:
+        reports = [pool.submit(ptxas_report, _build, n) for n in names]
         paths = list(pool.map(_build.build, names))
+        reports = [line for r in reports for line in r.result()]
     lk._lib()
     ak._lib()
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in reports:
+        print(f"[ptxas] {line}")
 
     # 3. lane kernel vs plain version on the card (these launches are not
     # a main path's and are not counted)
@@ -336,22 +436,74 @@ def main():
     n_gold = check_goldens(GOLDEN_ADAPTIVE, BatchAligner, Gaps, scores, dev)
     print(f"[adaptive-golden] {n_gold} pinned adaptive scores equal")
 
+    # 3-4, x-drop: both kernels' x-drop instances vs their plain versions
+    xsetups = ((scores.BLOSUM62, Gaps(-11, -1), AA, 50),
+               (scores.NW1, Gaps(-2, -1), DNA, 100))
+    checked = dropped = 0
+    for S in (16, 32, 64, 256, 512):
+        for matrix, gaps, alphabet, x in xsetups:
+            pairs = random_pairs(rng, alphabet, 192, 600)
+            cfg = lk.LaneKernelConfig(
+                S, -(-(1 + 600 + S + 16) // 128) * 128,
+                32 if matrix.kind == "aa" else 16, x_drop=True)
+            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
+            got = lk.lane_align(*pk, cfg)
+            torch.cuda.synchronize()
+            check_equal(got, lk.lane_align_plain(*pk, cfg),
+                        f"x-drop at S={S} {matrix.kind}")
+            checked += len(pairs)
+            dropped += x_dropped(got, pk)
+    if not dropped:
+        raise AssertionError("no lane x-drop pair ended short of its ends")
+    print(f"[lane-xdrop-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
+          "(protein x 50 and DNA x 100, lengths 0..600): best, position and "
+          f"suspect equal; {dropped} best positions short of (qlen, rlen)")
+
+    checked = dropped = 0
+    for lo, hi in ladders:
+        for matrix, gaps, alphabet, x in xsetups:
+            pairs = structural_pairs(rng, alphabet, 192, 600)
+            cfg = ak.AdaptiveKernelConfig(
+                lo, hi, -(-(1 + 600 + hi + 16) // 128) * 128,
+                32 if matrix.kind == "aa" else 16, x_drop=True)
+            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
+            got = ak.adaptive_align(*pk, cfg)
+            torch.cuda.synchronize()
+            check_equal(got, ak.adaptive_align_plain(*pk, cfg),
+                        f"x-drop at ({lo}, {hi}) {matrix.kind}")
+            checked += len(pairs)
+            dropped += x_dropped(got, pk)
+    if not dropped:
+        raise AssertionError("no adaptive x-drop pair ended short of its ends")
+    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768, x_drop=True), 25)
+    pk = lk.pack_lane(structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
+                      cfg, Gaps(-11, -1), dev, x_drop=50)
+    got = ak.adaptive_align(*pk, cfg)
+    torch.cuda.synchronize()
+    check_equal(got, ak.adaptive_align_plain(*pk, cfg), "x-drop, 25 steps")
+    overran = int(got[:, 3].sum())
+    if not 0 < overran < len(got):
+        raise AssertionError(f"{overran} of {len(got)} x-drop pairs overran "
+                             "25 steps")
+    print(f"[adaptive-xdrop-vs-plain] {checked} pairs at ladders "
+          f"{', '.join(map(str, ladders))} (protein x 50 and DNA x 100, "
+          "lengths 0..600, structural indels): best, position and overrun "
+          f"equal; {dropped} best positions short of (qlen, rlen); with a "
+          f"25-step cap on {len(got)} pairs, {overran} of which overran")
+
     # 5. the lane main path
     pairs = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
     more = rand_protein_pairs(np.random.default_rng(1235), 16384, 1000, 100)
     al = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
                       batch=16384, seq_cap=1024, device=dev)
     torch.cuda.synchronize()
-    lk.lane_align.launches = ak.adaptive_align.launches = 0
+    reset_launches(lk, ak)
     staged, pack_ms = host_ms(lambda: al.stage(pairs))
     res, run_ms = host_ms(lambda: al.align_staged(staged))
     suspect = al.last_suspect.copy()
     res_all = al.align_all(pairs + more)
-    lane_launches = lk.lane_align.launches
-    if lane_launches < 1 or ak.adaptive_align.launches:
-        raise AssertionError(
-            f"lane main path: {lane_launches} lane and "
-            f"{ak.adaptive_align.launches} adaptive launches")
+    lane_launches = expect_launches(lk, ak, "lane main path",
+                                    "lane_align")["lane_align"]
     for k, (q, r) in enumerate(pairs):
         if (res[k].query_idx, res[k].reference_idx) != (len(q), len(r)):
             raise AssertionError(f"pair {k}: end {res[k]} != ({len(q)}, {len(r)})")
@@ -412,7 +564,7 @@ def main():
     if ucal.route != "adaptive" or lral.route != "adaptive":
         raise AssertionError("(32, 256) did not take the adaptive route")
     torch.cuda.synchronize()
-    lk.lane_align.launches = ak.adaptive_align.launches = 0
+    reset_launches(lk, ak)
     runs = []
     for al, work, what in ((ucal, uc, "uc30 homologs 50-256 + indels"),
                            (lral, lrand, "random 1000x1000 k=100")):
@@ -420,10 +572,8 @@ def main():
         res, run_ms = host_ms(lambda: al.align_staged(staged))
         res_all = al.align_all(work)
         runs.append((al, work, what, staged, res, pack_ms, run_ms, res_all))
-    ad_launches = ak.adaptive_align.launches
-    if ad_launches < 1 or lk.lane_align.launches:
-        raise AssertionError(f"adaptive main path: {ad_launches} adaptive and "
-                             f"{lk.lane_align.launches} lane launches")
+    ad_launches = expect_launches(lk, ak, "adaptive main path",
+                                  "adaptive_align")["adaptive_align"]
     ad_err = 0
     for al, work, what, staged, res, pack_ms, run_ms, res_all in runs:
         B = len(work)
@@ -471,32 +621,136 @@ def main():
     for k in range(8):
         targets[k] = 1 << 30  # never reached: these pairs run every level
     torch.cuda.synchronize()
-    lk.lane_align.launches = ak.adaptive_align.launches = 0
+    reset_launches(lk, ak)
     exp_res, exp_min = align_exp_all(scores.BLOSUM62, Gaps(-11, -1), exp_pairs,
                                      targets, (32, 256), batch=1024,
                                      seq_cap=512, device=dev)
-    exp_launches = (lk.lane_align.launches, ak.adaptive_align.launches)
-    if min(exp_launches) < 1:
-        raise AssertionError(f"align_exp_all launches (lane, adaptive) "
-                             f"{exp_launches}")
-    settled = {}
-    for m in (32, 64, 128, 256, None):
-        idx = [k for k in range(len(exp_pairs)) if exp_min[k] == m]
-        settled[m] = len(idx)
-        if not idx:
-            continue
-        direct = BatchAligner(scores.BLOSUM62, Gaps(-11, -1),
-                              size=(m or 256, 256), batch=1024, seq_cap=512,
-                              device=dev).align_all([exp_pairs[k] for k in idx])
-        for k, d in zip(idx, direct):
-            if exp_res[k] != d or (m is None) != (d.score < targets[k]):
-                raise AssertionError(f"align_exp_all pair {k} (min size {m}): "
-                                     f"{exp_res[k]} vs direct {d}, target "
-                                     f"{targets[k]}")
+    counts = expect_launches(lk, ak, "align_exp_all", "lane_align",
+                             "adaptive_align")
+    exp_launches = (counts["lane_align"], counts["adaptive_align"])
+
+    def check_exp_all(res, mins, targets, x_drop=None):
+        """Every result equals a direct BatchAligner run at the min size it
+        reports (None: the last level, 256); returns the count per size."""
+        settled = {}
+        for m in (32, 64, 128, 256, None):
+            idx = [k for k in range(len(exp_pairs)) if mins[k] == m]
+            settled[m] = len(idx)
+            if not idx:
+                continue
+            direct = BatchAligner(
+                scores.BLOSUM62, Gaps(-11, -1), size=(m or 256, 256),
+                batch=1024, seq_cap=512, x_drop=x_drop,
+                device=dev).align_all([exp_pairs[k] for k in idx])
+            for k, d in zip(idx, direct):
+                if res[k] != d or (m is None) != (d.score < targets[k]):
+                    raise AssertionError(
+                        f"align_exp_all pair {k} (min size {m}, x_drop "
+                        f"{x_drop}): {res[k]} vs direct {d}, target "
+                        f"{targets[k]}")
+        return settled
+
+    settled = check_exp_all(exp_res, exp_min, targets)
     print(f"[align_exp_all] {len(exp_pairs)} uc30 pairs at (32, 256), target "
           f"the 256-256 lane score: settled per min size {settled}; every "
           f"result equals a direct BatchAligner run at its size; launches "
           f"(lane, adaptive) {exp_launches}")
+
+    def xdrop_path(al, work, what, name, plain_fn, kernel_fn):
+        """Drive an x-drop main path (stage + align_staged, then align_all)
+        with the launch counts reset just before it and read just after,
+        hold every result against the plain version on the card, and time
+        it; returns the path's numbers for the kernels line."""
+        torch.cuda.synchronize()
+        reset_launches(lk, ak)
+        staged, pack_ms = host_ms(lambda: al.stage(work))
+        res, run_ms = host_ms(lambda: al.align_staged(staged))
+        flags = None if al.last_suspect is None else al.last_suspect.copy()
+        res_all = al.align_all(work)
+        launches = expect_launches(lk, ak, what, name)[name]
+        if res_all != res:
+            raise AssertionError(f"{what}: align_all disagrees with stage + "
+                                 "align_staged")
+        if flags is not None and not np.array_equal(al.last_suspect, flags):
+            raise AssertionError(f"{what}: align_all suspect flags disagree")
+        (want, cells), plain_ms = host_ms(
+            lambda: plain_fn(*staged, al.cfg, count_cells=True))
+        last = np.zeros(len(res), np.int32) if flags is None else flags
+        got = torch.from_numpy(np.column_stack(
+            [[(r.score, r.query_idx, r.reference_idx) for r in res], last])
+            .astype(np.int32))
+        err = int((got - want.cpu()).abs().max())
+        if err:
+            raise AssertionError(f"{what}: differs from the plain version: max "
+                                 f"abs err {err}")
+        kernel_ms = cuda_ms(lambda: kernel_fn(*staged, al.cfg), 10)
+        bnd, by = bound(staged, cells, int32_per_s, x_drop=True)
+        B, n_cells = len(work), int(cells.sum())
+        sc = got[:, 0].numpy()
+        print(f"[{name}-main] {B} pairs, {what}: stage+align_staged and "
+              f"align_all agree and equal the plain version; {name} launches "
+              f"{launches}; scores {sc.min()}..{sc.max()} (mean "
+              f"{sc.mean():.1f}); best short of (qlen, rlen) in "
+              f"{x_dropped(want, staged)}; {n_cells} DP cells, "
+              f"{n_cells / B:.0f} per pair" + (
+                  "" if flags is None else f"; suspect {int(flags.sum())}"))
+        print(f"[time] {card}: {name}, {what}: kernel "
+              f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
+              f"launch of {B} pairs, CUDA events, mean of 10); bound "
+              f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
+              f"align_staged {run_ms * 1e3 / B:.4f} us/pair; plain "
+              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
+        return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+    # 8. the lane x-drop main path
+    xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
+                       batch=8192, seq_cap=1100, x_drop=50, device=dev)
+    lane_x = xdrop_path(
+        xal, xdrop_protein_pairs(np.random.default_rng(7), 8192),
+        "protein 800..999 with len/10 substitutions, BLOSUM62 -11/-1, "
+        "x_drop 50, (32, 32)", "lane_align_xdrop", lk.lane_align_plain,
+        lk.lane_align)
+
+    # 9. the adaptive x-drop main path: x_drop_accuracy's configuration,
+    # then the default size on the homolog pairs
+    drng = np.random.default_rng(1234)
+    dna = []
+    for _ in range(8192):
+        q = rand_seq(drng, b"ACGT", 300)
+        dna.append((q, rand_mutate(drng, q, 30, b"ACGT")))
+    xal = BatchAligner(scores.NucMatrix.new_simple(1, -1), Gaps(-2, -1),
+                       size=(32, 64), batch=8192, seq_cap=300 + 300 // 8 + 32,
+                       x_drop=50, device=dev)
+    ad_x = xdrop_path(
+        xal, dna, "DNA 300 with 30 edits, NucMatrix(1, -1) -2/-1, x_drop 50, "
+        "(32, 64)", "adaptive_align_xdrop", ak.adaptive_align_plain,
+        ak.adaptive_align)
+    xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
+                       batch=len(uc), seq_cap=512, x_drop=50, device=dev)
+    xdrop_path(xal, uc, "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, "
+               "x_drop 50, (32, 256)", "adaptive_align_xdrop",
+               ak.adaptive_align_plain, ak.adaptive_align)
+
+    # 10. align_exp_all with x-drop on the pairs of phase 7
+    fixed = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(256, 256),
+                         batch=1024, seq_cap=512, x_drop=50, device=dev)
+    targets = [x.score for x in fixed.align_all(exp_pairs)]
+    for k in range(8):
+        targets[k] = 1 << 30  # never reached: these pairs run every level
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    exp_res, exp_min = align_exp_all(scores.BLOSUM62, Gaps(-11, -1), exp_pairs,
+                                     targets, (32, 256), x_drop=50,
+                                     batch=1024, seq_cap=512, device=dev)
+    counts = expect_launches(lk, ak, "align_exp_all x-drop",
+                             "lane_align_xdrop", "adaptive_align_xdrop")
+    settled = check_exp_all(exp_res, exp_min, targets, x_drop=50)
+    print(f"[align_exp_all-xdrop] {len(exp_pairs)} uc30 pairs at (32, 256), "
+          f"x_drop 50, target the x-drop 256-256 lane score: settled per min "
+          f"size {settled}; every result equals a direct BatchAligner(x_drop"
+          f"=50) run at its size; launches (lane, adaptive) "
+          f"{(counts['lane_align_xdrop'], counts['adaptive_align_xdrop'])}")
 
     print(json.dumps({"kernels": [
         {
@@ -523,6 +777,22 @@ def main():
             "plain_ms": ad_plain_ms,
             "bound_ms": ad_bound,
             "bound_by": ad_by,
+            "library_ms": None,
+        },
+        {
+            "name": "lane_align_xdrop",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/lane_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/lane_kernel.py:957",
+            **lane_x,
+            "library_ms": None,
+        },
+        {
+            "name": "adaptive_align_xdrop",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/adaptive_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/adaptive_kernel.py:788",
+            **ad_x,
             "library_ms": None,
         },
     ]}))

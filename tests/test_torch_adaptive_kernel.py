@@ -209,12 +209,12 @@ def test_wrapper_raises_off_the_cpu_and_card():
 
 def test_kernel_entry_point_matches_binding():
     """The C signature and the ctypes argument list agree (the binding
-    passes 5 pointers, 8 ints and the stream)."""
+    passes 5 pointers, 9 ints and the stream)."""
     src = (_build.CSRC / "adaptive_kernel.cu").read_text()
     sig = re.search(r'extern "C" int adaptive_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 5 + [False] * 8 + [True]
+        [True] * 5 + [False] * 9 + [True]
     assert _build.library_path("adaptive_kernel").name.startswith(
         "libadaptive_kernel-")
 

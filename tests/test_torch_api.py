@@ -120,17 +120,17 @@ def test_pick_route_matches_jax(args):
 
 @pytest.mark.parametrize("kwargs", [
     dict(size=(64, 1024)), dict(seq_cap=20000),
-    dict(trace=True), dict(x_drop=50), dict(local_start=True),
+    dict(trace=True), dict(local_start=True),
     dict(free_query_start_gaps=True), dict(free_query_end_gaps=True),
     dict(matrix=tba.BYTES1), dict(mesh=object()),
     dict(use_lane_kernel=False),
-    dict(size=(32, 256), x_drop=50), dict(size=(32, 256), trace=True),
+    dict(size=(32, 256), trace=True),
     dict(size=(32, 256), local_start=True),
     dict(size=(16, 64), free_query_end_gaps=True),
     dict(size=(32, 256), matrix=tba.BYTES1),
-], ids=["big", "long_lane", "trace", "x_drop", "local_start",
+], ids=["big", "long_lane", "trace", "local_start",
         "free_start", "free_end", "byte", "mesh", "engine",
-        "adaptive_x_drop", "adaptive_trace", "adaptive_local_start",
+        "adaptive_trace", "adaptive_local_start",
         "adaptive_free_end", "adaptive_byte"])
 def test_unported_configurations_raise(kwargs):
     kw = dict(matrix=tba.BLOSUM62, gaps=tba.Gaps(-11, -1), size=(32, 32),
@@ -202,12 +202,6 @@ def test_align_exp_all_matches_jax():
     assert got_min == want_min
     assert fields(got) == fields(want)
     assert got_min.count(None) == 1 and {16, 32, 64} <= set(got_min)
-
-
-def test_align_exp_all_x_drop_raises():
-    with pytest.raises(NotImplementedError, match="queue 2 slice 1"):
-        tba.align_exp_all(tba.BLOSUM62, tba.Gaps(-11, -1), [(b"A", b"A")],
-                          [5], x_drop=50, device="cpu")
 
 
 def test_invalid_input_raises():

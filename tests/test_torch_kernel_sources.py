@@ -95,10 +95,19 @@ inline int __shfl_up_sync(unsigned, int v, int d) {
 inline int __shfl_down_sync(unsigned, int v, int d) {
   return exchange_(v, lane_() + d < 32 ? lane_() + d : lane_());
 }
+inline int __shfl_xor_sync(unsigned, int v, int m) {
+  return exchange_(v, (lane_() ^ m) & 31);
+}
 inline int __reduce_max_sync(unsigned, int v) {
   const int* buf = post_(v);
   int r = buf[0];
   for (int k = 1; k < 32; ++k) r = std::max(r, buf[k]);
+  return r;
+}
+inline int __reduce_min_sync(unsigned, int v) {
+  const int* buf = post_(v);
+  int r = buf[0];
+  for (int k = 1; k < 32; ++k) r = std::min(r, buf[k]);
   return r;
 }
 inline void __syncwarp() { warp_().bar->arrive_and_wait(); }
@@ -132,7 +141,7 @@ void launch(unsigned grid, unsigned block, F body) {
 }  // namespace emu
 """
 
-LAUNCH = re.compile(r"(\w+<S>)<<<(\w+), (WARPS \* 32), 0, stream>>>\((.*?)\);",
+LAUNCH = re.compile(r"(\w+)<<<(\w+), (WARPS \* 32), 0, stream>>>\((.*?)\);",
                     re.S)
 
 
@@ -160,10 +169,10 @@ def emulated(tmp_path_factory):
     return libs
 
 
-def launch(fn, pk, out, *ints):
+def launch(fn, pk, out, *ints, x=-1):
     err = fn(pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
              pk.table.data_ptr(), out.data_ptr(), *ints, pk.gaps[0],
-             pk.gaps[1], None)
+             pk.gaps[1], x, None)
     assert err == 0
     return out
 
@@ -211,6 +220,37 @@ def test_adaptive_kernel_source_step_cap(emulated):
     assert torch.equal(got, want) and 0 < int(got[:, 1].sum()) < len(pairs)
 
 
+@pytest.mark.parametrize("size,setup,x,steps", [
+    ((16, 64), "protein", 50, None), ((32, 256), "dna", 20, None),
+    ((16, 64), "protein", 50, 12),
+], ids=["16-64-protein", "32-256-dna", "16-64-capped"])
+def test_adaptive_kernel_source_x_drop_matches_plain(emulated, size, setup, x,
+                                                     steps):
+    """All four outputs (best score, its position, overrun) equal the plain
+    version's, with grows, x-drop ends and, under a 12-step cap,
+    overruns."""
+    matrix, gaps, alphabet = SETUPS[setup]
+    if setup == "protein":
+        pairs = protein_pairs(3, 10)
+    else:
+        pairs = chip_smoke.structural_pairs(np.random.default_rng(x), alphabet,
+                                            8, 120)
+    cfg = ak.AdaptiveKernelConfig(*size, 896, 32 if setup == "protein" else 16,
+                                  x_drop=True)
+    if steps:
+        cfg = chip_smoke.with_step_cap(cfg, steps)
+    pk = lk.pack_lane(pairs, matrix, cfg, gaps, "cpu", x_drop=x)
+    got = launch(emulated["adaptive_kernel"].adaptive_align_launch, pk,
+                 torch.full((len(pairs), 4), -7, dtype=torch.int32),
+                 len(pairs), cfg.seq_cap, cfg.alpha, cfg.min_size,
+                 cfg.max_size, cfg.max_steps, x=x)
+    assert torch.equal(got, ak.adaptive_align_plain(*pk, cfg))
+    if steps:
+        assert 0 < int(got[:, 3].sum()) < len(pairs)
+    else:
+        assert not got[:, 3].any() and chip_smoke.x_dropped(got, pk) > 0
+
+
 @pytest.mark.parametrize("S", [16, 32, 256, 512])
 def test_lane_kernel_source_matches_plain(emulated, S):
     rng = np.random.default_rng(S)
@@ -223,6 +263,26 @@ def test_lane_kernel_source_matches_plain(emulated, S):
     assert torch.equal(got, lk.lane_align_plain(*pk, cfg))
 
 
+@pytest.mark.parametrize("S,setup,x", [(16, "dna", 20), (32, "protein", 50),
+                                       (512, "protein", 30)],
+                         ids=["16-dna", "32-protein", "512-protein"])
+def test_lane_kernel_source_x_drop_matches_plain(emulated, S, setup, x):
+    """All four outputs (best score, its position, suspect) equal the plain
+    version's; the unrelated pairs end by x-drop before both ends."""
+    matrix, gaps, alphabet = SETUPS[setup]
+    pairs = chip_smoke.random_pairs(np.random.default_rng(S + x), alphabet,
+                                    10, 120)
+    cfg = lk.LaneKernelConfig(S, 768, 32 if setup == "protein" else 16,
+                              x_drop=True)
+    pk = lk.pack_lane(pairs, matrix, cfg, gaps, "cpu", x_drop=x)
+    got = launch(emulated["lane_kernel"].lane_align_launch, pk,
+                 torch.full((len(pairs), 4), -7, dtype=torch.int32),
+                 len(pairs), cfg.seq_cap, cfg.alpha, cfg.block, cfg.max_steps,
+                 x=x)
+    assert torch.equal(got, lk.lane_align_plain(*pk, cfg))
+    assert chip_smoke.x_dropped(got, pk) > 0
+
+
 def test_entry_points_reject_bad_arguments(emulated):
     pk = lk.pack_lane([(b"A", b"A")], scores.BLOSUM62,
                       lk.LaneKernelConfig(16, 256), Gaps(-11, -1), "cpu")
@@ -230,7 +290,7 @@ def test_entry_points_reject_bad_arguments(emulated):
     bad = emulated["adaptive_kernel"].adaptive_align_launch(
         pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
         pk.table.data_ptr(), out.data_ptr(), 1, 256, 32, 32, 32, 100, -11,
-        -1, None)
+        -1, -1, None)
     assert bad != 0  # min == max is not an adaptive configuration
     msg = emulated["adaptive_kernel"].adaptive_error_string(bad)
     assert msg == b"emulated"

@@ -91,7 +91,7 @@ def test_pack_matches_jax_pack_lane(setup):
         for g in range(NG):
             M[4 * g + b] = Mp[b * NG + g] - 128
     assert np.array_equal(pk.table.numpy(), M)
-    assert pk.gaps == (int(jg[0, 0]), int(jg[0, 1]))
+    assert pk.gaps == tuple(int(v) for v in jg[0, :3])  # open, extend, x
 
 
 @pytest.mark.parametrize("S,setup,n,max_len", [
@@ -158,12 +158,12 @@ def test_wrapper_raises_off_the_cpu_and_card():
 
 def test_kernel_entry_point_matches_binding():
     """The C signature and the ctypes argument list agree (the binding
-    passes 5 pointers, 7 ints and the stream)."""
+    passes 5 pointers, 8 ints and the stream)."""
     src = (_build.CSRC / "lane_kernel.cu").read_text()
     sig = re.search(r'extern "C" int lane_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 5 + [False] * 7 + [True]
+        [True] * 5 + [False] * 8 + [True]
     assert _build.library_path("lane_kernel").parent == _build.BUILD
     assert _build.library_path("lane_kernel").name.startswith("liblane_kernel-")
 
