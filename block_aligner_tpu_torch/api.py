@@ -1,16 +1,20 @@
 """Batched alignment API of the port (counterpart of ``block_aligner_tpu/api.py``).
 
 ``BatchAligner`` serves two of the routes ``pick_route`` names, in global
-or x-drop mode (``x_drop=X``) without trace, with an amino-acid or
-nucleotide table:
+or x-drop mode (``x_drop=X``), with or without trace (``trace=True``), with
+an amino-acid or nucleotide table:
 
 * "lane": fixed block sizes (min == max <= 512), the lane kernel;
-* "adaptive": growing and shrinking blocks (min < max <= 256), the adaptive
-  kernel; the package's default size (32, 256) is one.
+* "adaptive": growing and shrinking blocks (min < max <= 256, and max 512
+  with trace), the adaptive kernel; the package's default size (32, 256)
+  is one.
 
-``align_exp_all`` retries pairs with doubled min block sizes over both, in
-either mode.  The other routes ("big", "long", "long_lane", "engine"),
-trace, ByteMatrix, the local-start and free-gap flags and a mesh raise
+In trace mode each batch's trace comes back to the host: ``trace()``,
+``cigar`` and ``cigar_eq`` give the reference's CIGARs of the last batch,
+and ``align_all_trace`` the CIGARs of any number of pairs.
+``align_exp_all`` retries pairs with doubled min block sizes over both
+routes, global or x-drop.  The other routes ("big", "long", "long_lane",
+"engine"), ByteMatrix, the local-start and free-gap flags and a mesh raise
 ``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
 
@@ -21,8 +25,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .core.cigar import Cigar
 from .core.result import AlignResult
 from .core.scores import ByteMatrix, Gaps
+from .core.traceback import Trace
 from .ops.adaptive_kernel import AdaptiveKernelConfig, adaptive_align
 from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane
 
@@ -85,13 +91,24 @@ def pick_route(min_size: int, max_size: int, seq_cap: int, *,
     return "engine", reasons or ["unrouted configuration"]
 
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host, copied from a device through
+    page-locked memory: a trace is hundreds of MB, and a pageable copy
+    moves it at a fraction of the link's rate."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
+
+
 # ROADMAP.md slice that brings each configuration the port lacks
 _SLICE = {
     "big": "queue 2 slice 6, kernel C (big blocks)",
     "long": "queue 1 item 7 (long-sequence API)",
     "long_lane": "queue 1 item 7 (long-sequence API)",
     "engine": "queue 1 item 4 (PyTorch lockstep engine)",
-    "trace": "queue 2 slice 2 (trace: A3 + B)",
     "byte": "queue 2 slice 4 (ByteMatrix: A5 + B)",
     "flags": "queue 2 slice 5 (local-start and free gaps: A6 + B)",
     "mesh": "queue 1 item 8 (multi-GPU)",
@@ -113,9 +130,12 @@ class BatchAligner:
     where the reference's adaptive heuristic would have grown the block).
     Global mode returns each pair's score at (qlen, rlen); with ``x_drop``
     a pair ends once its block's maximum falls more than ``x_drop`` below
-    its best, and the result is the best score and its position.
-    ``device`` places the packed tensors: a CUDA device runs the kernels,
-    the CPU their plain versions.
+    its best, and the result is the best score and its position.  With
+    ``trace`` the last batch's trace stays on the host (``trace()``,
+    ``cigar``, ``cigar_eq``); ``align_all`` then keeps the caller's order
+    and the last batch's trace, and ``align_all_trace`` returns every
+    pair's CIGAR.  ``device`` places the packed tensors: a CUDA device runs
+    the kernels, the CPU their plain versions.
     """
 
     def __init__(
@@ -164,8 +184,6 @@ class BatchAligner:
             _not_yet(f"route {route!r} (size {size}, seq_cap {seq_cap})", route)
         if use_lane_kernel is False:
             _not_yet("use_lane_kernel=False", "engine")
-        if trace:
-            _not_yet("trace", "trace")
         if local_start or free_query_start_gaps or free_query_end_gaps:
             _not_yet("local_start / free_query_start_gaps / "
                      "free_query_end_gaps", "flags")
@@ -176,6 +194,8 @@ class BatchAligner:
         self.matrix = matrix
         self.gaps = gaps
         self.x_drop = x_drop
+        self.trace_mode = trace
+        self._last_trace: Optional[Trace] = None
         self.device = torch.device(device)
         self._batch = batch
         self.route = route
@@ -183,9 +203,10 @@ class BatchAligner:
         alpha = 32 if matrix.kind != "nuc" else 16
         xd = x_drop is not None
         if route == "lane":
-            self.cfg = LaneKernelConfig(min_size, cap, alpha, xd)
+            self.cfg = LaneKernelConfig(min_size, cap, alpha, xd, trace)
         else:
-            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha, xd)
+            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha, xd,
+                                            trace)
         self.last_suspect: Optional[np.ndarray] = None
 
     @property
@@ -205,11 +226,18 @@ class BatchAligner:
 
     def align_batch(self, pairs: Sequence[Tuple[bytes, bytes]]) -> List[AlignResult]:
         """Align up to ``batch_size`` pairs."""
-        return self.align_staged(self.stage(pairs))
+        return self.align_staged(self._pack(pairs))
 
     def stage(self, pairs):
         """Pack a batch onto the device; ``align_staged`` runs it, as often
-        as wanted, without packing again."""
+        as wanted, without packing again.  Adaptive trace has no staged
+        runs (the JAX package refuses them too): use ``align_batch``."""
+        if self.trace_mode and self.route == "adaptive":
+            raise ValueError("stage/align_staged do not run adaptive trace: "
+                             "use align_batch, align_all or align_all_trace")
+        return self._pack(pairs)
+
+    def _pack(self, pairs):
         if len(pairs) > self.batch_size:
             raise ValueError(
                 f"{len(pairs)} pairs exceed batch_size {self.batch_size}")
@@ -231,7 +259,15 @@ class BatchAligner:
         """Fetch a dispatched batch's results; the lane route sets
         ``last_suspect``, the adaptive route checks the step cap.  Both
         hold the flag in their output's last column; x-drop mode holds the
-        best position in columns 1 and 2."""
+        best position in columns 1 and 2.  In trace mode the steps every
+        pair executed (up to the batch's most) come back and make the
+        ``Trace`` of ``trace()``."""
+        if self.trace_mode:
+            out, words, desc, steps = out
+            steps = steps.cpu().numpy()
+            T = int(steps.max()) if steps.size else 0
+            words, desc = to_host(words[:T]), to_host(desc[:T])
+            self._last_trace = Trace(words, desc, steps, self.matrix)
         out = out.cpu().numpy()
         if self.route == "lane":
             self.last_suspect = out[:, -1].astype(bool)
@@ -254,7 +290,7 @@ class BatchAligner:
         results, so the pairs of one batch have similar lengths.  The next
         batch is packed while the device aligns the current one."""
         self._check_lengths(pairs)
-        sort = sort and len(pairs) > 1
+        sort = sort and not self.trace_mode and len(pairs) > 1
         if sort:
             order = sorted(range(len(pairs)),
                            key=lambda k: len(pairs[k][0]) + len(pairs[k][1]))
@@ -273,7 +309,7 @@ class BatchAligner:
 
         pending = None
         for k in range(0, len(work), self.batch_size):
-            staged = self.stage(work[k : k + self.batch_size])
+            staged = self._pack(work[k : k + self.batch_size])
             disp = self._dispatch(staged)
             if pending is not None:
                 finish(*pending)
@@ -293,6 +329,57 @@ class BatchAligner:
             else:
                 self.last_suspect = sus
         return got
+
+    def align_all_trace(self, pairs: Sequence[Tuple[bytes, bytes]],
+                        eq: bool = False):
+        """``(results, cigars)`` for any number of pairs, in order: each
+        batch's trace comes back and its CIGARs are walked
+        (``Trace.cigars_all``) while the device aligns the next batch.
+        With ``eq`` the CIGARs hold = and X in place of M."""
+        if not self.trace_mode:
+            raise ValueError("align_all_trace needs BatchAligner(trace=True)")
+        self._check_lengths(pairs)
+        results: List[AlignResult] = []
+        cigars: List[Cigar] = []
+
+        def walk(staged, disp, chunk):
+            got = self._decode(staged, disp)
+            results.extend(got)
+            ends = [(g.query_idx, g.reference_idx) for g in got]
+            cigars.extend(self._last_trace.cigars_all(
+                ends, eq=eq, seqs=chunk if eq else None))
+
+        pending = None
+        for k in range(0, len(pairs), self.batch_size):
+            chunk = list(pairs[k : k + self.batch_size])
+            staged = self._pack(chunk)
+            disp = self._dispatch(staged)
+            if pending is not None:
+                walk(*pending)
+            pending = (staged, disp, chunk)
+        if pending is not None:
+            walk(*pending)
+        return results, cigars
+
+    # trace accessors (reference: Block::trace, src/scan_block.rs:1241)
+    def trace(self) -> Trace:
+        """The last batch's trace."""
+        if not self.trace_mode:
+            raise ValueError("no trace: this BatchAligner has trace=False")
+        if self._last_trace is None:
+            raise ValueError("no trace yet: align a batch first")
+        return self._last_trace
+
+    def cigar(self, k: int, i: int, j: int,
+              cigar: Optional[Cigar] = None) -> Cigar:
+        """The CIGAR of pair ``k`` of the last batch, from end (i, j)."""
+        return self.trace().cigar(k, i, j, cigar)
+
+    def cigar_eq(self, k: int, q, r, i: int, j: int,
+                 cigar: Optional[Cigar] = None) -> Cigar:
+        """``cigar`` with = and X for M, comparing the codes of the pair's
+        query ``q`` and reference ``r``."""
+        return self.trace().cigar_eq(k, q, r, i, j, cigar)
 
 
 def align_exp_all(matrix, gaps: Gaps, pairs, target_scores,

@@ -1,14 +1,16 @@
 // Adaptive-block alignment of a batch of sequence pairs, global or x-drop,
-// for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
-// ops/adaptive_kernel.py.
+// with or without trace, for Hopper (sm_90a).  Plain C interface, loaded
+// with ctypes by ops/adaptive_kernel.py.
 //
 // Replaces: block_aligner_tpu/ops/adaptive_kernel.py::build_adaptive_engine
-// (its Pallas `kernel`) without trace, in global and in x-drop mode: the
-// grow / shrink / checkpoint machine for min_size < max_size <= 256.  It
-// computes the same score (x-drop: the best score and its position) and the
-// same step-cap overrun flag, bit for bit; the machine is described in
+// (its Pallas `kernel`) in global and in x-drop mode, with and without
+// trace: the grow / shrink / checkpoint machine for min_size < max_size <=
+// 256, and <= 512 with trace.  It computes the same score (x-drop: the best
+// score and its position) and the same step-cap overrun flag, bit for bit,
+// and in trace mode the traceback bits of every cell it computes, the rect
+// of every step and the checkpoint events; the machine is described in
 // ops/adaptive_kernel.py, whose adaptive_align_plain is the plain PyTorch
-// version of this kernel.
+// version of this kernel, and the trace layout in core/traceback.py.
 //
 // What bounds it: integer ALU work (a handful of adds and maxes per DP
 // cell) and, above all, latency: each of a rect's 8 columns per step
@@ -46,8 +48,18 @@
 //   (running max per residue class, reached last at the highest chunk and
 //   the latest column) is three registers per lane, the same in lanes l and
 //   l ^ 16: each column folds a lane's rows into one key, value * 16 +
-//   chunk, whose max over the lane and its partner (one shuffle) is the
-//   column's max and the highest chunk holding it.
+//   chunk (value * 32 + chunk at S = 512), whose max over the lane and its
+//   partner (one shuffle) is the column's max and the highest chunk
+//   holding it.
+// * trace is a third template flag.  Each lane ORs a cell's 4 bits into one
+//   word per slot, column w at bits 4w..4w+3, and the warp stores the
+//   current size's slots once per step (32 contiguous rows per slot); the
+//   R bit of row r is row r - 1's R == D_open, one shuffle of the lane's
+//   packed slot bits per column.  Lane 0 stores the step's descriptor, with
+//   the checkpoint saves and restores the previous step decided.  A
+//   freezing step stores the columns computed before it leaves.  The S =
+//   512 instance exists with trace only: without it, max_size 512 takes
+//   the big kernel's route.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -147,6 +159,9 @@ struct Pair {  // one pair's step-machine state, the same in every lane
   int ckI, ckJ, ckOff, best, yiter, gnm, score;
   bool done, rest;
   int dmax;  // this lane's part of the rect maximum
+  // trace: the checkpoint events for the next step's descriptor
+  // (save << 2 | restore << 3)
+  int pend = 0;
   // x-drop: the tracker of residue lane % 16 (running max, chunk origin,
   // column), the GROW_D half's banked candidate, the best's position and
   // the count of failing decisions
@@ -163,6 +178,11 @@ struct Ctx {  // what a step reads and never changes
   int* tailR;
   int* ck[4];  // checkpoint borders by row: column D, C; row D, R
   int lane, ql, rl, cap, alpha, min_size, gopen, gext, zc, x;
+  // trace: this pair's words and descriptor of step 0, and their strides
+  // from one step to the next
+  int* tw;
+  int4* td;
+  size_t tw_step, td_step;
 };
 
 // Checkpoint save of slots 0 .. NA-1: the column borders (D, C) and row
@@ -192,11 +212,13 @@ __device__ __forceinline__ int tracker_best(const Pair& m, int lane, int& ai,
   return cm;
 }
 
-// One step (8 columns and the decision after them) of a pair whose block
-// size sz has NA = ceil(sz / 32) slots.
-template <int S, int NA, bool XDROP>
+// One step (8 columns and the decision after them), step number s, of a
+// pair whose block size sz has NA = ceil(sz / 32) slots.
+template <int S, int NA, bool XDROP, bool TRACE>
 __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
-                                         const Ctx& c) {
+                                         const Ctx& c, int s) {
+  // x-drop tracker keys: value * CH + chunk, CH a power of two >= S / 16
+  constexpr int CH = S <= 256 ? 16 : 32, LOG_CH = S <= 256 ? 4 : 5;
   const int lane = c.lane;
   const bool shift = m.dir == DIR_R || m.dir == DIR_D;
   const bool right_or = m.dir == DIR_R || m.dir == DIR_GR;  // lanes = query
@@ -243,6 +265,15 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   const bool origin = m.dir == DIR_GR && m.psz == 0 && m.cpos == 0 && m.J == 0;
   const uint8_t* lseq = right_or ? c.qs : c.rs;
   const uint8_t* cseq = right_or ? c.rs : c.qs;
+  unsigned wd[NA];  // trace: this step's bits of this lane's rows
+  if constexpr (TRACE) {
+    if (lane == 0)
+      c.td[c.td_step * s] = make_int4(
+          (right_or ? 1 : 0) | (m.cpos == 0 ? 2 : 0) | m.pend, ls, cstart, h);
+    m.pend = 0;
+#pragma unroll
+    for (int k = 0; k < NA; ++k) wd[k] = 0u;
+  }
   int lc[NA], cc[STEP];
 #pragma unroll
   for (int k = 0; k < NA; ++k)
@@ -254,7 +285,7 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
 #pragma unroll
   for (int w = 0; w < STEP; ++w) {
     const int* trow = c.tab + cc[w] * c.alpha;
-    int D[NA], C[NA], T[NA];
+    int D[NA], C[NA], T[NA], CO[NA], DO[NA];
     int rot_prev = NEG;
 #pragma unroll
     for (int k = 0; k < NA; ++k) {
@@ -266,10 +297,15 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
       rot_prev = rot;
       int d = sat(up + trow[lc[k]]);
       if (k == 0 && w == 0 && origin && lane == 0) d = ZERO;  // DP origin
-      C[k] = max(sat(p.actC[k] + c.gext), sat(p.actD[k] + c.gopen));
+      const int co = sat(p.actD[k] + c.gopen);
+      C[k] = max(sat(p.actC[k] + c.gext), co);
       D[k] = max(d, C[k]);
       // max-plus prefix scan of D + (open - extend) across the slot
       int t = D[k] + (c.gopen - c.gext);
+      if constexpr (TRACE) {
+        CO[k] = co;
+        DO[k] = t;
+      }
 #pragma unroll
       for (int dd = 1; dd < 32; dd <<= 1) {
         const int o = __shfl_up_sync(FULL, t, dd);
@@ -281,9 +317,17 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
 #pragma unroll
     for (int k = 1; k < NA; ++k)
       T[k] = max(T[k], __shfl_sync(FULL, T[k - 1], 31) + c.gext * (lane + 1));
+    int nib[NA], rbits = 0;
 #pragma unroll
     for (int k = 0; k < NA; ++k) {
       const int R = max(T[k], c.zc);
+      if constexpr (TRACE) {
+        // the cell's bits (reference: src/scan_block.rs:1166-1190): D ==
+        // C, D == R, C == C_open; R == D_open feeds the row below
+        const int dn = max(D[k], R);
+        nib[k] = (dn == C[k]) | (dn == R) << 1 | (C[k] == CO[k]) << 2;
+        rbits |= (R == DO[k]) << k;
+      }
       D[k] = max(D[k], R);
       p.actD[k] = D[k];
       p.actC[k] = C[k];
@@ -295,6 +339,15 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
         c.tailR[w] = R;
       }
     }
+    if constexpr (TRACE) {
+      // bit k: the R bit of the row above row k * 32 + lane, which is lane
+      // lane - 1 of slot k, or lane 31 of slot k - 1 (0 above row 0)
+      const int up_bits = __shfl_sync(FULL, rbits, (lane + 31) & 31);
+      const int above = lane > 0 ? up_bits : up_bits << 1;
+#pragma unroll
+      for (int k = 0; k < NA; ++k)
+        wd[k] |= (unsigned)(nib[k] | ((above >> k) & 1) << 3) << (4 * w);
+    }
     if constexpr (XDROP) {
       // rows at or past the height count as NEG, as in the JAX kernel,
       // whose rows past the slots are NEG too: a column whose max is NEG
@@ -302,14 +355,14 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
       int key = INT_MIN_;
 #pragma unroll
       for (int k = 0; k < NA; ++k)
-        key = max(key, (k * 32 + lane < h ? D[k] : NEG) * 16 + 2 * k +
+        key = max(key, (k * 32 + lane < h ? D[k] : NEG) * CH + 2 * k +
                            (lane >> 4));
       key = max(key, __shfl_xor_sync(FULL, key, 16));
-      const int cmax = key >> 4;
+      const int cmax = key >> LOG_CH;
       if (cmax >= m.vm) {
         m.vm = cmax;
         m.ai = ls + 16 * (cmax == NEG && 2 * NA < S / 16 ? S / 16 - 1
-                                                           : key & 15);
+                                                           : key & (CH - 1));
         m.aj = cstart + w;
       }
     } else {
@@ -317,9 +370,18 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
       if (fra && w >= frt) {
         m.score = m.off + row_value<NA>(p.actD, fridx) - ZERO;
         m.done = true;
-        return;
+        if constexpr (TRACE)
+          break;  // the step's words are stored below
+        else
+          return;
       }
     }
+  }
+  if constexpr (TRACE) {
+#pragma unroll
+    for (int k = 0; k < NA; ++k)
+      c.tw[c.tw_step * s + k * 32 + lane] = (int)wd[k];
+    if (m.done) return;
   }
   __syncwarp();  // the step's bottom cells are visible to the warp
 
@@ -382,7 +444,10 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   }
   // a completed grow saves its doubled borders even without a new best
   // (reference: src/scan_block.rs:432-435)
-  if (save || (was_grow && m.sz < S)) save_ckpt<NA>(c, p, ro);
+  if (save || (was_grow && m.sz < S)) {
+    save_ckpt<NA>(c, p, ro);
+    if constexpr (TRACE) m.pend |= 4;
+  }
   if (new_best) {
     m.best = off_max;
     ydi = 0;
@@ -425,6 +490,7 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
     m.rest = true;
     m.dir = DIR_GD;
     ydi = 0;
+    if constexpr (TRACE) m.pend |= 8;
   } else {
     if (free_rect && m.sz > c.min_size && ydi == 0) {
       // shrink when the border suffix holds the rect maximum
@@ -452,6 +518,7 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
       m.ckJ = m.J;
       m.ckOff = m.off;
       save_ckpt<NA>(c, p, ro);
+      if constexpr (TRACE) m.pend |= 4;
       ydi = 0;
     }
     // direction from the first 8 rows of both borders
@@ -471,14 +538,16 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   m.pdir = shrink ? DIR_GD : d0;
 }
 
-template <int S, bool XDROP>
+template <int S, bool XDROP, bool TRACE>
 __global__ void __launch_bounds__(WARPS * 32)
 adaptive_align_kernel(const uint8_t* __restrict__ codes,
                       const int* __restrict__ qlen,
                       const int* __restrict__ rlen,
                       const int* __restrict__ table, int* __restrict__ out,
-                      int B, int cap, int alpha, int min_size, int max_steps,
-                      int gopen, int gext, int xdrop) {
+                      int* __restrict__ twords, int4* __restrict__ tdesc,
+                      int* __restrict__ tsteps, int B, int cap, int alpha,
+                      int min_size, int max_steps, int gopen, int gext,
+                      int xdrop) {
   constexpr int NS = S / 32;  // row slots of the largest block
 
   __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
@@ -498,7 +567,9 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
               {ckpt[warp][0], ckpt[warp][1], ckpt[warp][2], ckpt[warp][3]},
               lane, qlen[b], rlen[b], cap, alpha, min_size, gopen, gext,
               gext * ((lane & 7) + 1),  // the scan's zero correction
-              xdrop};
+              xdrop,
+              TRACE ? twords + (size_t)b * S : nullptr,
+              TRACE ? tdesc + b : nullptr, (size_t)B * S, (size_t)B};
 
   Planes<NS> p;
 #pragma unroll
@@ -512,15 +583,24 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
   Pair m{0, 0, 0, 0, min_size, 0, 0, DIR_GR, DIR_GR, NEG,
          0, 0, 0, 0, 0, 1, 0, false, false, NEG};
 
-  for (int s = 0; s < max_steps && !m.done; ++s) {
+  int s = 0;
+  for (; s < max_steps && !m.done; ++s) {
     switch ((m.sz + 31) >> 5) {
-      case 1: run_step<S, 1, XDROP>(m, p, c); break;
-      case 2: if constexpr (NS >= 2) run_step<S, 2, XDROP>(m, p, c); break;
-      case 4: if constexpr (NS >= 4) run_step<S, 4, XDROP>(m, p, c); break;
-      default: if constexpr (NS >= 8) run_step<S, 8, XDROP>(m, p, c); break;
+      case 1: run_step<S, 1, XDROP, TRACE>(m, p, c, s); break;
+      case 2: if constexpr (NS >= 2) run_step<S, 2, XDROP, TRACE>(m, p, c, s); break;
+      case 4: if constexpr (NS >= 4) run_step<S, 4, XDROP, TRACE>(m, p, c, s); break;
+      default:
+        if constexpr (NS >= 16) {
+          if (m.sz > 256) run_step<S, 16, XDROP, TRACE>(m, p, c, s);
+          else run_step<S, 8, XDROP, TRACE>(m, p, c, s);
+        } else if constexpr (NS >= 8) {
+          run_step<S, 8, XDROP, TRACE>(m, p, c, s);
+        }
+        break;
     }
   }
   if (lane == 0) {
+    if constexpr (TRACE) tsteps[b] = s;
     if constexpr (XDROP) {
       out[4 * b] = m.best;
       out[4 * b + 1] = m.xbi;
@@ -535,15 +615,27 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
 
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
-                   const int* table, int* out, int B, int cap, int alpha,
-                   int min_size, int max_steps, int gopen, int gext,
-                   int xdrop, cudaStream_t stream) {
+                   const int* table, int* out, int* twords, int4* tdesc,
+                   int* tsteps, int B, int cap, int alpha, int min_size,
+                   int max_steps, int gopen, int gext, int xdrop,
+                   cudaStream_t stream) {
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
-  auto kernel = xdrop < 0 ? adaptive_align_kernel<S, false>
-                          : adaptive_align_kernel<S, true>;
+  void (*kernel)(const uint8_t*, const int*, const int*, const int*, int*,
+                 int*, int4*, int*, int, int, int, int, int, int, int, int);
+  if constexpr (S == 512) {
+    // only trace reaches max_size 512 on this route
+    if (!twords) return cudaErrorInvalidValue;
+    kernel = xdrop < 0 ? adaptive_align_kernel<S, false, true>
+                       : adaptive_align_kernel<S, true, true>;
+  } else {
+    kernel = twords ? (xdrop < 0 ? adaptive_align_kernel<S, false, true>
+                                 : adaptive_align_kernel<S, true, true>)
+                    : (xdrop < 0 ? adaptive_align_kernel<S, false, false>
+                                 : adaptive_align_kernel<S, true, false>);
+  }
   kernel<<<grid, WARPS * 32, 0, stream>>>(
-      codes, qlen, rlen, table, out, B, cap, alpha, min_size, max_steps,
-      gopen, gext, xdrop);
+      codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
+      min_size, max_steps, gopen, gext, xdrop);
   return cudaGetLastError();
 }
 
@@ -552,27 +644,38 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
 // codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
 // x_drop < 0: global mode, out (B, 2) int32 = (score, overrun); else x-drop
 // with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
-// overrun).  Returns the launch's cudaError_t.
+// overrun).  Trace mode when `words` is not null: words (max_steps, B,
+// max_size) int32, desc (max_steps, B, 4) int32 and steps (B,) int32
+// receive the trace of core/traceback.py; of a step's words only the rows
+// of the current size's slots are written, and nothing of the steps a pair
+// did not execute.  max_size 512 needs trace.  Returns the launch's
+// cudaError_t.
 extern "C" int adaptive_align_launch(const void* codes, const void* qlen,
                                      const void* rlen, const void* table,
-                                     void* out, int B, int cap, int alpha,
+                                     void* out, void* words, void* desc,
+                                     void* steps, int B, int cap, int alpha,
                                      int min_size, int max_size,
                                      int max_steps, int gopen, int gext,
                                      int x_drop, void* stream) {
   if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA || min_size < 16 ||
-      (min_size & (min_size - 1)) || min_size >= max_size)
+      (min_size & (min_size - 1)) || min_size >= max_size ||
+      (words && (!desc || !steps)))
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
   const auto* r = static_cast<const int*>(rlen);
   const auto* t = static_cast<const int*>(table);
   auto* o = static_cast<int*>(out);
+  auto* tw = static_cast<int*>(words);
+  auto* td = static_cast<int4*>(desc);
+  auto* ts = static_cast<int*>(steps);
   auto st = static_cast<cudaStream_t>(stream);
   switch (max_size) {
-    case 32: return (int)launch<32>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
-    case 64: return (int)launch<64>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
-    case 128: return (int)launch<128>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
-    case 256: return (int)launch<256>(c, q, r, t, o, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 32: return (int)launch<32>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 64: return (int)launch<64>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 128: return (int)launch<128>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 256: return (int)launch<256>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 512: return (int)launch<512>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,13 +1,14 @@
-// Fixed-block alignment of a batch of sequence pairs, global or x-drop, for
-// Hopper (sm_90a).  Plain C interface, loaded with ctypes by
-// ops/lane_kernel.py.
+// Fixed-block alignment of a batch of sequence pairs, global or x-drop, with
+// or without trace, for Hopper (sm_90a).  Plain C interface, loaded with
+// ctypes by ops/lane_kernel.py.
 //
 // Replaces: block_aligner_tpu/ops/lane_kernel.py::build_lane_engine (its
-// Pallas `kernel`) without trace, in global and in x-drop mode.  It
-// computes the same score (x-drop: the best score and its position) and
-// the same y-drop suspect flag, bit for bit; the step machine is described
+// Pallas `kernel`) in global and in x-drop mode, with and without trace.
+// It computes the same score (x-drop: the best score and its position) and
+// the same y-drop suspect flag, bit for bit, and in trace mode the
+// traceback bits of every cell it computes; the step machine is described
 // in ops/lane_kernel.py, whose lane_align_plain is the plain PyTorch
-// version of this kernel.
+// version of this kernel, and the trace layout in core/traceback.py.
 //
 // What bounds it: integer ALU work (a handful of adds and maxes per DP
 // cell) and, above all, latency: each of a pair's 8 columns per step
@@ -40,6 +41,12 @@
 // last column where the whole tracker is raised or reached again is the
 // last column where some lane reached the final max, and the lanes that
 // reached it there are exactly those whose own latest column it is.
+// Trace is a template flag too.  Each lane ORs a cell's 4 bits into one
+// word per row it holds, column w at bits 4w..4w+3, and stores its words
+// once per step (S/32 contiguous rows per lane, so the warp's stores
+// coalesce); lane 0 stores the step's descriptor.  The R bit of a row is
+// the row above's R == D_open, one shuffle of the lane's packed bits per
+// column.  A freezing step stores the columns computed before it leaves.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -95,13 +102,14 @@ __device__ __forceinline__ void shift_tail(int (&x)[RPL], const int* tail,
   }
 }
 
-template <int S, bool XDROP>
+template <int S, bool XDROP, bool TRACE>
 __global__ void __launch_bounds__(WARPS * 32)
 lane_align_kernel(const uint8_t* __restrict__ codes,
                   const int* __restrict__ qlen, const int* __restrict__ rlen,
-                  const int* __restrict__ table, int* __restrict__ out, int B,
-                  int cap, int alpha, int max_steps, int gopen, int gext,
-                  int xdrop) {
+                  const int* __restrict__ table, int* __restrict__ out,
+                  int* __restrict__ twords, int4* __restrict__ tdesc,
+                  int* __restrict__ tsteps, int B, int cap, int alpha,
+                  int max_steps, int gopen, int gext, int xdrop) {
   constexpr int NL = S < 32 ? S : 32;  // lanes holding block rows
   constexpr int RPL = S / NL;          // rows per lane, contiguous
   constexpr int PRO = S / STEP;        // prologue steps (the initial grow)
@@ -144,6 +152,7 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   // freeze predicate of the current block (prologue: lanes = query)
   bool fra = S > ql;
   int frt = rl, fridx = min(max(ql, 0), S - 1);
+  int nsteps = 0;  // trace: the steps this pair executed
 
   for (int s = 0; s < max_steps && !done; ++s) {
     const bool in_pro = s < PRO;
@@ -171,6 +180,17 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       lseq = right ? qs : rs;
       cseq = right ? rs : qs;
     }
+    unsigned wd[RPL];  // trace: this step's bits of this lane's rows
+    if constexpr (TRACE) {
+      ++nsteps;
+      // the step's rect descriptor; the prologue is one right rect at (0, 0)
+      if (lane == 0)
+        tdesc[(size_t)s * B + b] =
+            in_pro ? make_int4(1 | (s == 0 ? 2 : 0), 0, cpos0, S)
+                   : make_int4((dir != 1 ? 1 : 0) | 2, lstart, cpos0, S);
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) wd[k] = 0u;
+    }
     int lc[RPL], cc[STEP];
 #pragma unroll
     for (int k = 0; k < RPL; ++k)
@@ -185,13 +205,15 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       const int* trow = tab + cc[w] * alpha;
       int up = __shfl_up_sync(FULL, actD[RPL - 1], 1);
       if (lane == 0) up = w == 0 ? cvec : NEG;
-      int D[RPL], C[RPL], T[RPL];
+      int D[RPL], C[RPL], T[RPL], CO[RPL];
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
         int d = sat((k == 0 ? up : actD[k - 1]) + trow[lc[k]]);
         if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
-        C[k] = max(sat(actC[k] + gext), sat(actD[k] + gopen));
+        const int co = sat(actD[k] + gopen);
+        C[k] = max(sat(actC[k] + gext), co);
         D[k] = max(d, C[k]);
+        if constexpr (TRACE) CO[k] = co;
       }
       // max-plus prefix scan of D + (open - extend) down the block: serial
       // inside the lane, log-step across lanes, then the zero correction
@@ -206,14 +228,31 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         if (lane >= d) carry = max(carry, o + gext * RPL * d);
       }
       const int prev = __shfl_up_sync(FULL, carry, 1);
+      int nib[RPL], rbits = 0;
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
         const int t = lane > 0 ? max(T[k], prev + gext * (k + 1)) : T[k];
         T[k] = max(t, zc[k]);  // R
+        if constexpr (TRACE) {
+          // the cell's bits (reference: src/scan_block.rs:1166-1190):
+          // D == C, D == R, C == C_open; R == D_open feeds the row below
+          const int dn = max(D[k], T[k]);
+          nib[k] = (dn == C[k]) | (dn == T[k]) << 1 | (C[k] == CO[k]) << 2;
+          rbits |= (T[k] == D[k] + (gopen - gext)) << k;
+        }
         D[k] = max(D[k], T[k]);
         actD[k] = D[k];
         actC[k] = C[k];
         if (on) dmax = max(dmax, D[k]);
+      }
+      if constexpr (TRACE) {
+        // bit k: the R bit of the row above row0 + k (0 above row 0)
+        const int up_bits = __shfl_up_sync(FULL, rbits, 1);
+        const int above =
+            rbits << 1 | (lane > 0 ? (up_bits >> (RPL - 1)) & 1 : 0);
+#pragma unroll
+        for (int k = 0; k < RPL; ++k)
+          wd[k] |= (unsigned)(nib[k] | ((above >> k) & 1) << 3) << (4 * w);
       }
       if (lane == NL - 1) {
         tailD[w] = D[RPL - 1];
@@ -240,6 +279,21 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
           score = off + __shfl_sync(FULL, v, src) - ZERO;
           done = true;
           break;
+        }
+      }
+    }
+    if constexpr (TRACE) {
+      if (on) {
+        int* dst = twords + ((size_t)s * B + b) * S + row0;
+        if constexpr (RPL % 4 == 0) {
+#pragma unroll
+          for (int k = 0; k < RPL; k += 4)
+            *reinterpret_cast<int4*>(dst + k) =
+                make_int4((int)wd[k], (int)wd[k + 1], (int)wd[k + 2],
+                          (int)wd[k + 3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < RPL; ++k) dst[k] = (int)wd[k];
         }
       }
     }
@@ -351,6 +405,7 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
     __syncwarp();  // tail cells read before the next step writes them
   }
   if (lane == 0) {
+    if constexpr (TRACE) tsteps[b] = nsteps;
     if constexpr (XDROP) {
       out[4 * b] = xbest;
       out[4 * b + 1] = xbi;
@@ -365,15 +420,17 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
 
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
-                   const int* table, int* out, int B, int cap, int alpha,
-                   int max_steps, int gopen, int gext, int xdrop,
-                   cudaStream_t stream) {
+                   const int* table, int* out, int* twords, int4* tdesc,
+                   int* tsteps, int B, int cap, int alpha, int max_steps,
+                   int gopen, int gext, int xdrop, cudaStream_t stream) {
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
-  auto kernel = xdrop < 0 ? lane_align_kernel<S, false>
-                          : lane_align_kernel<S, true>;
+  auto kernel = twords ? (xdrop < 0 ? lane_align_kernel<S, false, true>
+                                    : lane_align_kernel<S, true, true>)
+                       : (xdrop < 0 ? lane_align_kernel<S, false, false>
+                                    : lane_align_kernel<S, true, false>);
   kernel<<<grid, WARPS * 32, 0, stream>>>(
-      codes, qlen, rlen, table, out, B, cap, alpha, max_steps, gopen, gext,
-      xdrop);
+      codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
+      max_steps, gopen, gext, xdrop);
   return cudaGetLastError();
 }
 
@@ -382,27 +439,35 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
 // codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
 // x_drop < 0: global mode, out (B, 2) int32 = (score, suspect); else x-drop
 // with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
-// suspect).  Returns the launch's cudaError_t.
+// suspect).  Trace mode when `words` is not null: words (max_steps, B,
+// block) int32, desc (max_steps, B, 4) int32 and steps (B,) int32 receive
+// the trace of core/traceback.py; rows of steps a pair did not execute are
+// left as they were.  Returns the launch's cudaError_t.
 extern "C" int lane_align_launch(const void* codes, const void* qlen,
                                  const void* rlen, const void* table,
-                                 void* out, int B, int cap, int alpha,
+                                 void* out, void* words, void* desc,
+                                 void* steps, int B, int cap, int alpha,
                                  int block, int max_steps, int gopen,
                                  int gext, int x_drop, void* stream) {
-  if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA)
+  if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA ||
+      (words && (!desc || !steps)))
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
   const auto* r = static_cast<const int*>(rlen);
   const auto* t = static_cast<const int*>(table);
   auto* o = static_cast<int*>(out);
+  auto* tw = static_cast<int*>(words);
+  auto* td = static_cast<int4*>(desc);
+  auto* ts = static_cast<int*>(steps);
   auto st = static_cast<cudaStream_t>(stream);
   switch (block) {
-    case 16: return (int)launch<16>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 32: return (int)launch<32>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 64: return (int)launch<64>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 128: return (int)launch<128>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 256: return (int)launch<256>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 512: return (int)launch<512>(c, q, r, t, o, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 16: return (int)launch<16>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 32: return (int)launch<32>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 64: return (int)launch<64>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 128: return (int)launch<128>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 256: return (int)launch<256>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 512: return (int)launch<512>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -61,8 +61,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
+from ..core.traceback import F_RESTORE, F_RIGHT, F_SAVE, F_START
 from . import _build
-from .lane_kernel import _check, x_value
+from ._trace import as_int32, stack_steps, trace_bits, trace_buffers
+from .lane_kernel import _check, count_launch, x_value
 
 __all__ = ["AdaptiveKernelConfig", "adaptive_align_plain", "adaptive_align"]
 
@@ -79,17 +81,20 @@ SHRINK_SUFFIX_LEN = STEP // 4  # reference: src/scan_block.rs:786
 @dataclasses.dataclass(frozen=True)
 class AdaptiveKernelConfig:
     min_size: int  # starting block size, a power of two >= 16
-    max_size: int  # S: block-size cap, a power of two <= 256
+    max_size: int  # S: block-size cap, a power of two <= 256 (512 with trace)
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
     x_drop: bool = False  # x-drop mode; the x value travels in the gaps
+    trace: bool = False  # also return the traceback bits (core/traceback.py)
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
-        if m & (m - 1) or S & (S - 1) or not 16 <= m < S <= 256:
+        top = 512 if self.trace else 256
+        if m & (m - 1) or S & (S - 1) or not 16 <= m < S <= top:
             raise ValueError(
-                "min_size < max_size must be powers of two in 16..256, got "
-                f"({m}, {S})")
+                f"min_size < max_size must be powers of two in 16..{top}, got "
+                f"({m}, {S})" + ("" if self.trace else
+                                 " (max_size 512 runs with trace only)"))
         if self.seq_cap % STEP or self.seq_cap < S + 2 * STEP:
             raise ValueError(
                 f"seq_cap must be a multiple of {STEP} and at least "
@@ -122,10 +127,14 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     (x = ``gaps[2]``) a (B, 4) tensor of (best score, its query position,
     its reference position, overrun).  Code positions are clamped to
     ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel does;
-    ``pack_lane`` output never needs either.  With ``count_cells`` it also
-    returns each pair's DP cell count, (B,) int64: the rect height for
-    every column up to and including the freeze column (x-drop: every
-    column of every step up to the one that ends the pair)."""
+    ``pack_lane`` output never needs either.  With ``cfg.trace`` it returns
+    ``(out, words, desc, steps)``, the trace of ``core/traceback.py`` with
+    T the most steps of any pair, a checkpoint save or restore in the
+    descriptor of the step after the one that decided it.  With
+    ``count_cells`` it also returns, last, each pair's DP cell count, (B,)
+    int64: the rect height for every column up to and including the freeze
+    column (x-drop: every column of every step up to the one that ends the
+    pair)."""
     S, MIN, A, cap = cfg.max_size, cfg.min_size, cfg.alpha, cfg.seq_cap
     dev = codes.device
     B = codes.shape[0]
@@ -163,6 +172,13 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     rest = torch.zeros(B, dtype=torch.bool, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     cells = torch.zeros(B, dtype=torch.int64, device=dev)
+    tr = cfg.trace
+    if tr:
+        # per step: words (B, S), descriptors (B, 4); executed steps per
+        # pair; the checkpoint events waiting for the next descriptor
+        t_words, t_desc = [], []
+        nsteps, pend = full(0), full(0)
+        zcol = full(0, (B, 1))
     if xd:
         x = int(gaps[2])
         r16 = torch.arange(16, dtype=i32, device=dev)
@@ -215,6 +231,13 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         fra = (ls + h > lane_len) & (dirn != DIR_GD)
         frt = col_len - cstart
         fridx = (lane_len - ls).clamp(0, S - 1)
+        if tr:
+            nsteps += (~done).to(i32)
+            flags = (right_or.to(i32) * F_RIGHT
+                     | (cpos == 0).to(i32) * F_START | pend)
+            t_desc.append(torch.stack([flags, ls, cstart, h], 1))
+            pend = full(0)
+            word = torch.zeros((B, S), dtype=torch.int64, device=dev)
         lane_side = col((~right_or).long())
         lpos = (col(ls) + rows).clamp(max=cap - 1)
         cp = (col(cstart) + cols).clamp(max=cap - 1)
@@ -230,16 +253,23 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             D11 = _sat(torch.cat([col(corner), actD[:, :-1]], 1) + scores)
             if w == 0:
                 D11[:, 0] = torch.where(origin, ZERO, D11[:, 0])
-            C11 = torch.maximum(_sat(actC + e), _sat(actD + open_))
+            C11_open = _sat(actD + open_)
+            C11 = torch.maximum(_sat(actC + e), C11_open)
             D11 = torch.maximum(D11, C11)
             # max-plus prefix scan in log steps, then the zero correction
-            t = D11 + (open_ - e)
+            D11_open = t = D11 + (open_ - e)
             k = 1
             while k < S:
                 t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
                 k *= 2
             R11 = torch.maximum(t, zc)
             D11 = torch.maximum(D11, R11)
+            if tr:
+                # a frozen pair's later columns stay out of its last word
+                word |= torch.where(
+                    col(done), 0,
+                    trace_bits(D11, C11, C11_open, R11, D11_open, zcol)
+                    << (4 * w))
             dmax = torch.maximum(dmax, torch.where(inrect, D11, NEG).amax(1))
             actD, actC = D11, C11
             bot_d, bot_r = D11.gather(1, hrow), R11.gather(1, hrow)
@@ -266,6 +296,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             done = done | fr_new
 
         # ---- rect step end ----
+        if tr:
+            t_words.append(as_int32(word))
         active = ~done
         d0 = dirn
         cpos_new = cpos + STEP
@@ -324,6 +356,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
                     torch.where(mask, rD, ckrD), torch.where(mask, rR, ckrR))
 
         ckcD, ckcC, ckrD, ckrR = save_borders(bsave, ckcD, ckcC, ckrD, ckrR)
+        if tr:
+            pend |= bsave[:, 0].to(i32) * F_SAVE
         gnm_ = torch.where(save, 0, gnm_)
         best = torch.where(new_best, off_max, best)
         ydi = torch.where(new_best, 0, ydi)
@@ -356,6 +390,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         J = torch.where(grow, ckJ, J)
         off = torch.where(grow, ckOff, off)
         rest = grow
+        if tr:
+            pend |= grow.to(i32) * F_RESTORE
         dirn = torch.where(grow, DIR_GD, dirn)
         ydi = torch.where(grow, 0, ydi)
         # shrink (reference: src/scan_block.rs:534-559): halve and move into
@@ -376,6 +412,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         ckJ = torch.where(shrink, J, ckJ)
         ckOff = torch.where(shrink, off, ckOff)
         ckcD, ckcC, ckrD, ckrR = save_borders(sh, ckcD, ckcC, ckrD, ckrR)
+        if tr:
+            pend |= shrink.to(i32) * F_SAVE
         ydi = torch.where(shrink, 0, ydi)
         yiter = torch.where(rdone, ydi, yiter)
         gnm = torch.where(rdone, gnm_, gnm)
@@ -402,14 +440,20 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         s += 1
     over = (~done).to(i32)
     out = torch.stack([best, xbi, xbj, over] if xd else [out, over], 1)
-    return (out, cells) if count_cells else out
+    res = (out,)
+    if tr:
+        res += (stack_steps(t_words, (B, S), dev),
+                stack_steps(t_desc, (B, 4), dev), nsteps)
+    if count_cells:
+        res += (cells,)
+    return res if len(res) > 1 else out
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a library built from
     ``csrc/adaptive_kernel.cu``."""
     lib.adaptive_align_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     lib.adaptive_align_launch.restype = ctypes.c_int
     lib.adaptive_error_string.argtypes = [ctypes.c_int]
     lib.adaptive_error_string.restype = ctypes.c_char_p
@@ -424,11 +468,16 @@ def _lib() -> ctypes.CDLL:
 def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
     """(score, overrun) per pair as a (B, 2) int32 tensor; in x-drop mode
     (best score, query position, reference position, overrun) as (B, 4).
+    With ``cfg.trace`` it returns ``(out, words, desc, steps)``, the trace
+    of ``core/traceback.py``; on CUDA words and desc hold ``cfg.max_steps``
+    steps, of which each pair wrote its own ``steps``, and of a step's
+    words the rows of the block size's 32-row slots.
 
     CPU tensors take ``adaptive_align_plain``; CUDA tensors launch the
     kernel of ``csrc/adaptive_kernel.cu`` on the current stream or raise.
-    ``adaptive_align.launches`` counts the global-mode launches,
-    ``adaptive_align.xdrop_launches`` the x-drop ones."""
+    The wrapper counts its launches by instance:
+    ``adaptive_align.launches`` (global), ``xdrop_launches``,
+    ``trace_launches`` and ``xdrop_trace_launches``."""
     if codes.device.type == "cpu":
         return adaptive_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -441,24 +490,23 @@ def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
     _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
     out = torch.empty((B, 4 if cfg.x_drop else 2), dtype=torch.int32,
                       device=dev)
+    res, ptrs = trace_buffers(out, cfg, cfg.max_size)
     if B == 0:
-        return out
+        return res
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.adaptive_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
-            table.data_ptr(), out.data_ptr(), B, cfg.seq_cap, cfg.alpha,
-            cfg.min_size, cfg.max_size, cfg.max_steps, int(gaps[0]),
-            int(gaps[1]), x_value(gaps, cfg),
+            table.data_ptr(), out.data_ptr(), *ptrs, B, cfg.seq_cap,
+            cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps,
+            int(gaps[0]), int(gaps[1]), x_value(gaps, cfg),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("adaptive kernel launch failed: "
                            f"{lib.adaptive_error_string(err).decode()}")
-    if cfg.x_drop:
-        adaptive_align.xdrop_launches += 1
-    else:
-        adaptive_align.launches += 1
-    return out
+    count_launch(adaptive_align, cfg)
+    return res
 
 
 adaptive_align.launches = adaptive_align.xdrop_launches = 0
+adaptive_align.trace_launches = adaptive_align.xdrop_trace_launches = 0

@@ -55,7 +55,9 @@ import torch.nn.functional as F
 
 from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
 from ..core.scores import INVALID
+from ..core.traceback import F_RIGHT, F_START
 from . import _build
+from ._trace import as_int32, stack_steps, trace_bits, trace_buffers
 
 __all__ = ["LaneKernelConfig", "LanePack", "pack_lane", "lane_align_plain",
            "lane_align"]
@@ -70,6 +72,7 @@ class LaneKernelConfig:
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
     x_drop: bool = False  # x-drop mode; the x value travels in the gaps
+    trace: bool = False  # also return the traceback bits (core/traceback.py)
 
     def __post_init__(self):
         S = self.block
@@ -177,10 +180,13 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
     (x = ``gaps[2]``) a (B, 4) tensor of (best score, its query position,
     its reference position, suspect).  Code positions are clamped to
     ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel does;
-    ``pack_lane`` output never needs either.  With ``count_cells`` it also
-    returns each pair's DP cell count, (B,) int64: S cells for every column
-    up to and including the freeze column (x-drop: every column of every
-    step up to the one that ends the pair)."""
+    ``pack_lane`` output never needs either.  With ``cfg.trace`` it returns
+    ``(out, words, desc, steps)``, the trace of ``core/traceback.py`` with
+    T the most steps of any pair: a freezing step holds the bits of its
+    columns up to the freeze.  With ``count_cells`` it also returns, last,
+    each pair's DP cell count, (B,) int64: S cells for every column up to
+    and including the freeze column (x-drop: every column of every step up
+    to the one that ends the pair)."""
     S, A, cap = cfg.block, cfg.alpha, cfg.seq_cap
     PRO = S // STEP
     dev = codes.device
@@ -211,6 +217,12 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
     # freeze predicate of the current rect, prologue values (lanes = query)
     fra, frt, fridx = S > ql, rl.clone(), ql.clamp(0, S - 1)
     oa = full(0)
+    tr = cfg.trace
+    if tr:
+        # per step: words (B, S), descriptors (B, 4); executed steps per pair
+        t_words, t_desc = [], []
+        nsteps = full(0)
+        zcol = full(0, (B, 1))
     if xd:
         x = int(gaps[2])
         r16 = torch.arange(16, dtype=i32, device=dev)
@@ -243,6 +255,17 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
             frt = col_len - colpos0
             fridx = (lane_len - starti).clamp(0, S - 1)
             lane_side = (~right).long()
+        if tr:
+            nsteps += (~done).to(i32)
+            if in_pro:
+                # the prologue is one right rect at (0, 0)
+                flags = full(F_RIGHT | (F_START if s == 0 else 0))
+                ls, cs = full(0), colpos0
+            else:
+                flags = (dirn != 1).to(i32) * F_RIGHT | F_START
+                ls, cs = starti, colpos0
+            t_desc.append(torch.stack([flags, ls, cs, full(S)], 1))
+            word = torch.zeros((B, S), dtype=torch.int64, device=dev)
         lpos = (starti[:, None] + rows).clamp(max=cap - 1)
         cpos = (colpos0[:, None] + cols).clamp(max=cap - 1)
         lanec = seqs[bidx, lane_side[:, None], lpos]  # (B, S)
@@ -253,16 +276,25 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
             D11 = _sat(torch.cat([corner[:, None], actD[:, :-1]], 1) + scores)
             if in_pro and s == 0 and w == 0:
                 D11[:, 0] = ZERO  # the DP origin cell
-            C11 = torch.maximum(_sat(actC + e), _sat(actD + open_))
+            C11_open = _sat(actD + open_)
+            C11 = torch.maximum(_sat(actC + e), C11_open)
             D11 = torch.maximum(D11, C11)
             # max-plus prefix scan in log steps, then the zero correction
-            t = D11 + (open_ - e)
+            D11_open = t = D11 + (open_ - e)
             k = 1
             while k < S:
                 t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
                 k *= 2
             R11 = torch.maximum(t, zc)
             D11 = torch.maximum(D11, R11)
+            if tr:
+                # the cell's traceback bits (reference:
+                # src/scan_block.rs:1166-1190); a frozen pair's later
+                # columns stay out of its last word
+                word |= torch.where(
+                    done[:, None], 0,
+                    trace_bits(D11, C11, C11_open, R11, D11_open, zcol)
+                    << (4 * w))
             dmax = torch.maximum(dmax, D11.amax(1))
             actD, actC = D11, C11
             if in_pro:
@@ -346,16 +378,24 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
             dirn = torch.where(active, new_dir, dirn)
             actD, pasD = torch.where(swap, pasD, actD), torch.where(swap, actD, pasD)
             actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
+        if tr:
+            t_words.append(as_int32(word))
         s += 1
     out = torch.stack([xbest, xbi, xbj, susp] if xd else [out, susp], 1)
-    return (out, cells) if count_cells else out
+    res = (out,)
+    if tr:
+        res += (stack_steps(t_words, (B, S), dev),
+                stack_steps(t_desc, (B, 4), dev), nsteps)
+    if count_cells:
+        res += (cells,)
+    return res if len(res) > 1 else out
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a library built from
     ``csrc/lane_kernel.cu``."""
     lib.lane_align_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.lane_align_launch.restype = ctypes.c_int
     lib.lane_error_string.argtypes = [ctypes.c_int]
     lib.lane_error_string.restype = ctypes.c_char_p
@@ -390,11 +430,14 @@ def _check(name, t, dtype, shape, device):
 def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
     """(score, suspect) per pair as a (B, 2) int32 tensor; in x-drop mode
     (best score, query position, reference position, suspect) as (B, 4).
+    With ``cfg.trace`` it returns ``(out, words, desc, steps)``, the trace
+    of ``core/traceback.py``; on CUDA words and desc hold ``cfg.max_steps``
+    steps, of which each pair wrote its own ``steps``.
 
     CPU tensors take ``lane_align_plain``; CUDA tensors launch the kernel of
-    ``csrc/lane_kernel.cu`` on the current stream or raise.
-    ``lane_align.launches`` counts the global-mode launches,
-    ``lane_align.xdrop_launches`` the x-drop ones."""
+    ``csrc/lane_kernel.cu`` on the current stream or raise.  The wrapper
+    counts its launches by instance: ``lane_align.launches`` (global),
+    ``xdrop_launches``, ``trace_launches`` and ``xdrop_trace_launches``."""
     if codes.device.type == "cpu":
         return lane_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -407,23 +450,28 @@ def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
     _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
     out = torch.empty((B, 4 if cfg.x_drop else 2), dtype=torch.int32,
                       device=dev)
+    res, ptrs = trace_buffers(out, cfg, cfg.block)
     if B == 0:
-        return out
+        return res
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.lane_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
-            table.data_ptr(), out.data_ptr(), B, cfg.seq_cap, cfg.alpha,
-            cfg.block, cfg.max_steps, int(gaps[0]), int(gaps[1]),
+            table.data_ptr(), out.data_ptr(), *ptrs, B, cfg.seq_cap,
+            cfg.alpha, cfg.block, cfg.max_steps, int(gaps[0]), int(gaps[1]),
             x_value(gaps, cfg), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"lane kernel launch failed: {lib.lane_error_string(err).decode()}")
-    if cfg.x_drop:
-        lane_align.xdrop_launches += 1
-    else:
-        lane_align.launches += 1
-    return out
+    count_launch(lane_align, cfg)
+    return res
+
+
+def count_launch(fn, cfg):
+    """One more launch of ``fn``'s instance for ``cfg``."""
+    name = ("xdrop_" if cfg.x_drop else "") + ("trace_" if cfg.trace else "")
+    setattr(fn, name + "launches", getattr(fn, name + "launches") + 1)
 
 
 lane_align.launches = lane_align.xdrop_launches = 0
+lane_align.trace_launches = lane_align.xdrop_trace_launches = 0

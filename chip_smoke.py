@@ -46,12 +46,33 @@ Phases, each reported on its own line:
    gaps -2/-1, x_drop 50, size (32, 64); and the default size (32, 256)
    with x_drop 50 on the 7000 homolog pairs of phase 6;
 10. ``align_exp_all`` with x_drop 50 at (32, 256) on the 1024 pairs of
-   phase 7, the target the x-drop 256-256 lane score, checked as there.
+   phase 7, the target the x-drop 256-256 lane score, checked as there;
+11. the trace instances of both kernels against their plain versions: lane
+   blocks 16..512 and adaptive ladders (16, 32) .. (64, 256) and (32,
+   512), global and x-drop, on seeded protein and DNA pairs (at (32, 512)
+   with pairs that grow to 512), and a capped adaptive run: equal
+   outputs, step counts, descriptors of every executed step and words
+   inside each step's height, and equal CIGARs walked from the two; the
+   adaptive runs must emit checkpoint saves and grow restores;
+12. lane trace main paths, the JAX package's traced short-read workloads
+   (``examples_tpu/run_results.py::bench_short_reads``, seed 77):
+   ``NucMatrix.new_simple(2, -4)``, gaps -6/-2, size (32, 32), 8192
+   nanopore-like pairs of 800..999 bases with 10% edits (seq_cap 1100) and
+   16384 Illumina-like pairs of 100..150 bases with 1% edits (seq_cap
+   180);
+13. the lane x-drop trace main path: phase 8's pairs with trace;
+14. adaptive trace main paths on the homolog pairs of phase 6 in batches
+   of 2048: (32, 256) (the reference's traced uc_bench row), (32, 512)
+   and (32, 256) with x_drop 50.
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal
 the plain version's; kernel times come from CUDA events, packing is timed
-apart.  The line before the last is a JSON summary of the kernels; the last
+apart.  A trace main path runs ``align_all_trace``; its results must
+equal the non-trace instance's (none exists at max size 512), every CIGAR
+must sum to its end position and rescore to its score, and the first 512
+must equal those walked from the plain version's trace; pack, the trace's
+copy-back and the walk are timed on the host clock.  The line before the last is a JSON summary of the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
 script exits non-zero and prints no result.  It needs the repository around
 it and a CUDA device; without either it fails.
@@ -59,6 +80,7 @@ it and a CUDA device; without either it fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -147,6 +169,12 @@ OPS_PER_CELL = 12
 OPS_PER_CELL_XDROP = OPS_PER_CELL + 2
 
 
+# trace adds, per cell: the four compares of its bits (D == C, D == R,
+# C == C_open, R == D_open), the shift that hands the R bit to the row
+# below, and the shift and or that put the cell's bits into its word
+OPS_PER_CELL_TRACE = 7
+
+
 def random_pairs(rng, alphabet, n, max_len):
     """Half related (substitutions and indels), half unrelated pairs, with
     lengths 0..max_len, plus empty and length-1 sequences."""
@@ -179,6 +207,46 @@ def xdrop_protein_pairs(rng, n):
         for _ in range(k // 10):
             r[int(rng.integers(0, len(r)))] = int(rng.choice(aa))
         pairs.append((q, bytes(r)))
+    return pairs
+
+
+def short_read_pairs(rng):
+    """The JAX package's traced short-read workloads
+    (examples_tpu/run_results.py::bench_short_reads, seed 77 there), drawn
+    in its order: 16384 Illumina-like pairs of 100..150 bases with 1%
+    edits, then 8192 nanopore-like pairs of 800..999 bases with 10% edits;
+    each pair is (mutated copy, original)."""
+    dna = b"ACGT"
+
+    def mutated(n, err):
+        r = bytes(rng.choice(list(dna), size=n).tolist())
+        q = bytearray(r)
+        for _ in range(max(1, int(n * err))):
+            op = int(rng.integers(0, 3))
+            pos = int(rng.integers(0, max(len(q), 1)))
+            if op == 0:
+                q[pos % len(q)] = int(rng.choice(list(dna)))
+            elif op == 1 and len(q) > 1:
+                del q[pos % len(q)]
+            else:
+                q.insert(pos, int(rng.choice(list(dna))))
+        return bytes(q), r
+
+    ill = [mutated(int(rng.integers(100, 151)), 0.01) for _ in range(16384)]
+    ont = [mutated(int(rng.integers(800, 1000)), 0.1) for _ in range(8192)]
+    return ill, ont
+
+
+def grow_to_512_pairs(rng, n, length=700, inserted=450):
+    """Protein pairs whose adaptive blocks grow to 512: a ``length``-residue
+    query and the same with ``inserted`` random residues inserted in its
+    middle (560 and 300 suffice)."""
+    pairs = []
+    for _ in range(n):
+        q = rng.choice(AA, size=length)
+        mid = length // 2
+        pairs.append((q.tobytes(), np.concatenate(
+            [q[:mid], rng.choice(AA, size=inserted), q[mid:]]).tobytes()))
     return pairs
 
 
@@ -215,8 +283,8 @@ def with_step_cap(cfg, steps):
     class Capped(type(cfg)):
         max_steps = steps
 
-    return Capped(cfg.min_size, cfg.max_size, cfg.seq_cap, cfg.alpha,
-                  cfg.x_drop)
+    return Capped(**{f.name: getattr(cfg, f.name)
+                     for f in dataclasses.fields(cfg)})
 
 
 def ptxas_report(_build, name):
@@ -233,9 +301,10 @@ def ptxas_report(_build, name):
     lines, fn, frame = [], None, ""
     for line in proc.stderr.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"ILi(\d+)ELb([01])E", line)
+                      r"ILi(\d+)ELb([01])ELb([01])E", line)
         if m:
-            fn = f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}>"
+            fn = (f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}"
+                  f"{', trace' if m[4] == '1' else ''}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -290,18 +359,25 @@ def bound(staged, cells, int32_per_s, x_drop=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+COUNTERS = ("launches", "xdrop_launches", "trace_launches",
+            "xdrop_trace_launches")
+
+
 def reset_launches(lk, ak):
-    lk.lane_align.launches = lk.lane_align.xdrop_launches = 0
-    ak.adaptive_align.launches = ak.adaptive_align.xdrop_launches = 0
+    for fn in (lk.lane_align, ak.adaptive_align):
+        for c in COUNTERS:
+            setattr(fn, c, 0)
 
 
 def expect_launches(lk, ak, what, *launched):
     """The launch counts by kernel instance since ``reset_launches``; fails
     unless exactly the instances named in ``launched`` ran."""
-    counts = {"lane_align": lk.lane_align.launches,
-              "adaptive_align": ak.adaptive_align.launches,
-              "lane_align_xdrop": lk.lane_align.xdrop_launches,
-              "adaptive_align_xdrop": ak.adaptive_align.xdrop_launches}
+    counts = {}
+    for fn in (lk.lane_align, ak.adaptive_align):
+        for c in COUNTERS:
+            name = fn.__name__ + ("_xdrop" if "xdrop" in c else "") + (
+                "_trace" if "trace" in c else "")
+            counts[name] = getattr(fn, c)
     if any((counts[k] > 0) != (k in launched) for k in counts):
         raise AssertionError(f"{what}: launches {counts}, expected only "
                              f"{launched}")
@@ -315,6 +391,124 @@ def check_equal(got, want, what):
         bad = (got != want).any(1).nonzero()[:5, 0].tolist()
         raise AssertionError(f"kernel != plain {what}: pairs {bad}: "
                              f"{got[bad].tolist()} vs {want[bad].tolist()}")
+
+
+def check_trace(got, want, what):
+    """A trace instance's ``(out, words, desc, steps)`` against its plain
+    version's: equal outputs and step counts, equal descriptors of every
+    step a pair executed and equal words of those steps in the rows inside
+    each step's height.  Returns the count of checkpoint saves and
+    restores in the executed descriptors."""
+    import torch
+
+    check_equal(got[0], want[0], what)
+    out, words, desc, steps = want
+    if not torch.equal(got[3], steps):
+        bad = (got[3] != steps).nonzero()[:5, 0].tolist()
+        raise AssertionError(f"kernel != plain {what}: step counts of pairs "
+                             f"{bad}: {got[3][bad].tolist()} vs "
+                             f"{steps[bad].tolist()}")
+    T, B, S = words.shape
+    ran = torch.arange(T, device=steps.device)[:, None] < steps[None, :]
+    gd = got[2][:T]
+    if not torch.equal(gd[ran], desc[ran]):
+        t, b = ((gd != desc).any(2) & ran).nonzero()[0].tolist()
+        raise AssertionError(f"kernel != plain {what}: descriptor of pair {b} "
+                             f"step {t}: {gd[t, b].tolist()} vs "
+                             f"{desc[t, b].tolist()}")
+    rows = torch.arange(S, device=steps.device)
+    inside = ran[:, :, None] & (rows < desc[:, :, 3:4])
+    diff = (got[1][:T] != words) & inside
+    if bool(diff.any()):
+        t, b, r = diff.nonzero()[0].tolist()
+        raise AssertionError(f"kernel != plain {what}: word of pair {b} step "
+                             f"{t} row {r}: {int(got[1][t, b, r])} vs "
+                             f"{int(words[t, b, r])}")
+    fl = torch.where(ran, desc[:, :, 0], 0)
+    return int(((fl >> 2) & 1).sum()), int(((fl >> 3) & 1).sum())
+
+
+def score_table(matrix):
+    """256 x 256 scores of letter pairs, by raw byte (``matrix.get``)."""
+    tab = np.zeros((256, 256), np.int64)
+    letters = list(range(65, 91)) + list(range(97, 123))
+    for a in letters:
+        for c in letters:
+            tab[a, c] = matrix.get(a, c)
+    return tab
+
+
+def check_cigars(cigars, pairs, results, matrix, gaps, what):
+    """The reference's trace check (examples_tpu/verify_trace.py:42-54, and
+    the rescoring of tests/test_accuracy_random.py:151-167) on every pair:
+    a CIGAR's ops sum to the result's end position, and its matches and
+    mismatches scored with the matrix plus each gap run's open + (len - 1)
+    * extend give the result's score.  Numpy over all pairs at once."""
+    from block_aligner_tpu_torch import Operation as Op
+
+    runs = [np.array([(int(o.op), o.len) for o in c.to_vec()],
+                     np.int64).reshape(-1, 2) for c in cigars]
+    B = len(runs)
+    nrun = np.array([len(r) for r in runs], np.int64)
+    allr = np.concatenate(runs) if B else np.zeros((0, 2), np.int64)
+    pair = np.repeat(np.arange(B), nrun)
+    op, ln = allr[:, 0], allr[:, 1]
+    diag = (op == Op.M) | (op == Op.Eq) | (op == Op.X)
+    di = np.where(diag | (op == Op.I), ln, 0)
+    dj = np.where(diag | (op == Op.D), ln, 0)
+    ends = np.stack([np.bincount(pair, di, B), np.bincount(pair, dj, B)],
+                    1).astype(np.int64)
+    want_ends = np.array([(r.query_idx, r.reference_idx) for r in results],
+                         np.int64).reshape(-1, 2)
+    if not np.array_equal(ends, want_ends):
+        k = int(np.flatnonzero((ends != want_ends).any(1))[0])
+        raise AssertionError(f"{what}: pair {k}: CIGAR {cigars[k]} ends at "
+                             f"{tuple(ends[k])}, result {results[k]}")
+    gap = np.where((op == Op.I) | (op == Op.D),
+                   gaps.open + (ln - 1) * gaps.extend, 0)
+    # each diagonal op's query and reference index
+    first = np.concatenate([[0], np.cumsum(nrun)[:-1]])
+    i0 = np.cumsum(di) - di
+    j0 = np.cumsum(dj) - dj
+    i0 -= i0[first[pair]] if len(pair) else 0
+    j0 -= j0[first[pair]] if len(pair) else 0
+    rep = np.repeat(np.flatnonzero(diag), ln[diag])
+    start = np.repeat(np.cumsum(ln[diag]) - ln[diag], ln[diag])
+    off = np.arange(rep.size) - start
+    width = max([len(q) for q, _ in pairs] + [len(r) for _, r in pairs] + [1])
+    qb = np.zeros((B, width), np.uint8)
+    rb = np.zeros((B, width), np.uint8)
+    for k, (q, r) in enumerate(pairs):
+        qb[k, : len(q)] = np.frombuffer(q, np.uint8)
+        rb[k, : len(r)] = np.frombuffer(r, np.uint8)
+    pr = pair[rep]
+    sub = score_table(matrix)[qb[pr, i0[rep] + off], rb[pr, j0[rep] + off]]
+    score = (np.bincount(pair, gap, B) + np.bincount(pr, sub, B)).astype(
+        np.int64)
+    want = np.array([r.score for r in results], np.int64)
+    if not np.array_equal(score, want):
+        k = int(np.flatnonzero(score != want)[0])
+        raise AssertionError(f"{what}: pair {k}: CIGAR {cigars[k]} rescores "
+                             f"to {score[k]}, result {results[k]}")
+    return int(ln.sum())
+
+
+def walk_both(got, want, ends, matrix, what):
+    """CIGARs walked from a kernel's trace and from its plain version's
+    trace must be equal."""
+    from block_aligner_tpu_torch.core.traceback import Trace
+
+    cig = []
+    for out, words, desc, steps in (got, want):
+        st = steps.cpu().numpy()
+        T = int(st.max())
+        tr = Trace(words[:T].cpu().numpy(), desc[:T].cpu().numpy(), st,
+                   matrix)
+        cig.append([str(c) for c in tr.cigars_all(ends)])
+    if cig[0] != cig[1]:
+        k = next(k for k in range(len(ends)) if cig[0][k] != cig[1][k])
+        raise AssertionError(f"{what}: CIGAR of pair {k}: kernel {cig[0][k]} "
+                             f"vs plain {cig[1][k]}")
 
 
 def check_goldens(golden, BatchAligner, Gaps, scores, dev):
@@ -339,12 +533,20 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     sys.path.insert(0, ROOT)
     from bench import rand_protein_pairs
-    from block_aligner_tpu_torch import BatchAligner, Gaps, align_exp_all
+    from block_aligner_tpu_torch import BatchAligner, Gaps, align_exp_all, api
     from block_aligner_tpu_torch.core import scores
     from block_aligner_tpu_torch.ops import _build
     from block_aligner_tpu_torch.ops import adaptive_kernel as ak
     from block_aligner_tpu_torch.ops import lane_kernel as lk
     from examples_tpu.common import load_uc_pairs, rand_mutate, rand_seq
+
+    last = [time.perf_counter()]
+
+    def phase(what):
+        """Print the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        print(f"[phase] {what}: {now - last[0]:.1f} s")
+        last[0] = now
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -379,6 +581,7 @@ def main():
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in reports:
         print(f"[ptxas] {line}")
+    phase("1-2, device and build")
 
     # 3. lane kernel vs plain version on the card (these launches are not
     # a main path's and are not counted)
@@ -402,6 +605,7 @@ def main():
     n_gold = check_goldens(GOLDEN, BatchAligner, Gaps, scores, dev)
     print(f"[lane-golden] {n_gold} pinned reference scores equal "
           "(incl. README example NW1 -2/-1 block 32 -> 7)")
+    phase("3, lane kernel vs plain")
 
     # 4. adaptive kernel vs plain version on the card
     checked = overran = 0
@@ -435,6 +639,7 @@ def main():
           f"cap on {len(got)} pairs, {overran} of which overran")
     n_gold = check_goldens(GOLDEN_ADAPTIVE, BatchAligner, Gaps, scores, dev)
     print(f"[adaptive-golden] {n_gold} pinned adaptive scores equal")
+    phase("4, adaptive kernel vs plain")
 
     # 3-4, x-drop: both kernels' x-drop instances vs their plain versions
     xsetups = ((scores.BLOSUM62, Gaps(-11, -1), AA, 50),
@@ -490,6 +695,7 @@ def main():
           "lengths 0..600, structural indels): best, position and overrun "
           f"equal; {dropped} best positions short of (qlen, rlen); with a "
           f"25-step cap on {len(got)} pairs, {overran} of which overran")
+    phase("3-4, x-drop instances vs plain")
 
     # 5. the lane main path
     pairs = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
@@ -552,6 +758,7 @@ def main():
     print(f"[time] {card}: 512-pair subset: plain {plain512_ms * 1e3 / 512:.4f} "
           f"us/pair, kernel {kernel512_ms * 1e3 / 512:.4f} us/pair")
     lane_plain_ms = plain_ms
+    phase("5, lane main path")
 
     # 6. the adaptive main path: the default size on homolog pairs, then on
     # the long random pairs
@@ -611,6 +818,7 @@ def main():
         if what.startswith("uc30"):
             ad_ms, ad_plain_ms, ad_bound, ad_by = kernel_ms, plain_ms, bnd, by
     print(f"[adaptive-main] adaptive_align launches {ad_launches}")
+    phase("6, adaptive main path")
 
     # 7. align_exp_all at (32, 256) on 1024 homolog pairs
     pick = np.random.default_rng(5).choice(len(uc), 1024, replace=False)
@@ -655,6 +863,7 @@ def main():
           f"the 256-256 lane score: settled per min size {settled}; every "
           f"result equals a direct BatchAligner run at its size; launches "
           f"(lane, adaptive) {exp_launches}")
+    phase("7, align_exp_all")
 
     def xdrop_path(al, work, what, name, plain_fn, kernel_fn):
         """Drive an x-drop main path (stage + align_staged, then align_all)
@@ -711,6 +920,7 @@ def main():
         "protein 800..999 with len/10 substitutions, BLOSUM62 -11/-1, "
         "x_drop 50, (32, 32)", "lane_align_xdrop", lk.lane_align_plain,
         lk.lane_align)
+    phase("8, lane x-drop main path")
 
     # 9. the adaptive x-drop main path: x_drop_accuracy's configuration,
     # then the default size on the homolog pairs
@@ -731,6 +941,7 @@ def main():
     xdrop_path(xal, uc, "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, "
                "x_drop 50, (32, 256)", "adaptive_align_xdrop",
                ak.adaptive_align_plain, ak.adaptive_align)
+    phase("9, adaptive x-drop main paths")
 
     # 10. align_exp_all with x-drop on the pairs of phase 7
     fixed = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(256, 256),
@@ -751,6 +962,250 @@ def main():
           f"size {settled}; every result equals a direct BatchAligner(x_drop"
           f"=50) run at its size; launches (lane, adaptive) "
           f"{(counts['lane_align_xdrop'], counts['adaptive_align_xdrop'])}")
+    phase("10, align_exp_all with x-drop")
+
+    # 11. the trace instances of both kernels vs their plain versions
+    from block_aligner_tpu_torch.core.traceback import Trace
+
+    def kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x, what, walk=True):
+        pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
+        kernel = lk.lane_align if isinstance(cfg, lk.LaneKernelConfig) \
+            else ak.adaptive_align
+        plain = lk.lane_align_plain if kernel is lk.lane_align \
+            else ak.adaptive_align_plain
+        got = kernel(*pk, cfg)
+        torch.cuda.synchronize()
+        want = plain(*pk, cfg)
+        events = check_trace(got, want, what)
+        if walk:
+            out = want[0].cpu().numpy()
+            ends = ([(int(o[1]), int(o[2])) for o in out] if cfg.x_drop else
+                    [(len(q), len(r)) for q, r in pairs])
+            walk_both(got, want, ends, matrix, what)
+        return got, events
+
+    setups = ((scores.BLOSUM62, Gaps(-11, -1), AA, 50),
+              (scores.NW1, Gaps(-2, -1), DNA, 100))
+    checked = 0
+    for S in (16, 32, 64, 256, 512):
+        for xd in (False, True):
+            for matrix, gaps, alphabet, x in setups:
+                pairs = random_pairs(rng, alphabet, 96, 400)
+                cfg = lk.LaneKernelConfig(
+                    S, -(-(1 + 400 + S + 16) // 128) * 128,
+                    32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
+                kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x if xd else 0,
+                                      f"lane trace S={S} x_drop={xd}")
+                checked += len(pairs)
+    print(f"[lane-trace-vs-plain] {checked} pairs at S in 16,32,64,256,512, "
+          "global and x-drop (protein x 50 and DNA x 100, lengths 0..400): "
+          "outputs, step counts, descriptors and words of every executed "
+          "step equal, and the CIGARs walked from both")
+    checked, saves, restores = 0, 0, 0
+    ladders_t = ladders + ((32, 512),)
+    for lo, hi in ladders_t:
+        for xd in (False, True):
+            for matrix, gaps, alphabet, x in setups:
+                pairs = structural_pairs(rng, alphabet, 96, 400)
+                if hi == 512 and matrix.kind == "aa":
+                    pairs += grow_to_512_pairs(rng, 4)
+                cfg = ak.AdaptiveKernelConfig(
+                    lo, hi, -(-(1 + 1150 + hi + 16) // 128) * 128,
+                    32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
+                got, (sv, rs) = kernel_vs_plain_trace(
+                    cfg, pairs, matrix, gaps, x if xd else 0,
+                    f"adaptive trace ({lo}, {hi}) x_drop={xd}")
+                if hi == 512 and matrix.kind == "aa":
+                    # every one of the 4 pairs, global and x-drop
+                    ran = (torch.arange(got[2].shape[0], device=dev)[:, None]
+                           < got[3][None, -4:])
+                    grown = torch.where(ran, got[2][:, -4:, 3], 0).amax(0)
+                    if not bool((grown == 512).all()):
+                        raise AssertionError(f"x_drop={xd}: blocks grew to "
+                                             f"{grown.tolist()}, not 512")
+                checked += len(pairs)
+                saves += sv
+                restores += rs
+    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768, trace=True), 40)
+    got, _ = kernel_vs_plain_trace(
+        cfg, structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
+        Gaps(-11, -1), 0, "adaptive trace, 40 steps", walk=False)
+    overran = int(got[0][:, 1].sum())
+    if not 0 < overran < len(got[0]) or not saves or not restores:
+        raise AssertionError(f"trace: {overran} pairs overran 40 steps; "
+                             f"{saves} saves, {restores} restores")
+    print(f"[adaptive-trace-vs-plain] {checked} pairs at ladders "
+          f"{', '.join(map(str, ladders_t))}, global and x-drop (lengths "
+          "0..400, structural indels; at (32, 512) 4 pairs that grow to "
+          "512 in both modes): outputs, step counts, descriptors and words "
+          f"equal, and the CIGARs; the descriptors held {saves} checkpoint "
+          f"saves and {restores} grow restores; with a 40-step cap on "
+          f"{len(got[0])} pairs, {overran} of which overran, the traces "
+          "equal too")
+    phase("11, trace instances vs plain")
+
+    def trace_path(al, work, what, name, base):
+        """Drive a trace main path through ``align_all_trace`` with the
+        launch counts reset just before it and read just after; hold its
+        results against the non-trace instance (``base``; None at max size
+        512, which without trace is the big kernel's route) and the plain
+        version on the card, every CIGAR against its result, and the first
+        512 CIGARs against those of the plain version's trace; time it per
+        batch.  Returns the path's numbers for the kernels line."""
+        plain_fn = lk.lane_align_plain if al.route == "lane" \
+            else ak.adaptive_align_plain
+        kernel_fn = lk.lane_align if al.route == "lane" else ak.adaptive_align
+        x = al.x_drop or 0
+        torch.cuda.synchronize()
+        reset_launches(lk, ak)
+        (res, cigars), path_ms = host_ms(lambda: al.align_all_trace(work))
+        launches = expect_launches(lk, ak, what, name)[name]
+        if base is not None and base.align_all(work, sort=False) != res:
+            raise AssertionError(f"{what}: results differ from the non-trace "
+                                 "instance's")
+        n_ops = check_cigars(cigars, work, res, al.matrix, al.gaps, what)
+        # the plain version: every result, and the first 512 CIGARs
+        cfg0 = al.cfg if base is None else dataclasses.replace(al.cfg,
+                                                               trace=False)
+        pk = lk.pack_lane(work, al.matrix, cfg0, al.gaps, dev, x_drop=x)
+        plain_res, plain_ms = host_ms(
+            lambda: plain_fn(*pk, cfg0, count_cells=True))
+        want, cells = plain_res[0], plain_res[-1]
+        del plain_res
+        got = torch.tensor([(r.score, r.query_idx, r.reference_idx)
+                            for r in res], dtype=torch.int32)
+        want = want.cpu()
+        if al.cfg.x_drop:
+            err = int((got - want[:, :3]).abs().max())
+        else:
+            err = int((got[:, 0] - want[:, 0]).abs().max())
+        if err:
+            raise AssertionError(f"{what}: differs from the plain version: "
+                                 f"max abs err {err}")
+        sub = work[:512]
+        pk = lk.pack_lane(sub, al.matrix, al.cfg, al.gaps, dev, x_drop=x)
+        _, words, desc, steps = plain_fn(*pk, al.cfg)
+        tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
+                   steps.cpu().numpy(), al.matrix)
+        ends = [(r.query_idx, r.reference_idx) for r in res[: len(sub)]]
+        if [str(c) for c in tr.cigars_all(ends)] != [str(c) for c in
+                                                      cigars[: len(sub)]]:
+            raise AssertionError(f"{what}: CIGARs differ from the plain "
+                                 "version's on the first 512 pairs")
+        # times per batch: pack, kernel (CUDA events; the non-trace twin on
+        # the same batches beside it), the trace's copy to the host alone,
+        # _decode (that copy, the replay of the events, the results), walk
+        # (cigars_all)
+        t = {"pack": 0.0, "kernel": 0.0, "twin": 0.0, "copy": 0.0,
+             "decode": 0.0, "walk": 0.0}
+        nbytes = 0
+        for k in range(0, len(work), al.batch_size):
+            chunk = work[k : k + al.batch_size]
+            staged, ms = host_ms(lambda: al._pack(chunk))
+            t["pack"] += ms
+            t["kernel"] += cuda_ms(lambda: kernel_fn(*staged, al.cfg), 3)
+            if base is not None:
+                t["twin"] += cuda_ms(lambda: kernel_fn(*staged, cfg0), 3)
+            disp = kernel_fn(*staged, al.cfg)
+            T = int(disp[3].max())
+            _, ms = host_ms(lambda: [api.to_host(disp[1][:T]),
+                                     api.to_host(disp[2][:T])])
+            t["copy"] += ms
+            got_b, ms = host_ms(lambda: al._decode(staged, disp))
+            t["decode"] += ms
+            ends = [(r.query_idx, r.reference_idx) for r in got_b]
+            _, ms = host_ms(lambda: al.trace().cigars_all(ends))
+            t["walk"] += ms
+            # bytes the launch must move: codes, lengths and table read
+            # once; out, steps, and each executed step's descriptor and
+            # words of its rows inside the height written once
+            trb = al.trace()
+            ran = np.arange(trb.desc.shape[0])[:, None] < trb.steps[None, :]
+            nbytes += (staged.codes.numel() + 4 * (2 * len(chunk)
+                       + staged.table.numel()) + (16 if x else 8) * len(chunk)
+                       + 4 * len(chunk) + 16 * int(ran.sum())
+                       + 4 * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
+        ops = (OPS_PER_CELL_XDROP if al.cfg.x_drop else OPS_PER_CELL) \
+            + OPS_PER_CELL_TRACE
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = int(cells.sum()) * ops / int32_per_s * 1e3
+        bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                              "operations")
+        B = len(work)
+        sc = got[:, 0].numpy()
+        print(f"[{name}-main] {B} pairs, {what}: align_all_trace in batches "
+              f"of {al.batch_size}; {name} launches {launches}; results equal "
+              + ("the non-trace instance's and " if base is not None else "")
+              + "the plain version's; every CIGAR "
+              f"sums to its end and rescores to its score ({n_ops} ops); the "
+              "first 512 equal the plain version's; scores "
+              f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
+              f"{int(cells.sum())} DP cells, {int(cells.sum()) / B:.0f} per "
+              f"pair; {nbytes / B:.0f} bytes per pair")
+        twin = (f"the non-trace twin on the same batches "
+                f"{t['twin'] * 1e3 / B:.4f} us/pair ({t['twin']:.3f} ms)"
+                if base is not None else "no non-trace twin")
+        print(f"[time] {card}: {name}, {what}: kernel "
+              f"{t['kernel'] * 1e3 / B:.4f} us/pair ({t['kernel']:.3f} ms for "
+              f"{B} pairs, CUDA events, mean of 3 per batch), {twin}; bound "
+              f"{bnd:.4f} ms by {by}; host clock, us/pair: pack "
+              f"{t['pack'] * 1e3 / B:.4f}, trace copy to the host "
+              f"{t['copy'] * 1e3 / B:.4f}, _decode (copy, replay, results) "
+              f"{t['decode'] * 1e3 / B:.4f}, walk (cigars_all) "
+              f"{t['walk'] * 1e3 / B:.4f}, align_all_trace "
+              f"{path_ms * 1e3 / B:.4f}, plain {plain_ms * 1e3 / B:.4f} "
+              f"({plain_ms:.1f} ms)")
+        phase(f"{name}, {what}")
+        return {"launches": launches, "max_abs_err": err, "ms": t["kernel"],
+                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+    def merged(*paths):
+        """One kernels-line entry for an instance that ran several paths:
+        the launches of all, the numbers of the first."""
+        return {**paths[0], "launches": sum(p["launches"] for p in paths),
+                "max_abs_err": max(p["max_abs_err"] for p in paths)}
+
+    # 12. the lane trace main paths: the reference's traced short reads
+    ill, ont = short_read_pairs(np.random.default_rng(77))
+    nuc, ngaps = scores.NucMatrix.new_simple(2, -4), Gaps(-6, -2)
+    paths = []
+    for work, cap, what in (
+            (ont, 1100, "nanopore-like 800..999 bases, 10% edits"),
+            (ill, 180, "Illumina-like 100..150 bases, 1% edits")):
+        kw = dict(size=(32, 32), batch=len(work), seq_cap=cap, device=dev)
+        paths.append(trace_path(
+            BatchAligner(nuc, ngaps, trace=True, **kw), work,
+            f"{what}, NucMatrix(2, -4) -6/-2, (32, 32)", "lane_align_trace",
+            BatchAligner(nuc, ngaps, **kw)))
+    lane_t = merged(*paths)
+
+    # 13. the lane x-drop trace main path: the pairs of phase 8
+    kw = dict(size=(32, 32), batch=8192, seq_cap=1100, x_drop=50, device=dev)
+    lane_xt = trace_path(
+        BatchAligner(scores.BLOSUM62, Gaps(-11, -1), trace=True, **kw),
+        xdrop_protein_pairs(np.random.default_rng(7), 8192),
+        "protein 800..999 with len/10 substitutions, BLOSUM62 -11/-1, "
+        "x_drop 50, (32, 32)", "lane_align_xdrop_trace",
+        BatchAligner(scores.BLOSUM62, Gaps(-11, -1), **kw))
+
+    # 14. the adaptive trace main paths: the homolog pairs of phase 6 at
+    # the reference's traced (32, 256), at (32, 512), and with x-drop
+    paths = []
+    for size, x, name in (((32, 256), None, "adaptive_align_trace"),
+                          ((32, 512), None, "adaptive_align_trace"),
+                          ((32, 256), 50, "adaptive_align_xdrop_trace")):
+        kw = dict(size=size, batch=2048, seq_cap=512, x_drop=x, device=dev)
+        al = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), trace=True, **kw)
+        if al.route != "adaptive" or al.cfg.max_size != size[1]:
+            raise AssertionError(f"{size} with trace did not take the "
+                                 "adaptive route")
+        base = None if size[1] == 512 else BatchAligner(
+            scores.BLOSUM62, Gaps(-11, -1), **kw)
+        paths.append(trace_path(
+            al, uc, f"uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, {size}"
+            + (f", x_drop {x}" if x else ""), name, base))
+    ad_t = merged(paths[0], paths[1])
+    ad_xt = paths[2]
 
     print(json.dumps({"kernels": [
         {
@@ -793,6 +1248,38 @@ def main():
             "source": "block_aligner_tpu_torch/csrc/adaptive_kernel.cu",
             "replaces": "block_aligner_tpu/ops/adaptive_kernel.py:788",
             **ad_x,
+            "library_ms": None,
+        },
+        {
+            "name": "lane_align_trace",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/lane_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/lane_kernel.py:884",
+            **lane_t,
+            "library_ms": None,
+        },
+        {
+            "name": "lane_align_xdrop_trace",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/lane_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/lane_kernel.py:884",
+            **lane_xt,
+            "library_ms": None,
+        },
+        {
+            "name": "adaptive_align_trace",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/adaptive_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/adaptive_kernel.py:720",
+            **ad_t,
+            "library_ms": None,
+        },
+        {
+            "name": "adaptive_align_xdrop_trace",
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/adaptive_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/adaptive_kernel.py:720",
+            **ad_xt,
             "library_ms": None,
         },
     ]}))

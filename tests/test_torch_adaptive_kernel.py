@@ -209,12 +209,13 @@ def test_wrapper_raises_off_the_cpu_and_card():
 
 def test_kernel_entry_point_matches_binding():
     """The C signature and the ctypes argument list agree (the binding
-    passes 5 pointers, 9 ints and the stream)."""
+    passes 8 pointers: 5 for the inputs and the output, 3 for the trace
+    buffers; 9 ints and the stream)."""
     src = (_build.CSRC / "adaptive_kernel.cu").read_text()
     sig = re.search(r'extern "C" int adaptive_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 5 + [False] * 9 + [True]
+        [True] * 8 + [False] * 9 + [True]
     assert _build.library_path("adaptive_kernel").name.startswith(
         "libadaptive_kernel-")
 

@@ -11,7 +11,6 @@ import torch
 
 import block_aligner_tpu as jba
 import block_aligner_tpu_torch as tba
-from block_aligner_tpu.api import align_exp_all as jax_align_exp_all
 from block_aligner_tpu.api import pick_route as jax_pick_route
 from block_aligner_tpu.core.full_dp import global_align_score
 from test_torch_adaptive_kernel import protein_pairs as homolog_pairs
@@ -120,17 +119,17 @@ def test_pick_route_matches_jax(args):
 
 @pytest.mark.parametrize("kwargs", [
     dict(size=(64, 1024)), dict(seq_cap=20000),
-    dict(trace=True), dict(local_start=True),
+    dict(trace=True, local_start=True), dict(local_start=True),
     dict(free_query_start_gaps=True), dict(free_query_end_gaps=True),
     dict(matrix=tba.BYTES1), dict(mesh=object()),
     dict(use_lane_kernel=False),
-    dict(size=(32, 256), trace=True),
+    dict(size=(64, 1024), trace=True),
     dict(size=(32, 256), local_start=True),
     dict(size=(16, 64), free_query_end_gaps=True),
     dict(size=(32, 256), matrix=tba.BYTES1),
-], ids=["big", "long_lane", "trace", "local_start",
+], ids=["big", "long_lane", "trace_local_start", "local_start",
         "free_start", "free_end", "byte", "mesh", "engine",
-        "adaptive_trace", "adaptive_local_start",
+        "big_trace", "adaptive_local_start",
         "adaptive_free_end", "adaptive_byte"])
 def test_unported_configurations_raise(kwargs):
     kw = dict(matrix=tba.BLOSUM62, gaps=tba.Gaps(-11, -1), size=(32, 32),
@@ -186,16 +185,41 @@ def test_default_size_is_adaptive_and_runs():
             orc.res().score, len(q), len(r))
 
 
+def oracle_exp_all(pairs, targets, size, x_drop=None):
+    """The JAX package's ``align_exp_all`` (block_aligner_tpu/api.py), one
+    pair at a time through ``BlockOracle``: each pair retries with a
+    doubled min size until its score reaches its target or the min size
+    passes the max; the results and the min sizes that reached them (None
+    past the last level, whose result stays)."""
+    lo, hi = size
+    orc = jba.BlockOracle(x_drop=x_drop is not None)
+    results, mins = [], []
+    for (q, r), target in zip(pairs, targets):
+        cur, got, reached = max(lo, 16), None, None
+        while cur <= hi:
+            orc.align(jba.PaddedBytes.from_bytes(q, hi, jba.BLOSUM62),
+                      jba.PaddedBytes.from_bytes(r, hi, jba.BLOSUM62),
+                      jba.BLOSUM62, jba.Gaps(-11, -1), (cur, hi), x_drop or 0)
+            got = orc.res()
+            if got.score >= target:
+                reached = cur
+                break
+            cur *= 2
+        results.append(got)
+        mins.append(reached)
+    return results, mins
+
+
 def test_align_exp_all_matches_jax():
     """The retry ladder 16, 32 (adaptive) and 64 (lane) with the exact
     global scores as targets: the same results and min sizes as the JAX
-    package, including pairs that never reach their target."""
+    package's ladder, run here through BlockOracle, including pairs that
+    never reach their target."""
     pairs = [(q[:90], r[:90]) for q, r in homolog_pairs(37, 24)]
     targets = [global_align_score(q, r, jba.BLOSUM62, jba.Gaps(-11, -1))
                for q, r in pairs]
     targets[5] += 1  # unreachable
-    want, want_min = jax_align_exp_all(jba.BLOSUM62, jba.Gaps(-11, -1), pairs,
-                                       targets, (16, 64), batch=16, seq_cap=128)
+    want, want_min = oracle_exp_all(pairs, targets, (16, 64))
     got, got_min = tba.align_exp_all(tba.BLOSUM62, tba.Gaps(-11, -1), pairs,
                                      targets, (16, 64), batch=16, seq_cap=128,
                                      device="cpu")

@@ -113,6 +113,12 @@ def test_port_imports_without_jax():
         "res, mins = p.align_exp_all(p.BLOSUM62, p.Gaps(-11, -1),"
         " [(b'AAAA', b'AARA')], [11], (16, 64), device='cpu')\n"
         "assert (res[0].score, mins) == (11, [16])\n"
+        "from block_aligner_tpu_torch.core import cigar, traceback\n"
+        "for size in ((16, 16), (16, 512)):\n"
+        "    tr = p.BatchAligner(p.BLOSUM62, p.Gaps(-11, -1), size, batch=2,"
+        " seq_cap=64, trace=True, device='cpu')\n"
+        "    _, cg = tr.align_all_trace([(b'AAAA', b'AARA')], eq=True)\n"
+        "    assert str(cg[0]) == '2=1X1=', cg\n"
         "import bench, chip_smoke\n"
         "from examples_tpu.common import load_uc_pairs\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"

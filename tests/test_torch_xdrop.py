@@ -8,6 +8,7 @@ run only on the card (``chip_smoke.py``); ``test_torch_kernel_sources.py``
 holds their sources against these plain versions here."""
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -23,6 +24,7 @@ from block_aligner_tpu_torch.ops import adaptive_kernel as ak
 from block_aligner_tpu_torch.ops import lane_kernel as lk
 from test_lane_kernel import AA, DNA, mutate, rand_seq
 from test_torch_adaptive_kernel import dna_pairs, protein_pairs
+from test_torch_api import oracle_exp_all
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -77,6 +79,14 @@ def fields(results):
     return [(r.score, r.query_idx, r.reference_idx) for r in results]
 
 
+@functools.cache
+def jax_aligner(size):
+    """The JAX BatchAligner with x_drop=50 at ``size`` (batch 32, seq_cap
+    128): its kernel (interpret mode, batch 128, one bank) compiles once
+    for every test of this module that runs it."""
+    return jba.BatchAligner(*PROTEIN, size, batch=32, seq_cap=128, x_drop=50)
+
+
 @pytest.mark.parametrize("S,setup,x,seed,unrelated", [
     (32, PROTEIN, 50, 23, False), (16, DIVERGENT, 100, 29, True),
     (64, NUC, 20, 31, True), (256, PROTEIN, 50, 37, True),
@@ -97,12 +107,16 @@ def test_lane_plain_matches_block_oracle(S, setup, x, seed, unrelated):
 def test_lane_plain_matches_jax_lane_kernel():
     """All four rows of the JAX lane kernel's x-drop output (best, its
     position, suspect), run in interpret mode as
-    tests/test_lane_kernel.py::run_kernel_xdrop runs it."""
+    tests/test_lane_kernel.py::run_kernel_xdrop runs it, through the JAX
+    BatchAligner's own compiled kernel."""
     pairs = lane_pairs(41, AA, 40, 90, True)
     cap = cap_for(pairs, 32)
-    jcfg = jlane.LaneKernelConfig(batch=128, block=32, seq_cap=cap, alpha=32,
-                                  banks=1, x_drop=True, interpret=True)
-    out = np.asarray(jlane.build_lane_engine(jcfg)(
+    al = jax_aligner((32, 32))
+    jcfg = al._lane_cfg
+    assert jcfg == jlane.LaneKernelConfig(batch=128, block=32, seq_cap=cap,
+                                          alpha=32, banks=1, x_drop=True,
+                                          interpret=True)
+    out = np.asarray(al._lane_fn(
         *jlane.pack_lane(pairs, jba.BLOSUM62, jcfg, PROTEIN[1], x_drop=50)))
     want = out[0, 0, :, : len(pairs)].T
     cfg = lk.LaneKernelConfig(32, cap, 32, x_drop=True)
@@ -134,13 +148,16 @@ def test_adaptive_plain_matches_block_oracle(size, setup, x):
 
 def test_adaptive_plain_matches_jax_adaptive_kernel():
     """All four rows of the JAX adaptive kernel's x-drop output (best, its
-    position, overrun) at (16, 64), interpret mode."""
+    position, overrun) at (16, 64), interpret mode, through the JAX
+    BatchAligner's own compiled kernel."""
     pairs = [(q[:70], r[:70]) for q, r in protein_pairs(43, 32)]
     cap = cap_for(pairs, 64)
-    jcfg = jadaptive.AdaptiveKernelConfig(
+    al = jax_aligner((16, 64))
+    jcfg = al._lane_cfg
+    assert jcfg == jadaptive.AdaptiveKernelConfig(
         batch=128, min_size=16, max_size=64, seq_cap=cap, alpha=32, banks=1,
         x_drop=True, interpret=True)
-    out = np.asarray(jadaptive.build_adaptive_engine(jcfg)(
+    out = np.asarray(al._lane_fn(
         *jlane.pack_lane(pairs, jba.BLOSUM62, jcfg, PROTEIN[1], x_drop=50)))
     cfg = ak.AdaptiveKernelConfig(16, 64, cap, 32, x_drop=True)
     got = ak.adaptive_align_plain(*port_pack(pairs, *PROTEIN, cfg, 50), cfg)
@@ -153,8 +170,7 @@ def jax_xdrop(request):
     """Homolog, unrelated and edge-case pairs through the JAX BatchAligner
     with x_drop=50."""
     pairs = [(q[:80], r[:80]) for q, r in protein_pairs(47, 30)]
-    al = jba.BatchAligner(*PROTEIN, request.param, batch=32, seq_cap=128,
-                          x_drop=50)
+    al = jax_aligner(request.param)
     res = al.align_batch(pairs)
     return request.param, pairs, res, al.last_suspect
 
@@ -194,15 +210,14 @@ def test_batch_aligner_matches_jax(jax_xdrop):
 def test_align_exp_all_matches_jax():
     """The ladder 32 (adaptive) and 64 (lane) with x_drop=50, targets the
     x-drop scores at (64, 64): the same results and min sizes as the JAX
-    package; the pair that never reaches its target ends with the lane
-    level's result."""
+    package's ladder, run here through BlockOracle(x_drop=True); the pair
+    that never reaches its target ends with the lane level's result."""
     pairs = [(q[:60], r[:60]) for q, r in protein_pairs(53, 20)]
     cfg = lk.LaneKernelConfig(64, 256, 32, x_drop=True)
     full = lk.lane_align_plain(*port_pack(pairs, *PROTEIN, cfg, 50), cfg)
     targets = [int(v) for v in full[:, 0]]
     targets[7] += 1  # unreachable
-    want, want_min = jba.api.align_exp_all(*PROTEIN, pairs, targets, (32, 64),
-                                           x_drop=50, batch=32, seq_cap=128)
+    want, want_min = oracle_exp_all(pairs, targets, (32, 64), x_drop=50)
     got, got_min = tba.align_exp_all(tba.BLOSUM62, tba.Gaps(-11, -1), pairs,
                                      targets, (32, 64), x_drop=50, batch=32,
                                      seq_cap=128, device="cpu")
