@@ -13,7 +13,10 @@ In trace mode each batch's trace comes back to the host: ``trace()``,
 ``cigar`` and ``cigar_eq`` give the reference's CIGARs of the last batch,
 and ``align_all_trace`` the CIGARs of any number of pairs.
 ``align_exp_all`` retries pairs with doubled min block sizes over both
-routes, global or x-drop.  The other routes ("big", "long", "long_lane",
+routes, global or x-drop.  ``ProfileAligner`` and
+``align_profile_exp_all`` do the same for (query, ``AAProfile``) pairs,
+sequence-to-PSSM, on the same two routes (min < max <= 512 adaptive, min
+== max <= 512 lane).  The other routes ("big", "long", "long_lane",
 "engine"), ByteMatrix, the local-start and free-gap flags and a mesh raise
 ``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
@@ -29,10 +32,12 @@ from .core.cigar import Cigar
 from .core.result import AlignResult
 from .core.scores import ByteMatrix, Gaps
 from .core.traceback import Trace
+from .ops._profile import pack_profile
 from .ops.adaptive_kernel import AdaptiveKernelConfig, adaptive_align
 from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane
 
-__all__ = ["BatchAligner", "align_exp_all", "pick_route", "round_up"]
+__all__ = ["BatchAligner", "ProfileAligner", "align_exp_all",
+           "align_profile_exp_all", "pick_route", "round_up"]
 
 
 def round_up(x: int, m: int) -> int:
@@ -120,7 +125,135 @@ def _not_yet(what: str, key: str):
         f"{what} is not ported yet: ROADMAP.md {_SLICE[key]}")
 
 
-class BatchAligner:
+class _Routed:
+    """What the aligners of the lane and adaptive routes share: a batch is
+    packed (``_pack``), launched (``_dispatch``) and decoded (``_decode``);
+    ``align_all`` pipelines the three over any number of pairs.  A
+    subclass sets ``route``, ``cfg``, ``trace_mode``, ``device``,
+    ``_batch``, ``matrix`` (None for profiles) and ``_pack``."""
+
+    route: str
+    matrix = None
+    last_suspect: Optional[np.ndarray] = None
+    _last_trace: Optional[Trace] = None
+
+    @property
+    def batch_size(self) -> int:
+        return self._batch
+
+    def _check_lengths(self, pairs):
+        """Raise before any work if a pair cannot fit (the packer checks
+        too)."""
+
+    def _length(self, pair) -> int:
+        """A pair's sort key in ``align_all``: its two lengths."""
+        return len(pair[0]) + len(pair[1])
+
+    def align_batch(self, pairs) -> List[AlignResult]:
+        """Align up to ``batch_size`` pairs."""
+        return self.align_staged(self._pack(pairs))
+
+    def align_staged(self, staged) -> List[AlignResult]:
+        """Run a batch prepared with ``stage``."""
+        return self._decode(staged, self._dispatch(staged))
+
+    def _dispatch(self, staged):
+        """Launch the device work for a staged batch (asynchronous on CUDA)."""
+        kernel = lane_align if self.route == "lane" else adaptive_align
+        return kernel(staged.codes, staged.qlen, staged.rlen, staged.table,
+                      staged.gaps, self.cfg)
+
+    def _decode(self, staged, out) -> List[AlignResult]:
+        """Fetch a dispatched batch's results; the lane route sets
+        ``last_suspect``, the adaptive route checks the step cap.  Both
+        hold the flag in their output's last column; x-drop mode holds the
+        best position in columns 1 and 2.  In trace mode the steps every
+        pair executed (up to the batch's most) come back and make the
+        ``Trace`` of ``trace()``."""
+        if self.trace_mode:
+            out, words, desc, steps = out
+            steps = steps.cpu().numpy()
+            T = int(steps.max()) if steps.size else 0
+            words, desc = to_host(words[:T]), to_host(desc[:T])
+            self._last_trace = Trace(words, desc, steps, self.matrix)
+        out = out.cpu().numpy()
+        if self.route == "lane":
+            self.last_suspect = out[:, -1].astype(bool)
+        elif out[:, -1].any():
+            raise RuntimeError(
+                f"{int(out[:, -1].sum())} pairs hit the adaptive kernel's step "
+                f"cap ({self.cfg.max_steps} steps); raise seq_cap")
+        if self.cfg.x_drop:
+            ql, rl = out[:, 1], out[:, 2]
+        else:
+            ql, rl = staged.qlen.cpu().numpy(), staged.rlen.cpu().numpy()
+        return [AlignResult(int(sc), int(q), int(r))
+                for sc, q, r in zip(out[:, 0], ql, rl)]
+
+    def align_all(self, pairs, sort: bool = True) -> List[AlignResult]:
+        """Align any number of pairs in batches of ``batch_size``.
+
+        ``sort=True`` aligns in length-sorted order and unsorts the
+        results, so the pairs of one batch have similar lengths.  The next
+        batch is packed while the device aligns the current one."""
+        self._check_lengths(pairs)
+        sort = sort and not self.trace_mode and len(pairs) > 1
+        if sort:
+            order = sorted(range(len(pairs)),
+                           key=lambda k: self._length(pairs[k]))
+            work = [pairs[k] for k in order]
+        else:
+            order = None
+            work = pairs
+        lane = self.route == "lane"
+        got: List[AlignResult] = []
+        flags = []
+
+        def finish(staged, disp):
+            got.extend(self._decode(staged, disp))
+            if lane:
+                flags.append(self.last_suspect)
+
+        pending = None
+        for k in range(0, len(work), self.batch_size):
+            staged = self._pack(work[k : k + self.batch_size])
+            disp = self._dispatch(staged)
+            if pending is not None:
+                finish(*pending)
+            pending = (staged, disp)
+        if pending is not None:
+            finish(*pending)
+        if order is not None:
+            out: List[Optional[AlignResult]] = [None] * len(pairs)
+            for pos, k in enumerate(order):
+                out[k] = got[pos]
+            got = out
+        if lane:
+            sus = np.concatenate(flags) if flags else np.zeros(0, bool)
+            if order is not None:
+                self.last_suspect = np.zeros(len(pairs), bool)
+                self.last_suspect[np.asarray(order)] = sus
+            else:
+                self.last_suspect = sus
+        return got
+
+    # trace accessors (reference: Block::trace, src/scan_block.rs:1241)
+    def trace(self) -> Trace:
+        """The last batch's trace."""
+        if not self.trace_mode:
+            raise ValueError(f"no trace: this {type(self).__name__} has "
+                             "trace=False")
+        if self._last_trace is None:
+            raise ValueError("no trace yet: align a batch first")
+        return self._last_trace
+
+    def cigar(self, k: int, i: int, j: int,
+              cigar: Optional[Cigar] = None) -> Cigar:
+        """The CIGAR of pair ``k`` of the last batch, from end (i, j)."""
+        return self.trace().cigar(k, i, j, cigar)
+
+
+class BatchAligner(_Routed):
     """Batched aligner on one device, on the lane or adaptive route.
 
     Same surface as the JAX package's ``BatchAligner`` for those routes:
@@ -210,10 +343,6 @@ class BatchAligner:
         self.last_suspect: Optional[np.ndarray] = None
 
     @property
-    def batch_size(self) -> int:
-        return self._batch
-
-    @property
     def seq_capacity(self) -> int:
         return self.cfg.seq_cap - self.cfg.block - 17
 
@@ -223,10 +352,6 @@ class BatchAligner:
             if max(len(q), len(r)) > cap:
                 raise ValueError(
                     "sequence too long for this BatchAligner's seq_cap")
-
-    def align_batch(self, pairs: Sequence[Tuple[bytes, bytes]]) -> List[AlignResult]:
-        """Align up to ``batch_size`` pairs."""
-        return self.align_staged(self._pack(pairs))
 
     def stage(self, pairs):
         """Pack a batch onto the device; ``align_staged`` runs it, as often
@@ -244,91 +369,6 @@ class BatchAligner:
         self._check_lengths(pairs)
         return pack_lane(pairs, self.matrix, self.cfg, self.gaps, self.device,
                          self.x_drop or 0)
-
-    def align_staged(self, staged) -> List[AlignResult]:
-        """Run a batch prepared with ``stage``."""
-        return self._decode(staged, self._dispatch(staged))
-
-    def _dispatch(self, staged):
-        """Launch the device work for a staged batch (asynchronous on CUDA)."""
-        kernel = lane_align if self.route == "lane" else adaptive_align
-        return kernel(staged.codes, staged.qlen, staged.rlen, staged.table,
-                      staged.gaps, self.cfg)
-
-    def _decode(self, staged, out) -> List[AlignResult]:
-        """Fetch a dispatched batch's results; the lane route sets
-        ``last_suspect``, the adaptive route checks the step cap.  Both
-        hold the flag in their output's last column; x-drop mode holds the
-        best position in columns 1 and 2.  In trace mode the steps every
-        pair executed (up to the batch's most) come back and make the
-        ``Trace`` of ``trace()``."""
-        if self.trace_mode:
-            out, words, desc, steps = out
-            steps = steps.cpu().numpy()
-            T = int(steps.max()) if steps.size else 0
-            words, desc = to_host(words[:T]), to_host(desc[:T])
-            self._last_trace = Trace(words, desc, steps, self.matrix)
-        out = out.cpu().numpy()
-        if self.route == "lane":
-            self.last_suspect = out[:, -1].astype(bool)
-        elif out[:, -1].any():
-            raise RuntimeError(
-                f"{int(out[:, -1].sum())} pairs hit the adaptive kernel's step "
-                f"cap ({self.cfg.max_steps} steps); raise seq_cap")
-        if self.cfg.x_drop:
-            ql, rl = out[:, 1], out[:, 2]
-        else:
-            ql, rl = staged.qlen.cpu().numpy(), staged.rlen.cpu().numpy()
-        return [AlignResult(int(sc), int(q), int(r))
-                for sc, q, r in zip(out[:, 0], ql, rl)]
-
-    def align_all(self, pairs: Sequence[Tuple[bytes, bytes]],
-                  sort: bool = True) -> List[AlignResult]:
-        """Align any number of pairs in batches of ``batch_size``.
-
-        ``sort=True`` aligns in length-sorted order and unsorts the
-        results, so the pairs of one batch have similar lengths.  The next
-        batch is packed while the device aligns the current one."""
-        self._check_lengths(pairs)
-        sort = sort and not self.trace_mode and len(pairs) > 1
-        if sort:
-            order = sorted(range(len(pairs)),
-                           key=lambda k: len(pairs[k][0]) + len(pairs[k][1]))
-            work = [pairs[k] for k in order]
-        else:
-            order = None
-            work = pairs
-        lane = self.route == "lane"
-        got: List[AlignResult] = []
-        flags = []
-
-        def finish(staged, disp):
-            got.extend(self._decode(staged, disp))
-            if lane:
-                flags.append(self.last_suspect)
-
-        pending = None
-        for k in range(0, len(work), self.batch_size):
-            staged = self._pack(work[k : k + self.batch_size])
-            disp = self._dispatch(staged)
-            if pending is not None:
-                finish(*pending)
-            pending = (staged, disp)
-        if pending is not None:
-            finish(*pending)
-        if order is not None:
-            out: List[Optional[AlignResult]] = [None] * len(pairs)
-            for pos, k in enumerate(order):
-                out[k] = got[pos]
-            got = out
-        if lane:
-            sus = np.concatenate(flags) if flags else np.zeros(0, bool)
-            if order is not None:
-                self.last_suspect = np.zeros(len(pairs), bool)
-                self.last_suspect[np.asarray(order)] = sus
-            else:
-                self.last_suspect = sus
-        return got
 
     def align_all_trace(self, pairs: Sequence[Tuple[bytes, bytes]],
                         eq: bool = False):
@@ -361,20 +401,6 @@ class BatchAligner:
             walk(*pending)
         return results, cigars
 
-    # trace accessors (reference: Block::trace, src/scan_block.rs:1241)
-    def trace(self) -> Trace:
-        """The last batch's trace."""
-        if not self.trace_mode:
-            raise ValueError("no trace: this BatchAligner has trace=False")
-        if self._last_trace is None:
-            raise ValueError("no trace yet: align a batch first")
-        return self._last_trace
-
-    def cigar(self, k: int, i: int, j: int,
-              cigar: Optional[Cigar] = None) -> Cigar:
-        """The CIGAR of pair ``k`` of the last batch, from end (i, j)."""
-        return self.trace().cigar(k, i, j, cigar)
-
     def cigar_eq(self, k: int, q, r, i: int, j: int,
                  cigar: Optional[Cigar] = None) -> Cigar:
         """``cigar`` with = and X for M, comparing the codes of the pair's
@@ -404,6 +430,143 @@ def align_exp_all(matrix, gaps: Gaps, pairs, target_scores,
     while pending and cur <= max_size:
         al = BatchAligner(matrix, gaps, (cur, max_size), batch=batch,
                           seq_cap=seq_cap, x_drop=x_drop, device=device)
+        still = []
+        for k, got in zip(pending, al.align_all([pairs[k] for k in pending])):
+            results[k] = got
+            if got.score >= target_scores[k]:
+                min_sizes[k] = cur
+            else:
+                still.append(k)
+        pending = still
+        cur *= 2
+    return results, min_sizes
+
+
+class ProfileAligner(_Routed):
+    """Batched sequence-to-PSSM aligner on one device (reference:
+    align_profile, src/scan_block.rs:942-995).  Pairs are ``(query bytes,
+    AAProfile)``: the profile plays the reference, with its
+    position-specific scores and gap open and close costs.
+
+    The JAX package's ``ProfileAligner`` surface and routes: the adaptive
+    kernel for ``min < max <= 512`` and the lane kernel for ``min == max
+    <= 512``, global or with ``x_drop``, with or without ``trace``:
+    ``align_batch``, ``align_all`` (length-sorted outside trace),
+    ``stage``/``align_staged`` (without trace), ``batch_size``,
+    ``last_suspect`` on the lane route, ``trace()`` and ``cigar``.  All
+    profiles of a batch share one gap extension.  Blocks past 512 (the big
+    kernel), the local-start and free-gap flags, the engine
+    (``use_lane_kernel=False``) and a mesh raise ``NotImplementedError``
+    naming the ROADMAP slice that brings them; blocks past 8192 raise
+    ``ValueError`` as in the JAX package.  ``prof_len`` sizes the big
+    kernel's profile table there, so no route here reads it.  ``device``
+    places the packed tensors: a CUDA device runs the kernels, the CPU
+    their plain versions.
+    """
+
+    def __init__(
+        self,
+        size: Tuple[int, int] = (32, 256),
+        *,
+        batch: int = 64,
+        seq_cap: int = 1024,
+        trace: bool = False,
+        x_drop: Optional[int] = None,
+        local_start: bool = False,
+        free_query_start_gaps: bool = False,
+        free_query_end_gaps: bool = False,
+        mesh=None,
+        use_lane_kernel: Optional[bool] = None,
+        prof_len: Optional[int] = None,
+        device="cuda",
+    ):
+        # the reference's flag exclusions (src/scan_block.rs:952-954), the
+        # JAX package's AssertionError
+        if local_start and free_query_start_gaps:
+            raise AssertionError(
+                "local_start and free_query_start_gaps exclude each other")
+        if x_drop is not None and free_query_end_gaps:
+            raise AssertionError(
+                "x_drop and free_query_end_gaps exclude each other")
+        if x_drop is not None and x_drop < 0:
+            raise ValueError(f"x_drop must be >= 0, got {x_drop}")
+        if batch < 1:
+            raise ValueError(f"batch must be positive, got {batch}")
+        min_size = max(size[0], 16)
+        max_size = max(size[1], min_size)
+        kernels = use_lane_kernel is not False
+        if kernels and min_size < max_size <= 512:
+            route = "adaptive"
+        elif kernels and 512 < max_size <= 8192:
+            route = "big"
+        elif min_size == max_size <= 512 and (use_lane_kernel is None
+                                              or use_lane_kernel):
+            route = "lane"
+        elif kernels:
+            raise ValueError(
+                f"ProfileAligner block sizes {min_size}-{max_size} exceed "
+                "the big kernel's 8192 cap; pass use_lane_kernel=False "
+                "to run on the ~100x slower XLA engine anyway")
+        else:
+            route = "engine"
+        if route in ("big", "engine"):
+            _not_yet(f"ProfileAligner route {route!r} (size {size})"
+                     if route == "big" else "use_lane_kernel=False", route)
+        if local_start or free_query_start_gaps or free_query_end_gaps:
+            _not_yet("local_start / free_query_start_gaps / "
+                     "free_query_end_gaps", "flags")
+        if mesh is not None:
+            _not_yet("mesh", "mesh")
+        self.x_drop = x_drop
+        self.trace_mode = trace
+        self.device = torch.device(device)
+        self._batch = batch
+        self.route = route
+        cap = round_up(max(1 + seq_cap + max_size + 16, 256), 128)
+        xd = x_drop is not None
+        if route == "lane":
+            self.cfg = LaneKernelConfig(min_size, cap, x_drop=xd, trace=trace,
+                                        profile=True)
+        else:
+            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap,
+                                            x_drop=xd, trace=trace,
+                                            profile=True)
+
+    def _length(self, pair) -> int:
+        return len(pair[0]) + (pair[1].str_len if pair[1] else 0)
+
+    def stage(self, pairs):
+        """Pack a batch onto the device; ``align_staged`` runs it, as often
+        as wanted, without packing again.  Trace has no staged runs (the
+        JAX package refuses them too): use ``align_batch``."""
+        if self.trace_mode:
+            raise ValueError("ProfileAligner.stage/align_staged do not run "
+                             "trace: use align_batch or align_all")
+        return self._pack(pairs)
+
+    def _pack(self, pairs):
+        if len(pairs) > self.batch_size:
+            raise ValueError(
+                f"{len(pairs)} pairs exceed batch_size {self.batch_size}")
+        return pack_profile(pairs, self.cfg, self.device, self.x_drop or 0)
+
+
+def align_profile_exp_all(pairs, target_scores,
+                          size: Tuple[int, int] = (32, 256), *,
+                          x_drop: Optional[int] = None, batch: int = 256,
+                          seq_cap: int = 1024, device="cuda"):
+    """Batched exponential search on the min block size for ``(query,
+    AAProfile)`` pairs (reference: Block::align_profile_exp,
+    src/scan_block.rs:907-925), global or with ``x_drop``: the retry
+    ladder of ``align_exp_all``, each level a ``ProfileAligner``."""
+    min_size, max_size = size
+    results: List[Optional[AlignResult]] = [None] * len(pairs)
+    min_sizes: List[Optional[int]] = [None] * len(pairs)
+    pending = list(range(len(pairs)))
+    cur = max(min_size, 16)
+    while pending and cur <= max_size:
+        al = ProfileAligner((cur, max_size), batch=batch, seq_cap=seq_cap,
+                            x_drop=x_drop, device=device)
         still = []
         for k, got in zip(pending, al.align_all([pairs[k] for k in pending])):
             results[k] = got

@@ -1,18 +1,18 @@
 """Carry scoring parameters over from the JAX package.
 
-Duck-typed: these read only a matrix's numpy ``.kind`` and ``.table`` and a
-gap object's ``.open`` and ``.extend``, so the port never imports
-``block_aligner_tpu``.  The tests use them so that both packages score with
-identical tables.
+Duck-typed: these read only a matrix's numpy ``.kind`` and ``.table``, a
+gap object's ``.open`` and ``.extend`` and a profile's arrays and lengths,
+so the port never imports ``block_aligner_tpu``.  The tests use them so that
+both packages score with identical tables.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .core.scores import AAMatrix, Gaps, NucMatrix
+from .core.scores import AAMatrix, AAProfile, Gaps, NucMatrix
 
-__all__ = ["matrix_from_jax", "gaps_from_jax"]
+__all__ = ["matrix_from_jax", "gaps_from_jax", "profile_from_jax"]
 
 
 def matrix_from_jax(m):
@@ -26,3 +26,13 @@ def matrix_from_jax(m):
 def gaps_from_jax(g) -> Gaps:
     """A JAX-package ``Gaps`` -> the port's."""
     return Gaps(int(g.open), int(g.extend))
+
+
+def profile_from_jax(p) -> AAProfile:
+    """A JAX-package ``AAProfile`` -> the port's, every array copied."""
+    out = AAProfile.__new__(AAProfile)
+    out.max_len, out.curr_len = int(p.max_len), int(p.curr_len)
+    out.str_len, out.gap_extend = int(p.str_len), int(p.gap_extend)
+    for name in ("pos_scores", "gap_open_C", "gap_close_C", "gap_open_R"):
+        setattr(out, name, np.array(getattr(p, name), dtype=np.int32))
+    return out

@@ -13,6 +13,9 @@ table on the device.
 * ``ByteMatrix``: match/mismatch by byte equality (no kernel serves it yet).
 * ``Gaps``: ``open`` includes the first extension; a gap of length n costs
   ``open + extend * (n - 1)``.
+* ``AAProfile``: a position-specific scoring matrix (PSSM) with per-position
+  gap open and close costs, the reference side of sequence-to-profile
+  alignment (reference: src/scores.rs:341-715).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ _MATRICES = (Path(__file__).resolve().parents[2] / "block_aligner_tpu"
              / "data" / "matrices.npz")
 
 __all__ = [
-    "Gaps", "AAMatrix", "NucMatrix", "ByteMatrix", "NW1", "BYTES1",
+    "Gaps", "AAMatrix", "NucMatrix", "ByteMatrix", "AAProfile", "NW1",
+    "BYTES1",
     "BLOSUM45", "BLOSUM50", "BLOSUM62", "BLOSUM80", "BLOSUM90",
     "PAM100", "PAM120", "PAM160", "PAM200", "PAM250", "percent_len",
 ]
@@ -191,6 +195,130 @@ class ByteMatrix:
 
     def dense(self) -> Optional[np.ndarray]:
         return None
+
+
+class AAProfile:
+    """Position-specific scoring matrix with per-position gap open and
+    close costs (reference: src/scores.rs:341-715).
+
+    The profile is one longer than its string: position 0 is the DP
+    boundary column, whose gap-open costs apply and whose scores stay at
+    the -128 padding; positions past the string pad to ``block_size``.
+    Storage is one position-major ``(max_len, 32)`` int32 table, scores by
+    ``char - 'A'``, and three int32 gap arrays, -128 where unset.
+    """
+
+    kind: ClassVar[str] = "profile"
+    NULL: ClassVar[int] = ord("A") + 26
+
+    def __init__(self, str_len: int, block_size: int, gap_extend: int):
+        self.max_len = str_len + block_size + 1
+        self.curr_len = self.max_len
+        self.str_len = str_len
+        self.gap_extend = int(gap_extend)
+        self.pos_scores = np.full((self.max_len, 32), -128, dtype=np.int32)
+        self.gap_open_C = np.full(self.max_len, -128, dtype=np.int32)
+        self.gap_close_C = np.full(self.max_len, -128, dtype=np.int32)
+        self.gap_open_R = np.full(self.max_len, -128, dtype=np.int32)
+
+    @classmethod
+    def from_bytes(cls, b, block_size: int, match_score: int,
+                   mismatch_score: int, gap_open_C: int, gap_close_C: int,
+                   gap_open_R: int, gap_extend: int) -> "AAProfile":
+        """The profile of one sequence: ``match_score`` at its own letter,
+        ``mismatch_score`` at every other of A..Z, the same gap costs at
+        every position."""
+        b = _as_bytes(b)
+        p = cls(len(b), block_size, gap_extend)
+        for i, ch in enumerate(b):
+            for c in range(ord("A"), ord("Z") + 1):
+                p.set(i + 1, c, match_score if c == ch else mismatch_score)
+        for i in range(len(b) + 1):
+            p.set_gap_open_C(i, gap_open_C)
+            p.set_gap_close_C(i, gap_close_C)
+            p.set_gap_open_R(i, gap_open_R)
+        return p
+
+    def __len__(self) -> int:
+        return self.str_len
+
+    def len(self) -> int:
+        return self.str_len
+
+    def clear(self, str_len: int, block_size: int) -> None:
+        """Reset to the padding values for a string of ``str_len``."""
+        curr_len = str_len + block_size + 1
+        assert curr_len <= self.max_len
+        for a in (self.pos_scores, self.gap_open_C, self.gap_close_C,
+                  self.gap_open_R):
+            a[:curr_len] = -128
+        self.str_len = str_len
+        self.curr_len = curr_len
+
+    def set(self, i: int, b, score: int) -> None:
+        b = _char_upper(b)
+        assert 65 <= b <= 65 + 26
+        self.pos_scores[i, b - 65] = score
+
+    def set_all(self, order, scores, left_shift: int = 0,
+                right_shift: int = 0) -> None:
+        """Row i + 1 of the profile from row i of ``scores`` (str_len x
+        len(order)), columns in ``order``."""
+        self._set_all(order, scores, left_shift, right_shift, rev=False)
+
+    def set_all_rev(self, order, scores, left_shift: int = 0,
+                    right_shift: int = 0) -> None:
+        """``set_all`` with the rows in reverse order."""
+        self._set_all(order, scores, left_shift, right_shift, rev=True)
+
+    def _set_all(self, order, scores, left_shift, right_shift, rev):
+        cols = [_char_upper(c) - 65 for c in _as_bytes(order)]
+        scores = np.asarray(scores, dtype=np.int64).reshape(self.str_len,
+                                                            len(cols))
+        # scores scale as i8 values (reference: src/scores.rs:698)
+        scaled = ((scores.astype(np.int8) << left_shift)
+                  >> right_shift).astype(np.int32)
+        rows = range(self.str_len, 0, -1) if rev else range(1,
+                                                            self.str_len + 1)
+        for i, row in zip(rows, scaled):
+            self.pos_scores[i, cols] = row
+
+    def set_gap_open_C(self, i: int, gap: int) -> None:
+        assert gap < 0, "Gap open cost must be negative!"
+        self.gap_open_C[i] = gap
+
+    def set_gap_close_C(self, i: int, gap: int) -> None:
+        self.gap_close_C[i] = gap
+
+    def set_gap_open_R(self, i: int, gap: int) -> None:
+        assert gap < 0, "Gap open cost must be negative!"
+        self.gap_open_R[i] = gap
+
+    def set_all_gap_open_C(self, gap: int) -> None:
+        assert gap < 0
+        self.gap_open_C[: self.str_len + 1] = gap
+
+    def set_all_gap_close_C(self, gap: int) -> None:
+        self.gap_close_C[: self.str_len + 1] = gap
+
+    def set_all_gap_open_R(self, gap: int) -> None:
+        assert gap < 0
+        self.gap_open_R[: self.str_len + 1] = gap
+
+    def get(self, i: int, b) -> int:
+        return int(self.pos_scores[i, _char_upper(b) - 65])
+
+    def get_gap_extend(self) -> int:
+        return self.gap_extend
+
+    def convert(self, seq) -> np.ndarray:
+        """Query bytes -> codes: the uppercased byte - 65, wrapping as
+        uint8.  The kernels score codes past 27 (the NULL code is 26) at
+        -128, as the JAX kernels do."""
+        b = np.frombuffer(_as_bytes(seq), dtype=np.uint8).copy()
+        lower = (b >= 97) & (b <= 122)
+        b[lower] -= 32
+        return b - 65
 
 
 def _load_static_matrices() -> dict:

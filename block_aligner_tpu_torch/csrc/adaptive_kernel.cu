@@ -1,11 +1,14 @@
-// Adaptive-block alignment of a batch of sequence pairs, global or x-drop,
-// with or without trace, for Hopper (sm_90a).  Plain C interface, loaded
-// with ctypes by ops/adaptive_kernel.py.
+// Adaptive-block alignment of a batch of sequence pairs, or of (query,
+// profile) pairs, global or x-drop, with or without trace, for Hopper
+// (sm_90a).  Plain C interface, loaded with ctypes by
+// ops/adaptive_kernel.py; the profile instances build apart from
+// csrc/adaptive_profile.cu.
 //
 // Replaces: block_aligner_tpu/ops/adaptive_kernel.py::build_adaptive_engine
 // (its Pallas `kernel`) in global and in x-drop mode, with and without
-// trace: the grow / shrink / checkpoint machine for min_size < max_size <=
-// 256, and <= 512 with trace.  It computes the same score (x-drop: the best
+// trace, with a score table or a profile: the grow / shrink / checkpoint
+// machine for min_size < max_size <= 256, and <= 512 with trace or a
+// profile.  It computes the same score (x-drop: the best
 // score and its position) and the same step-cap overrun flag, bit for bit,
 // and in trace mode the traceback bits of every cell it computes, the rect
 // of every step and the checkpoint events; the machine is described in
@@ -60,6 +63,12 @@
 //   freezing step stores the columns computed before it leaves.  The S =
 //   512 instance exists with trace only: without it, max_size 512 takes
 //   the big kernel's route.
+// * profile mode (sequence-to-PSSM) is a fourth flag, as in the lane
+//   kernel (csrc/lane_kernel.cu): a right rect stages its 8 entering
+//   profile rows in shared memory, a down rect's lane reads its own
+//   position's row; lanes find their positions from the rect's anchor, so
+//   a restore still only moves the anchor.  Profiles take max_size 512
+//   in every mode.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -78,9 +87,36 @@ constexpr int SUFFIX = STEP / 4;    // shrink suffix rows
 constexpr unsigned FULL = 0xffffffffu;
 // rect phases; the initial rect is a GROW_R with psz == 0
 constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
+// profile words per position: 7 score words (4 biased bytes each, query
+// codes 0..27), then the gap word open_C | open_R << 8 | close_C << 16
+constexpr int PROF_WORDS = 8;
 
 // only the lower rail is reachable: rect maxima are rebased to ZERO
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
+
+// The score of query code `code` in a profile position's row: byte code % 4
+// of word code / 4, biased by 128.  No word holds a code past 27, which
+// scores -128 (its read lands on the gap word and is dropped).
+__device__ __forceinline__ int prof_score(const int* row, int code) {
+  const int word = row[min(code >> 2, PROF_WORDS - 1)];
+  return code < 4 * (PROF_WORDS - 1) ? ((word >> (8 * (code & 3))) & 255) - 128
+                                     : -128;
+}
+
+// A profile position's gap costs for one cell (reference:
+// src/scan_block.rs:651-705).  On a right rect the position is the
+// column's: C opens with its open_C (plus the extension), R with its
+// open_R, and C closes with its close_C.  On a down rect it is the lane's
+// and the roles swap: C opens with open_R, R with open_C, and R closes.
+struct ProfGaps {
+  int copen, dopen, close;
+  __device__ __forceinline__ ProfGaps(int g, bool right, int gext) {
+    const int oc = (g & 255) - 128, orr = ((g >> 8) & 255) - 128;
+    copen = (right ? oc : orr) + gext;
+    dopen = right ? orr : oc;
+    close = ((g >> 16) & 255) - 128;
+  }
+};
 
 // Rows are interleaved: row r sits in lane r % 32 of slot r / 32.
 
@@ -174,6 +210,10 @@ struct Ctx {  // what a step reads and never changes
   const uint8_t* qs;
   const uint8_t* rs;
   const int* tab;
+  // profile: this pair's profile words (cap, 8), and the warp's staging of
+  // a right rect's 8 entering rows
+  const int* pw;
+  int* prow;
   int* tailD;
   int* tailR;
   int* ck[4];  // checkpoint borders by row: column D, C; row D, R
@@ -214,7 +254,7 @@ __device__ __forceinline__ int tracker_best(const Pair& m, int lane, int& ai,
 
 // One step (8 columns and the decision after them), step number s, of a
 // pair whose block size sz has NA = ceil(sz / 32) slots.
-template <int S, int NA, bool XDROP, bool TRACE>
+template <int S, int NA, bool XDROP, bool TRACE, bool PROFILE>
 __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
                                          const Ctx& c, int s) {
   // x-drop tracker keys: value * CH + chunk, CH a power of two >= S / 16
@@ -275,17 +315,38 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
     for (int k = 0; k < NA; ++k) wd[k] = 0u;
   }
   int lc[NA], cc[STEP];
+  if constexpr (PROFILE) {
+    // lanes are query rows on right rects and profile positions on down
+    // rects (the profile is the reference)
 #pragma unroll
-  for (int k = 0; k < NA; ++k)
-    lc[k] = min((int)lseq[min(ls + k * 32 + lane, c.cap - 1)], c.alpha - 1);
+    for (int k = 0; k < NA; ++k) {
+      const int pos = min(ls + k * 32 + lane, c.cap - 1);
+      lc[k] = right_or ? (int)c.qs[pos] : pos;  // a code, or a position
+    }
 #pragma unroll
-  for (int w = 0; w < STEP; ++w)
-    cc[w] = min((int)cseq[min(cstart + w, c.cap - 1)], c.alpha - 1);
+    for (int w = 0; w < STEP; ++w) cc[w] = c.qs[min(cstart + w, c.cap - 1)];
+    if (right_or) {
+      // the 8 entering positions' rows, 256 contiguous bytes
+#pragma unroll
+      for (int i = lane; i < STEP * PROF_WORDS; i += 32)
+        c.prow[i] = c.pw[(size_t)min(cstart + i / PROF_WORDS, c.cap - 1) *
+                             PROF_WORDS + i % PROF_WORDS];
+    }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int k = 0; k < NA; ++k)
+      lc[k] = min((int)lseq[min(ls + k * 32 + lane, c.cap - 1)], c.alpha - 1);
+#pragma unroll
+    for (int w = 0; w < STEP; ++w)
+      cc[w] = min((int)cseq[min(cstart + w, c.cap - 1)], c.alpha - 1);
+  }
 
 #pragma unroll
   for (int w = 0; w < STEP; ++w) {
     const int* trow = c.tab + cc[w] * c.alpha;
     int D[NA], C[NA], T[NA], CO[NA], DO[NA];
+    int CL[NA], CE[NA];  // profile: close cost, closed C
     int rot_prev = NEG;
 #pragma unroll
     for (int k = 0; k < NA; ++k) {
@@ -295,16 +356,39 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
       int up = rot;
       if (lane == 0) up = k > 0 ? rot_prev : (w == 0 ? cvec : NEG);
       rot_prev = rot;
-      int d = sat(up + trow[lc[k]]);
-      if (k == 0 && w == 0 && origin && lane == 0) d = ZERO;  // DP origin
-      const int co = sat(p.actD[k] + c.gopen);
-      C[k] = max(sat(p.actC[k] + c.gext), co);
-      D[k] = max(d, C[k]);
-      // max-plus prefix scan of D + (open - extend) across the slot
-      int t = D[k] + (c.gopen - c.gext);
-      if constexpr (TRACE) {
-        CO[k] = co;
-        DO[k] = t;
+      int t;
+      if constexpr (PROFILE) {
+        // a right rect's lane reads the entering row by its own code, a
+        // down rect's the row of its own position by the entering code
+        const int* row = right_or ? c.prow + w * PROF_WORDS
+                                  : c.pw + (size_t)lc[k] * PROF_WORDS;
+        int d = sat(up + prof_score(row, right_or ? lc[k] : cc[w]));
+        if (k == 0 && w == 0 && origin && lane == 0) d = ZERO;  // DP origin
+        const ProfGaps g(row[PROF_WORDS - 1], right_or, c.gext);
+        const int co = sat(p.actD[k] + g.copen);
+        C[k] = max(sat(p.actC[k] + c.gext), co);
+        CL[k] = g.close;
+        // a right rect closes C before the merge; C stays pre-close
+        CE[k] = right_or ? sat(C[k] + g.close) : C[k];
+        D[k] = max(d, CE[k]);
+        // max-plus prefix scan of D plus the cell's R open across the slot
+        t = sat(D[k] + g.dopen);
+        if constexpr (TRACE) {
+          CO[k] = co;
+          DO[k] = t;
+        }
+      } else {
+        int d = sat(up + trow[lc[k]]);
+        if (k == 0 && w == 0 && origin && lane == 0) d = ZERO;  // DP origin
+        const int co = sat(p.actD[k] + c.gopen);
+        C[k] = max(sat(p.actC[k] + c.gext), co);
+        D[k] = max(d, C[k]);
+        // max-plus prefix scan of D + (open - extend) across the slot
+        t = D[k] + (c.gopen - c.gext);
+        if constexpr (TRACE) {
+          CO[k] = co;
+          DO[k] = t;
+        }
       }
 #pragma unroll
       for (int dd = 1; dd < 32; dd <<= 1) {
@@ -321,14 +405,26 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
 #pragma unroll
     for (int k = 0; k < NA; ++k) {
       const int R = max(T[k], c.zc);
-      if constexpr (TRACE) {
-        // the cell's bits (reference: src/scan_block.rs:1166-1190): D ==
-        // C, D == R, C == C_open; R == D_open feeds the row below
-        const int dn = max(D[k], R);
-        nib[k] = (dn == C[k]) | (dn == R) << 1 | (C[k] == CO[k]) << 2;
-        rbits |= (R == DO[k]) << k;
+      if constexpr (PROFILE) {
+        // a down rect closes R before the merge; the bits compare D with
+        // the closed C and R
+        const int re = right_or ? R : sat(R + CL[k]);
+        if constexpr (TRACE) {
+          const int dn = max(D[k], re);
+          nib[k] = (dn == CE[k]) | (dn == re) << 1 | (C[k] == CO[k]) << 2;
+          rbits |= (R == DO[k]) << k;
+        }
+        D[k] = max(D[k], re);
+      } else {
+        if constexpr (TRACE) {
+          // the cell's bits (reference: src/scan_block.rs:1166-1190): D ==
+          // C, D == R, C == C_open; R == D_open feeds the row below
+          const int dn = max(D[k], R);
+          nib[k] = (dn == C[k]) | (dn == R) << 1 | (C[k] == CO[k]) << 2;
+          rbits |= (R == DO[k]) << k;
+        }
+        D[k] = max(D[k], R);
       }
-      D[k] = max(D[k], R);
       p.actD[k] = D[k];
       p.actC[k] = C[k];
       if (k * 32 + lane < h) m.dmax = max(m.dmax, D[k]);
@@ -538,7 +634,7 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   m.pdir = shrink ? DIR_GD : d0;
 }
 
-template <int S, bool XDROP, bool TRACE>
+template <int S, bool XDROP, bool TRACE, bool PROFILE>
 __global__ void __launch_bounds__(WARPS * 32)
 adaptive_align_kernel(const uint8_t* __restrict__ codes,
                       const int* __restrict__ qlen,
@@ -550,20 +646,26 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
                       int xdrop) {
   constexpr int NS = S / 32;  // row slots of the largest block
 
-  __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
+  __shared__ int tab[PROFILE ? 1 : MAX_ALPHA * MAX_ALPHA];
   __shared__ int tails[WARPS][2][STEP];  // a step's bottom D and R cells
   __shared__ int ckpt[WARPS][4][S];      // checkpoint borders by row
+  __shared__ int prows[WARPS][PROFILE ? STEP * PROF_WORDS : 1];
 
-  for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
-    tab[k] = table[k];
-  __syncthreads();
+  if constexpr (!PROFILE) {
+    for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
+      tab[k] = table[k];
+    __syncthreads();
+  }
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * WARPS + warp;
   if (b >= B) return;
-  const uint8_t* qs = codes + (size_t)b * 2 * cap;
-  const Ctx c{qs, qs + cap, tab, tails[warp][0], tails[warp][1],
+  // profile: codes (B, cap) of the queries and table (B, cap, 8) of the
+  // profiles' words; else codes (B, 2, cap) of both sequences
+  const uint8_t* qs = codes + (size_t)b * (PROFILE ? 1 : 2) * cap;
+  const Ctx c{qs, qs + cap, tab, table + (size_t)b * cap * PROF_WORDS,
+              prows[warp], tails[warp][0], tails[warp][1],
               {ckpt[warp][0], ckpt[warp][1], ckpt[warp][2], ckpt[warp][3]},
               lane, qlen[b], rlen[b], cap, alpha, min_size, gopen, gext,
               gext * ((lane & 7) + 1),  // the scan's zero correction
@@ -586,15 +688,15 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
   int s = 0;
   for (; s < max_steps && !m.done; ++s) {
     switch ((m.sz + 31) >> 5) {
-      case 1: run_step<S, 1, XDROP, TRACE>(m, p, c, s); break;
-      case 2: if constexpr (NS >= 2) run_step<S, 2, XDROP, TRACE>(m, p, c, s); break;
-      case 4: if constexpr (NS >= 4) run_step<S, 4, XDROP, TRACE>(m, p, c, s); break;
+      case 1: run_step<S, 1, XDROP, TRACE, PROFILE>(m, p, c, s); break;
+      case 2: if constexpr (NS >= 2) run_step<S, 2, XDROP, TRACE, PROFILE>(m, p, c, s); break;
+      case 4: if constexpr (NS >= 4) run_step<S, 4, XDROP, TRACE, PROFILE>(m, p, c, s); break;
       default:
         if constexpr (NS >= 16) {
-          if (m.sz > 256) run_step<S, 16, XDROP, TRACE>(m, p, c, s);
-          else run_step<S, 8, XDROP, TRACE>(m, p, c, s);
+          if (m.sz > 256) run_step<S, 16, XDROP, TRACE, PROFILE>(m, p, c, s);
+          else run_step<S, 8, XDROP, TRACE, PROFILE>(m, p, c, s);
         } else if constexpr (NS >= 8) {
-          run_step<S, 8, XDROP, TRACE>(m, p, c, s);
+          run_step<S, 8, XDROP, TRACE, PROFILE>(m, p, c, s);
         }
         break;
     }
@@ -613,25 +715,33 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+#ifndef ADAPTIVE_PROFILE
+// csrc/adaptive_profile.cu builds the profile instances apart, so that the
+// two libraries compile in parallel
+#define ADAPTIVE_PROFILE false
+#endif
+
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, int* twords, int4* tdesc,
                    int* tsteps, int B, int cap, int alpha, int min_size,
                    int max_steps, int gopen, int gext, int xdrop,
                    cudaStream_t stream) {
+  constexpr bool P = ADAPTIVE_PROFILE;
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
   void (*kernel)(const uint8_t*, const int*, const int*, const int*, int*,
                  int*, int4*, int*, int, int, int, int, int, int, int, int);
-  if constexpr (S == 512) {
-    // only trace reaches max_size 512 on this route
+  if constexpr (S == 512 && !P) {
+    // only trace reaches max_size 512 on the sequence route; profiles take
+    // it in every mode
     if (!twords) return cudaErrorInvalidValue;
-    kernel = xdrop < 0 ? adaptive_align_kernel<S, false, true>
-                       : adaptive_align_kernel<S, true, true>;
+    kernel = xdrop < 0 ? adaptive_align_kernel<S, false, true, P>
+                       : adaptive_align_kernel<S, true, true, P>;
   } else {
-    kernel = twords ? (xdrop < 0 ? adaptive_align_kernel<S, false, true>
-                                 : adaptive_align_kernel<S, true, true>)
-                    : (xdrop < 0 ? adaptive_align_kernel<S, false, false>
-                                 : adaptive_align_kernel<S, true, false>);
+    kernel = twords ? (xdrop < 0 ? adaptive_align_kernel<S, false, true, P>
+                                 : adaptive_align_kernel<S, true, true, P>)
+                    : (xdrop < 0 ? adaptive_align_kernel<S, false, false, P>
+                                 : adaptive_align_kernel<S, true, false, P>);
   }
   kernel<<<grid, WARPS * 32, 0, stream>>>(
       codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
@@ -641,15 +751,18 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
 
 }  // namespace
 
-// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
+// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32;
+// in the profile library (csrc/adaptive_profile.cu) codes (B, cap) uint8 are
+// the queries' codes, table (B, cap, 8) int32 the profiles' words, rlen the
+// profiles' lengths, and alpha and gopen are not read.
 // x_drop < 0: global mode, out (B, 2) int32 = (score, overrun); else x-drop
 // with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
 // overrun).  Trace mode when `words` is not null: words (max_steps, B,
 // max_size) int32, desc (max_steps, B, 4) int32 and steps (B,) int32
 // receive the trace of core/traceback.py; of a step's words only the rows
 // of the current size's slots are written, and nothing of the steps a pair
-// did not execute.  max_size 512 needs trace.  Returns the launch's
-// cudaError_t.
+// did not execute.  max_size 512 needs trace, or the profile library.
+// Returns the launch's cudaError_t.
 extern "C" int adaptive_align_launch(const void* codes, const void* qlen,
                                      const void* rlen, const void* table,
                                      void* out, void* words, void* desc,

@@ -1,9 +1,11 @@
-// Fixed-block alignment of a batch of sequence pairs, global or x-drop, with
-// or without trace, for Hopper (sm_90a).  Plain C interface, loaded with
-// ctypes by ops/lane_kernel.py.
+// Fixed-block alignment of a batch of sequence pairs, or of (query, profile)
+// pairs, global or x-drop, with or without trace, for Hopper (sm_90a).
+// Plain C interface, loaded with ctypes by ops/lane_kernel.py; the profile
+// instances build apart from csrc/lane_profile.cu.
 //
 // Replaces: block_aligner_tpu/ops/lane_kernel.py::build_lane_engine (its
-// Pallas `kernel`) in global and in x-drop mode, with and without trace.
+// Pallas `kernel`) in global and in x-drop mode, with and without trace,
+// with a score table or a profile.
 // It computes the same score (x-drop: the best score and its position) and
 // the same y-drop suspect flag, bit for bit, and in trace mode the
 // traceback bits of every cell it computes; the step machine is described
@@ -47,6 +49,16 @@
 // coalesce); lane 0 stores the step's descriptor.  The R bit of a row is
 // the row above's R == D_open, one shuffle of the lane's packed bits per
 // column.  A freezing step stores the columns computed before it leaves.
+// Profile mode (sequence-to-PSSM, ops/_profile.py) is a fourth flag: the
+// profile plays the reference, one 32-byte row of 8 words per position.
+// A right step stages its 8 entering rows (256 bytes) in shared memory and
+// each lane scores by its own query code; a down step's lane, a profile
+// position, reads its own row (two L1 loads a cell: the score word and the
+// gap word) by the entering query code.  Every lane knows its row's
+// position from the block's anchor, so no lane-window stack of rows is
+// kept.  Gap opens and the close cost come from the row's gap word, the C
+// and R roles swapped on down steps; the close applies only on the merge
+// into D, and the trace bits compare D with the closed values.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -62,9 +74,36 @@ constexpr int INT_MIN_ = -2147483647 - 1;
 constexpr int MAX_ALPHA = 32;
 constexpr int WARPS = 4;            // pairs per thread block
 constexpr unsigned FULL = 0xffffffffu;
+// profile words per position: 7 score words (4 biased bytes each, query
+// codes 0..27), then the gap word open_C | open_R << 8 | close_C << 16
+constexpr int PROF_WORDS = 8;
 
 // only the lower rail is reachable: block maxima are rebased to ZERO
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
+
+// The score of query code `code` in a profile position's row: byte code % 4
+// of word code / 4, biased by 128.  No word holds a code past 27, which
+// scores -128 (its read lands on the gap word and is dropped).
+__device__ __forceinline__ int prof_score(const int* row, int code) {
+  const int word = row[min(code >> 2, PROF_WORDS - 1)];
+  return code < 4 * (PROF_WORDS - 1) ? ((word >> (8 * (code & 3))) & 255) - 128
+                                     : -128;
+}
+
+// A profile position's gap costs for one cell (reference:
+// src/scan_block.rs:651-705).  On a right step the position is the
+// column's: C opens with its open_C (plus the extension), R with its
+// open_R, and C closes with its close_C.  On a down step it is the lane's
+// and the roles swap: C opens with open_R, R with open_C, and R closes.
+struct ProfGaps {
+  int copen, dopen, close;
+  __device__ __forceinline__ ProfGaps(int g, bool right, int gext) {
+    const int oc = (g & 255) - 128, orr = ((g >> 8) & 255) - 128;
+    copen = (right ? oc : orr) + gext;
+    dopen = right ? orr : oc;
+    close = ((g >> 16) & 255) - 128;
+  }
+};
 
 // An int the optimizer cannot see through, so that a select among a row
 // array's entries stays a select and is not turned into an indexed copy
@@ -102,7 +141,7 @@ __device__ __forceinline__ void shift_tail(int (&x)[RPL], const int* tail,
   }
 }
 
-template <int S, bool XDROP, bool TRACE>
+template <int S, bool XDROP, bool TRACE, bool PROFILE>
 __global__ void __launch_bounds__(WARPS * 32)
 lane_align_kernel(const uint8_t* __restrict__ codes,
                   const int* __restrict__ qlen, const int* __restrict__ rlen,
@@ -114,12 +153,16 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   constexpr int RPL = S / NL;          // rows per lane, contiguous
   constexpr int PRO = S / STEP;        // prologue steps (the initial grow)
 
-  __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
+  __shared__ int tab[PROFILE ? 1 : MAX_ALPHA * MAX_ALPHA];
   __shared__ int tails[WARPS][2][STEP];  // a step's bottom D and R cells
+  // profile: the profile rows of a right step's 8 entering columns
+  __shared__ int prows[WARPS][PROFILE ? STEP * PROF_WORDS : 1];
 
-  for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
-    tab[k] = table[k];
-  __syncthreads();
+  if constexpr (!PROFILE) {
+    for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
+      tab[k] = table[k];
+    __syncthreads();
+  }
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -127,11 +170,15 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   if (b >= B) return;
   int* tailD = tails[warp][0];
   int* tailR = tails[warp][1];
+  int* prow = prows[warp];
   const bool on = lane < NL;
   const int row0 = lane * RPL;
   const int ql = qlen[b], rl = rlen[b];
-  const uint8_t* qs = codes + (size_t)b * 2 * cap;
+  // profile: codes (B, cap) of the queries and table (B, cap, 8) of the
+  // profiles' words; else codes (B, 2, cap) of both sequences
+  const uint8_t* qs = codes + (size_t)b * (PROFILE ? 1 : 2) * cap;
   const uint8_t* rs = qs + cap;
+  const int* pw = table + (size_t)b * cap * PROF_WORDS;
 
   int actD[RPL], actC[RPL], pasD[RPL], pasR[RPL], zc[RPL];
   // x-drop tracker of this lane's rows: running max, latest column
@@ -191,14 +238,35 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
 #pragma unroll
       for (int k = 0; k < RPL; ++k) wd[k] = 0u;
     }
+    const bool right = in_pro || dir != 1;  // lanes are query rows
     int lc[RPL], cc[STEP];
+    if constexpr (PROFILE) {
+      // lanes are query rows on right steps and profile positions on down
+      // steps (the profile is the reference)
 #pragma unroll
-    for (int k = 0; k < RPL; ++k)
-      lc[k] = on ? min((int)lseq[min(lstart + row0 + k, cap - 1)], alpha - 1)
-                 : 0;
+      for (int k = 0; k < RPL; ++k) {
+        const int pos = min(lstart + row0 + k, cap - 1);
+        lc[k] = right ? (int)qs[pos] : pos;  // a code, or a position
+      }
 #pragma unroll
-    for (int w = 0; w < STEP; ++w)
-      cc[w] = min((int)cseq[min(cpos0 + w, cap - 1)], alpha - 1);
+      for (int w = 0; w < STEP; ++w) cc[w] = qs[min(cpos0 + w, cap - 1)];
+      if (right) {
+        // the 8 entering positions' rows, 256 contiguous bytes
+#pragma unroll
+        for (int i = lane; i < STEP * PROF_WORDS; i += 32)
+          prow[i] = pw[(size_t)min(cpos0 + i / PROF_WORDS, cap - 1) *
+                           PROF_WORDS + i % PROF_WORDS];
+      }
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int k = 0; k < RPL; ++k)
+        lc[k] = on ? min((int)lseq[min(lstart + row0 + k, cap - 1)], alpha - 1)
+                   : 0;
+#pragma unroll
+      for (int w = 0; w < STEP; ++w)
+        cc[w] = min((int)cseq[min(cpos0 + w, cap - 1)], alpha - 1);
+    }
 
 #pragma unroll
     for (int w = 0; w < STEP; ++w) {
@@ -206,21 +274,50 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       int up = __shfl_up_sync(FULL, actD[RPL - 1], 1);
       if (lane == 0) up = w == 0 ? cvec : NEG;
       int D[RPL], C[RPL], T[RPL], CO[RPL];
+      int DO[RPL], CL[RPL], CE[RPL];  // profile: D_open, close, closed C
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
-        int d = sat((k == 0 ? up : actD[k - 1]) + trow[lc[k]]);
-        if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
-        const int co = sat(actD[k] + gopen);
-        C[k] = max(sat(actC[k] + gext), co);
-        D[k] = max(d, C[k]);
-        if constexpr (TRACE) CO[k] = co;
+        if constexpr (PROFILE) {
+          // a right step's lane reads the entering row by its own code, a
+          // down step's the row of its own position by the entering code
+          const int* row = right ? prow + w * PROF_WORDS
+                                 : pw + (size_t)lc[k] * PROF_WORDS;
+          int d = sat((k == 0 ? up : actD[k - 1]) +
+                      prof_score(row, right ? lc[k] : cc[w]));
+          if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // origin
+          const ProfGaps g(row[PROF_WORDS - 1], right, gext);
+          const int co = sat(actD[k] + g.copen);
+          DO[k] = g.dopen;
+          CL[k] = g.close;
+          C[k] = max(sat(actC[k] + gext), co);
+          // a right step closes C before the merge; C stays pre-close
+          CE[k] = right ? sat(C[k] + g.close) : C[k];
+          D[k] = max(d, CE[k]);
+          if constexpr (TRACE) CO[k] = co;
+        } else {
+          int d = sat((k == 0 ? up : actD[k - 1]) + trow[lc[k]]);
+          if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
+          const int co = sat(actD[k] + gopen);
+          C[k] = max(sat(actC[k] + gext), co);
+          D[k] = max(d, C[k]);
+          if constexpr (TRACE) CO[k] = co;
+        }
       }
-      // max-plus prefix scan of D + (open - extend) down the block: serial
-      // inside the lane, log-step across lanes, then the zero correction
-      T[0] = D[0] + (gopen - gext);
+      // max-plus prefix scan of D + (open - extend) down the block (profile:
+      // of D plus the cell's R open): serial inside the lane, log-step
+      // across lanes, then the zero correction
+      if constexpr (PROFILE) {
 #pragma unroll
-      for (int k = 1; k < RPL; ++k)
-        T[k] = max(D[k] + (gopen - gext), T[k - 1] + gext);
+        for (int k = 0; k < RPL; ++k) {
+          DO[k] = sat(D[k] + DO[k]);
+          T[k] = k == 0 ? DO[k] : max(DO[k], T[k - 1] + gext);
+        }
+      } else {
+        T[0] = D[0] + (gopen - gext);
+#pragma unroll
+        for (int k = 1; k < RPL; ++k)
+          T[k] = max(D[k] + (gopen - gext), T[k - 1] + gext);
+      }
       int carry = T[RPL - 1];
 #pragma unroll
       for (int d = 1; d < NL; d <<= 1) {
@@ -233,14 +330,26 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       for (int k = 0; k < RPL; ++k) {
         const int t = lane > 0 ? max(T[k], prev + gext * (k + 1)) : T[k];
         T[k] = max(t, zc[k]);  // R
-        if constexpr (TRACE) {
-          // the cell's bits (reference: src/scan_block.rs:1166-1190):
-          // D == C, D == R, C == C_open; R == D_open feeds the row below
-          const int dn = max(D[k], T[k]);
-          nib[k] = (dn == C[k]) | (dn == T[k]) << 1 | (C[k] == CO[k]) << 2;
-          rbits |= (T[k] == D[k] + (gopen - gext)) << k;
+        if constexpr (PROFILE) {
+          // a down step closes R before the merge; the bits compare D with
+          // the closed C and R
+          const int re = right ? T[k] : sat(T[k] + CL[k]);
+          if constexpr (TRACE) {
+            const int dn = max(D[k], re);
+            nib[k] = (dn == CE[k]) | (dn == re) << 1 | (C[k] == CO[k]) << 2;
+            rbits |= (T[k] == DO[k]) << k;
+          }
+          D[k] = max(D[k], re);
+        } else {
+          if constexpr (TRACE) {
+            // the cell's bits (reference: src/scan_block.rs:1166-1190):
+            // D == C, D == R, C == C_open; R == D_open feeds the row below
+            const int dn = max(D[k], T[k]);
+            nib[k] = (dn == C[k]) | (dn == T[k]) << 1 | (C[k] == CO[k]) << 2;
+            rbits |= (T[k] == D[k] + (gopen - gext)) << k;
+          }
+          D[k] = max(D[k], T[k]);
         }
-        D[k] = max(D[k], T[k]);
         actD[k] = D[k];
         actC[k] = C[k];
         if (on) dmax = max(dmax, D[k]);
@@ -418,16 +527,23 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+#ifndef LANE_PROFILE
+// csrc/lane_profile.cu builds the profile instances apart, so that the two
+// libraries compile in parallel
+#define LANE_PROFILE false
+#endif
+
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, int* twords, int4* tdesc,
                    int* tsteps, int B, int cap, int alpha, int max_steps,
                    int gopen, int gext, int xdrop, cudaStream_t stream) {
+  constexpr bool P = LANE_PROFILE;
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
-  auto kernel = twords ? (xdrop < 0 ? lane_align_kernel<S, false, true>
-                                    : lane_align_kernel<S, true, true>)
-                       : (xdrop < 0 ? lane_align_kernel<S, false, false>
-                                    : lane_align_kernel<S, true, false>);
+  auto kernel = twords ? (xdrop < 0 ? lane_align_kernel<S, false, true, P>
+                                    : lane_align_kernel<S, true, true, P>)
+                       : (xdrop < 0 ? lane_align_kernel<S, false, false, P>
+                                    : lane_align_kernel<S, true, false, P>);
   kernel<<<grid, WARPS * 32, 0, stream>>>(
       codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
       max_steps, gopen, gext, xdrop);
@@ -436,7 +552,10 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
 
 }  // namespace
 
-// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
+// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32;
+// in the profile library (csrc/lane_profile.cu) codes (B, cap) uint8 are the
+// queries' codes, table (B, cap, 8) int32 the profiles' words, rlen the
+// profiles' lengths, and alpha and gopen are not read.
 // x_drop < 0: global mode, out (B, 2) int32 = (score, suspect); else x-drop
 // with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
 // suspect).  Trace mode when `words` is not null: words (max_steps, B,

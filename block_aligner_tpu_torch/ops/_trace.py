@@ -7,12 +7,13 @@ from __future__ import annotations
 import torch
 
 
-def trace_bits(D11, C11, C11_open, R11, D11_open, zcol):
-    """4 traceback bits per cell, (B, S) int64: ``t = (D == C) | (D == R)
-    << 1`` and ``t2 = (C == C_open) | R_bit << 1``, where a row's R bit is
-    ``R == D_open`` of the row above it, 0 in row 0 (reference:
-    src/scan_block.rs:1166-1190)."""
-    t = (D11 == C11).long() | ((D11 == R11).long() << 1)
+def trace_bits(D11, c_end, r_end, C11, C11_open, R11, D11_open, zcol):
+    """4 traceback bits per cell, (B, S) int64: ``t = (D == C_end) | (D ==
+    R_end) << 1`` and ``t2 = (C == C_open) | R_bit << 1``, where a row's R
+    bit is ``R == D_open`` of the row above it, 0 in row 0 (reference:
+    src/scan_block.rs:1166-1190).  ``c_end`` and ``r_end`` are C and R
+    with the gap close cost of profile mode, else C and R themselves."""
+    t = (D11 == c_end).long() | ((D11 == r_end).long() << 1)
     r_bit = torch.cat([zcol, (R11 == D11_open).to(zcol.dtype)[:, :-1]], 1)
     t2 = (C11 == C11_open).long() | (r_bit.long() << 1)
     return t | (t2 << 2)

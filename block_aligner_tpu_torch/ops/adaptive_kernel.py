@@ -2,10 +2,12 @@
 PyTorch version and the wrapper of the CUDA kernel.
 
 Counterpart of ``block_aligner_tpu/ops/adaptive_kernel.py``:
-``build_adaptive_engine`` without trace (min_size < max_size <= 256), in
-global and in x-drop mode.  Both versions here compute what that kernel
-computes, bit for bit: the final score of every pair (x-drop: the best
-score and its position) and whether the pair hit the step cap.
+``build_adaptive_engine`` (min_size < max_size <= 256, 512 with trace or a
+profile), in global and in x-drop mode, with or without trace, scoring
+sequence pairs by a table or (query, profile) pairs by the profile
+(``cfg.profile``, ``ops/_profile.py``).  Both versions here compute what
+that kernel computes, bit for bit: the final score of every pair (x-drop:
+the best score and its position) and whether the pair hit the step cap.
 
 The machine (reference: src/scan_block.rs:101-593).  A pair's state is the
 step machine of ``ops/lane_kernel.py`` (an ACT/PAS border pair, i16 values
@@ -63,8 +65,9 @@ import torch.nn.functional as F
 from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
 from ..core.traceback import F_RESTORE, F_RIGHT, F_SAVE, F_START
 from . import _build
+from ._profile import ProfileFetch
 from ._trace import as_int32, stack_steps, trace_bits, trace_buffers
-from .lane_kernel import _check, count_launch, x_value
+from .lane_kernel import check_inputs, count_launch, reset_counts, x_value
 
 __all__ = ["AdaptiveKernelConfig", "adaptive_align_plain", "adaptive_align"]
 
@@ -81,19 +84,21 @@ SHRINK_SUFFIX_LEN = STEP // 4  # reference: src/scan_block.rs:786
 @dataclasses.dataclass(frozen=True)
 class AdaptiveKernelConfig:
     min_size: int  # starting block size, a power of two >= 16
-    max_size: int  # S: block-size cap, a power of two <= 256 (512 with trace)
+    max_size: int  # S: block-size cap, a power of two <= 256 (512 with
+    # trace or profile)
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
     x_drop: bool = False  # x-drop mode; the x value travels in the gaps
     trace: bool = False  # also return the traceback bits (core/traceback.py)
+    profile: bool = False  # sequence-to-PSSM mode (ops/_profile.py)
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
-        top = 512 if self.trace else 256
+        top = 512 if self.trace or self.profile else 256
         if m & (m - 1) or S & (S - 1) or not 16 <= m < S <= top:
             raise ValueError(
                 f"min_size < max_size must be powers of two in 16..{top}, got "
-                f"({m}, {S})" + ("" if self.trace else
+                f"({m}, {S})" + ("" if top == 512 else
                                  " (max_size 512 runs with trace only)"))
         if self.seq_cap % STEP or self.seq_cap < S + 2 * STEP:
             raise ValueError(
@@ -141,8 +146,11 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     open_, e = int(gaps[0]), int(gaps[1])
     xd = cfg.x_drop
     i32 = torch.int32
-    seqs = codes.long().clamp(max=A - 1)
-    tab = table.reshape(-1).to(i32)
+    if cfg.profile:
+        fetch = ProfileFetch(codes, table, e)
+    else:
+        seqs = codes.long().clamp(max=A - 1)
+        tab = table.reshape(-1).to(i32)
     ql, rl = qlen.to(i32), rlen.to(i32)
     rows = torch.arange(S, device=dev)
     cols = torch.arange(STEP, device=dev)
@@ -238,38 +246,52 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             t_desc.append(torch.stack([flags, ls, cstart, h], 1))
             pend = full(0)
             word = torch.zeros((B, S), dtype=torch.int64, device=dev)
-        lane_side = col((~right_or).long())
         lpos = (col(ls) + rows).clamp(max=cap - 1)
         cp = (col(cstart) + cols).clamp(max=cap - 1)
-        lanec = seqs[bidx, lane_side, lpos]  # (B, S)
-        colc = seqs[bidx, 1 - lane_side, cp]  # (B, STEP)
+        if cfg.profile:
+            fetch.step(right_or, lpos, cp)
+        else:
+            lane_side = col((~right_or).long())
+            lanec = seqs[bidx, lane_side, lpos]  # (B, S)
+            colc = seqs[bidx, 1 - lane_side, cp]  # (B, STEP)
         origin = (dirn == DIR_GR) & (psz == 0) & (cpos == 0) & (J == 0)
         inrect = rows < col(h)
         hrow = col((h - 1).long())
         gact = col(~shift & ~done)
         for w in range(STEP):
-            scores = tab[colc[:, w : w + 1] * A + lanec]
+            if cfg.profile:
+                scores, copen, dopen, close = fetch.column(w)
+            else:
+                scores = tab[colc[:, w : w + 1] * A + lanec]
+                copen, dopen = open_, open_ - e
             corner = cvec if w == 0 else full(NEG)
             D11 = _sat(torch.cat([col(corner), actD[:, :-1]], 1) + scores)
             if w == 0:
                 D11[:, 0] = torch.where(origin, ZERO, D11[:, 0])
-            C11_open = _sat(actD + open_)
+            C11_open = _sat(actD + copen)
             C11 = torch.maximum(_sat(actC + e), C11_open)
-            D11 = torch.maximum(D11, C11)
+            # profile: a right rect closes C before the merge, a down rect
+            # R; the stored C and R stay pre-close
+            c_end = (torch.where(fetch.right, _sat(C11 + close), C11)
+                     if cfg.profile else C11)
+            D11 = torch.maximum(D11, c_end)
             # max-plus prefix scan in log steps, then the zero correction
-            D11_open = t = D11 + (open_ - e)
+            D11_open = t = (_sat(D11 + dopen) if cfg.profile
+                            else D11 + dopen)
             k = 1
             while k < S:
                 t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
                 k *= 2
             R11 = torch.maximum(t, zc)
-            D11 = torch.maximum(D11, R11)
+            r_end = (torch.where(fetch.right, R11, _sat(R11 + close))
+                     if cfg.profile else R11)
+            D11 = torch.maximum(D11, r_end)
             if tr:
                 # a frozen pair's later columns stay out of its last word
                 word |= torch.where(
                     col(done), 0,
-                    trace_bits(D11, C11, C11_open, R11, D11_open, zcol)
-                    << (4 * w))
+                    trace_bits(D11, c_end, r_end, C11, C11_open, R11,
+                               D11_open, zcol) << (4 * w))
             dmax = torch.maximum(dmax, torch.where(inrect, D11, NEG).amax(1))
             actD, actC = D11, C11
             bot_d, bot_r = D11.gather(1, hrow), R11.gather(1, hrow)
@@ -461,8 +483,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    return bind(_build.load("adaptive_kernel"))
+def _lib(profile: bool = False) -> ctypes.CDLL:
+    """The kernel's library: ``csrc/adaptive_kernel.cu``, or with
+    ``profile`` its profile instances, ``csrc/adaptive_profile.cu``."""
+    return bind(_build.load("adaptive_profile" if profile
+                            else "adaptive_kernel"))
 
 
 def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
@@ -473,27 +498,29 @@ def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
     steps, of which each pair wrote its own ``steps``, and of a step's
     words the rows of the block size's 32-row slots.
 
+    In profile mode (``cfg.profile``) the inputs are those of
+    ``ops/_profile.py::pack_profile``.
+
     CPU tensors take ``adaptive_align_plain``; CUDA tensors launch the
-    kernel of ``csrc/adaptive_kernel.cu`` on the current stream or raise.
-    The wrapper counts its launches by instance:
-    ``adaptive_align.launches`` (global), ``xdrop_launches``,
-    ``trace_launches`` and ``xdrop_trace_launches``."""
+    kernel of ``csrc/adaptive_kernel.cu`` (profile:
+    ``csrc/adaptive_profile.cu``) on the current stream or raise.  The
+    wrapper counts its launches by instance: ``adaptive_align.launches``
+    (global), ``xdrop_launches``, ``trace_launches`` and
+    ``xdrop_trace_launches``, and the same with ``profile_`` in front for
+    the profile instances."""
     if codes.device.type == "cpu":
         return adaptive_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError(f"no adaptive kernel for device {dev}")
     B = codes.shape[0]
-    _check("codes", codes, torch.uint8, (B, 2, cfg.seq_cap), dev)
-    _check("qlen", qlen, torch.int32, (B,), dev)
-    _check("rlen", rlen, torch.int32, (B,), dev)
-    _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
+    check_inputs(codes, qlen, rlen, table, cfg)
     out = torch.empty((B, 4 if cfg.x_drop else 2), dtype=torch.int32,
                       device=dev)
     res, ptrs = trace_buffers(out, cfg, cfg.max_size)
     if B == 0:
         return res
-    lib = _lib()
+    lib = _lib(cfg.profile)
     with torch.cuda.device(dev):
         err = lib.adaptive_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
@@ -508,5 +535,4 @@ def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
     return res
 
 
-adaptive_align.launches = adaptive_align.xdrop_launches = 0
-adaptive_align.trace_launches = adaptive_align.xdrop_trace_launches = 0
+reset_counts(adaptive_align)

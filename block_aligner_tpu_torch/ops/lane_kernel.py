@@ -2,10 +2,12 @@
 plain PyTorch version, and the wrapper of the CUDA kernel.
 
 Counterpart of ``block_aligner_tpu/ops/lane_kernel.py``: ``build_lane_engine``
-without trace (min == max block size S, a power of two in 16..512), in global
-and in x-drop mode.  Both versions here compute what that kernel computes,
-bit for bit: the final score (x-drop: the best score and its position) and
-the y-drop "suspect" flag of every pair.
+(min == max block size S, a power of two in 16..512), in global and in
+x-drop mode, with or without trace, scoring sequence pairs by a table or
+(query, profile) pairs by the profile (``cfg.profile``,
+``ops/_profile.py``).  Both versions here compute what that kernel
+computes, bit for bit: the final score (x-drop: the best score and its
+position) and the y-drop "suspect" flag of every pair.
 
 The step machine (reference: src/scan_block.rs:94-595 with min == max).  A
 pair's state is an S-cell block whose active border ACT (D and C values
@@ -57,6 +59,7 @@ from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
 from ..core.scores import INVALID
 from ..core.traceback import F_RIGHT, F_START
 from . import _build
+from ._profile import PROF_WORDS, ProfileFetch
 from ._trace import as_int32, stack_steps, trace_bits, trace_buffers
 
 __all__ = ["LaneKernelConfig", "LanePack", "pack_lane", "lane_align_plain",
@@ -73,6 +76,7 @@ class LaneKernelConfig:
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
     x_drop: bool = False  # x-drop mode; the x value travels in the gaps
     trace: bool = False  # also return the traceback bits (core/traceback.py)
+    profile: bool = False  # sequence-to-PSSM mode (ops/_profile.py)
 
     def __post_init__(self):
         S = self.block
@@ -194,8 +198,11 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
     open_, e = int(gaps[0]), int(gaps[1])
     xd = cfg.x_drop
     i32 = torch.int32
-    seqs = codes.long().clamp(max=A - 1)
-    tab = table.reshape(-1).to(i32)
+    if cfg.profile:
+        fetch = ProfileFetch(codes, table, e)
+    else:
+        seqs = codes.long().clamp(max=A - 1)
+        tab = table.reshape(-1).to(i32)
     ql, rl = qlen.to(i32), rlen.to(i32)
     rows = torch.arange(S, device=dev)
     cols = torch.arange(STEP, device=dev)
@@ -268,33 +275,47 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
             word = torch.zeros((B, S), dtype=torch.int64, device=dev)
         lpos = (starti[:, None] + rows).clamp(max=cap - 1)
         cpos = (colpos0[:, None] + cols).clamp(max=cap - 1)
-        lanec = seqs[bidx, lane_side[:, None], lpos]  # (B, S)
-        colc = seqs[bidx, 1 - lane_side[:, None], cpos]  # (B, STEP)
+        if cfg.profile:
+            fetch.step(lane_side == 0, lpos, cpos)
+        else:
+            lanec = seqs[bidx, lane_side[:, None], lpos]  # (B, S)
+            colc = seqs[bidx, 1 - lane_side[:, None], cpos]  # (B, STEP)
         for w in range(STEP):
-            scores = tab[colc[:, w : w + 1] * A + lanec]
+            if cfg.profile:
+                scores, copen, dopen, close = fetch.column(w)
+            else:
+                scores = tab[colc[:, w : w + 1] * A + lanec]
+                copen, dopen = open_, open_ - e
             corner = cvec if w == 0 else full(NEG)
             D11 = _sat(torch.cat([corner[:, None], actD[:, :-1]], 1) + scores)
             if in_pro and s == 0 and w == 0:
                 D11[:, 0] = ZERO  # the DP origin cell
-            C11_open = _sat(actD + open_)
+            C11_open = _sat(actD + copen)
             C11 = torch.maximum(_sat(actC + e), C11_open)
-            D11 = torch.maximum(D11, C11)
+            # profile: a right step closes C before the merge, a down step
+            # R; the stored C and R stay pre-close
+            c_end = (torch.where(fetch.right, _sat(C11 + close), C11)
+                     if cfg.profile else C11)
+            D11 = torch.maximum(D11, c_end)
             # max-plus prefix scan in log steps, then the zero correction
-            D11_open = t = D11 + (open_ - e)
+            D11_open = t = (_sat(D11 + dopen) if cfg.profile
+                            else D11 + dopen)
             k = 1
             while k < S:
                 t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
                 k *= 2
             R11 = torch.maximum(t, zc)
-            D11 = torch.maximum(D11, R11)
+            r_end = (torch.where(fetch.right, R11, _sat(R11 + close))
+                     if cfg.profile else R11)
+            D11 = torch.maximum(D11, r_end)
             if tr:
                 # the cell's traceback bits (reference:
                 # src/scan_block.rs:1166-1190); a frozen pair's later
                 # columns stay out of its last word
                 word |= torch.where(
                     done[:, None], 0,
-                    trace_bits(D11, C11, C11_open, R11, D11_open, zcol)
-                    << (4 * w))
+                    trace_bits(D11, c_end, r_end, C11, C11_open, R11,
+                               D11_open, zcol) << (4 * w))
             dmax = torch.maximum(dmax, D11.amax(1))
             actD, actC = D11, C11
             if in_pro:
@@ -403,8 +424,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    return bind(_build.load("lane_kernel"))
+def _lib(profile: bool = False) -> ctypes.CDLL:
+    """The kernel's library: ``csrc/lane_kernel.cu``, or with ``profile``
+    its profile instances, ``csrc/lane_profile.cu``."""
+    return bind(_build.load("lane_profile" if profile else "lane_kernel"))
 
 
 def x_value(gaps, cfg) -> int:
@@ -414,6 +437,20 @@ def x_value(gaps, cfg) -> int:
     if int(gaps[2]) < 0:
         raise ValueError(f"x_drop must be >= 0, got {gaps[2]}")
     return int(gaps[2])
+
+
+def check_inputs(codes, qlen, rlen, table, cfg):
+    """The kernels' input tensors must lie on one device, with the dtypes,
+    shapes and layout their C entry points read."""
+    dev, B, cap = codes.device, codes.shape[0], cfg.seq_cap
+    if cfg.profile:
+        _check("codes", codes, torch.uint8, (B, cap), dev)
+        _check("table", table, torch.int32, (B, cap, PROF_WORDS), dev)
+    else:
+        _check("codes", codes, torch.uint8, (B, 2, cap), dev)
+        _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
+    _check("qlen", qlen, torch.int32, (B,), dev)
+    _check("rlen", rlen, torch.int32, (B,), dev)
 
 
 def _check(name, t, dtype, shape, device):
@@ -434,26 +471,29 @@ def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
     of ``core/traceback.py``; on CUDA words and desc hold ``cfg.max_steps``
     steps, of which each pair wrote its own ``steps``.
 
+    In profile mode (``cfg.profile``) the inputs are those of
+    ``ops/_profile.py::pack_profile``: codes (B, seq_cap) of the queries,
+    table (B, seq_cap, 8) of the profiles' words.
+
     CPU tensors take ``lane_align_plain``; CUDA tensors launch the kernel of
-    ``csrc/lane_kernel.cu`` on the current stream or raise.  The wrapper
-    counts its launches by instance: ``lane_align.launches`` (global),
-    ``xdrop_launches``, ``trace_launches`` and ``xdrop_trace_launches``."""
+    ``csrc/lane_kernel.cu`` (profile: ``csrc/lane_profile.cu``) on the
+    current stream or raise.  The wrapper counts its launches by instance:
+    ``lane_align.launches`` (global), ``xdrop_launches``,
+    ``trace_launches`` and ``xdrop_trace_launches``, and the same with
+    ``profile_`` in front for the profile instances."""
     if codes.device.type == "cpu":
         return lane_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
     if dev.type != "cuda":
         raise ValueError(f"no lane kernel for device {dev}")
     B = codes.shape[0]
-    _check("codes", codes, torch.uint8, (B, 2, cfg.seq_cap), dev)
-    _check("qlen", qlen, torch.int32, (B,), dev)
-    _check("rlen", rlen, torch.int32, (B,), dev)
-    _check("table", table, torch.int32, (cfg.alpha, cfg.alpha), dev)
+    check_inputs(codes, qlen, rlen, table, cfg)
     out = torch.empty((B, 4 if cfg.x_drop else 2), dtype=torch.int32,
                       device=dev)
     res, ptrs = trace_buffers(out, cfg, cfg.block)
     if B == 0:
         return res
-    lib = _lib()
+    lib = _lib(cfg.profile)
     with torch.cuda.device(dev):
         err = lib.lane_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
@@ -469,9 +509,20 @@ def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
 
 def count_launch(fn, cfg):
     """One more launch of ``fn``'s instance for ``cfg``."""
-    name = ("xdrop_" if cfg.x_drop else "") + ("trace_" if cfg.trace else "")
-    setattr(fn, name + "launches", getattr(fn, name + "launches") + 1)
+    name = (("profile_" if cfg.profile else "")
+            + ("xdrop_" if cfg.x_drop else "")
+            + ("trace_" if cfg.trace else "") + "launches")
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
-lane_align.launches = lane_align.xdrop_launches = 0
-lane_align.trace_launches = lane_align.xdrop_trace_launches = 0
+COUNTERS = tuple(p + x + t + "launches" for p in ("", "profile_")
+                 for x in ("", "xdrop_") for t in ("", "trace_"))
+
+
+def reset_counts(fn):
+    """Set every launch count of ``fn`` to 0."""
+    for c in COUNTERS:
+        setattr(fn, c, 0)
+
+
+reset_counts(lane_align)

@@ -7,9 +7,10 @@ Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``
-   into ``build/`` (keyed on the sources), one ``nvcc`` each, and beside
-   them one ``nvcc -Xptxas -v`` each for the registers, stack and spills
-   of every kernel instance, all four started together; load the builds;
+   and their profile libraries ``{lane,adaptive}_profile.cu`` into
+   ``build/`` (keyed on the sources), one ``nvcc`` each, and beside them
+   one ``nvcc -Xptxas -v`` each for the registers, stack and spills of
+   every kernel instance, all eight started together; load the builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
    on the card, exact equality of score and suspect flag at blocks 16..512
    on seeded random protein and DNA pairs, and the reference's golden
@@ -63,7 +64,27 @@ Phases, each reported on its own line:
 13. the lane x-drop trace main path: phase 8's pairs with trace;
 14. adaptive trace main paths on the homolog pairs of phase 6 in batches
    of 2048: (32, 256) (the reference's traced uc_bench row), (32, 512)
-   and (32, 256) with x_drop 50.
+   and (32, 256) with x_drop 50;
+15. the profile instances of both kernels (sequence-to-PSSM) against their
+   plain versions: lane blocks 16, 32, 128, 512 and adaptive (32, 256) and
+   (32, 512), global, x-drop 50, trace and x-drop trace, on profiles with
+   gap opens and close costs that vary by position and queries with a few
+   bytes outside A..Z (at (32, 512) with 4 pairs whose blocks grow to 512,
+   global and x-drop); outputs equal and, with trace, step counts,
+   descriptors, words and CIGARs; then the reference's PSSM format
+   (``data/scop/pairs.mini.pssm``) on both routes;
+16. lane profile main paths, ``examples_tpu/run_results.py::bench_pssm``'s
+   workload: 8192 simulated SCOP (query, profile) pairs
+   (``examples_tpu/common.py::load_scop_profiles``' simulation, seed 1234,
+   drawn here with the port's ``AAProfile``) through
+   ``ProfileAligner.stage`` + ``align_staged`` and ``align_all`` at (32,
+   32) and (128, 128), and at (32, 32) with x_drop 50;
+17. adaptive profile main paths: the same pairs at the default (32, 256),
+   and with x_drop 50; ``align_profile_exp_all`` at (32, 256) on 1024 of
+   them, with the 256-256 lane score as the target (8 unreachable), every
+   result held against the plain version at the min size it reports;
+18. profile trace paths: the same pairs in batches of 2048, lane (32, 32)
+   and adaptive (32, 256), global and x_drop 50; each pair's CIGAR.
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal
@@ -72,10 +93,15 @@ apart.  A trace main path runs ``align_all_trace``; its results must
 equal the non-trace instance's (none exists at max size 512), every CIGAR
 must sum to its end position and rescore to its score, and the first 512
 must equal those walked from the plain version's trace; pack, the trace's
-copy-back and the walk are timed on the host clock.  The line before the last is a JSON summary of the kernels; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises, so the
-script exits non-zero and prints no result.  It needs the repository around
-it and a CUDA device; without either it fails.
+copy-back and the walk are timed on the host clock.  A profile trace path
+holds every CIGAR to its end and to its score under the reference's
+profile costs (``rescore_profile``); a CIGAR that does not rescore (the
+reference's own walk misses on some pairs with position-specific gap
+opens) must equal the plain version's.  The line before the last is a
+JSON summary of the kernels; the last line is ``{"ok": true, "device":
+{...}}``.  Any failure raises, so the script exits non-zero and prints no
+result.  It needs the repository around it and a CUDA device; without
+either it fails.
 """
 
 from __future__ import annotations
@@ -173,6 +199,13 @@ OPS_PER_CELL_XDROP = OPS_PER_CELL + 2
 # C == C_open, R == D_open), the shift that hands the R bit to the row
 # below, and the shift and or that put the cell's bits into its word
 OPS_PER_CELL_TRACE = 7
+# profile mode adds, per cell, the gap close on C (right steps) or R (down
+# steps): one add.  Whatever the layout, the score is a lookup and the
+# position's opens replace constants; the clamps of the closed value and of
+# D plus its R open fold into the merges into D, which is never below the
+# rail.  Unpacking a score byte from its word is this layout's own cost.
+# Its profile rows are 32 bytes a position.
+OPS_PER_CELL_PROFILE = 1
 
 
 def random_pairs(rng, alphabet, n, max_len):
@@ -270,6 +303,122 @@ def structural_pairs(rng, alphabet, n, max_len):
     return pairs
 
 
+def profile_of(rng, cons):
+    """A profile of the consensus ``cons`` shaped as the JAX package's
+    simulated SCOP profiles (``examples_tpu/common.py::load_scop_profiles``):
+    scores -4..2, the consensus residue 4..11; gap opens -13..-9 and close
+    costs -3..0 (0 there) that vary by position."""
+    from block_aligner_tpu_torch.core.scores import AAProfile
+
+    cons = np.frombuffer(cons, np.uint8)
+    n = len(cons)
+    prof = AAProfile(n, 2048, -1)
+    base = rng.integers(-4, 3, size=(n, 26))
+    base[np.arange(n), cons - 65] = rng.integers(4, 12, size=n)
+    prof.pos_scores[1 : n + 1, :26] = base
+    prof.gap_open_C[: n + 1] = rng.integers(-13, -8, size=n + 1)
+    prof.gap_close_C[: n + 1] = rng.integers(-3, 1, size=n + 1)
+    prof.gap_open_R[: n + 1] = rng.integers(-13, -8, size=n + 1)
+    return prof
+
+
+# query bytes outside A..Z (lower case is upper-cased): codes 26 and 27
+# score by the profile's NULL and next column, every other one -128
+ODD_BYTES = np.frombuffer(b"[\\*-@x~", dtype=np.uint8)
+
+
+def profile_pairs(rng, n, max_len, odd=True):
+    """(query, AAProfile) pairs with varied gap opens and nonzero close
+    costs: ``random_pairs``, each reference made the consensus of a
+    profile; with ``odd`` every tenth query holds a few bytes outside
+    A..Z."""
+    pairs = []
+    for k, (q, r) in enumerate(random_pairs(rng, AA, n, max_len)):
+        if odd and k % 10 == 9 and q:
+            b = np.frombuffer(q, np.uint8).copy()
+            b[rng.integers(0, len(b), size=3)] = rng.choice(ODD_BYTES, size=3)
+            q = b.tobytes()
+        pairs.append((q, profile_of(rng, r)))
+    return pairs
+
+
+def scop_profiles(n_pairs, seed=1234, max_len=200):
+    """The JAX package's simulated SCOP (query, profile) pairs
+    (``examples_tpu/common.py::load_scop_profiles`` without its data file),
+    drawn in its order with the port's ``AAProfile``: profiles of random
+    consensus sequences of 30..max_len-1 residues, queries with n/5 edits,
+    gap opens -13..-9 by position and close costs 0."""
+    from block_aligner_tpu_torch.core.scores import AAProfile
+    from examples_tpu.common import rand_mutate, rand_seq
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_pairs):
+        n = int(rng.integers(30, max_len))
+        cons = rand_seq(rng, AA.tobytes(), n)
+        prof = AAProfile(n, 2048, -1)
+        base = rng.integers(-4, 3, size=(n, 26))
+        base[np.arange(n), np.frombuffer(cons, np.uint8) - 65] = (
+            rng.integers(4, 12, size=n))
+        prof.pos_scores[1 : n + 1, :26] = base
+        prof.gap_open_C[: n + 1] = rng.integers(-13, -8, size=n + 1)
+        prof.gap_close_C[: n + 1] = 0
+        prof.gap_open_R[: n + 1] = rng.integers(-13, -8, size=n + 1)
+        out.append((rand_mutate(rng, cons, n // 5, AA.tobytes()), prof))
+    return out
+
+
+def read_pssm(path):
+    """(query, AAProfile) records of a SCOP PSSM file in the reference's
+    format (scripts/scop_seq_profile_pairs.py; parsed as
+    examples_tpu/common.py and examples/pssm_accuracy.rs:38-69 parse it):
+    per record a ``#query`` line, a ``#consensus`` line whose length is the
+    profile's, a header line, then one ``pos aa s1 .. s20`` line per
+    position, scores in ACDEFGHIKLMNPQRSTVWY order; gap open -10 and close
+    0 at positions 1..len."""
+    from block_aligner_tpu_torch.core.scores import AAProfile
+
+    with open(path) as f:
+        lines = f.read().splitlines()
+    out, k = [], 0
+    while k + 1 < len(lines):
+        seq = lines[k][1:].encode()
+        plen = len(lines[k + 1]) - 1
+        prof = AAProfile(plen, 2048, -1)
+        for i in range(1, plen + 1):
+            for c, v in zip(AA, lines[k + 2 + i].split()[2:22]):
+                prof.set(i, int(c), int(v))
+            prof.set_gap_open_C(i, -10)
+            prof.set_gap_close_C(i, 0)
+            prof.set_gap_open_R(i, -10)
+        k += plen + 3
+        out.append((seq, prof))
+    return out
+
+
+def blosum_profile(rng, seq):
+    """The profile of ``seq`` under BLOSUM62 (its row of each residue),
+    with gap opens -12..-9 and close costs -2..0 that vary by position."""
+    from block_aligner_tpu_torch.core.scores import BLOSUM62, AAProfile
+
+    r = np.frombuffer(seq, np.uint8)
+    n = len(r)
+    prof = AAProfile(n, 2048, -1)
+    prof.pos_scores[1 : n + 1, :27] = BLOSUM62.table[r - 65, :27]
+    prof.gap_open_C[: n + 1] = rng.integers(-12, -8, size=n + 1)
+    prof.gap_open_R[: n + 1] = rng.integers(-12, -8, size=n + 1)
+    prof.gap_close_C[: n + 1] = rng.integers(-2, 1, size=n + 1)
+    return prof
+
+
+def grow_profile_pairs(rng, n, length=560, inserted=300):
+    """``grow_to_512_pairs`` as (query, profile) pairs: the profile is the
+    reference's with the inserted residues (``blosum_profile``), and
+    adaptive blocks grow to 512 rows to cross it."""
+    return [(q, blosum_profile(rng, r)) for q, r in
+            grow_to_512_pairs(rng, n, length, inserted)]
+
+
 def x_dropped(out, staged):
     """How many pairs of an x-drop run ended short of (qlen, rlen): their
     best position lies before the end of the query or the reference."""
@@ -301,10 +450,11 @@ def ptxas_report(_build, name):
     lines, fn, frame = [], None, ""
     for line in proc.stderr.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"ILi(\d+)ELb([01])ELb([01])E", line)
+                      r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", line)
         if m:
             fn = (f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}"
-                  f"{', trace' if m[4] == '1' else ''}>")
+                  f"{', trace' if m[4] == '1' else ''}"
+                  f"{', profile' if m[5] == '1' else ''}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -359,24 +509,20 @@ def bound(staged, cells, int32_per_s, x_drop=False):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-COUNTERS = ("launches", "xdrop_launches", "trace_launches",
-            "xdrop_trace_launches")
-
-
 def reset_launches(lk, ak):
     for fn in (lk.lane_align, ak.adaptive_align):
-        for c in COUNTERS:
-            setattr(fn, c, 0)
+        lk.reset_counts(fn)
 
 
 def expect_launches(lk, ak, what, *launched):
     """The launch counts by kernel instance since ``reset_launches``; fails
-    unless exactly the instances named in ``launched`` ran."""
+    unless exactly the instances named in ``launched`` ran.  An instance's
+    name is its wrapper's, then ``_profile``, ``_xdrop``, ``_trace``."""
     counts = {}
     for fn in (lk.lane_align, ak.adaptive_align):
-        for c in COUNTERS:
-            name = fn.__name__ + ("_xdrop" if "xdrop" in c else "") + (
-                "_trace" if "trace" in c else "")
+        for c in lk.COUNTERS:
+            name = fn.__name__ + "".join(
+                f"_{m}" for m in ("profile", "xdrop", "trace") if m in c)
             counts[name] = getattr(fn, c)
     if any((counts[k] > 0) != (k in launched) for k in counts):
         raise AssertionError(f"{what}: launches {counts}, expected only "
@@ -493,6 +639,109 @@ def check_cigars(cigars, pairs, results, matrix, gaps, what):
     return int(ln.sum())
 
 
+def profile_gap_rects(tr, b, cigar):
+    """For each D run of pair ``b``'s CIGAR, in forward order: whether the
+    walk read the run's first cell from a right rect, and whether the run
+    passes from a down rect's last lane into a right rect (a hand-off).
+    The rects are those the walk takes (``Trace.cigars_all``): walking back
+    from the end, a pair keeps its rect until a cell leaves the rect's
+    lower bounds, then takes the latest earlier rect that holds it."""
+    from block_aligner_tpu_torch import Operation as Op
+
+    rects = tr.rects_for(b)
+    runs = [(int(r.op), r.len) for r in cigar.to_vec()]
+    cells, i, j = [], 0, 0
+    for op, n in runs:
+        for _ in range(n):
+            i += op != Op.D
+            j += op != Op.I
+            cells.append((i, j))
+    at, k = [0] * len(cells), len(rects) - 1
+    for t in range(len(cells) - 1, -1, -1):
+        ci, cj = cells[t]
+        while ci < rects[k].row or cj < rects[k].col:
+            k -= 1
+        at[t] = k
+    out, s = [], 0
+    for op, n in runs:
+        if op == Op.D:
+            hand = False
+            for t in range(s, s + n - 1):
+                a, z = rects[at[t]], rects[at[t + 1]]
+                hand |= (not a.right and z.right
+                         and cells[t][1] - a.col == a.h - 1)
+            out.append((rects[at[s]].right, hand))
+        s += n
+    return out
+
+
+def rescore_profile(cigar, gap_rects, query, prof):
+    """``(score, end)`` of a profile CIGAR under the block DP's profile
+    costs: a matched query code c at profile position j scores
+    ``pos_scores[j, c]`` (codes past 27 -128); a run of n query residues
+    (I) at position j costs ``gap_open_R[j] + n * extend``; a run of n
+    profile positions (D) costs its open, ``n * extend`` and
+    ``gap_close_C`` of its last position.  A right rect charges the open
+    at the gap's first position, a down rect at the position before it
+    (oracle.py::_SeqProfileFetch: a down rect opens a profile gap from its
+    lane's own cost); ``gap_rects`` (``profile_gap_rects``) says which
+    rect read each D run's first cell."""
+    from block_aligner_tpu_torch import Operation as Op
+
+    codes = prof.convert(query).astype(np.int64)
+    e = prof.get_gap_extend()
+    i = j = score = 0
+    gaps = iter(gap_rects)
+    for run in cigar.to_vec():
+        op, n = int(run.op), run.len
+        if op in (Op.M, Op.Eq, Op.X):
+            c = codes[i : i + n]
+            sc = prof.pos_scores[np.arange(j + 1, j + 1 + n),
+                                 np.minimum(c, 31)]
+            score += int(np.where(c < 28, sc, -128).sum())
+            i, j = i + n, j + n
+        elif op == Op.I:
+            score += int(prof.gap_open_R[j]) + n * e
+            i += n
+        else:
+            first = j + 1 if next(gaps)[0] else j
+            score += (int(prof.gap_open_C[first]) + n * e
+                      + int(prof.gap_close_C[j + n]))
+            j += n
+    return score, (i, j)
+
+
+def check_profile_cigars(cigars, gap_rects, pairs, results, what):
+    """Every profile CIGAR must sum to its result's end and rescore to its
+    score under ``rescore_profile``, but for one case the reference's trace
+    cannot show: a down rect's last lane hands its R, which holds that
+    lane's own gap open (its inclusive scan's zero-length term), to the
+    next right rect as the C of a gap in progress.  Where the right rect
+    extends it, the trace says "no open here" and the walk goes on back
+    through the down rect's gap, one position too far, so the walked path
+    is not the one the DP scored.  A pair that misses must have such a
+    hand-off in a D run, and rescore below its score (the walked path is a
+    real path, only not the best).  Returns (the pairs that miss, the
+    pairs with a hand-off)."""
+    miss, hand = [], 0
+    for k, (cig, gr, (q, prof), res) in enumerate(zip(cigars, gap_rects,
+                                                      pairs, results)):
+        score, end = rescore_profile(cig, gr, q, prof)
+        if end != (res.query_idx, res.reference_idx):
+            raise AssertionError(f"{what}: pair {k}: CIGAR {cig} ends at "
+                                 f"{end}, result {res}")
+        handoff = any(h for _, h in gr)
+        hand += handoff
+        if score == res.score:
+            continue
+        if not handoff or score > res.score:
+            raise AssertionError(f"{what}: pair {k}: CIGAR {cig} rescores "
+                                 f"to {score}, result {res}, and has no "
+                                 "down-to-right gap hand-off")
+        miss.append(k)
+    return miss, hand
+
+
 def walk_both(got, want, ends, matrix, what):
     """CIGARs walked from a kernel's trace and from its plain version's
     trace must be equal."""
@@ -570,13 +819,15 @@ def main():
     # 2. build: one nvcc per source, and one per source for ptxas's
     # report, all started together
     t0 = time.perf_counter()
-    names = ("lane_kernel", "adaptive_kernel")
+    names = ("lane_kernel", "adaptive_kernel", "lane_profile",
+             "adaptive_profile")
     with ThreadPoolExecutor(2 * len(names)) as pool:
         reports = [pool.submit(ptxas_report, _build, n) for n in names]
         paths = list(pool.map(_build.build, names))
         reports = [line for r in reports for line in r.result()]
-    lk._lib()
-    ak._lib()
+    for profile in (False, True):
+        lk._lib(profile)
+        ak._lib(profile)
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in reports:
@@ -1207,6 +1458,361 @@ def main():
     ad_t = merged(paths[0], paths[1])
     ad_xt = paths[2]
 
+    # 15. the profile instances of both kernels vs their plain versions
+    from block_aligner_tpu_torch import ProfileAligner, align_profile_exp_all
+    from block_aligner_tpu_torch.ops._profile import pack_profile
+
+    def profile_vs_plain(cfg, pairs, x, what):
+        """A profile instance against its plain version on the same packed
+        pairs: equal outputs and, in trace mode, step counts, descriptors,
+        words and CIGARs; returns the kernel's output, the packed pairs and
+        the plain version's DP cells per pair."""
+        pk = pack_profile(pairs, cfg, dev, x_drop=x)
+        lane = isinstance(cfg, lk.LaneKernelConfig)
+        got = (lk.lane_align if lane else ak.adaptive_align)(*pk, cfg)
+        torch.cuda.synchronize()
+        *want, cells = (lk.lane_align_plain if lane
+                        else ak.adaptive_align_plain)(*pk, cfg,
+                                                      count_cells=True)
+        if not cfg.trace:
+            check_equal(got, want[0], what)
+            return got, pk, cells
+        check_trace(got, tuple(want), what)
+        out = want[0].cpu().numpy()
+        ends = ([(int(o[1]), int(o[2])) for o in out] if cfg.x_drop else
+                [(len(q), p.str_len) for q, p in pairs])
+        walk_both(got, tuple(want), ends, None, what)
+        return got, pk, cells
+
+    modes = ((False, False), (True, False), (False, True), (True, True))
+    checked = dropped = 0
+    for S in (16, 32, 128, 512):
+        for xd, tr in modes:
+            cfg = lk.LaneKernelConfig(S, -(-(1 + 400 + S + 16) // 128) * 128,
+                                      x_drop=xd, trace=tr, profile=True)
+            pairs = profile_pairs(rng, 96, 400)
+            got, pk, _ = profile_vs_plain(cfg, pairs, 50 if xd else 0,
+                                          f"lane profile S={S} x_drop={xd} "
+                                          f"trace={tr}")
+            checked += len(pairs)
+            dropped += x_dropped(got[0] if tr else got, pk) if xd else 0
+    if not dropped:
+        raise AssertionError("no lane profile x-drop pair ended short")
+    print(f"[lane-profile-vs-plain] {checked} (query, profile) pairs at S in "
+          "16,32,128,512, global, x-drop 50, trace and x-drop trace (lengths "
+          "0..400, gap opens -13..-9 and close costs -3..0 varying by "
+          "position, odd query bytes): outputs equal, and in trace mode step "
+          f"counts, descriptors, words and CIGARs; {dropped} x-drop best "
+          "positions short of the ends")
+    checked = dropped = 0
+    for size in ((32, 256), (32, 512)):
+        for xd in (False, True):
+            # at (32, 512) the instances with and without trace run the
+            # same pairs: 4 whose blocks grow to 512, as the trace's
+            # descriptors show; without trace, the plain version that the
+            # kernel equals computes the same DP cells for each of the 4
+            pairs = profile_pairs(rng, 96, 400) + (
+                grow_profile_pairs(rng, 4) if size[1] == 512 else [])
+            grow_cells = []
+            for tr in (True, False):
+                cfg = ak.AdaptiveKernelConfig(
+                    *size, -(-(1 + 1150 + size[1] + 16) // 128) * 128,
+                    x_drop=xd, trace=tr, profile=True)
+                got, pk, cells = profile_vs_plain(
+                    cfg, pairs, 50 if xd else 0,
+                    f"adaptive profile {size} x_drop={xd} trace={tr}")
+                checked += len(pairs)
+                dropped += x_dropped(got[0] if tr else got, pk) if xd else 0
+                if size[1] < 512:
+                    continue
+                grow_cells.append(cells[-4:].tolist())
+                if tr:
+                    ran = (torch.arange(got[2].shape[0], device=dev)[:, None]
+                           < got[3][None, -4:])
+                    grown = torch.where(ran, got[2][:, -4:, 3], 0).amax(0)
+                    if not bool((grown == 512).all()):
+                        raise AssertionError(
+                            f"profile x_drop={xd}: blocks grew to "
+                            f"{grown.tolist()}, not 512")
+            if grow_cells and grow_cells[0] != grow_cells[1]:
+                raise AssertionError(
+                    f"profile (32, 512) x_drop={xd}: the grow pairs' cells "
+                    f"{grow_cells[1]} without trace, {grow_cells[0]} with")
+    if not dropped:
+        raise AssertionError("no adaptive profile x-drop pair ended short")
+    print(f"[adaptive-profile-vs-plain] {checked} pairs at (32, 256) and "
+          "(32, 512) in the same four modes (at (32, 512) 4 pairs whose "
+          "blocks grow to 512 in all four: the trace's descriptors, and "
+          "without trace the same DP cells per pair): outputs, step counts, "
+          "descriptors, words and CIGARs equal; "
+          f"{dropped} x-drop best positions short of the ends")
+    mini = read_pssm(os.path.join(ROOT, "data", "scop", "pairs.mini.pssm"))
+    for cfg in (lk.LaneKernelConfig(32, 640, profile=True),
+                ak.AdaptiveKernelConfig(32, 256, 640, profile=True)):
+        profile_vs_plain(cfg, mini, 0, f"pairs.mini.pssm {cfg}")
+    print(f"[profile-fixture] data/scop/pairs.mini.pssm: {len(mini)} "
+          "records of the reference's PSSM format, lane (32, 32) and "
+          "adaptive (32, 256): kernel equal to plain")
+    phase("15, profile instances vs plain")
+
+    OPS_PROFILE = OPS_PER_CELL + OPS_PER_CELL_PROFILE
+
+    def profile_bound(pk, cells, x_drop=False, trace_bytes=0, trace=False):
+        """(bound_ms, bound_by) of a profile launch: each pair's query
+        codes and the 32-byte rows of its profile positions 0..rlen read
+        once, the output written once (and the trace's bytes), against the
+        DP cells at the profile mode's operations per cell."""
+        B = pk.qlen.shape[0]
+        nbytes = (int(pk.qlen.sum()) + int(pk.rlen.sum()) * 32 + 33 * B
+                  + 8 * B + (16 if x_drop else 8) * B + trace_bytes)
+        ops = OPS_PROFILE + (2 if x_drop else 0) + (OPS_PER_CELL_TRACE
+                                                   if trace else 0)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = int(cells.sum()) * ops / int32_per_s * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    def profile_path(al, work, what, name):
+        """Drive a profile main path (stage + align_staged, then align_all)
+        with the launch counts reset just before it and read just after;
+        every result must equal the plain version's on the card; time it.
+        Returns the path's numbers for the kernels line."""
+        torch.cuda.synchronize()
+        reset_launches(lk, ak)
+        staged, pack_ms = host_ms(lambda: al.stage(work))
+        res, run_ms = host_ms(lambda: al.align_staged(staged))
+        flags = None if al.last_suspect is None else al.last_suspect.copy()
+        res_all = al.align_all(work)
+        launches = expect_launches(lk, ak, what, name)[name]
+        if res_all != res:
+            raise AssertionError(f"{what}: align_all disagrees with stage + "
+                                 "align_staged")
+        plain_fn = lk.lane_align_plain if al.route == "lane" \
+            else ak.adaptive_align_plain
+        kernel_fn = lk.lane_align if al.route == "lane" else ak.adaptive_align
+        (want, cells), plain_ms = host_ms(
+            lambda: plain_fn(*staged, al.cfg, count_cells=True))
+        last = np.zeros(len(res), np.int32) if flags is None else flags
+        got = torch.from_numpy(np.column_stack(
+            [[(r.score, r.query_idx, r.reference_idx) for r in res], last])
+            .astype(np.int32))
+        want = want.cpu()
+        if not al.cfg.x_drop:
+            want = torch.stack([want[:, 0], staged.qlen.cpu(),
+                                staged.rlen.cpu(), want[:, 1]], 1)
+        err = int((got - want).abs().max())
+        if err:
+            raise AssertionError(f"{what}: differs from the plain version: max "
+                                 f"abs err {err}")
+        kernel_ms = cuda_ms(lambda: kernel_fn(*staged, al.cfg), 10)
+        bnd, by = profile_bound(staged, cells, al.cfg.x_drop)
+        B, n_cells = len(work), int(cells.sum())
+        sc = got[:, 0].numpy()
+        print(f"[{name}-main] {B} pairs, {what}: stage+align_staged and "
+              f"align_all agree; all results equal the plain version's; "
+              f"{name} launches {launches}; "
+              f"scores {sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
+              f"{n_cells} DP cells, {n_cells / B:.0f} per pair"
+              + ("" if flags is None else f"; suspect {int(flags.sum())}")
+              + (f"; best short of the ends in {x_dropped(got, staged)}"
+                 if al.cfg.x_drop else ""))
+        print(f"[time] {card}: {name}, {what}: kernel "
+              f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
+              f"launch of {B} pairs, CUDA events, mean of 10); bound "
+              f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
+              f"align_staged {run_ms * 1e3 / B:.4f} us/pair; plain "
+              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
+        phase(f"{name}, {what}")
+        return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+    # 16. the lane profile main path: run_results.py::bench_pssm's
+    # workload, 8192 SCOP-style pairs at (32, 32) and (128, 128), and the
+    # same at (32, 32) with x-drop 50
+    scop = scop_profiles(8192, seed=1234, max_len=200)
+    slen = max(max(len(q) for q, _ in scop), max(p.len() for _, p in scop))
+    what = "SCOP-style seq-PSSM 30..199, gap opens -13..-9, close 0"
+    paths = [profile_path(ProfileAligner(
+        (S, S), batch=len(scop), seq_cap=slen + S, device=dev), scop,
+        f"{what}, ({S}, {S})", "lane_align_profile") for S in (32, 128)]
+    lane_p = merged(*paths)
+    lane_px = profile_path(ProfileAligner(
+        (32, 32), batch=len(scop), seq_cap=slen + 32, x_drop=50, device=dev),
+        scop, f"{what}, x_drop 50, (32, 32)", "lane_align_profile_xdrop")
+
+    # 17. the adaptive profile main paths: the same pairs at the default
+    # (32, 256), with x-drop 50, and align_profile_exp_all on 1024 of them
+    ad_p = profile_path(ProfileAligner(
+        batch=len(scop), seq_cap=slen + 32, device=dev), scop,
+        f"{what}, (32, 256)", "adaptive_align_profile")
+    ad_px = profile_path(ProfileAligner(
+        batch=len(scop), seq_cap=slen + 32, x_drop=50, device=dev), scop,
+        f"{what}, x_drop 50, (32, 256)", "adaptive_align_profile_xdrop")
+    exp_pairs = scop[:1024]
+    fixed = ProfileAligner((256, 256), batch=1024, seq_cap=slen + 32,
+                           device=dev)
+    targets = [x.score for x in fixed.align_all(exp_pairs)]
+    for k in range(8):
+        targets[k] = 1 << 30  # never reached: these pairs run every level
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    exp_res, exp_min = align_profile_exp_all(
+        exp_pairs, targets, (32, 256), batch=1024, seq_cap=slen + 32,
+        device=dev)
+    counts = expect_launches(lk, ak, "align_profile_exp_all",
+                             "lane_align_profile", "adaptive_align_profile")
+    ad_p["launches"] += counts["adaptive_align_profile"]
+    lane_p["launches"] += counts["lane_align_profile"]
+    settled = {}
+    for m in (32, 64, 128, 256, None):
+        idx = [k for k in range(len(exp_pairs)) if exp_min[k] == m]
+        settled[m] = len(idx)
+        if not idx:
+            continue
+        size = m or 256
+        cfg = (lk.LaneKernelConfig(256, fixed.cfg.seq_cap, profile=True)
+               if size == 256 else ak.AdaptiveKernelConfig(
+                   size, 256, fixed.cfg.seq_cap, profile=True))
+        pk = pack_profile([exp_pairs[k] for k in idx], cfg, dev)
+        want = (lk.lane_align_plain if size == 256
+                else ak.adaptive_align_plain)(*pk, cfg).cpu()
+        for k, w in zip(idx, want):
+            if (exp_res[k].score != int(w[0])
+                    or (m is None) != (exp_res[k].score < targets[k])):
+                raise AssertionError(
+                    f"align_profile_exp_all pair {k} (min size {m}): "
+                    f"{exp_res[k]} vs plain {w.tolist()}, target "
+                    f"{targets[k]}")
+    print(f"[align_profile_exp_all] {len(exp_pairs)} SCOP-style pairs at "
+          "(32, 256), target the 256-256 lane score: settled per min size "
+          f"{settled}; every result equals the plain version at its size; "
+          "launches (lane, adaptive) ("
+          f"{counts['lane_align_profile']}, "
+          f"{counts['adaptive_align_profile']})")
+    phase("17, align_profile_exp_all")
+
+    # 18. the profile trace paths: the SCOP-style pairs in batches of 2048
+    # on the lane (32, 32) and adaptive (32, 256) routes, global and x-drop
+    def profile_trace_path(al, base, work, what, name):
+        """Align every batch with trace and walk each pair's CIGAR, with
+        the launch counts reset just before and read just after; hold the
+        results against the non-trace twin and the plain version, every
+        CIGAR against its end and its score (``check_profile_cigars``: a
+        pair that misses must have a down-to-right gap hand-off, and is held
+        to the plain version's CIGAR), the first 512 CIGARs against the
+        plain version's; time each layer per batch.  Returns the numbers
+        for the kernels line."""
+        plain_fn = lk.lane_align_plain if al.route == "lane" \
+            else ak.adaptive_align_plain
+        kernel_fn = lk.lane_align if al.route == "lane" else ak.adaptive_align
+        x = al.x_drop or 0
+        cfg0 = dataclasses.replace(al.cfg, trace=False)
+        torch.cuda.synchronize()
+        reset_launches(lk, ak)
+        t = {"pack": 0.0, "kernel": 0.0, "twin": 0.0, "decode": 0.0,
+             "walk": 0.0, "path": 0.0}
+        res, cigars, gap_rects, nbytes = [], [], [], 0
+        for k in range(0, len(work), al.batch_size):
+            chunk = work[k : k + al.batch_size]
+            t0 = time.perf_counter()
+            staged, ms = host_ms(lambda: al._pack(chunk))
+            t["pack"] += ms
+            disp = al._dispatch(staged)
+            got_b, ms = host_ms(lambda: al._decode(staged, disp))
+            t["decode"] += ms
+            ends = [(r.query_idx, r.reference_idx) for r in got_b]
+            cg, ms = host_ms(lambda: al.trace().cigars_all(ends))
+            t["walk"] += ms
+            t["path"] += (time.perf_counter() - t0) * 1e3
+            res += got_b
+            cigars += cg
+            trb = al.trace()
+            gap_rects += [profile_gap_rects(trb, b, c)
+                          for b, c in enumerate(cg)]
+            ran = np.arange(trb.desc.shape[0])[:, None] < trb.steps[None, :]
+            nbytes += (4 * len(chunk) + 16 * int(ran.sum())
+                       + 4 * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
+        launches = expect_launches(lk, ak, what, name)[name]
+        for k in range(0, len(work), al.batch_size):
+            chunk = work[k : k + al.batch_size]
+            staged = al._pack(chunk)
+            t["kernel"] += cuda_ms(lambda: kernel_fn(*staged, al.cfg), 3)
+            t["twin"] += cuda_ms(lambda: kernel_fn(*staged, cfg0), 3)
+        if base.align_all(work, sort=False) != res:
+            raise AssertionError(f"{what}: results differ from the non-trace "
+                                 "instance's")
+        miss, hand = check_profile_cigars(cigars, gap_rects, work, res,
+                                          what)
+        pk = pack_profile(work, cfg0, dev, x_drop=x)
+        plain_res, plain_ms = host_ms(
+            lambda: plain_fn(*pk, cfg0, count_cells=True))
+        want, cells = plain_res[0].cpu(), plain_res[-1]
+        got = torch.tensor([(r.score, r.query_idx, r.reference_idx)
+                            for r in res], dtype=torch.int32)
+        if al.cfg.x_drop:
+            err = int((got - want[:, :3]).abs().max())
+        else:
+            err = int((got[:, 0] - want[:, 0]).abs().max())
+        if err:
+            raise AssertionError(f"{what}: differs from the plain version: "
+                                 f"max abs err {err}")
+        # the plain version's CIGARs: the first 512 pairs and every pair
+        # whose CIGAR does not rescore (a hand-off the walk cannot show)
+        for idx in (list(range(min(512, len(work)))), miss):
+            for k in range(0, len(idx), al.batch_size):
+                part = idx[k : k + al.batch_size]
+                sub = [work[i] for i in part]
+                pk = pack_profile(sub, al.cfg, dev, x_drop=x)
+                _, words, desc, steps = plain_fn(*pk, al.cfg)
+                tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
+                           steps.cpu().numpy())
+                ends = [(res[i].query_idx, res[i].reference_idx)
+                        for i in part]
+                if [str(c) for c in tr.cigars_all(ends)] != [
+                        str(cigars[i]) for i in part]:
+                    raise AssertionError(f"{what}: CIGARs differ from the "
+                                         "plain version's")
+        ops = sum(len(c.to_vec()) for c in cigars)
+        bnd, by = profile_bound(pack_profile(work, cfg0, dev, x_drop=x),
+                                cells, al.cfg.x_drop, nbytes, trace=True)
+        B = len(work)
+        sc = got[:, 0].numpy()
+        print(f"[{name}-main] {B} pairs, {what}: batches of {al.batch_size}; "
+              f"{name} launches {launches}; results equal the non-trace "
+              "instance's and the plain version's; every CIGAR sums to its "
+              f"end; {B - len(miss)} rescore to their score under the "
+              f"block DP's profile costs; the other {len(miss)}, of the "
+              f"{hand} whose CIGAR has a D run handed from a down rect's "
+              "last lane to a right rect, rescore below their score and "
+              "equal the plain version's CIGARs, as do the first 512; "
+              f"{ops} runs; scores {sc.min()}..{sc.max()} (mean "
+              f"{sc.mean():.1f}); {int(cells.sum())} DP cells; "
+              f"{nbytes / B:.0f} trace bytes per pair")
+        print(f"[time] {card}: {name}, {what}: kernel "
+              f"{t['kernel'] * 1e3 / B:.4f} us/pair ({t['kernel']:.3f} ms for "
+              f"{B} pairs, CUDA events, mean of 3 per batch), the non-trace "
+              f"twin on the same batches {t['twin'] * 1e3 / B:.4f} us/pair "
+              f"({t['twin']:.3f} ms); bound {bnd:.4f} ms by {by}; host "
+              f"clock, us/pair: pack {t['pack'] * 1e3 / B:.4f}, _decode "
+              f"(copy, replay, results) {t['decode'] * 1e3 / B:.4f}, walk "
+              f"(cigars_all) {t['walk'] * 1e3 / B:.4f}, path "
+              f"{t['path'] * 1e3 / B:.4f}, plain {plain_ms * 1e3 / B:.4f} "
+              f"({plain_ms:.1f} ms)")
+        phase(f"{name}, {what}")
+        return {"launches": launches, "max_abs_err": err, "ms": t["kernel"],
+                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+    trace_paths = {}
+    for size, x, name in (((32, 32), None, "lane_align_profile_trace"),
+                          ((32, 256), None, "adaptive_align_profile_trace"),
+                          ((32, 32), 50, "lane_align_profile_xdrop_trace"),
+                          ((32, 256), 50,
+                           "adaptive_align_profile_xdrop_trace")):
+        kw = dict(batch=2048, seq_cap=slen + 32, x_drop=x, device=dev)
+        trace_paths[name] = profile_trace_path(
+            ProfileAligner(size, trace=True, **kw), ProfileAligner(size, **kw),
+            scop, f"{what}, {size}" + (f", x_drop {x}" if x else ""), name)
+
     print(json.dumps({"kernels": [
         {
             "name": "lane_align",
@@ -1282,6 +1888,25 @@ def main():
             **ad_xt,
             "library_ms": None,
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": ("block_aligner_tpu_torch/csrc/lane_profile.cu"
+                       if name.startswith("lane") else
+                       "block_aligner_tpu_torch/csrc/adaptive_profile.cu"),
+            "replaces": ("block_aligner_tpu/ops/lane_kernel.py:769"
+                         if name.startswith("lane") else
+                         "block_aligner_tpu/ops/adaptive_kernel.py:610"),
+            **numbers,
+            "library_ms": None,
+        }
+        for name, numbers in (
+            ("lane_align_profile", lane_p),
+            ("lane_align_profile_xdrop", lane_px),
+            ("adaptive_align_profile", ad_p),
+            ("adaptive_align_profile_xdrop", ad_px),
+            *trace_paths.items())
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

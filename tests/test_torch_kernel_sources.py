@@ -25,6 +25,7 @@ import chip_smoke
 from block_aligner_tpu_torch import Gaps
 from block_aligner_tpu_torch.core import scores
 from block_aligner_tpu_torch.ops import _build
+from block_aligner_tpu_torch.ops._profile import pack_profile
 from block_aligner_tpu_torch.ops import adaptive_kernel as ak
 from block_aligner_tpu_torch.ops import lane_kernel as lk
 from test_torch_adaptive_kernel import protein_pairs
@@ -195,8 +196,9 @@ LAUNCH = re.compile(r"(\w+)<<<(\w+), (WARPS \* 32), 0, stream>>>\((.*?)\);",
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """Build each kernel source against the emulation header; returns the
-    libraries, declared by the modules' own ``bind``."""
+    """Build each kernel source, and each profile library around it,
+    against the emulation header; returns the libraries, declared by the
+    modules' own ``bind``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
@@ -207,9 +209,15 @@ def emulated(tmp_path_factory):
         src = (_build.CSRC / f"{name}.cu").read_text()
         src, n = LAUNCH.subn(r"emu::launch(\2, \3, [=] { \1(\4); });", src)
         assert n == 1, f"{name}: kernel launch not found"
-        (out / f"{name}.cpp").write_text(src)
+        # the profile libraries include the kernel source by this name
+        (out / f"{name}.cu").write_text(src)
+    for name, mod in (("lane_kernel", lk), ("adaptive_kernel", ak),
+                      ("lane_profile", lk), ("adaptive_profile", ak)):
+        (out / f"{name}.cpp").write_text(
+            (out / f"{name}.cu").read_text() if name.endswith("kernel")
+            else (_build.CSRC / f"{name}.cu").read_text())
         so = out / f"lib{name}.so"
-        # both sources compile at once
+        # all four compile at once
         builds[name] = (mod, so, subprocess.Popen(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
              str(out), "-o", str(so), str(out / f"{name}.cpp")],
@@ -438,3 +446,64 @@ def test_entry_points_reject_bad_arguments(emulated):
     assert fn(*args, bufs[0].data_ptr(), None, None, *ints) != 0
     assert fn(*args, *(b.data_ptr() for b in bufs), *ints) == 0
     assert int(bufs[2][0]) == 1 and tuple(out[0].tolist()) == (4, 0)
+
+
+@pytest.mark.parametrize("S,x,trace", [
+    (32, -1, False), (16, 50, False), (64, 20, False), (32, -1, True),
+    (16, 50, True),
+], ids=["32-global", "16-x-drop", "64-x-drop", "32-trace", "16-x-drop-trace"])
+def test_lane_kernel_source_profile_matches_plain(emulated, S, x, trace):
+    """Profile instances: profiles with varied gap opens and nonzero close
+    costs, a few query bytes outside A..Z; outputs (and in trace mode step
+    counts, descriptors and words) equal the plain version's."""
+    pairs = chip_smoke.profile_pairs(np.random.default_rng(S + x), 12, 120)
+    cfg = lk.LaneKernelConfig(S, 768, x_drop=x >= 0, trace=trace,
+                              profile=True)
+    pk = pack_profile(pairs, cfg, "cpu", x_drop=max(x, 0))
+    bufs = poisoned_trace(cfg, len(pairs), S) if trace else None
+    got = launch(emulated["lane_profile"].lane_align_launch, pk,
+                 torch.full((len(pairs), 4 if x >= 0 else 2), -7,
+                            dtype=torch.int32),
+                 len(pairs), cfg.seq_cap, cfg.alpha, cfg.block, cfg.max_steps,
+                 x=x, trace=bufs)
+    want = lk.lane_align_plain(*pk, cfg)
+    if trace:
+        chip_smoke.check_trace((got, *bufs), want, f"lane profile trace {S}")
+    else:
+        assert torch.equal(got, want)
+    if x >= 0:
+        assert chip_smoke.x_dropped(got, pk) > 0
+
+
+@pytest.mark.parametrize("size,x,trace", [
+    ((16, 64), -1, False), ((16, 64), 50, False), ((32, 512), -1, False),
+    ((32, 512), -1, True), ((32, 512), 50, True),
+], ids=["16-64-global", "16-64-x-drop", "32-512-global", "32-512-trace",
+        "32-512-x-drop-trace"])
+def test_adaptive_kernel_source_profile_matches_plain(emulated, size, x,
+                                                      trace):
+    """Profile instances, S = 512 without trace included: at (32, 512) the
+    first pair's profile holds 300 inserted residues and its blocks grow to
+    512 rows; the other pairs as in the lane case."""
+    rng = np.random.default_rng(size[1] + x)
+    pairs = chip_smoke.profile_pairs(rng, 8, 120)
+    if size[1] == 512:
+        pairs = chip_smoke.grow_profile_pairs(rng, 1) + pairs[:5]
+    cfg = ak.AdaptiveKernelConfig(*size, 1408 if size[1] == 512 else 768,
+                                  x_drop=x >= 0, trace=trace, profile=True)
+    pk = pack_profile(pairs, cfg, "cpu", x_drop=max(x, 0))
+    bufs = poisoned_trace(cfg, len(pairs), size[1]) if trace else None
+    got = launch(emulated["adaptive_profile"].adaptive_align_launch, pk,
+                 torch.full((len(pairs), 4 if x >= 0 else 2), -7,
+                            dtype=torch.int32),
+                 len(pairs), cfg.seq_cap, cfg.alpha, cfg.min_size,
+                 cfg.max_size, cfg.max_steps, x=x, trace=bufs)
+    want = ak.adaptive_align_plain(*pk, cfg)
+    if trace:
+        saves, restores = chip_smoke.check_trace(
+            (got, *bufs), want, f"adaptive profile trace {size}")
+        assert saves > 0 and restores > 0
+        ran = torch.arange(cfg.max_steps) < bufs[2][0]
+        assert int(torch.where(ran, bufs[1][:, 0, 3], 0).max()) == 512
+    else:
+        assert torch.equal(got, want)

@@ -119,6 +119,9 @@ def test_port_imports_without_jax():
         " seq_cap=64, trace=True, device='cpu')\n"
         "    _, cg = tr.align_all_trace([(b'AAAA', b'AARA')], eq=True)\n"
         "    assert str(cg[0]) == '2=1X1=', cg\n"
+        "prof = p.AAProfile.from_bytes(b'AARA', 16, 4, -1, -5, 0, -5, -1)\n"
+        "pa = p.ProfileAligner((16, 64), batch=2, seq_cap=64, device='cpu')\n"
+        "assert pa.align_batch([(b'AARA', prof)])[0].score == 16\n"
         "import bench, chip_smoke\n"
         "from examples_tpu.common import load_uc_pairs\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
