@@ -2,7 +2,9 @@
 
 ``BatchAligner`` serves two of the routes ``pick_route`` names, in global
 or x-drop mode (``x_drop=X``), with or without trace (``trace=True``), with
-an amino-acid or nucleotide table:
+an amino-acid or nucleotide table or a ``ByteMatrix`` (global and trace),
+and with the reference's ``local_start``, ``free_query_start_gaps`` and
+``free_query_end_gaps`` flags:
 
 * "lane": fixed block sizes (min == max <= 512), the lane kernel;
 * "adaptive": growing and shrinking blocks (min < max <= 256, and max 512
@@ -16,9 +18,9 @@ and ``align_all_trace`` the CIGARs of any number of pairs.
 routes, global or x-drop.  ``ProfileAligner`` and
 ``align_profile_exp_all`` do the same for (query, ``AAProfile``) pairs,
 sequence-to-PSSM, on the same two routes (min < max <= 512 adaptive, min
-== max <= 512 lane).  The other routes ("big", "long", "long_lane",
-"engine"), ByteMatrix, the local-start and free-gap flags and a mesh raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+== max <= 512 lane), with the same flags.  The other routes ("big",
+"long", "long_lane", "engine") and a mesh raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from .core.scores import ByteMatrix, Gaps
 from .core.traceback import Trace
 from .ops._profile import pack_profile
 from .ops.adaptive_kernel import AdaptiveKernelConfig, adaptive_align
-from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane
+from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane, wide
 
 __all__ = ["BatchAligner", "ProfileAligner", "align_exp_all",
            "align_profile_exp_all", "pick_route", "round_up"]
@@ -108,15 +110,13 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
-# ROADMAP.md slice that brings each configuration the port lacks
+# ROADMAP.md item that brings each configuration the port lacks
 _SLICE = {
-    "big": "queue 2 slice 6, kernel C (big blocks)",
-    "long": "queue 1 item 7 (long-sequence API)",
-    "long_lane": "queue 1 item 7 (long-sequence API)",
-    "engine": "queue 1 item 4 (PyTorch lockstep engine)",
-    "byte": "queue 2 slice 4 (ByteMatrix: A5 + B)",
-    "flags": "queue 2 slice 5 (local-start and free gaps: A6 + B)",
-    "mesh": "queue 1 item 8 (multi-GPU)",
+    "big": "queue 2 item 5, kernel C (big blocks)",
+    "long": "queue 1 item 5 (long-sequence API)",
+    "long_lane": "queue 1 item 5 (long-sequence API)",
+    "engine": "queue 1 item 3 (PyTorch lockstep engine)",
+    "mesh": "queue 1 item 6 (multi-GPU)",
 }
 
 
@@ -166,16 +166,19 @@ class _Routed:
     def _decode(self, staged, out) -> List[AlignResult]:
         """Fetch a dispatched batch's results; the lane route sets
         ``last_suspect``, the adaptive route checks the step cap.  Both
-        hold the flag in their output's last column; x-drop mode holds the
-        best position in columns 1 and 2.  In trace mode the steps every
-        pair executed (up to the batch's most) come back and make the
-        ``Trace`` of ``trace()``."""
+        hold the flag in their output's last column; x-drop mode and free
+        query end gaps hold the best position in columns 1 and 2.  In trace
+        mode the steps every pair executed (up to the batch's most) come
+        back and make the ``Trace`` of ``trace()``."""
         if self.trace_mode:
             out, words, desc, steps = out
             steps = steps.cpu().numpy()
             T = int(steps.max()) if steps.size else 0
             words, desc = to_host(words[:T]), to_host(desc[:T])
-            self._last_trace = Trace(words, desc, steps, self.matrix)
+            self._last_trace = Trace(
+                words, desc, steps, self.matrix,
+                local_start=self.cfg.local_start,
+                free_query_start_gaps=self.cfg.free_query_start_gaps)
         out = out.cpu().numpy()
         if self.route == "lane":
             self.last_suspect = out[:, -1].astype(bool)
@@ -183,7 +186,7 @@ class _Routed:
             raise RuntimeError(
                 f"{int(out[:, -1].sum())} pairs hit the adaptive kernel's step "
                 f"cap ({self.cfg.max_steps} steps); raise seq_cap")
-        if self.cfg.x_drop:
+        if wide(self.cfg):
             ql, rl = out[:, 1], out[:, 2]
         else:
             ql, rl = staged.qlen.cpu().numpy(), staged.rlen.cpu().numpy()
@@ -263,7 +266,13 @@ class BatchAligner(_Routed):
     where the reference's adaptive heuristic would have grown the block).
     Global mode returns each pair's score at (qlen, rlen); with ``x_drop``
     a pair ends once its block's maximum falls more than ``x_drop`` below
-    its best, and the result is the best score and its position.  With
+    its best, and the result is the best score and its position.
+    ``local_start`` lets an alignment start at any cell,
+    ``free_query_start_gaps`` makes leading query gaps free, and
+    ``free_query_end_gaps`` trailing ones (the result is then the best
+    score of the query's last row and its position; every query must be
+    shorter than the min block size).  A ``ByteMatrix`` scores raw bytes by
+    equality (no x-drop, as in the reference).  With
     ``trace`` the last batch's trace stays on the host (``trace()``,
     ``cigar``, ``cigar_eq``); ``align_all`` then keeps the caller's order
     and the last batch's trace, and ``align_all_trace`` returns every
@@ -297,6 +306,10 @@ class BatchAligner(_Routed):
         min_size = max(size[0], 16)
         max_size = max(size[1], min_size)
         is_byte = isinstance(matrix, ByteMatrix)
+        if local_start and free_query_start_gaps:
+            # the reference's exclusion (src/scan_block.rs:853-854)
+            raise ValueError(
+                "local_start and free_query_start_gaps exclude each other")
         if x_drop is not None:
             # the JAX package's and the reference's own rejections
             if x_drop < 0:
@@ -317,11 +330,6 @@ class BatchAligner(_Routed):
             _not_yet(f"route {route!r} (size {size}, seq_cap {seq_cap})", route)
         if use_lane_kernel is False:
             _not_yet("use_lane_kernel=False", "engine")
-        if local_start or free_query_start_gaps or free_query_end_gaps:
-            _not_yet("local_start / free_query_start_gaps / "
-                     "free_query_end_gaps", "flags")
-        if is_byte:
-            _not_yet("ByteMatrix", "byte")
         if mesh is not None:
             _not_yet("mesh", "mesh")
         self.matrix = matrix
@@ -333,13 +341,16 @@ class BatchAligner(_Routed):
         self._batch = batch
         self.route = route
         cap = round_up(max(1 + seq_cap + max_size + 16, 256), 128)
-        alpha = 32 if matrix.kind != "nuc" else 16
-        xd = x_drop is not None
+        alpha = {"nuc": 16, "byte": 256}.get(matrix.kind, 32)
+        modes = dict(x_drop=x_drop is not None, trace=trace,
+                     byte_mode=is_byte, local_start=local_start,
+                     free_query_start_gaps=free_query_start_gaps,
+                     free_query_end_gaps=free_query_end_gaps)
         if route == "lane":
-            self.cfg = LaneKernelConfig(min_size, cap, alpha, xd, trace)
+            self.cfg = LaneKernelConfig(min_size, cap, alpha, **modes)
         else:
-            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha, xd,
-                                            trace)
+            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha,
+                                            **modes)
         self.last_suspect: Optional[np.ndarray] = None
 
     @property
@@ -348,10 +359,15 @@ class BatchAligner(_Routed):
 
     def _check_lengths(self, pairs):
         cap = self.seq_capacity
+        free_end = self.cfg.free_query_end_gaps
         for q, r in pairs:
             if max(len(q), len(r)) > cap:
                 raise ValueError(
                     "sequence too long for this BatchAligner's seq_cap")
+            if free_end and len(q) >= self.cfg.min_size:
+                # the reference's requirement (src/scan_block.rs:862)
+                raise ValueError("free_query_end_gaps requires min block "
+                                 "size > query len")
 
     def stage(self, pairs):
         """Pack a batch onto the device; ``align_staged`` runs it, as often
@@ -450,14 +466,14 @@ class ProfileAligner(_Routed):
 
     The JAX package's ``ProfileAligner`` surface and routes: the adaptive
     kernel for ``min < max <= 512`` and the lane kernel for ``min == max
-    <= 512``, global or with ``x_drop``, with or without ``trace``:
-    ``align_batch``, ``align_all`` (length-sorted outside trace),
-    ``stage``/``align_staged`` (without trace), ``batch_size``,
-    ``last_suspect`` on the lane route, ``trace()`` and ``cigar``.  All
-    profiles of a batch share one gap extension.  Blocks past 512 (the big
-    kernel), the local-start and free-gap flags, the engine
-    (``use_lane_kernel=False``) and a mesh raise ``NotImplementedError``
-    naming the ROADMAP slice that brings them; blocks past 8192 raise
+    <= 512``, global or with ``x_drop``, with or without ``trace``, with
+    the flags of ``BatchAligner``: ``align_batch``, ``align_all``
+    (length-sorted outside trace), ``stage``/``align_staged`` (without
+    trace), ``batch_size``, ``last_suspect`` on the lane route, ``trace()``
+    and ``cigar``.  All profiles of a batch share one gap extension.
+    Blocks past 512 (the big kernel), the engine (``use_lane_kernel=False``)
+    and a mesh raise ``NotImplementedError`` naming the ROADMAP item that
+    brings them; blocks past 8192 raise
     ``ValueError`` as in the JAX package.  ``prof_len`` sizes the big
     kernel's profile table there, so no route here reads it.  ``device``
     places the packed tensors: a CUDA device runs the kernels, the CPU
@@ -512,9 +528,6 @@ class ProfileAligner(_Routed):
         if route in ("big", "engine"):
             _not_yet(f"ProfileAligner route {route!r} (size {size})"
                      if route == "big" else "use_lane_kernel=False", route)
-        if local_start or free_query_start_gaps or free_query_end_gaps:
-            _not_yet("local_start / free_query_start_gaps / "
-                     "free_query_end_gaps", "flags")
         if mesh is not None:
             _not_yet("mesh", "mesh")
         self.x_drop = x_drop
@@ -523,17 +536,26 @@ class ProfileAligner(_Routed):
         self._batch = batch
         self.route = route
         cap = round_up(max(1 + seq_cap + max_size + 16, 256), 128)
-        xd = x_drop is not None
+        modes = dict(x_drop=x_drop is not None, trace=trace, profile=True,
+                     local_start=local_start,
+                     free_query_start_gaps=free_query_start_gaps,
+                     free_query_end_gaps=free_query_end_gaps)
         if route == "lane":
-            self.cfg = LaneKernelConfig(min_size, cap, x_drop=xd, trace=trace,
-                                        profile=True)
+            self.cfg = LaneKernelConfig(min_size, cap, **modes)
         else:
-            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap,
-                                            x_drop=xd, trace=trace,
-                                            profile=True)
+            self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, **modes)
 
     def _length(self, pair) -> int:
         return len(pair[0]) + (pair[1].str_len if pair[1] else 0)
+
+    def _check_lengths(self, pairs):
+        if self.cfg.free_query_end_gaps:
+            for q, _ in pairs:
+                # the reference's requirement (src/scan_block.rs:954), the
+                # JAX package's AssertionError
+                if len(q) >= self.cfg.min_size:
+                    raise AssertionError("free_query_end_gaps requires min "
+                                         "block size > query len")
 
     def stage(self, pairs):
         """Pack a batch onto the device; ``align_staged`` runs it, as often
@@ -548,6 +570,7 @@ class ProfileAligner(_Routed):
         if len(pairs) > self.batch_size:
             raise ValueError(
                 f"{len(pairs)} pairs exceed batch_size {self.batch_size}")
+        self._check_lengths(pairs)
         return pack_profile(pairs, self.cfg, self.device, self.x_drop or 0)
 
 

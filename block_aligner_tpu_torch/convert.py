@@ -1,6 +1,7 @@
 """Carry scoring parameters over from the JAX package.
 
-Duck-typed: these read only a matrix's numpy ``.kind`` and ``.table``, a
+Duck-typed: these read only a matrix's ``.kind`` and numpy ``.table`` (a
+byte matrix's ``.match_score`` and ``.mismatch_score``), a
 gap object's ``.open`` and ``.extend`` and a profile's arrays and lengths,
 so the port never imports ``block_aligner_tpu``.  The tests use them so that
 both packages score with identical tables.
@@ -10,13 +11,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from .core.scores import AAMatrix, AAProfile, Gaps, NucMatrix
+from .core.scores import AAMatrix, AAProfile, ByteMatrix, Gaps, NucMatrix
 
 __all__ = ["matrix_from_jax", "gaps_from_jax", "profile_from_jax"]
 
 
 def matrix_from_jax(m):
-    """A JAX-package ``AAMatrix`` or ``NucMatrix`` -> the port's."""
+    """A JAX-package ``AAMatrix``, ``NucMatrix`` or ``ByteMatrix`` -> the
+    port's."""
+    if m.kind == "byte":
+        return ByteMatrix(int(m.match_score), int(m.mismatch_score))
     cls = {"aa": AAMatrix, "nuc": NucMatrix}.get(m.kind)
     if cls is None:
         raise ValueError(f"no port matrix for kind {m.kind!r}")

@@ -10,7 +10,8 @@ table on the device.
   unset entries score -128.
 * ``NucMatrix``: 8x16 table indexed by ``(c & 7, q & 15)`` over raw
   uppercased ASCII.
-* ``ByteMatrix``: match/mismatch by byte equality (no kernel serves it yet).
+* ``ByteMatrix``: match/mismatch by byte equality; every byte is its own
+  code and byte 0 is the padding (NULL) code.
 * ``Gaps``: ``open`` includes the first extension; a gap of length n costs
   ``open + extend * (n - 1)``.
 * ``AAProfile``: a position-specific scoring matrix (PSSM) with per-position
@@ -172,10 +173,15 @@ class NucMatrix(_Table):
 class ByteMatrix:
     """Arbitrary-byte match/mismatch matrix (reference: src/scores.rs:219-273).
 
-    Class surface only: no port kernel scores byte matrices yet."""
+    The kernels compare codes instead of reading a table: each byte is its
+    own code (``lut`` is the identity, no byte is rejected) and ``NULL`` is
+    byte 0, so padding scores as a match against padding and against a
+    sequence's own byte 0, as in the reference.  X-drop with ByteMatrix is
+    not supported, as in the reference."""
 
     kind: ClassVar[str] = "byte"
     NULL: ClassVar[int] = 0
+    lut: ClassVar[np.ndarray] = np.arange(256, dtype=np.uint8)
 
     def __init__(self, match_score: int, mismatch_score: int):
         self.match_score = int(match_score)

@@ -22,6 +22,12 @@ return, for every step ``s`` a pair ``b`` executed:
 * ``steps[b]``: the steps the pair executed.  Rows of later steps, and rows
   at or past a step's height, hold whatever the buffer held before.
 
+In local-start mode each step has a second word per row after the S words
+of its 4-bit cells, ``words[s, b, S + row]``: bit ``w`` says that column
+``w``'s D equals the relative zero (reference: src/scan_block.rs:1184-1186),
+where the walk stops.  With free query start gaps the walk stops at query
+row 0 of a right rect.
+
 ``Trace`` replays the events into each pair's rect list and walks CIGARs
 from it, one pair at a time (``cigar``) or every pair of a batch at once in
 numpy (``cigars_all``).
@@ -200,13 +206,13 @@ class _Rect:
     Its bits unpack, as ``[place_col, lane]`` arrays, on first use."""
 
     __slots__ = ("row", "col", "right", "h", "t0", "n", "_words", "_b", "_t",
-                 "_t2")
+                 "_t2", "_zero", "_rows")
 
-    def __init__(self, row, col, right, h, t0, n, words, b):
+    def __init__(self, row, col, right, h, t0, n, words, b, rows):
         self.row, self.col, self.right, self.h = row, col, right, h
         self.t0, self.n = t0, n
-        self._words, self._b = words, b
-        self._t = self._t2 = None
+        self._words, self._b, self._rows = words, b, rows
+        self._t = self._t2 = self._zero = None
 
     def _mat(self):
         if self._t is None:
@@ -224,22 +230,42 @@ class _Rect:
     def t2(self):
         return self._mat()._t2
 
+    @property
+    def zero(self):
+        """Local start's zero bits, ``[place_col, lane]``."""
+        if self._zero is None:
+            w = self._words[self.t0 : self.t0 + self.n, self._b,
+                            self._rows : self._rows + self.h]
+            sh = np.arange(STEP_)[None, :, None]
+            self._zero = ((w[:, None, :] >> sh) & 1).reshape(
+                STEP_ * self.n, self.h)
+        return self._zero
+
 
 class Trace:
     """One batch's trace output (numpy, on the host): the rect lists of its
     pairs and the CIGARs walked from them.
 
-    ``words`` (T, B, S), ``desc`` (T, B, 4) and ``steps`` (B,) are as the
-    module docstring describes, with T at least the largest step count.
-    ``matrix`` converts sequences to codes for ``cigar_eq`` and
-    ``cigars_all(eq=True)``: M resolves into = or X by code, as the
-    reference compares its padded codes."""
+    ``words`` (T, B, S), (T, B, 2S) with ``local_start``, ``desc`` (T, B,
+    4) and ``steps`` (B,) are as the module docstring describes, with T at
+    least the largest step count.  ``matrix`` converts sequences to codes
+    for ``cigar_eq`` and ``cigars_all(eq=True)``: M resolves into = or X by
+    code, as the reference compares its padded codes (a ``ByteMatrix``'s
+    codes are the bytes).  ``local_start`` and ``free_query_start_gaps``
+    are the flags the trace was computed with; the walks stop where they
+    say."""
 
-    def __init__(self, words, desc, steps, matrix=None):
+    def __init__(self, words, desc, steps, matrix=None, *,
+                 local_start: bool = False,
+                 free_query_start_gaps: bool = False):
         self.words = np.asarray(words)
         self.desc = np.asarray(desc)
         self.steps = np.asarray(steps).astype(np.int64).reshape(-1)
         self.matrix = matrix
+        self.local_start = local_start
+        self.free_query_start_gaps = free_query_start_gaps
+        # the rows of a step's 4-bit cells
+        self.rows = self.words.shape[-1] // (2 if local_start else 1)
         T, B = self.desc.shape[:2]
         if self.words.shape[:2] != (T, B) or self.steps.shape != (B,):
             raise ValueError(
@@ -299,7 +325,7 @@ class Trace:
         right, row, col, t0, steps, h = self._rect_origin(np.full(n, b),
                                                           np.arange(n))
         return [_Rect(int(row[x]), int(col[x]), bool(right[x]), int(h[x]),
-                      int(t0[x]), int(steps[x]), self.words, b)
+                      int(t0[x]), int(steps[x]), self.words, b, self.rows)
                 for x in range(n)]
 
     def blocks(self, b: int) -> List[Rectangle]:
@@ -322,7 +348,12 @@ class Trace:
     def cigar(self, b: int, i: int, j: int,
               cigar: Optional[Cigar] = None) -> Cigar:
         """Pair ``b``'s CIGAR, walked back from DP cell (i, j)."""
-        return cigar_walk(self.rects_for(b), i, j, cigar=cigar)
+        return cigar_walk(self.rects_for(b), i, j, cigar=cigar,
+                          **self._flags())
+
+    def _flags(self):
+        return dict(local_start=self.local_start,
+                    free_query_start_gaps=self.free_query_start_gaps)
 
     def cigar_eq(self, b: int, q, r, i: int, j: int,
                  cigar: Optional[Cigar] = None) -> Cigar:
@@ -330,7 +361,7 @@ class Trace:
         query ``q`` and reference ``r``."""
         return cigar_walk(self.rects_for(b), i, j, eq=True,
                           q=_Codes(self._codes(q)), r=_Codes(self._codes(r)),
-                          cigar=cigar)
+                          cigar=cigar, **self._flags())
 
     def cigars_all(self, endpoints, *, eq: bool = False,
                    seqs=None) -> List[Cigar]:
@@ -345,7 +376,8 @@ class Trace:
         if n > self.desc.shape[1]:
             raise ValueError(f"{n} endpoints for a trace of "
                              f"{self.desc.shape[1]} pairs")
-        T, B, S = self.words.shape
+        T, B, W = self.words.shape
+        S = self.rows
         lut = _packed_lut()
         words = np.ascontiguousarray(self.words).reshape(-1)
         ar = np.arange(n)
@@ -365,6 +397,8 @@ class Trace:
         ridx = self.nrect[:n].copy()
         bi, bj, t0, rn, rh, rbase = (np.zeros(n, np.int64) for _ in range(6))
         right = np.zeros(n, bool)
+        # pairs whose walk stopped at a local start or at query row 0
+        stopped = np.zeros(n, bool)
         active = (i > 0) | (j > 0)
         need = active.copy()
         ops = []
@@ -397,8 +431,18 @@ class Trace:
                 raise RuntimeError(f"traceback of pairs {bad} reached a cell "
                                    "past their rect's steps or height")
             # finished pairs read word 0 and ignore it
-            flat = np.where(active, ((t0 + (pc >> 3)) * B + ar) * S + lane, 0)
+            flat = np.where(active, ((t0 + (pc >> 3)) * B + ar) * W + lane, 0)
             w = words[flat].astype(np.int64)
+            stop = np.zeros(n, bool)
+            if self.free_query_start_gaps:
+                stop |= right & (i == 0)
+            if self.local_start:
+                z = (words[flat + S].astype(np.int64) >> (pc & 7)) & 1
+                stop |= (table == 0) & (z == 1)
+            stop &= active
+            if stop.any():
+                stopped |= stop
+                active &= ~stop
             nib = (w >> ((pc & 7) << 2)) & 15
             # finished pairs take op 0 and stay where they are
             code = lut[rbase | _NIB_KEY[nib] | table] * active
@@ -412,7 +456,7 @@ class Trace:
             j -= (code >> 4) & 1
             table = code >> 5
             ops.append(op.astype(np.int8))
-            active = (i > 0) | (j > 0)
+            active = ((i > 0) | (j > 0)) & ~stopped
             need = active & ((i < bi) | (j < bj))
         return _runs_to_cigars(ops, n)
 

@@ -2,11 +2,13 @@
 // profile) pairs, global or x-drop, with or without trace, for Hopper
 // (sm_90a).  Plain C interface, loaded with ctypes by
 // ops/adaptive_kernel.py; the profile instances build apart from
-// csrc/adaptive_profile.cu.
+// csrc/adaptive_profile.cu, and the instances that read the flags and byte
+// mode from csrc/adaptive_flags.cu and csrc/adaptive_profile_flags.cu.
 //
 // Replaces: block_aligner_tpu/ops/adaptive_kernel.py::build_adaptive_engine
 // (its Pallas `kernel`) in global and in x-drop mode, with and without
-// trace, with a score table or a profile: the grow / shrink / checkpoint
+// trace, with a score table, byte equality or a profile, with or without
+// the local-start and free-gap flags: the grow / shrink / checkpoint
 // machine for min_size < max_size <= 256, and <= 512 with trace or a
 // profile.  It computes the same score (x-drop: the best
 // score and its position) and the same step-cap overrun flag, bit for bit,
@@ -69,6 +71,16 @@
 //   position's row; lanes find their positions from the rect's anchor, so
 //   a restore still only moves the anchor.  Profiles take max_size 512
 //   in every mode.
+// * ByteMatrix scoring and the three flags are built into libraries of
+//   their own (ADAPTIVE_FLAGS), as in the lane kernel (csrc/lane_kernel.cu):
+//   their instances read which apply from a run-time argument.  The relative zero follows the rect's offset
+//   in every phase; free start gaps re-seed row 0 of right and GROW_R
+//   rects whose query start is 0, so after a restore the checkpoint's
+//   anchor decides.  Free end gaps keep the x-drop tracker's registers for
+//   residue lane % 16 without the GROW_D bank: its running max over both
+//   grow halves, and the latest column where a row of a chunk reaching
+//   past qlen equals it; at each decision residue qlen % 16's max is the
+//   rect maximum and its column the best's, and the tracker restarts.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -90,6 +102,27 @@ constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 // profile words per position: 7 score words (4 biased bytes each, query
 // codes 0..27), then the gap word open_C | open_R << 8 | close_C << 16
 constexpr int PROF_WORDS = 8;
+// the run-time modes of the FLAGS instances (the `flags` argument)
+constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
+
+#ifndef ADAPTIVE_PROFILE
+// csrc/adaptive_profile.cu builds the profile instances apart, so that the
+// libraries compile in parallel
+#define ADAPTIVE_PROFILE false
+#endif
+#ifndef ADAPTIVE_FLAGS
+// csrc/adaptive_flags.cu and csrc/adaptive_profile_flags.cu build the
+// FLAGS instances apart; their code is compiled in by the preprocessor, so
+// that the other libraries compile exactly the code they had (as in
+// csrc/lane_kernel.cu)
+#define ADAPTIVE_FLAGS false
+#endif
+#if ADAPTIVE_FLAGS
+// the FLAGS instances' extra arguments
+#define ADAPTIVE_MODE_ARGS , flags, bmatch, bmismatch
+#else
+#define ADAPTIVE_MODE_ARGS
+#endif
 
 // only the lower rail is reachable: rect maxima are rebased to ZERO
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
@@ -223,6 +256,10 @@ struct Ctx {  // what a step reads and never changes
   int* tw;
   int4* td;
   size_t tw_step, td_step;
+#if ADAPTIVE_FLAGS
+  // the modes (LOCAL_START | ...), and byte mode's scores
+  int flags, bmatch, bmismatch;
+#endif
 };
 
 // Checkpoint save of slots 0 .. NA-1: the column borders (D, C) and row
@@ -305,6 +342,16 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   const bool origin = m.dir == DIR_GR && m.psz == 0 && m.cpos == 0 && m.J == 0;
   const uint8_t* lseq = right_or ? c.qs : c.rs;
   const uint8_t* cseq = right_or ? c.rs : c.qs;
+#if ADAPTIVE_FLAGS
+  // the modes, the relative zero of the rect's offset, and whether free
+  // start gaps re-seed row 0 (a right rect at query row 0)
+  const bool local = c.flags & LOCAL_START;
+  const bool fend = c.flags & FREE_END;
+  const bool byte = !PROFILE && (c.flags & BYTE_MODE);
+  const bool ins0 = (c.flags & FREE_START) && right_or && m.I == 0;
+  const int rz = min(max(ZERO - m.off, NEG), 32767);
+  unsigned zb[NA];  // local-start trace: this step's zero bits
+#endif
   unsigned wd[NA];  // trace: this step's bits of this lane's rows
   if constexpr (TRACE) {
     if (lane == 0)
@@ -313,6 +360,10 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
     m.pend = 0;
 #pragma unroll
     for (int k = 0; k < NA; ++k) wd[k] = 0u;
+#if ADAPTIVE_FLAGS
+#pragma unroll
+    for (int k = 0; k < NA; ++k) zb[k] = 0u;
+#endif
   }
   int lc[NA], cc[STEP];
   if constexpr (PROFILE) {
@@ -364,6 +415,10 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
                                   : c.pw + (size_t)lc[k] * PROF_WORDS;
         int d = sat(up + prof_score(row, right_or ? lc[k] : cc[w]));
         if (k == 0 && w == 0 && origin && lane == 0) d = ZERO;  // DP origin
+#if ADAPTIVE_FLAGS
+        if (local) d = max(d, rz);
+        else if (ins0 && k == 0 && lane == 0) d = rz;
+#endif
         const ProfGaps g(row[PROF_WORDS - 1], right_or, c.gext);
         const int co = sat(p.actD[k] + g.copen);
         C[k] = max(sat(p.actC[k] + c.gext), co);
@@ -378,8 +433,18 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
           DO[k] = t;
         }
       } else {
+#if ADAPTIVE_FLAGS
+        // byte mode compares the codes; the flags restart cells at the
+        // relative zero
+        int d = sat(up + (byte ? (lc[k] == cc[w] ? c.bmatch : c.bmismatch)
+                               : trow[lc[k]]));
+        if (k == 0 && w == 0 && origin && lane == 0) d = ZERO;  // DP origin
+        if (local) d = max(d, rz);
+        else if (ins0 && k == 0 && lane == 0) d = rz;
+#else
         int d = sat(up + trow[lc[k]]);
         if (k == 0 && w == 0 && origin && lane == 0) d = ZERO;  // DP origin
+#endif
         const int co = sat(p.actD[k] + c.gopen);
         C[k] = max(sat(p.actC[k] + c.gext), co);
         D[k] = max(d, C[k]);
@@ -425,6 +490,12 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
         }
         D[k] = max(D[k], R);
       }
+#if ADAPTIVE_FLAGS
+      if constexpr (TRACE) {
+        // local start: the cell restarted at the relative zero
+        if (local) zb[k] |= (unsigned)(D[k] == rz) << w;
+      }
+#endif
       p.actD[k] = D[k];
       p.actC[k] = C[k];
       if (k * 32 + lane < h) m.dmax = max(m.dmax, D[k]);
@@ -461,6 +532,29 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
                                                            : key & (CH - 1));
         m.aj = cstart + w;
       }
+#if ADAPTIVE_FLAGS
+    } else if (fend) {
+      // free end gaps: the column's max of residue lane % 16 (rows past the
+      // height count as NEG) into its running max; the column is the
+      // best's when a row of a chunk reaching past qlen equals it, and
+      // where the max is NEG the chunks past the slots, the last of which
+      // reaches past qlen, equal it too
+      int v = NEG;
+#pragma unroll
+      for (int k = 0; k < NA; ++k)
+        if (k * 32 + lane < h) v = max(v, D[k]);
+      v = max(v, __shfl_xor_sync(FULL, v, 16));
+      const int vmn = max(m.vm, v);
+      int hit = vmn == NEG && ls + S > c.ql;
+#pragma unroll
+      for (int k = 0; k < NA; ++k) {
+        const int r = k * 32 + lane;
+        hit |= r < h && D[k] == vmn && ls + 16 * (r >> 4) + 16 > c.ql;
+      }
+      hit |= __shfl_xor_sync(FULL, hit, 16);
+      if (hit) m.aj = cstart + w;
+      m.vm = vmn;
+#endif
     } else {
       // freeze: the rect covering (qlen, rlen) reached the last column
       if (fra && w >= frt) {
@@ -477,6 +571,14 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
 #pragma unroll
     for (int k = 0; k < NA; ++k)
       c.tw[c.tw_step * s + k * 32 + lane] = (int)wd[k];
+#if ADAPTIVE_FLAGS
+    // local start: the zero bits follow the step's S words
+    if (local) {
+#pragma unroll
+      for (int k = 0; k < NA; ++k)
+        c.tw[c.tw_step * s + S + k * 32 + lane] = (int)zb[k];
+    }
+#endif
     if (m.done) return;
   }
   __syncwarp();  // the step's bottom cells are visible to the warp
@@ -525,7 +627,13 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
   const int d0 = m.dir;
   const bool was_grow = d0 == DIR_GR;
   const bool ro = d0 == DIR_R || d0 == DIR_GR;
+#if ADAPTIVE_FLAGS
+  // free end gaps: the rect maximum is row qlen's residue's
+  const int cur_max = fend ? __shfl_sync(FULL, m.vm, c.ql & 15)
+                           : __reduce_max_sync(FULL, m.dmax);
+#else
   const int cur_max = __reduce_max_sync(FULL, m.dmax);
+#endif
   const int off_max = m.off + cur_max - ZERO;
   m.offmax = off_max;
   int ydi = m.yiter + 1;
@@ -572,6 +680,23 @@ __device__ __forceinline__ void run_step(Pair& m, Planes<S / 32>& p,
       return;
     }
   }
+#if ADAPTIVE_FLAGS
+  if (fend) {
+    // the best of row qlen at its residue's column, even on grows; a fresh
+    // tracker per rect; the end: both ends covered
+    const int aj = __shfl_sync(FULL, m.aj, c.ql & 15);
+    if (new_best) {
+      m.xbi = c.ql;
+      m.xbj = aj;
+    }
+    m.vm = INT_MIN_;
+    m.aj = 0;
+    if (m.I + m.sz > c.ql && m.J + m.sz > c.rl) {
+      m.done = true;
+      return;
+    }
+  }
+#endif
   // forced moves skip both heuristics (src/scan_block.rs:509-516)
   const bool forced_down = m.J + m.sz > c.rl;
   const bool free_rect = !forced_down && m.I + m.sz <= c.ql;
@@ -643,7 +768,11 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
                       int* __restrict__ twords, int4* __restrict__ tdesc,
                       int* __restrict__ tsteps, int B, int cap, int alpha,
                       int min_size, int max_steps, int gopen, int gext,
+#if ADAPTIVE_FLAGS
+                      int xdrop, int flags, int bmatch, int bmismatch) {
+#else
                       int xdrop) {
+#endif
   constexpr int NS = S / 32;  // row slots of the largest block
 
   __shared__ int tab[PROFILE ? 1 : MAX_ALPHA * MAX_ALPHA];
@@ -651,11 +780,22 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
   __shared__ int ckpt[WARPS][4][S];      // checkpoint borders by row
   __shared__ int prows[WARPS][PROFILE ? STEP * PROF_WORDS : 1];
 
+#if ADAPTIVE_FLAGS
+  if constexpr (!PROFILE) {
+    if (!(flags & BYTE_MODE))
+      for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
+        tab[k] = table[k];
+    __syncthreads();
+  }
+  // local-start trace: two words per row and step
+  const size_t tws = flags & LOCAL_START ? 2 : 1;
+#else
   if constexpr (!PROFILE) {
     for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
       tab[k] = table[k];
     __syncthreads();
   }
+#endif
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -670,8 +810,14 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
               lane, qlen[b], rlen[b], cap, alpha, min_size, gopen, gext,
               gext * ((lane & 7) + 1),  // the scan's zero correction
               xdrop,
+#if ADAPTIVE_FLAGS
+              TRACE ? twords + (size_t)b * S * tws : nullptr,
+              TRACE ? tdesc + b : nullptr, (size_t)B * S * tws, (size_t)B,
+              flags, bmatch, bmismatch};
+#else
               TRACE ? twords + (size_t)b * S : nullptr,
               TRACE ? tdesc + b : nullptr, (size_t)B * S, (size_t)B};
+#endif
 
   Planes<NS> p;
 #pragma unroll
@@ -708,6 +854,13 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
       out[4 * b + 1] = m.xbi;
       out[4 * b + 2] = m.xbj;
       out[4 * b + 3] = m.done ? 0 : 1;
+#if ADAPTIVE_FLAGS
+    } else if (flags & FREE_END) {
+      out[4 * b] = m.best;
+      out[4 * b + 1] = m.xbi;
+      out[4 * b + 2] = m.xbj;
+      out[4 * b + 3] = m.done ? 0 : 1;
+#endif
     } else {
       out[2 * b] = m.score;
       out[2 * b + 1] = m.done ? 0 : 1;
@@ -715,22 +868,15 @@ adaptive_align_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-#ifndef ADAPTIVE_PROFILE
-// csrc/adaptive_profile.cu builds the profile instances apart, so that the
-// two libraries compile in parallel
-#define ADAPTIVE_PROFILE false
-#endif
-
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, int* twords, int4* tdesc,
                    int* tsteps, int B, int cap, int alpha, int min_size,
-                   int max_steps, int gopen, int gext, int xdrop,
-                   cudaStream_t stream) {
+                   int max_steps, int gopen, int gext, int xdrop, int flags,
+                   int bmatch, int bmismatch, cudaStream_t stream) {
   constexpr bool P = ADAPTIVE_PROFILE;
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
-  void (*kernel)(const uint8_t*, const int*, const int*, const int*, int*,
-                 int*, int4*, int*, int, int, int, int, int, int, int, int);
+  decltype(&adaptive_align_kernel<S, false, false, P>) kernel;
   if constexpr (S == 512 && !P) {
     // only trace reaches max_size 512 on the sequence route; profiles take
     // it in every mode
@@ -745,7 +891,7 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
   }
   kernel<<<grid, WARPS * 32, 0, stream>>>(
       codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
-      min_size, max_steps, gopen, gext, xdrop);
+      min_size, max_steps, gopen, gext, xdrop ADAPTIVE_MODE_ARGS);
   return cudaGetLastError();
 }
 
@@ -758,21 +904,29 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
 // x_drop < 0: global mode, out (B, 2) int32 = (score, overrun); else x-drop
 // with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
 // overrun).  Trace mode when `words` is not null: words (max_steps, B,
-// max_size) int32, desc (max_steps, B, 4) int32 and steps (B,) int32
-// receive the trace of core/traceback.py; of a step's words only the rows
-// of the current size's slots are written, and nothing of the steps a pair
-// did not execute.  max_size 512 needs trace, or the profile library.
-// Returns the launch's cudaError_t.
+// max_size) int32 (max_size * 2 with local start), desc (max_steps, B, 4)
+// int32 and steps (B,) int32 receive the trace of core/traceback.py; of a
+// step's words only the rows of the current size's slots are written, and
+// nothing of the steps a pair did not execute.  max_size 512 needs trace,
+// or the profile library.  `flags` as in csrc/lane_kernel.cu's
+// lane_align_launch.  Returns the launch's cudaError_t.
 extern "C" int adaptive_align_launch(const void* codes, const void* qlen,
                                      const void* rlen, const void* table,
                                      void* out, void* words, void* desc,
                                      void* steps, int B, int cap, int alpha,
                                      int min_size, int max_size,
                                      int max_steps, int gopen, int gext,
-                                     int x_drop, void* stream) {
-  if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA || min_size < 16 ||
+                                     int x_drop, int flags, int match,
+                                     int mismatch, void* stream) {
+  const bool byte = flags & BYTE_MODE;
+  if (B < 1 || cap < 1 || alpha < 1 ||
+      (byte ? alpha != 256 : alpha > MAX_ALPHA) || min_size < 16 ||
       (min_size & (min_size - 1)) || min_size >= max_size ||
-      (words && (!desc || !steps)))
+      (words && (!desc || !steps)) || (flags & ~15) ||
+      (flags && !ADAPTIVE_FLAGS) ||
+      ((flags & LOCAL_START) && (flags & FREE_START)) ||
+      ((flags & FREE_END) && x_drop >= 0) ||
+      (byte && (x_drop >= 0 || ADAPTIVE_PROFILE)))
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
@@ -784,11 +938,11 @@ extern "C" int adaptive_align_launch(const void* codes, const void* qlen,
   auto* ts = static_cast<int*>(steps);
   auto st = static_cast<cudaStream_t>(stream);
   switch (max_size) {
-    case 32: return (int)launch<32>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
-    case 64: return (int)launch<64>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
-    case 128: return (int)launch<128>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
-    case 256: return (int)launch<256>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
-    case 512: return (int)launch<512>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, st);
+    case 32: return (int)launch<32>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 64: return (int)launch<64>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 128: return (int)launch<128>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 256: return (int)launch<256>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 512: return (int)launch<512>(c, q, r, t, o, tw, td, ts, B, cap, alpha, min_size, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

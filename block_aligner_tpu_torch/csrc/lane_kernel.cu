@@ -1,11 +1,14 @@
 // Fixed-block alignment of a batch of sequence pairs, or of (query, profile)
 // pairs, global or x-drop, with or without trace, for Hopper (sm_90a).
 // Plain C interface, loaded with ctypes by ops/lane_kernel.py; the profile
-// instances build apart from csrc/lane_profile.cu.
+// instances build apart from csrc/lane_profile.cu, and the instances that
+// read the flags and byte mode from csrc/lane_flags.cu and
+// csrc/lane_profile_flags.cu.
 //
 // Replaces: block_aligner_tpu/ops/lane_kernel.py::build_lane_engine (its
 // Pallas `kernel`) in global and in x-drop mode, with and without trace,
-// with a score table or a profile.
+// with a score table, byte equality or a profile, with or without the
+// local-start, free-query-start-gap and free-query-end-gap flags.
 // It computes the same score (x-drop: the best score and its position) and
 // the same y-drop suspect flag, bit for bit, and in trace mode the
 // traceback bits of every cell it computes; the step machine is described
@@ -59,6 +62,22 @@
 // kept.  Gap opens and the close cost come from the row's gap word, the C
 // and R roles swapped on down steps; the close applies only on the merge
 // into D, and the trace bits compare D with the closed values.
+// ByteMatrix scoring and the three flags are built into libraries of their
+// own (LANE_FLAGS), whose instances read which of them apply from a
+// run-time argument (a branch the whole warp takes alike), so that four
+// instances per size serve all of them.  Byte mode compares the lane's byte with the entering one in
+// place of the table fetch (no table is loaded; the codes are raw bytes,
+// alpha 256).  Local start raises each cell's D to the relative zero
+// clip(ZERO - off) before the merges; free start gaps set row 0 of a right
+// block whose lanes start at query row 0 to it.  In trace mode local start
+// adds one word per row and step after the S words of the 4-bit cells,
+// bit w the cell of column w whose D equals the relative zero.  Free end
+// gaps (query shorter than S) replace the freeze by the x-drop tracker cut
+// down to the residue qlen % 16: each column the warp takes the max of that
+// residue's rows into its running max, and the column becomes the best's
+// when a row of a chunk reaching past qlen equals it; the running max
+// drives the offset and the y-drop counter, the best is kept at each
+// decision, and a pair ends once its block covers both ends.
 // i16x2 packing, DPX instructions and several pairs per warp are left to
 // later work.
 
@@ -77,6 +96,27 @@ constexpr unsigned FULL = 0xffffffffu;
 // profile words per position: 7 score words (4 biased bytes each, query
 // codes 0..27), then the gap word open_C | open_R << 8 | close_C << 16
 constexpr int PROF_WORDS = 8;
+// the run-time modes of the FLAGS instances (the `flags` argument)
+constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
+
+#ifndef LANE_PROFILE
+// csrc/lane_profile.cu builds the profile instances apart, so that the
+// libraries compile in parallel
+#define LANE_PROFILE false
+#endif
+#ifndef LANE_FLAGS
+// csrc/lane_flags.cu and csrc/lane_profile_flags.cu build the FLAGS
+// instances apart.  Their code is compiled in by the preprocessor, not in
+// discarded `if constexpr` branches: those still moved ptxas's register
+// allocation of the other libraries' profile x-drop trace instances.
+#define LANE_FLAGS false
+#endif
+#if LANE_FLAGS
+// the FLAGS instances' extra arguments
+#define LANE_MODE_ARGS , flags, bmatch, bmismatch
+#else
+#define LANE_MODE_ARGS
+#endif
 
 // only the lower rail is reachable: block maxima are rebased to ZERO
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
@@ -148,7 +188,12 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
                   const int* __restrict__ table, int* __restrict__ out,
                   int* __restrict__ twords, int4* __restrict__ tdesc,
                   int* __restrict__ tsteps, int B, int cap, int alpha,
+#if LANE_FLAGS
+                  int max_steps, int gopen, int gext, int xdrop, int flags,
+                  int bmatch, int bmismatch) {
+#else
                   int max_steps, int gopen, int gext, int xdrop) {
+#endif
   constexpr int NL = S < 32 ? S : 32;  // lanes holding block rows
   constexpr int RPL = S / NL;          // rows per lane, contiguous
   constexpr int PRO = S / STEP;        // prologue steps (the initial grow)
@@ -158,11 +203,25 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   // profile: the profile rows of a right step's 8 entering columns
   __shared__ int prows[WARPS][PROFILE ? STEP * PROF_WORDS : 1];
 
+#if LANE_FLAGS
+  // the modes of this launch
+  const bool local = flags & LOCAL_START;
+  const bool fstart = flags & FREE_START;
+  const bool fend = flags & FREE_END;
+  const bool byte = !PROFILE && (flags & BYTE_MODE);
+  if constexpr (!PROFILE) {
+    if (!byte)
+      for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
+        tab[k] = table[k];
+    __syncthreads();
+  }
+#else
   if constexpr (!PROFILE) {
     for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
       tab[k] = table[k];
     __syncthreads();
   }
+#endif
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -200,12 +259,24 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   bool fra = S > ql;
   int frt = rl, fridx = min(max(ql, 0), S - 1);
   int nsteps = 0;  // trace: the steps this pair executed
+#if LANE_FLAGS
+  // free end gaps: this lane's row of residue qlen % 16 (if it holds one:
+  // its rows lie in one 16-row chunk), that row's chunk, the residue's
+  // running max and the column of the best
+  const int fidx = ((ql & 15) - row0) & 15;
+  const bool fhas = on && fidx < RPL;
+  const int fchunk = (row0 + fidx) >> 4;
+  int fvm = NEG, fj = 0;
+#endif
 
   for (int s = 0; s < max_steps && !done; ++s) {
     const bool in_pro = s < PRO;
     int oa = 0, cvec = NEG, lstart = 0, cpos0 = s * STEP;
     const uint8_t* lseq = qs;
     const uint8_t* cseq = rs;
+#if LANE_FLAGS
+    int rz = ZERO;  // the relative zero of local start and free start gaps
+#endif
     if (!in_pro) {
       // offset rebase (reference: src/scan_block.rs:148-151)
       oa = min(max(off - offmax, NEG), 32767);
@@ -226,7 +297,15 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       fridx = min(max(lane_len - lstart, 0), S - 1);
       lseq = right ? qs : rs;
       cseq = right ? rs : qs;
+#if LANE_FLAGS
+      rz = min(max(ZERO - off, NEG), 32767);
+#endif
     }
+#if LANE_FLAGS
+    // free start gaps: a right block whose lanes start at query row 0
+    const bool ins0 = fstart && (in_pro || dir != 1) && lstart == 0;
+    unsigned zb[RPL];  // local-start trace: this step's zero bits
+#endif
     unsigned wd[RPL];  // trace: this step's bits of this lane's rows
     if constexpr (TRACE) {
       ++nsteps;
@@ -237,6 +316,10 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
                    : make_int4((dir != 1 ? 1 : 0) | 2, lstart, cpos0, S);
 #pragma unroll
       for (int k = 0; k < RPL; ++k) wd[k] = 0u;
+#if LANE_FLAGS
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) zb[k] = 0u;
+#endif
     }
     const bool right = in_pro || dir != 1;  // lanes are query rows
     int lc[RPL], cc[STEP];
@@ -285,6 +368,10 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
           int d = sat((k == 0 ? up : actD[k - 1]) +
                       prof_score(row, right ? lc[k] : cc[w]));
           if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // origin
+#if LANE_FLAGS
+          if (local) d = max(d, rz);
+          else if (ins0 && k == 0 && lane == 0) d = rz;
+#endif
           const ProfGaps g(row[PROF_WORDS - 1], right, gext);
           const int co = sat(actD[k] + g.copen);
           DO[k] = g.dopen;
@@ -295,8 +382,19 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
           D[k] = max(d, CE[k]);
           if constexpr (TRACE) CO[k] = co;
         } else {
+#if LANE_FLAGS
+          // byte mode compares the codes; the flags restart cells at the
+          // relative zero
+          int d = sat((k == 0 ? up : actD[k - 1]) +
+                      (byte ? (lc[k] == cc[w] ? bmatch : bmismatch)
+                            : trow[lc[k]]));
+          if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
+          if (local) d = max(d, rz);
+          else if (ins0 && k == 0 && lane == 0) d = rz;
+#else
           int d = sat((k == 0 ? up : actD[k - 1]) + trow[lc[k]]);
           if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
+#endif
           const int co = sat(actD[k] + gopen);
           C[k] = max(sat(actC[k] + gext), co);
           D[k] = max(d, C[k]);
@@ -350,6 +448,12 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
           }
           D[k] = max(D[k], T[k]);
         }
+#if LANE_FLAGS
+        if constexpr (TRACE) {
+          // local start: the cell restarted at the relative zero
+          if (local) zb[k] |= (unsigned)(D[k] == rz) << w;
+        }
+#endif
         actD[k] = D[k];
         actC[k] = C[k];
         if (on) dmax = max(dmax, D[k]);
@@ -376,6 +480,20 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
             vj[k] = cpos0 + w;
           }
         }
+#if LANE_FLAGS
+      } else if (fend) {
+        // free end gaps: residue qlen % 16's max into its running max; the
+        // column is the best's when a row of a chunk reaching past qlen
+        // equals it
+        int v = D[0];
+#pragma unroll
+        for (int k = 1; k < RPL; ++k)
+          if (opaque(k) == fidx) v = D[k];
+        fvm = max(fvm, __reduce_max_sync(FULL, fhas ? v : INT_MIN_));
+        if (__any_sync(FULL, fhas && v == fvm &&
+                                 lstart + 16 * fchunk + 16 > ql))
+          fj = cpos0 + w;
+#endif
       } else {
         // freeze: the block covering (qlen, rlen) reached the last column
         const int wloc = in_pro ? s * STEP + w : w;
@@ -391,6 +509,20 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         }
       }
     }
+#if LANE_FLAGS
+    if constexpr (TRACE) {
+      if (on) {
+        // local start: the zero bits follow the step's S words
+        const int tw = local ? 2 : 1;
+        int* dst = twords + ((size_t)s * B + b) * S * tw + row0;
+#pragma unroll
+        for (int k = 0; k < RPL; ++k) {
+          dst[k] = (int)wd[k];
+          if (local) dst[S + k] = (int)zb[k];
+        }
+      }
+    }
+#else
     if constexpr (TRACE) {
       if (on) {
         int* dst = twords + ((size_t)s * B + b) * S + row0;
@@ -406,6 +538,7 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         }
       }
     }
+#endif
     if (done) break;
     __syncwarp();  // the step's tail cells are visible to the warp
 
@@ -432,7 +565,13 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         shift_tail<NL, RPL>(pasD, tailD, lane);
         shift_tail<NL, RPL>(pasR, tailR, lane);
       }
+#if LANE_FLAGS
+      // free end gaps: the rebase and the y-drop counter follow row qlen's
+      // residue
+      const int cur = fend ? fvm : __reduce_max_sync(FULL, dmax);
+#else
       const int cur = __reduce_max_sync(FULL, dmax);
+#endif
       const int off_max = off + cur - ZERO;
       dmax = INT_MIN_;
       offmax = off_max;
@@ -440,6 +579,22 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       const int y_iter = off_max > ybest ? 0 : yiter + 1;
       ybest = max(ybest, off_max);
       yiter = y_iter;
+#if LANE_FLAGS
+      if (fend) {
+        // the best of row qlen, at its residue's column; the end: both
+        // ends covered
+        if (off_max > xbest) {
+          xbest = off_max;
+          xbi = ql;
+          xbj = fj;
+        }
+        fvm = NEG;
+        if (I + S > ql && J + S > rl) {
+          done = true;
+          break;
+        }
+      }
+#endif
       if constexpr (XDROP) {
         if (off_max > xbest) {
           // the new best's position: the lowest residue holding the
@@ -520,6 +675,13 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       out[4 * b + 1] = xbi;
       out[4 * b + 2] = xbj;
       out[4 * b + 3] = susp;
+#if LANE_FLAGS
+    } else if (fend) {
+      out[4 * b] = xbest;
+      out[4 * b + 1] = xbi;
+      out[4 * b + 2] = xbj;
+      out[4 * b + 3] = susp;
+#endif
     } else {
       out[2 * b] = score;
       out[2 * b + 1] = susp;
@@ -527,17 +689,12 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
-#ifndef LANE_PROFILE
-// csrc/lane_profile.cu builds the profile instances apart, so that the two
-// libraries compile in parallel
-#define LANE_PROFILE false
-#endif
-
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, int* twords, int4* tdesc,
                    int* tsteps, int B, int cap, int alpha, int max_steps,
-                   int gopen, int gext, int xdrop, cudaStream_t stream) {
+                   int gopen, int gext, int xdrop, int flags, int bmatch,
+                   int bmismatch, cudaStream_t stream) {
   constexpr bool P = LANE_PROFILE;
   const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
   auto kernel = twords ? (xdrop < 0 ? lane_align_kernel<S, false, true, P>
@@ -546,7 +703,7 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                                     : lane_align_kernel<S, true, false, P>);
   kernel<<<grid, WARPS * 32, 0, stream>>>(
       codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
-      max_steps, gopen, gext, xdrop);
+      max_steps, gopen, gext, xdrop LANE_MODE_ARGS);
   return cudaGetLastError();
 }
 
@@ -559,17 +716,29 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
 // x_drop < 0: global mode, out (B, 2) int32 = (score, suspect); else x-drop
 // with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
 // suspect).  Trace mode when `words` is not null: words (max_steps, B,
-// block) int32, desc (max_steps, B, 4) int32 and steps (B,) int32 receive
-// the trace of core/traceback.py; rows of steps a pair did not execute are
-// left as they were.  Returns the launch's cudaError_t.
+// block) int32 (block * 2 with local start), desc (max_steps, B, 4) int32
+// and steps (B,) int32 receive the trace of core/traceback.py; rows of
+// steps a pair did not execute are left as they were.  `flags` (only in
+// the libraries of csrc/*_flags.cu; 0 elsewhere) ors local start 1, free
+// query start gaps 2, free query end gaps 4 (out (B, 4) as in x-drop, no
+// x-drop) and byte mode 8 (codes are raw bytes, alpha 256, table not read,
+// match and mismatch scores `match` / `mismatch`; no x-drop, no profile).
+// Returns the launch's cudaError_t.
 extern "C" int lane_align_launch(const void* codes, const void* qlen,
                                  const void* rlen, const void* table,
                                  void* out, void* words, void* desc,
                                  void* steps, int B, int cap, int alpha,
                                  int block, int max_steps, int gopen,
-                                 int gext, int x_drop, void* stream) {
-  if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA ||
-      (words && (!desc || !steps)))
+                                 int gext, int x_drop, int flags, int match,
+                                 int mismatch, void* stream) {
+  const bool byte = flags & BYTE_MODE;
+  if (B < 1 || cap < 1 || alpha < 1 ||
+      (byte ? alpha != 256 : alpha > MAX_ALPHA) ||
+      (words && (!desc || !steps)) || (flags & ~15) ||
+      (flags && !LANE_FLAGS) ||
+      ((flags & LOCAL_START) && (flags & FREE_START)) ||
+      ((flags & FREE_END) && x_drop >= 0) ||
+      (byte && (x_drop >= 0 || LANE_PROFILE)))
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
@@ -581,12 +750,12 @@ extern "C" int lane_align_launch(const void* codes, const void* qlen,
   auto* ts = static_cast<int*>(steps);
   auto st = static_cast<cudaStream_t>(stream);
   switch (block) {
-    case 16: return (int)launch<16>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 32: return (int)launch<32>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 64: return (int)launch<64>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 128: return (int)launch<128>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 256: return (int)launch<256>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
-    case 512: return (int)launch<512>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, st);
+    case 16: return (int)launch<16>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 32: return (int)launch<32>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 64: return (int)launch<64>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 128: return (int)launch<128>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 256: return (int)launch<256>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    case 512: return (int)launch<512>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

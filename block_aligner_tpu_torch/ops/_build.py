@@ -42,21 +42,25 @@ def library_path(name: str) -> Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this exact source is built already."""
+def build(name: str, report: bool = False):
+    """Compile ``csrc/<name>.cu`` unless this exact source is built already.
+    With ``report`` it returns ``(path, log)``, the log ptxas's registers,
+    stack and spills of every kernel (``-Xptxas -v``, which changes no
+    code; empty if the library was built already)."""
     out = library_path(name)
     if out.exists():
-        return out
+        return (out, "") if report else out
     BUILD.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS, *(("-Xptxas", "-v") if report else ()), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building {name}:\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out
+    return (out, proc.stderr) if report else out
 
 
 @functools.cache

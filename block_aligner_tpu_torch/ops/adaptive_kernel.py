@@ -4,10 +4,13 @@ PyTorch version and the wrapper of the CUDA kernel.
 Counterpart of ``block_aligner_tpu/ops/adaptive_kernel.py``:
 ``build_adaptive_engine`` (min_size < max_size <= 256, 512 with trace or a
 profile), in global and in x-drop mode, with or without trace, scoring
-sequence pairs by a table or (query, profile) pairs by the profile
-(``cfg.profile``, ``ops/_profile.py``).  Both versions here compute what
-that kernel computes, bit for bit: the final score of every pair (x-drop:
-the best score and its position) and whether the pair hit the step cap.
+sequence pairs by a table or by byte equality (``cfg.byte_mode``) or
+(query, profile) pairs by the profile (``cfg.profile``,
+``ops/_profile.py``), with or without the local-start and free-gap flags
+of ``ops/lane_kernel.py``.  Both versions here compute what that kernel
+computes, bit for bit: the final score of every pair (x-drop and free end
+gaps: the best score and its position) and whether the pair hit the step
+cap.
 
 The machine (reference: src/scan_block.rs:101-593).  A pair's state is the
 step machine of ``ops/lane_kernel.py`` (an ACT/PAS border pair, i16 values
@@ -43,6 +46,15 @@ after its checkpoint save and before its grow, shrink or move: when the
 rect maximum falls more than x below the best at two decisions in a row,
 or when the rect covers both ends.
 
+The flags act as in the lane kernel, in every rect phase: local start
+raises D to the relative zero of the rect's offset, free start gaps
+re-seed row 0 of every right or GROW_R rect whose query start is 0 (after
+a restore too: the checkpoint's anchor decides), and free end gaps run
+the tracker over both grow halves and take row qlen's residue as the rect
+maximum (offset, y-drop counter, checkpoint, shrink), its column as the
+best's, restart the tracker at each decision and end a pair once its rect
+covers both ends.
+
 The TPU kernel keeps per-side score stacks that it rebuilds on every
 restore; here every lane re-reads its own code at the rect's lane start, so
 a restore only moves the anchor.  The plain version runs all pairs in
@@ -67,7 +79,8 @@ from ..core.traceback import F_RESTORE, F_RIGHT, F_SAVE, F_START
 from . import _build
 from ._profile import ProfileFetch
 from ._trace import as_int32, stack_steps, trace_bits, trace_buffers
-from .lane_kernel import check_inputs, count_launch, reset_counts, x_value
+from .lane_kernel import (check_inputs, check_modes, count_launch, library,
+                          mode_args, reset_counts, trace_words, wide, x_value)
 
 __all__ = ["AdaptiveKernelConfig", "adaptive_align_plain", "adaptive_align"]
 
@@ -91,6 +104,10 @@ class AdaptiveKernelConfig:
     x_drop: bool = False  # x-drop mode; the x value travels in the gaps
     trace: bool = False  # also return the traceback bits (core/traceback.py)
     profile: bool = False  # sequence-to-PSSM mode (ops/_profile.py)
+    byte_mode: bool = False  # ByteMatrix: equality scoring, alpha 256
+    local_start: bool = False  # an alignment may start at any cell
+    free_query_start_gaps: bool = False  # leading query gaps are free
+    free_query_end_gaps: bool = False  # trailing query gaps are free
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
@@ -104,8 +121,7 @@ class AdaptiveKernelConfig:
             raise ValueError(
                 f"seq_cap must be a multiple of {STEP} and at least "
                 f"max_size + {2 * STEP}, got {self.seq_cap}")
-        if self.alpha not in (16, 32):
-            raise ValueError(f"alpha must be 16 or 32, got {self.alpha}")
+        check_modes(self)
 
     @property
     def block(self) -> int:
@@ -129,8 +145,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
 
     Returns a (B, 2) int32 tensor of (score, overrun), overrun 1 where a
     pair did not finish within ``cfg.max_steps`` steps, or in x-drop mode
-    (x = ``gaps[2]``) a (B, 4) tensor of (best score, its query position,
-    its reference position, overrun).  Code positions are clamped to
+    (x = ``gaps[2]``) and with free query end gaps a (B, 4) tensor of (best
+    score, its query position, its reference position, overrun).  Code positions are clamped to
     ``seq_cap - 1`` and codes to ``alpha - 1``, as the kernel does;
     ``pack_lane`` output never needs either.  With ``cfg.trace`` it returns
     ``(out, words, desc, steps)``, the trace of ``core/traceback.py`` with
@@ -145,12 +161,16 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     B = codes.shape[0]
     open_, e = int(gaps[0]), int(gaps[1])
     xd = cfg.x_drop
+    fe = cfg.free_query_end_gaps
     i32 = torch.int32
     if cfg.profile:
         fetch = ProfileFetch(codes, table, e)
     else:
         seqs = codes.long().clamp(max=A - 1)
-        tab = table.reshape(-1).to(i32)
+        if cfg.byte_mode:
+            match, mismatch = int(gaps[3]), int(gaps[4])
+        else:
+            tab = table.reshape(-1).to(i32)
     ql, rl = qlen.to(i32), rlen.to(i32)
     rows = torch.arange(S, device=dev)
     cols = torch.arange(STEP, device=dev)
@@ -187,10 +207,11 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         t_words, t_desc = [], []
         nsteps, pend = full(0), full(0)
         zcol = full(0, (B, 1))
-    if xd:
+    if wide(cfg):
         x = int(gaps[2])
         r16 = torch.arange(16, dtype=i32, device=dev)
         chunk = torch.arange(S // 16, dtype=i32, device=dev)[:, None]
+        q16 = (ql % 16).long()[:, None]
         # the tracker (running max, chunk origin, column per residue), the
         # GROW_D half's banked candidate, the best's position
         xvm, xai, xaj = full(INT_MIN, (B, 16)), full(0, (B, 16)), full(0, (B, 16))
@@ -246,6 +267,11 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             t_desc.append(torch.stack([flags, ls, cstart, h], 1))
             pend = full(0)
             word = torch.zeros((B, S), dtype=torch.int64, device=dev)
+            zword = torch.zeros((B, S), dtype=torch.int64, device=dev)
+        # the relative zero of local start and free start gaps; free start
+        # gaps re-seed row 0 of a right rect at query row 0
+        rz = (ZERO - off).clamp(I16_MIN, I16_MAX)
+        ins0 = right_or & (I == 0)
         lpos = (col(ls) + rows).clamp(max=cap - 1)
         cp = (col(cstart) + cols).clamp(max=cap - 1)
         if cfg.profile:
@@ -262,12 +288,20 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             if cfg.profile:
                 scores, copen, dopen, close = fetch.column(w)
             else:
-                scores = tab[colc[:, w : w + 1] * A + lanec]
+                if cfg.byte_mode:
+                    scores = torch.where(colc[:, w : w + 1] == lanec, match,
+                                         mismatch).to(i32)
+                else:
+                    scores = tab[colc[:, w : w + 1] * A + lanec]
                 copen, dopen = open_, open_ - e
             corner = cvec if w == 0 else full(NEG)
             D11 = _sat(torch.cat([col(corner), actD[:, :-1]], 1) + scores)
             if w == 0:
                 D11[:, 0] = torch.where(origin, ZERO, D11[:, 0])
+            if cfg.local_start:
+                D11 = torch.maximum(D11, col(rz))
+            elif cfg.free_query_start_gaps:
+                D11[:, 0] = torch.where(ins0, rz, D11[:, 0])
             C11_open = _sat(actD + copen)
             C11 = torch.maximum(_sat(actC + e), C11_open)
             # profile: a right rect closes C before the merge, a down rect
@@ -292,6 +326,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
                     col(done), 0,
                     trace_bits(D11, c_end, r_end, C11, C11_open, R11,
                                D11_open, zcol) << (4 * w))
+                if cfg.local_start:
+                    zword |= ((D11 == col(rz)) & ~col(done)).long() << w
             dmax = torch.maximum(dmax, torch.where(inrect, D11, NEG).amax(1))
             actD, actC = D11, C11
             bot_d, bot_r = D11.gather(1, hrow), R11.gather(1, hrow)
@@ -302,11 +338,14 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             pasD = torch.where(gm, bot_d, pasD)
             pasR = torch.where(gm, bot_r, pasR)
             cells += torch.where(done, 0, h)
-            if xd:
+            if wide(cfg):
                 # the lane kernel's tracker over the rows inside the height
                 Dr = torch.where(inrect, D11, NEG).view(B, S // 16, 16)
                 vm = torch.maximum(xvm, Dr.amax(1))
-                hit = torch.where(Dr == vm[:, None], chunk, -1).amax(1)
+                eq = Dr == vm[:, None]
+                if fe:
+                    eq &= ls[:, None, None] + 16 * chunk + 16 > ql[:, None, None]
+                hit = torch.where(eq, chunk, -1).amax(1)
                 upd = hit >= 0
                 xai = torch.where(upd, ls[:, None] + 16 * hit, xai)
                 xaj = torch.where(upd, (cstart + w)[:, None], xaj)
@@ -319,7 +358,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
 
         # ---- rect step end ----
         if tr:
-            t_words.append(as_int32(word))
+            t_words.append(as_int32(torch.cat([word, zword], 1)
+                                    if cfg.local_start else word))
         active = ~done
         d0 = dirn
         cpos_new = cpos + STEP
@@ -356,7 +396,10 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         rdone = active & phase_done & (d0 != DIR_GD)
         was_grow = d0 == DIR_GR
         ro = (d0 == DIR_R) | (d0 == DIR_GR)
-        off_max = off + dmax - ZERO
+        # free end gaps: the rect maximum is row qlen's residue's
+        # (reference: tracker.vmax[qlen % L])
+        rmax = xvm.gather(1, q16)[:, 0] if fe else dmax
+        off_max = off + rmax - ZERO
         offmax = torch.where(rdone, off_max, offmax)
         ydi = torch.where(rdone, yiter + 1, yiter)
         gnm_ = torch.where(rdone, was_grow.to(i32), gnm)
@@ -402,6 +445,18 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             stop |= rdone & (I + sz > ql) & (J + sz > rl)
             done = done | stop
             rdone = rdone & ~stop
+        elif fe:
+            # the best of row qlen at its residue's column, even on grows;
+            # a fresh tracker per rect; the end: both ends covered
+            xbi = torch.where(new_best, ql, xbi)
+            xbj = torch.where(new_best, xaj.gather(1, q16)[:, 0], xbj)
+            rd = col(rdone)
+            xvm = torch.where(rd, INT_MIN, xvm)
+            xai = torch.where(rd, 0, xai)
+            xaj = torch.where(rd, 0, xaj)
+            stop = rdone & (I + sz > ql) & (J + sz > rl)
+            done = done | stop
+            rdone = rdone & ~stop
         # forced moves skip both heuristics (reference: src/scan_block.rs:509-516)
         forced_down = rdone & (J + sz > rl)
         forced_right = rdone & ~forced_down & (I + sz > ql)
@@ -421,7 +476,7 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         suf = (rows >= col(sz - SHRINK_SUFFIX_LEN)) & (rows < col(sz))
         sufmax = torch.maximum(torch.where(suf, actD, INT_MIN).amax(1),
                                torch.where(suf, pasD, INT_MIN).amax(1))
-        shrink = free & ~grow & (sz > MIN) & (ydi == 0) & (sufmax >= dmax)
+        shrink = free & ~grow & (sz > MIN) & (ydi == 0) & (sufmax >= rmax)
         half = sz // 2
         sh = col(shrink)
         actD = torch.where(sh, down_by(actD, half), actD)
@@ -461,10 +516,10 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
         s += 1
     over = (~done).to(i32)
-    out = torch.stack([best, xbi, xbj, over] if xd else [out, over], 1)
+    out = torch.stack([best, xbi, xbj, over] if wide(cfg) else [out, over], 1)
     res = (out,)
     if tr:
-        res += (stack_steps(t_words, (B, S), dev),
+        res += (stack_steps(t_words, (B, S * trace_words(cfg)), dev),
                 stack_steps(t_desc, (B, 4), dev), nsteps)
     if count_cells:
         res += (cells,)
@@ -475,7 +530,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a library built from
     ``csrc/adaptive_kernel.cu``."""
     lib.adaptive_align_launch.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     lib.adaptive_align_launch.restype = ctypes.c_int
     lib.adaptive_error_string.argtypes = [ctypes.c_int]
     lib.adaptive_error_string.restype = ctypes.c_char_p
@@ -483,16 +538,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib(profile: bool = False) -> ctypes.CDLL:
-    """The kernel's library: ``csrc/adaptive_kernel.cu``, or with
-    ``profile`` its profile instances, ``csrc/adaptive_profile.cu``."""
-    return bind(_build.load("adaptive_profile" if profile
-                            else "adaptive_kernel"))
+def _lib(name: str) -> ctypes.CDLL:
+    """A library of the adaptive kernel (``lane_kernel.library``), built
+    and bound."""
+    return bind(_build.load(name))
 
 
 def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
     """(score, overrun) per pair as a (B, 2) int32 tensor; in x-drop mode
-    (best score, query position, reference position, overrun) as (B, 4).
+    and with free query end gaps (best score, query position, reference
+    position, overrun) as (B, 4).
     With ``cfg.trace`` it returns ``(out, words, desc, steps)``, the trace
     of ``core/traceback.py``; on CUDA words and desc hold ``cfg.max_steps``
     steps, of which each pair wrote its own ``steps``, and of a step's
@@ -502,12 +557,12 @@ def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
     ``ops/_profile.py::pack_profile``.
 
     CPU tensors take ``adaptive_align_plain``; CUDA tensors launch the
-    kernel of ``csrc/adaptive_kernel.cu`` (profile:
-    ``csrc/adaptive_profile.cu``) on the current stream or raise.  The
+    kernel of ``csrc/adaptive_kernel.cu`` (the library
+    ``lane_kernel.library`` names) on the current stream or raise.  The
     wrapper counts its launches by instance: ``adaptive_align.launches``
     (global), ``xdrop_launches``, ``trace_launches`` and
-    ``xdrop_trace_launches``, and the same with ``profile_`` in front for
-    the profile instances."""
+    ``xdrop_trace_launches``, and the same with ``profile_``, ``byte_`` or
+    ``flags_`` in front."""
     if codes.device.type == "cpu":
         return adaptive_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -515,19 +570,19 @@ def adaptive_align(codes, qlen, rlen, table, gaps, cfg: AdaptiveKernelConfig):
         raise ValueError(f"no adaptive kernel for device {dev}")
     B = codes.shape[0]
     check_inputs(codes, qlen, rlen, table, cfg)
-    out = torch.empty((B, 4 if cfg.x_drop else 2), dtype=torch.int32,
+    out = torch.empty((B, 4 if wide(cfg) else 2), dtype=torch.int32,
                       device=dev)
-    res, ptrs = trace_buffers(out, cfg, cfg.max_size)
+    res, ptrs = trace_buffers(out, cfg, cfg.max_size * trace_words(cfg))
     if B == 0:
         return res
-    lib = _lib(cfg.profile)
+    lib = _lib(library("adaptive", cfg))
     with torch.cuda.device(dev):
         err = lib.adaptive_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
             table.data_ptr(), out.data_ptr(), *ptrs, B, cfg.seq_cap,
             cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps,
             int(gaps[0]), int(gaps[1]), x_value(gaps, cfg),
-            torch.cuda.current_stream().cuda_stream)
+            *mode_args(gaps, cfg), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("adaptive kernel launch failed: "
                            f"{lib.adaptive_error_string(err).decode()}")

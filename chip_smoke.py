@@ -6,11 +6,13 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``
-   and their profile libraries ``{lane,adaptive}_profile.cu`` into
-   ``build/`` (keyed on the sources), one ``nvcc`` each, and beside them
-   one ``nvcc -Xptxas -v`` each for the registers, stack and spills of
-   every kernel instance, all eight started together; load the builds;
+2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``,
+   their profile libraries ``{lane,adaptive}_profile.cu`` and the flags
+   libraries ``{lane,adaptive}_flags.cu`` and
+   ``{lane,adaptive}_profile_flags.cu`` into ``build/`` (keyed on the
+   sources), one ``nvcc -Xptxas -v`` each, all eight started together, with
+   the registers, stack and spills of every kernel instance; load the
+   builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
    on the card, exact equality of score and suspect flag at blocks 16..512
    on seeded random protein and DNA pairs, and the reference's golden
@@ -84,15 +86,44 @@ Phases, each reported on its own line:
    them, with the 256-256 lane score as the target (8 unreachable), every
    result held against the plain version at the min size it reports;
 18. profile trace paths: the same pairs in batches of 2048, lane (32, 32)
-   and adaptive (32, 256), global and x_drop 50; each pair's CIGAR.
+   and adaptive (32, 256), global and x_drop 50; each pair's CIGAR;
+19. the instances of the flags libraries against their plain versions:
+   ``ByteMatrix(1, -1)`` (pairs over all 256 bytes, byte 0 and the golden
+   pair (b"AAAAAA", b"AAAaaA") included) global and traced; local start
+   and free query start gaps global, x-drop 50, trace and x-drop trace;
+   free query end gaps (queries shorter than the min size) global and
+   traced; sequences and profiles; lane blocks 16, 32, 128, 512 and
+   adaptive (32, 256) and (32, 512) (there with trace or profiles, and 2
+   pairs that grow to 512): outputs, and with trace step counts,
+   descriptors, words (local start's zero bits) and CIGARs, equal;
+20. ByteMatrix main paths: 16384 pairs of 1000 random bytes 0..255 with
+   k=100 mutations (``bench.rand_protein_pairs``' model over bytes, seed
+   1234), ``ByteMatrix(1, -1)``, gaps -11/-1, block 32; the 7000 uc30 pairs
+   at (32, 256); traced, the Illumina-like reads of phase 12 at (32, 32)
+   with ``ByteMatrix(2, -4)``, -6/-2, whose results must equal the
+   ``NucMatrix(2, -4)`` lane path's, and the uc30 pairs at (32, 256);
+21. local start: the uc30 pairs at (32, 256), global and traced (batches
+   of 2048), and with x_drop 50; phase 8's x-drop protein pairs at (32,
+   32) with x_drop 50, global and traced;
+22. free query start gaps: phase 12's nanopore-like reads at (32, 32),
+   traced;
+23. free query end gaps: phase 12's Illumina-like reads (100..150 < 256)
+   at lane (256, 256), global and traced;
+24. profile flags: the SCOP-style pairs of phase 16 at lane (32, 32) with
+   local start and at (256, 256) with free query end gaps, adaptive (32,
+   256) with free query start gaps, the first and the last also with
+   x_drop 50 and traced (2048 pairs).
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal
 the plain version's; kernel times come from CUDA events, packing is timed
 apart.  A trace main path runs ``align_all_trace``; its results must
 equal the non-trace instance's (none exists at max size 512), every CIGAR
-must sum to its end position and rescore to its score, and the first 512
-must equal those walked from the plain version's trace; pack, the trace's
+must sum to its end position and rescore to its score (with local start
+from wherever it starts, with free query start gaps from query row 0; with
+free query end gaps to at most its score, every CIGAR then held against
+the plain version's), and the first 512 must equal those walked from the
+plain version's trace; pack, the trace's
 copy-back and the walk are timed on the host clock.  A profile trace path
 holds every CIGAR to its end and to its score under the reference's
 profile costs (``rescore_profile``); a CIGAR that does not rescore (the
@@ -114,6 +145,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -206,6 +238,22 @@ OPS_PER_CELL_TRACE = 7
 # rail.  Unpacking a score byte from its word is this layout's own cost.
 # Its profile rows are 32 bytes a position.
 OPS_PER_CELL_PROFILE = 1
+# where the TPU kernels compute ByteMatrix scores and the flags
+LANE_BYTE = "block_aligner_tpu/ops/lane_kernel.py:800"
+LANE_FLAGS = "block_aligner_tpu/ops/lane_kernel.py:823"
+LANE_FREE_END = "block_aligner_tpu/ops/lane_kernel.py:957"
+LANE_ZERO_BIT = "block_aligner_tpu/ops/lane_kernel.py:895"
+AD_BYTE = "block_aligner_tpu/ops/adaptive_kernel.py:635"
+AD_FLAGS = "block_aligner_tpu/ops/adaptive_kernel.py:658"
+AD_ZERO_BIT = "block_aligner_tpu/ops/adaptive_kernel.py:736"
+# byte mode compares the lane's byte with the entering one where the score
+# was a lookup: one compare-select.  Local start raises D to the relative
+# zero: one max; with trace its zero bit is a compare, a shift and an or.
+# Free start gaps touch row 0 only, so nothing per cell; free end gaps run
+# the x-drop tracker (OPS_PER_CELL_XDROP).
+OPS_PER_CELL_BYTE = 1
+OPS_PER_CELL_LOCAL = 1
+OPS_PER_CELL_ZERO_BIT = 3
 
 
 def random_pairs(rng, alphabet, n, max_len):
@@ -225,6 +273,40 @@ def random_pairs(rng, alphabet, n, max_len):
                           rng.choice(alphabet, size=k // 4))[:max_len]
         pairs.append((q.tobytes(), r.tobytes()))
     return pairs
+
+
+def rand_byte_pairs(rng, n_pairs, length, k):
+    """``bench.rand_protein_pairs``' pairs over all 256 byte values: a
+    random query of ``length`` bytes, the reference a copy with ``k``
+    substitutions and up to k/4 deletions and k/4 insertions."""
+    alphabet = np.arange(256, dtype=np.uint8)
+    pairs = []
+    qs = rng.choice(alphabet, size=(n_pairs, length))
+    for q in qs:
+        r = q.copy()
+        r[rng.integers(0, length, size=k)] = rng.choice(alphabet, size=k)
+        ndel = int(rng.integers(0, k // 4 + 1))
+        if ndel:
+            keep = np.ones(length, dtype=bool)
+            keep[rng.integers(0, length, size=ndel)] = False
+            r = r[keep]
+        nins = int(rng.integers(0, k // 4 + 1))
+        if nins:
+            r = np.insert(r, rng.integers(0, len(r), size=nins),
+                          rng.choice(alphabet, size=nins))
+        pairs.append((q.tobytes(), r.tobytes()))
+    return pairs
+
+
+def byte_pairs(rng, n, max_len):
+    """``ByteMatrix`` pairs over all 256 byte values, byte 0 (the padding
+    code) included: the JAX package's golden pair (b"AAAAAA", b"AAAaaA"),
+    runs of byte 0, then ``random_pairs`` over the byte alphabet."""
+    zero = bytes(1)
+    pairs = [(b"AAAAAA", b"AAAaaA"), (zero * 5, zero * 7),
+             (b"\x00A\x00", b"A\x00\x00\x00")]
+    alphabet = np.arange(256, dtype=np.uint8)
+    return pairs + random_pairs(rng, alphabet, n - len(pairs), max_len)
 
 
 def xdrop_protein_pairs(rng, n):
@@ -436,10 +518,19 @@ def with_step_cap(cfg, steps):
                      for f in dataclasses.fields(cfg)})
 
 
+def build_and_report(_build, name):
+    """Build ``csrc/<name>.cu`` (``_build.build``) and return its path and
+    one line per kernel instance: its registers, stack frame and spills as
+    ``nvcc -Xptxas -v`` reports them with the build's flags (from the
+    build's own log, or, if the library was built already, from a cubin
+    compiled under ``build/``)."""
+    path, log = _build.build(name, report=True)
+    return path, (parse_ptxas(log, name) if log
+                  else ptxas_report(_build, name))
+
+
 def ptxas_report(_build, name):
-    """One line per kernel instance of ``csrc/<name>.cu``: its registers,
-    stack frame and spills as ``nvcc -Xptxas -v`` reports them with the
-    build's flags (compiled to a cubin under ``build/``)."""
+    """``build_and_report``'s lines from a cubin of ``csrc/<name>.cu``."""
     flags = [f for f in _build.FLAGS if f not in ("-shared", "-Xcompiler",
                                                   "-fPIC")]
     _build.BUILD.mkdir(exist_ok=True)
@@ -447,14 +538,22 @@ def ptxas_report(_build, name):
         [_build.nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
          str(_build.BUILD / f"{name}.cubin"), str(_build.CSRC / f"{name}.cu")],
         capture_output=True, text=True, check=True)
+    return parse_ptxas(proc.stderr, name)
+
+
+def parse_ptxas(log, name):
+    """The per-instance lines of a ``-Xptxas -v`` log of library ``name``;
+    an instance of the flags libraries (``csrc/*_flags.cu``) is marked
+    ``flags``."""
+    flags = ", flags" if name.endswith("_flags") else ""
     lines, fn, frame = [], None, ""
-    for line in proc.stderr.splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
                       r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", line)
         if m:
             fn = (f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}"
                   f"{', trace' if m[4] == '1' else ''}"
-                  f"{', profile' if m[5] == '1' else ''}>")
+                  f"{', profile' if m[5] == '1' else ''}{flags}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -465,7 +564,7 @@ def ptxas_report(_build, name):
             lines.append(f"{fn}: {m[1]} registers, {frame}")
             fn = None
     if not lines:
-        raise AssertionError(f"no ptxas report for {name}:\n{proc.stderr}")
+        raise AssertionError(f"no ptxas report for {name}:\n{log}")
     return lines
 
 
@@ -496,15 +595,17 @@ def host_ms(fn):
     return got, (time.perf_counter() - t0) * 1e3
 
 
-def bound(staged, cells, int32_per_s, x_drop=False):
+def bound(staged, cells, int32_per_s, x_drop=False, ops=None):
     """(bound_ms, bound_by) for one launch on ``staged``: each input read
     once and the int32 output, (B, 2) or in x-drop mode (B, 4), written
-    once, against the DP cells the pairs need."""
+    once, against the DP cells the pairs need at ``ops`` per cell (by
+    default the global or x-drop count)."""
     nbytes = (staged.codes.numel() + 4 * (staged.qlen.numel()
               + staged.rlen.numel() + staged.table.numel())
               + (16 if x_drop else 8) * staged.codes.shape[0])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = OPS_PER_CELL_XDROP if x_drop else OPS_PER_CELL
+    if ops is None:
+        ops = OPS_PER_CELL_XDROP if x_drop else OPS_PER_CELL
     t_ops = int(cells.sum()) * ops / int32_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -517,12 +618,14 @@ def reset_launches(lk, ak):
 def expect_launches(lk, ak, what, *launched):
     """The launch counts by kernel instance since ``reset_launches``; fails
     unless exactly the instances named in ``launched`` ran.  An instance's
-    name is its wrapper's, then ``_profile``, ``_xdrop``, ``_trace``."""
+    name is its wrapper's, then ``_profile``, ``_byte``, ``_flags``,
+    ``_xdrop``, ``_trace``."""
     counts = {}
     for fn in (lk.lane_align, ak.adaptive_align):
         for c in lk.COUNTERS:
             name = fn.__name__ + "".join(
-                f"_{m}" for m in ("profile", "xdrop", "trace") if m in c)
+                f"_{m}" for m in ("profile", "byte", "flags", "xdrop",
+                                  "trace") if f"{m}_" in c)
             counts[name] = getattr(fn, c)
     if any((counts[k] > 0) != (k in launched) for k in counts):
         raise AssertionError(f"{what}: launches {counts}, expected only "
@@ -539,12 +642,13 @@ def check_equal(got, want, what):
                              f"{got[bad].tolist()} vs {want[bad].tolist()}")
 
 
-def check_trace(got, want, what):
+def check_trace(got, want, what, words_per_row=1):
     """A trace instance's ``(out, words, desc, steps)`` against its plain
     version's: equal outputs and step counts, equal descriptors of every
     step a pair executed and equal words of those steps in the rows inside
-    each step's height.  Returns the count of checkpoint saves and
-    restores in the executed descriptors."""
+    each step's height (``words_per_row`` 2 in local-start mode: the zero
+    bits follow the 4-bit cells).  Returns the count of checkpoint saves
+    and restores in the executed descriptors."""
     import torch
 
     check_equal(got[0], want[0], what)
@@ -562,7 +666,7 @@ def check_trace(got, want, what):
         raise AssertionError(f"kernel != plain {what}: descriptor of pair {b} "
                              f"step {t}: {gd[t, b].tolist()} vs "
                              f"{desc[t, b].tolist()}")
-    rows = torch.arange(S, device=steps.device)
+    rows = torch.arange(S, device=steps.device) % (S // words_per_row)
     inside = ran[:, :, None] & (rows < desc[:, :, 3:4])
     diff = (got[1][:T] != words) & inside
     if bool(diff.any()):
@@ -575,7 +679,11 @@ def check_trace(got, want, what):
 
 
 def score_table(matrix):
-    """256 x 256 scores of letter pairs, by raw byte (``matrix.get``)."""
+    """256 x 256 scores of letter pairs, by raw byte (``matrix.get``); a
+    ``ByteMatrix`` scores every byte pair."""
+    if matrix.kind == "byte":
+        same = np.eye(256, dtype=bool)
+        return np.where(same, matrix.match_score, matrix.mismatch_score)
     tab = np.zeros((256, 256), np.int64)
     letters = list(range(65, 91)) + list(range(97, 123))
     for a in letters:
@@ -584,12 +692,21 @@ def score_table(matrix):
     return tab
 
 
-def check_cigars(cigars, pairs, results, matrix, gaps, what):
+def check_cigars(cigars, pairs, results, matrix, gaps, what, start="origin",
+                 at_most=False):
     """The reference's trace check (examples_tpu/verify_trace.py:42-54, and
     the rescoring of tests/test_accuracy_random.py:151-167) on every pair:
     a CIGAR's ops sum to the result's end position, and its matches and
     mismatches scored with the matrix plus each gap run's open + (len - 1)
-    * extend give the result's score.  Numpy over all pairs at once."""
+    * extend give the result's score.  Numpy over all pairs at once.  A
+    CIGAR starts at (0, 0) (``start="origin"``), or with free query start
+    gaps at query row 0 (``"query0"``), or with local start anywhere
+    (``"any"``): where its ops sum to short of the end, it is scored from
+    there.  With ``at_most`` (free query end gaps) a CIGAR may rescore
+    below its score: the reference's result is the best of every row in
+    row qlen's residue class (qlen % 16), at row qlen, so the score may be
+    another row's.  Returns the count of ops and of CIGARs that rescore
+    below their score."""
     from block_aligner_tpu_torch import Operation as Op
 
     runs = [np.array([(int(o.op), o.len) for o in c.to_vec()],
@@ -606,9 +723,13 @@ def check_cigars(cigars, pairs, results, matrix, gaps, what):
                     1).astype(np.int64)
     want_ends = np.array([(r.query_idx, r.reference_idx) for r in results],
                          np.int64).reshape(-1, 2)
-    if not np.array_equal(ends, want_ends):
-        k = int(np.flatnonzero((ends != want_ends).any(1))[0])
-        raise AssertionError(f"{what}: pair {k}: CIGAR {cigars[k]} ends at "
+    starts = want_ends - ends
+    ok = {"origin": (starts == 0).all(1),
+          "query0": (starts[:, 0] == 0) & (starts[:, 1] >= 0),
+          "any": (starts >= 0).all(1)}[start]
+    if not ok.all():
+        k = int(np.flatnonzero(~ok)[0])
+        raise AssertionError(f"{what}: pair {k}: CIGAR {cigars[k]} spans "
                              f"{tuple(ends[k])}, result {results[k]}")
     gap = np.where((op == Op.I) | (op == Op.D),
                    gaps.open + (ln - 1) * gaps.extend, 0)
@@ -616,11 +737,11 @@ def check_cigars(cigars, pairs, results, matrix, gaps, what):
     first = np.concatenate([[0], np.cumsum(nrun)[:-1]])
     i0 = np.cumsum(di) - di
     j0 = np.cumsum(dj) - dj
-    i0 -= i0[first[pair]] if len(pair) else 0
-    j0 -= j0[first[pair]] if len(pair) else 0
+    i0 -= i0[first[pair]] - starts[pair, 0] if len(pair) else 0
+    j0 -= j0[first[pair]] - starts[pair, 1] if len(pair) else 0
     rep = np.repeat(np.flatnonzero(diag), ln[diag])
-    start = np.repeat(np.cumsum(ln[diag]) - ln[diag], ln[diag])
-    off = np.arange(rep.size) - start
+    run0 = np.repeat(np.cumsum(ln[diag]) - ln[diag], ln[diag])
+    off = np.arange(rep.size) - run0
     width = max([len(q) for q, _ in pairs] + [len(r) for _, r in pairs] + [1])
     qb = np.zeros((B, width), np.uint8)
     rb = np.zeros((B, width), np.uint8)
@@ -632,25 +753,43 @@ def check_cigars(cigars, pairs, results, matrix, gaps, what):
     score = (np.bincount(pair, gap, B) + np.bincount(pr, sub, B)).astype(
         np.int64)
     want = np.array([r.score for r in results], np.int64)
-    if not np.array_equal(score, want):
-        k = int(np.flatnonzero(score != want)[0])
+    bad = score > want if at_most else score != want
+    if bad.any():
+        k = int(np.flatnonzero(bad)[0])
         raise AssertionError(f"{what}: pair {k}: CIGAR {cigars[k]} rescores "
                              f"to {score[k]}, result {results[k]}")
-    return int(ln.sum())
+    return int(ln.sum()), int((score < want).sum())
 
 
-def profile_gap_rects(tr, b, cigar):
+def cigar_span(cigar):
+    """(query, reference) positions a CIGAR's ops advance."""
+    from block_aligner_tpu_torch import Operation as Op
+
+    i = j = 0
+    for r in cigar.to_vec():
+        i += r.len * (int(r.op) != Op.D)
+        j += r.len * (int(r.op) != Op.I)
+    return i, j
+
+
+def profile_gap_rects(tr, b, cigar, result=None):
     """For each D run of pair ``b``'s CIGAR, in forward order: whether the
     walk read the run's first cell from a right rect, and whether the run
     passes from a down rect's last lane into a right rect (a hand-off).
     The rects are those the walk takes (``Trace.cigars_all``): walking back
     from the end, a pair keeps its rect until a cell leaves the rect's
-    lower bounds, then takes the latest earlier rect that holds it."""
+    lower bounds, then takes the latest earlier rect that holds it.  With
+    a ``result`` the CIGAR ends at its position and starts where its ops
+    lead back to (not at (0, 0) with local start or free start gaps);
+    without, it starts at (0, 0)."""
     from block_aligner_tpu_torch import Operation as Op
 
     rects = tr.rects_for(b)
     runs = [(int(r.op), r.len) for r in cigar.to_vec()]
-    cells, i, j = [], 0, 0
+    cells, (i, j) = [], (0, 0)
+    if result is not None:
+        di, dj = cigar_span(cigar)
+        i, j = result.query_idx - di, result.reference_idx - dj
     for op, n in runs:
         for _ in range(n):
             i += op != Op.D
@@ -675,7 +814,7 @@ def profile_gap_rects(tr, b, cigar):
     return out
 
 
-def rescore_profile(cigar, gap_rects, query, prof):
+def rescore_profile(cigar, gap_rects, query, prof, start=(0, 0)):
     """``(score, end)`` of a profile CIGAR under the block DP's profile
     costs: a matched query code c at profile position j scores
     ``pos_scores[j, c]`` (codes past 27 -128); a run of n query residues
@@ -685,12 +824,12 @@ def rescore_profile(cigar, gap_rects, query, prof):
     at the gap's first position, a down rect at the position before it
     (oracle.py::_SeqProfileFetch: a down rect opens a profile gap from its
     lane's own cost); ``gap_rects`` (``profile_gap_rects``) says which
-    rect read each D run's first cell."""
+    rect read each D run's first cell.  The CIGAR starts at ``start``."""
     from block_aligner_tpu_torch import Operation as Op
 
     codes = prof.convert(query).astype(np.int64)
     e = prof.get_gap_extend()
-    i = j = score = 0
+    (i, j), score = start, 0
     gaps = iter(gap_rects)
     for run in cigar.to_vec():
         op, n = int(run.op), run.len
@@ -711,7 +850,8 @@ def rescore_profile(cigar, gap_rects, query, prof):
     return score, (i, j)
 
 
-def check_profile_cigars(cigars, gap_rects, pairs, results, what):
+def check_profile_cigars(cigars, gap_rects, pairs, results, what,
+                         start="origin"):
     """Every profile CIGAR must sum to its result's end and rescore to its
     score under ``rescore_profile``, but for one case the reference's trace
     cannot show: a down rect's last lane hands its R, which holds that
@@ -721,12 +861,19 @@ def check_profile_cigars(cigars, gap_rects, pairs, results, what):
     through the down rect's gap, one position too far, so the walked path
     is not the one the DP scored.  A pair that misses must have such a
     hand-off in a D run, and rescore below its score (the walked path is a
-    real path, only not the best).  Returns (the pairs that miss, the
-    pairs with a hand-off)."""
+    real path, only not the best).  A CIGAR starts as ``check_cigars``'
+    ``start`` says.  Returns (the pairs that miss, the pairs with a
+    hand-off)."""
     miss, hand = [], 0
     for k, (cig, gr, (q, prof), res) in enumerate(zip(cigars, gap_rects,
                                                       pairs, results)):
-        score, end = rescore_profile(cig, gr, q, prof)
+        di, dj = cigar_span(cig)
+        i0, j0 = res.query_idx - di, res.reference_idx - dj
+        if not {"origin": i0 == j0 == 0, "query0": i0 == 0 and j0 >= 0,
+                "any": i0 >= 0 and j0 >= 0}[start]:
+            raise AssertionError(f"{what}: pair {k}: CIGAR {cig} spans "
+                                 f"{(di, dj)}, result {res}")
+        score, end = rescore_profile(cig, gr, q, prof, (i0, j0))
         if end != (res.query_idx, res.reference_idx):
             raise AssertionError(f"{what}: pair {k}: CIGAR {cig} ends at "
                                  f"{end}, result {res}")
@@ -742,9 +889,9 @@ def check_profile_cigars(cigars, gap_rects, pairs, results, what):
     return miss, hand
 
 
-def walk_both(got, want, ends, matrix, what):
+def walk_both(got, want, ends, matrix, what, cfg=None):
     """CIGARs walked from a kernel's trace and from its plain version's
-    trace must be equal."""
+    trace (computed with ``cfg``'s flags) must be equal."""
     from block_aligner_tpu_torch.core.traceback import Trace
 
     cig = []
@@ -752,12 +899,44 @@ def walk_both(got, want, ends, matrix, what):
         st = steps.cpu().numpy()
         T = int(st.max())
         tr = Trace(words[:T].cpu().numpy(), desc[:T].cpu().numpy(), st,
-                   matrix)
+                   matrix, **trace_flags(cfg))
         cig.append([str(c) for c in tr.cigars_all(ends)])
     if cig[0] != cig[1]:
         k = next(k for k in range(len(ends)) if cig[0][k] != cig[1][k])
         raise AssertionError(f"{what}: CIGAR of pair {k}: kernel {cig[0][k]} "
                              f"vs plain {cig[1][k]}")
+
+
+def trace_flags(cfg):
+    """The flags a ``Trace`` of ``cfg``'s output needs."""
+    return dict(local_start=getattr(cfg, "local_start", False),
+                free_query_start_gaps=getattr(cfg, "free_query_start_gaps",
+                                              False))
+
+
+def cigar_start(cfg):
+    """Where ``cfg``'s CIGARs start (``check_cigars``' ``start``)."""
+    if cfg.local_start:
+        return "any"
+    return "query0" if cfg.free_query_start_gaps else "origin"
+
+
+def ops_per_cell(cfg):
+    """The int32 operations a DP cell of ``cfg``'s mode needs at least."""
+    ops = OPS_PER_CELL
+    if cfg.x_drop or cfg.free_query_end_gaps:
+        ops += OPS_PER_CELL_XDROP - OPS_PER_CELL  # the tracker
+    if cfg.trace:
+        ops += OPS_PER_CELL_TRACE
+        if cfg.local_start:
+            ops += OPS_PER_CELL_ZERO_BIT
+    if cfg.profile:
+        ops += OPS_PER_CELL_PROFILE
+    if cfg.byte_mode:
+        ops += OPS_PER_CELL_BYTE
+    if cfg.local_start:
+        ops += OPS_PER_CELL_LOCAL
+    return ops
 
 
 def check_goldens(golden, BatchAligner, Gaps, scores, dev):
@@ -816,18 +995,16 @@ def main():
     print(card)
     dev = torch.device("cuda")
 
-    # 2. build: one nvcc per source, and one per source for ptxas's
-    # report, all started together
+    # 2. build: one nvcc per library, all started together, each with
+    # ptxas's report
     t0 = time.perf_counter()
-    names = ("lane_kernel", "adaptive_kernel", "lane_profile",
-             "adaptive_profile")
-    with ThreadPoolExecutor(2 * len(names)) as pool:
-        reports = [pool.submit(ptxas_report, _build, n) for n in names]
-        paths = list(pool.map(_build.build, names))
-        reports = [line for r in reports for line in r.result()]
-    for profile in (False, True):
-        lk._lib(profile)
-        ak._lib(profile)
+    names = lk.LIBRARIES
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(lambda n: build_and_report(_build, n), names))
+    paths = [path for path, _ in built]
+    reports = [line for _, lines in built for line in lines]
+    for name in names:
+        (lk if name.startswith("lane") else ak)._lib(name)
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in reports:
@@ -1116,11 +1293,11 @@ def main():
           f"(lane, adaptive) {exp_launches}")
     phase("7, align_exp_all")
 
-    def xdrop_path(al, work, what, name, plain_fn, kernel_fn):
-        """Drive an x-drop main path (stage + align_staged, then align_all)
-        with the launch counts reset just before it and read just after,
-        hold every result against the plain version on the card, and time
-        it; returns the path's numbers for the kernels line."""
+    def main_path(al, work, what, name, plain_fn, kernel_fn):
+        """Drive a main path (stage + align_staged, then align_all) with
+        the launch counts reset just before it and read just after, hold
+        every result against the plain version on the card, and time it;
+        returns the path's numbers for the kernels line."""
         torch.cuda.synchronize()
         reset_launches(lk, ak)
         staged, pack_ms = host_ms(lambda: al.stage(work))
@@ -1139,20 +1316,27 @@ def main():
         got = torch.from_numpy(np.column_stack(
             [[(r.score, r.query_idx, r.reference_idx) for r in res], last])
             .astype(np.int32))
-        err = int((got - want.cpu()).abs().max())
+        wide = lk.wide(al.cfg)
+        want = want.cpu()
+        if not wide:
+            want = torch.stack([want[:, 0], staged.qlen.cpu(),
+                                staged.rlen.cpu(), want[:, 1]], 1)
+        err = int((got - want).abs().max())
         if err:
             raise AssertionError(f"{what}: differs from the plain version: max "
                                  f"abs err {err}")
         kernel_ms = cuda_ms(lambda: kernel_fn(*staged, al.cfg), 10)
-        bnd, by = bound(staged, cells, int32_per_s, x_drop=True)
+        bnd, by = bound(staged, cells, int32_per_s, x_drop=wide,
+                        ops=ops_per_cell(al.cfg))
         B, n_cells = len(work), int(cells.sum())
         sc = got[:, 0].numpy()
         print(f"[{name}-main] {B} pairs, {what}: stage+align_staged and "
               f"align_all agree and equal the plain version; {name} launches "
               f"{launches}; scores {sc.min()}..{sc.max()} (mean "
-              f"{sc.mean():.1f}); best short of (qlen, rlen) in "
-              f"{x_dropped(want, staged)}; {n_cells} DP cells, "
-              f"{n_cells / B:.0f} per pair" + (
+              f"{sc.mean():.1f}); "
+              + (f"best short of (qlen, rlen) in {x_dropped(want, staged)}; "
+                 if wide else "")
+              + f"{n_cells} DP cells, {n_cells / B:.0f} per pair" + (
                   "" if flags is None else f"; suspect {int(flags.sum())}"))
         print(f"[time] {card}: {name}, {what}: kernel "
               f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
@@ -1166,7 +1350,7 @@ def main():
     # 8. the lane x-drop main path
     xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
                        batch=8192, seq_cap=1100, x_drop=50, device=dev)
-    lane_x = xdrop_path(
+    lane_x = main_path(
         xal, xdrop_protein_pairs(np.random.default_rng(7), 8192),
         "protein 800..999 with len/10 substitutions, BLOSUM62 -11/-1, "
         "x_drop 50, (32, 32)", "lane_align_xdrop", lk.lane_align_plain,
@@ -1183,13 +1367,13 @@ def main():
     xal = BatchAligner(scores.NucMatrix.new_simple(1, -1), Gaps(-2, -1),
                        size=(32, 64), batch=8192, seq_cap=300 + 300 // 8 + 32,
                        x_drop=50, device=dev)
-    ad_x = xdrop_path(
+    ad_x = main_path(
         xal, dna, "DNA 300 with 30 edits, NucMatrix(1, -1) -2/-1, x_drop 50, "
         "(32, 64)", "adaptive_align_xdrop", ak.adaptive_align_plain,
         ak.adaptive_align)
     xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
                        batch=len(uc), seq_cap=512, x_drop=50, device=dev)
-    xdrop_path(xal, uc, "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, "
+    main_path(xal, uc, "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, "
                "x_drop 50, (32, 256)", "adaptive_align_xdrop",
                ak.adaptive_align_plain, ak.adaptive_align)
     phase("9, adaptive x-drop main paths")
@@ -1241,7 +1425,7 @@ def main():
     for S in (16, 32, 64, 256, 512):
         for xd in (False, True):
             for matrix, gaps, alphabet, x in setups:
-                pairs = random_pairs(rng, alphabet, 96, 400)
+                pairs = random_pairs(rng, alphabet, 64, 400)
                 cfg = lk.LaneKernelConfig(
                     S, -(-(1 + 400 + S + 16) // 128) * 128,
                     32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
@@ -1257,7 +1441,7 @@ def main():
     for lo, hi in ladders_t:
         for xd in (False, True):
             for matrix, gaps, alphabet, x in setups:
-                pairs = structural_pairs(rng, alphabet, 96, 400)
+                pairs = structural_pairs(rng, alphabet, 64, 400)
                 if hi == 512 and matrix.kind == "aa":
                     pairs += grow_to_512_pairs(rng, 4)
                 cfg = ak.AdaptiveKernelConfig(
@@ -1314,7 +1498,9 @@ def main():
         if base is not None and base.align_all(work, sort=False) != res:
             raise AssertionError(f"{what}: results differ from the non-trace "
                                  "instance's")
-        n_ops = check_cigars(cigars, work, res, al.matrix, al.gaps, what)
+        fend = al.cfg.free_query_end_gaps
+        n_ops, below = check_cigars(cigars, work, res, al.matrix, al.gaps,
+                                    what, cigar_start(al.cfg), at_most=fend)
         # the plain version: every result, and the first 512 CIGARs
         cfg0 = al.cfg if base is None else dataclasses.replace(al.cfg,
                                                                trace=False)
@@ -1326,23 +1512,30 @@ def main():
         got = torch.tensor([(r.score, r.query_idx, r.reference_idx)
                             for r in res], dtype=torch.int32)
         want = want.cpu()
-        if al.cfg.x_drop:
+        if lk.wide(al.cfg):
             err = int((got - want[:, :3]).abs().max())
         else:
             err = int((got[:, 0] - want[:, 0]).abs().max())
         if err:
             raise AssertionError(f"{what}: differs from the plain version: "
                                  f"max abs err {err}")
-        sub = work[:512]
-        pk = lk.pack_lane(sub, al.matrix, al.cfg, al.gaps, dev, x_drop=x)
-        _, words, desc, steps = plain_fn(*pk, al.cfg)
-        tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
-                   steps.cpu().numpy(), al.matrix)
-        ends = [(r.query_idx, r.reference_idx) for r in res[: len(sub)]]
-        if [str(c) for c in tr.cigars_all(ends)] != [str(c) for c in
-                                                      cigars[: len(sub)]]:
-            raise AssertionError(f"{what}: CIGARs differ from the plain "
-                                 "version's on the first 512 pairs")
+        # the first 512 CIGARs (with free end gaps all) against the plain
+        # version's
+        n_cmp = len(work) if fend else min(512, len(work))
+        for k in range(0, n_cmp, al.batch_size):
+            sub = work[k : min(k + al.batch_size, n_cmp)]
+            pk = lk.pack_lane(sub, al.matrix, al.cfg, al.gaps, dev,
+                              x_drop=x)
+            _, words, desc, steps = plain_fn(*pk, al.cfg)
+            tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
+                       steps.cpu().numpy(), al.matrix, **trace_flags(al.cfg))
+            del words, desc
+            ends = [(r.query_idx, r.reference_idx)
+                    for r in res[k : k + len(sub)]]
+            if [str(c) for c in tr.cigars_all(ends)] != [
+                    str(c) for c in cigars[k : k + len(sub)]]:
+                raise AssertionError(f"{what}: CIGARs differ from the plain "
+                                     f"version's in pairs {k}..")
         # times per batch: pack, kernel (CUDA events; the non-trace twin on
         # the same batches beside it), the trace's copy to the host alone,
         # _decode (that copy, the replay of the events, the results), walk
@@ -1373,11 +1566,12 @@ def main():
             trb = al.trace()
             ran = np.arange(trb.desc.shape[0])[:, None] < trb.steps[None, :]
             nbytes += (staged.codes.numel() + 4 * (2 * len(chunk)
-                       + staged.table.numel()) + (16 if x else 8) * len(chunk)
+                       + staged.table.numel())
+                       + (16 if lk.wide(al.cfg) else 8) * len(chunk)
                        + 4 * len(chunk) + 16 * int(ran.sum())
-                       + 4 * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
-        ops = (OPS_PER_CELL_XDROP if al.cfg.x_drop else OPS_PER_CELL) \
-            + OPS_PER_CELL_TRACE
+                       + 4 * lk.trace_words(al.cfg)
+                       * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
+        ops = ops_per_cell(al.cfg)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = int(cells.sum()) * ops / int32_per_s * 1e3
         bnd, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
@@ -1388,8 +1582,13 @@ def main():
               f"of {al.batch_size}; {name} launches {launches}; results equal "
               + ("the non-trace instance's and " if base is not None else "")
               + "the plain version's; every CIGAR "
-              f"sums to its end and rescores to its score ({n_ops} ops); the "
-              "first 512 equal the plain version's; scores "
+              f"spans to its end from its start ({cigar_start(al.cfg)}) and "
+              + (f"rescores to at most its score, {below} below (the best of "
+                 "another row of row qlen's residue class); all equal the "
+                 "plain version's; " if fend else
+                 f"rescores to its score ({n_ops} ops); the first 512 equal "
+                 "the plain version's; ")
+              + "scores "
               f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
               f"{int(cells.sum())} DP cells, {int(cells.sum()) / B:.0f} per "
               f"pair; {nbytes / B:.0f} bytes per pair")
@@ -1555,18 +1754,15 @@ def main():
           "adaptive (32, 256): kernel equal to plain")
     phase("15, profile instances vs plain")
 
-    OPS_PROFILE = OPS_PER_CELL + OPS_PER_CELL_PROFILE
-
-    def profile_bound(pk, cells, x_drop=False, trace_bytes=0, trace=False):
+    def profile_bound(pk, cells, cfg, trace_bytes=0):
         """(bound_ms, bound_by) of a profile launch: each pair's query
         codes and the 32-byte rows of its profile positions 0..rlen read
         once, the output written once (and the trace's bytes), against the
-        DP cells at the profile mode's operations per cell."""
+        DP cells at ``cfg``'s operations per cell."""
         B = pk.qlen.shape[0]
         nbytes = (int(pk.qlen.sum()) + int(pk.rlen.sum()) * 32 + 33 * B
-                  + 8 * B + (16 if x_drop else 8) * B + trace_bytes)
-        ops = OPS_PROFILE + (2 if x_drop else 0) + (OPS_PER_CELL_TRACE
-                                                   if trace else 0)
+                  + 8 * B + (16 if lk.wide(cfg) else 8) * B + trace_bytes)
+        ops = ops_per_cell(cfg)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = int(cells.sum()) * ops / int32_per_s * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
@@ -1597,7 +1793,7 @@ def main():
             [[(r.score, r.query_idx, r.reference_idx) for r in res], last])
             .astype(np.int32))
         want = want.cpu()
-        if not al.cfg.x_drop:
+        if not lk.wide(al.cfg):
             want = torch.stack([want[:, 0], staged.qlen.cpu(),
                                 staged.rlen.cpu(), want[:, 1]], 1)
         err = int((got - want).abs().max())
@@ -1605,7 +1801,7 @@ def main():
             raise AssertionError(f"{what}: differs from the plain version: max "
                                  f"abs err {err}")
         kernel_ms = cuda_ms(lambda: kernel_fn(*staged, al.cfg), 10)
-        bnd, by = profile_bound(staged, cells, al.cfg.x_drop)
+        bnd, by = profile_bound(staged, cells, al.cfg)
         B, n_cells = len(work), int(cells.sum())
         sc = got[:, 0].numpy()
         print(f"[{name}-main] {B} pairs, {what}: stage+align_staged and "
@@ -1727,11 +1923,12 @@ def main():
             res += got_b
             cigars += cg
             trb = al.trace()
-            gap_rects += [profile_gap_rects(trb, b, c)
-                          for b, c in enumerate(cg)]
+            gap_rects += [profile_gap_rects(trb, b, c, r)
+                          for b, (c, r) in enumerate(zip(cg, got_b))]
             ran = np.arange(trb.desc.shape[0])[:, None] < trb.steps[None, :]
             nbytes += (4 * len(chunk) + 16 * int(ran.sum())
-                       + 4 * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
+                       + 4 * lk.trace_words(al.cfg)
+                       * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
         launches = expect_launches(lk, ak, what, name)[name]
         for k in range(0, len(work), al.batch_size):
             chunk = work[k : k + al.batch_size]
@@ -1742,14 +1939,14 @@ def main():
             raise AssertionError(f"{what}: results differ from the non-trace "
                                  "instance's")
         miss, hand = check_profile_cigars(cigars, gap_rects, work, res,
-                                          what)
+                                          what, cigar_start(al.cfg))
         pk = pack_profile(work, cfg0, dev, x_drop=x)
         plain_res, plain_ms = host_ms(
             lambda: plain_fn(*pk, cfg0, count_cells=True))
         want, cells = plain_res[0].cpu(), plain_res[-1]
         got = torch.tensor([(r.score, r.query_idx, r.reference_idx)
                             for r in res], dtype=torch.int32)
-        if al.cfg.x_drop:
+        if lk.wide(al.cfg):
             err = int((got - want[:, :3]).abs().max())
         else:
             err = int((got[:, 0] - want[:, 0]).abs().max())
@@ -1765,7 +1962,7 @@ def main():
                 pk = pack_profile(sub, al.cfg, dev, x_drop=x)
                 _, words, desc, steps = plain_fn(*pk, al.cfg)
                 tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
-                           steps.cpu().numpy())
+                           steps.cpu().numpy(), **trace_flags(al.cfg))
                 ends = [(res[i].query_idx, res[i].reference_idx)
                         for i in part]
                 if [str(c) for c in tr.cigars_all(ends)] != [
@@ -1774,7 +1971,7 @@ def main():
                                          "plain version's")
         ops = sum(len(c.to_vec()) for c in cigars)
         bnd, by = profile_bound(pack_profile(work, cfg0, dev, x_drop=x),
-                                cells, al.cfg.x_drop, nbytes, trace=True)
+                                cells, al.cfg, nbytes)
         B = len(work)
         sc = got[:, 0].numpy()
         print(f"[{name}-main] {B} pairs, {what}: batches of {al.batch_size}; "
@@ -1812,6 +2009,267 @@ def main():
         trace_paths[name] = profile_trace_path(
             ProfileAligner(size, trace=True, **kw), ProfileAligner(size, **kw),
             scop, f"{what}, {size}" + (f", x_drop {x}" if x else ""), name)
+
+    # 19. the byte and flags instances (csrc/*_flags.cu) vs their plain
+    # versions: ByteMatrix on pairs over all 256 bytes with byte 0 and the
+    # golden pair, and each flag, global, x-drop (not free end gaps) and
+    # trace, sequence and profile
+    byte1 = scores.ByteMatrix(1, -1)
+    two = ((False, False), (False, True))
+    flag_sets = (("byte", dict(byte_mode=True), two),
+                 ("local start", dict(local_start=True), modes),
+                 ("free start gaps", dict(free_query_start_gaps=True), modes),
+                 ("free end gaps", dict(free_query_end_gaps=True), two))
+
+    def flags_vs_plain(cfg, pairs, x, what):
+        """A flags instance against its plain version on the same packed
+        pairs: equal outputs and, in trace mode, step counts, descriptors,
+        words (the zero bits of local start too) and CIGARs."""
+        lane = isinstance(cfg, lk.LaneKernelConfig)
+        if cfg.profile:
+            matrix, pk = None, pack_profile(pairs, cfg, dev, x_drop=x)
+        else:
+            matrix = byte1 if cfg.byte_mode else scores.BLOSUM62
+            pk = lk.pack_lane(pairs, matrix, cfg, Gaps(-11, -1), dev,
+                              x_drop=x)
+        got = (lk.lane_align if lane else ak.adaptive_align)(*pk, cfg)
+        torch.cuda.synchronize()
+        want = (lk.lane_align_plain if lane
+                else ak.adaptive_align_plain)(*pk, cfg)
+        if not cfg.trace:
+            check_equal(got, want, what)
+            return got
+        check_trace(got, want, what, lk.trace_words(cfg))
+        out = want[0].cpu().numpy()
+        ends = ([(int(o[1]), int(o[2])) for o in out] if lk.wide(cfg) else
+                [(len(q), r.str_len if cfg.profile else len(r))
+                 for q, r in pairs])
+        walk_both(got, want, ends, matrix, what, cfg)
+        return got
+
+    def flag_pairs(cfg, grow):
+        """32 pairs of lengths 0..300 for ``cfg``'s mode, and with ``grow``
+        2 whose adaptive blocks grow to 512; free end gaps cut the queries
+        short of the min size."""
+        if cfg.byte_mode:
+            pairs = byte_pairs(rng, 32, 300)
+        elif cfg.profile:
+            pairs = profile_pairs(rng, 32, 300) + (
+                grow_profile_pairs(rng, 2) if grow else [])
+        else:
+            pairs = structural_pairs(rng, AA, 32, 300) + (
+                grow_to_512_pairs(rng, 2, 560, 300) if grow else [])
+        if cfg.free_query_end_gaps:
+            pairs = [(q[: cfg.min_size - 1], r) for q, r in pairs]
+        return pairs
+
+    def flag_runs(size, sets):
+        """Every instance of ``sets`` at ``size`` against its plain
+        version; returns (pairs checked, x-drop ends short)."""
+        lo, hi = size
+        checked = dropped = 0
+        for label, flags, fmodes in sets:
+            for prof in (False, True):
+                if prof and flags.get("byte_mode"):
+                    continue
+                for xd, tr in fmodes:
+                    if hi == 512 and not (tr or prof):
+                        continue  # max_size 512 takes the big route
+                    kw = dict(x_drop=xd, trace=tr, profile=prof, **flags)
+                    cap = -(-(1 + 900 + hi + 16) // 128) * 128
+                    alpha = 256 if flags.get("byte_mode") else 32
+                    cfg = (lk.LaneKernelConfig(hi, cap, alpha, **kw)
+                           if lo == hi else
+                           ak.AdaptiveKernelConfig(lo, hi, cap, alpha, **kw))
+                    pairs = flag_pairs(cfg, hi == 512 and lo < hi)
+                    got = flags_vs_plain(
+                        cfg, pairs, 50 if xd else 0,
+                        f"{label} {size} profile={prof} x_drop={xd} "
+                        f"trace={tr}")
+                    checked += len(pairs)
+                    if xd:
+                        dropped += x_dropped(got[0] if tr else got,
+                                             SimpleNamespace(
+                                                 qlen=torch.tensor(
+                                                     [len(q) for q, _ in
+                                                      pairs]),
+                                                 rlen=torch.tensor(
+                                                     [r.str_len if prof
+                                                      else len(r) for _, r
+                                                      in pairs])))
+        return checked, dropped
+
+    checked = dropped = 0
+    for S in (16, 32, 128, 512):
+        c, d = flag_runs((S, S), flag_sets)
+        checked, dropped = checked + c, dropped + d
+    if not dropped:
+        raise AssertionError("no lane flags x-drop pair ended short")
+    print(f"[lane-flags-vs-plain] {checked} pairs at S in 16,32,128,512: "
+          "ByteMatrix(1, -1) global and trace (all 256 bytes, byte 0, the "
+          "golden pair); local start and free start gaps global, x-drop "
+          "50, trace and x-drop trace; free end gaps (queries shorter than "
+          "S) global and trace; sequences and profiles: outputs equal, and "
+          "in trace mode step counts, descriptors, words (local start's "
+          f"zero bits too) and CIGARs; {dropped} x-drop best positions "
+          "short of the ends")
+    checked = dropped = 0
+    for size in ((32, 256), (32, 512)):
+        c, d = flag_runs(size, flag_sets)
+        checked, dropped = checked + c, dropped + d
+    if not dropped:
+        raise AssertionError("no adaptive flags x-drop pair ended short")
+    print(f"[adaptive-flags-vs-plain] {checked} pairs at (32, 256) and (32, "
+          "512) in the same modes (at (32, 512) with trace or profiles "
+          "only, with 2 pairs whose blocks grow to 512): outputs equal, and "
+          "in trace mode step counts, descriptors, words and CIGARs; "
+          f"{dropped} x-drop best positions short of the ends")
+    phase("19, byte and flags instances vs plain")
+
+    # 20. the ByteMatrix main paths
+    bpairs = rand_byte_pairs(np.random.default_rng(1234), 16384, 1000, 100)
+    lane_b = main_path(
+        BatchAligner(byte1, Gaps(-11, -1), size=(32, 32), batch=16384,
+                     seq_cap=1024, device=dev), bpairs,
+        "bytes 0..255 1000x1000 k=100, ByteMatrix(1, -1) -11/-1, (32, 32)",
+        "lane_align_byte", lk.lane_align_plain, lk.lane_align)
+    phase("20, lane_align_byte main path")
+    ad_b = main_path(
+        BatchAligner(byte1, Gaps(-11, -1), size=(32, 256), batch=len(uc),
+                     seq_cap=512, device=dev), uc,
+        "uc30 homologs 50-256 + indels, ByteMatrix(1, -1) -11/-1, (32, 256)",
+        "adaptive_align_byte", ak.adaptive_align_plain, ak.adaptive_align)
+    phase("20, adaptive_align_byte main path")
+    byte2 = scores.ByteMatrix(2, -4)
+    kw = dict(size=(32, 32), batch=len(ill), seq_cap=180, device=dev)
+    bal = BatchAligner(byte2, ngaps, trace=True, **kw)
+    lane_bt = trace_path(bal, ill, "Illumina-like 100..150 bases, 1% edits, "
+                         "ByteMatrix(2, -4) -6/-2, (32, 32)",
+                         "lane_align_byte_trace",
+                         BatchAligner(byte2, ngaps, **kw))
+    # on ACGT reads byte equality scores as NucMatrix(2, -4) does
+    bres = BatchAligner(byte2, ngaps, **kw).align_all(ill, sort=False)
+    nres = BatchAligner(nuc, ngaps, **kw).align_all(ill, sort=False)
+    if bres != nres:
+        k = next(k for k in range(len(ill)) if bres[k] != nres[k])
+        raise AssertionError(f"byte Illumina pair {k}: {bres[k]} != "
+                             f"NucMatrix {nres[k]}")
+    print(f"[byte-vs-nuc] {len(ill)} Illumina-like pairs: ByteMatrix(2, -4) "
+          "results equal NucMatrix(2, -4)'s on the lane route")
+    kw = dict(size=(32, 256), batch=2048, seq_cap=512, device=dev)
+    ad_bt = trace_path(BatchAligner(byte1, Gaps(-11, -1), trace=True, **kw),
+                       uc, "uc30 homologs 50-256 + indels, ByteMatrix(1, -1) "
+                       "-11/-1, (32, 256)", "adaptive_align_byte_trace",
+                       BatchAligner(byte1, Gaps(-11, -1), **kw))
+
+    # 21. local start: the uc30 pairs at (32, 256), global and traced, the
+    # x-drop protein pairs at (32, 32) with x 50, and uc30 with x 50
+    local = dict(local_start=True)
+    blosum = (scores.BLOSUM62, Gaps(-11, -1))
+    ad_f = main_path(
+        BatchAligner(*blosum, size=(32, 256), batch=len(uc), seq_cap=512,
+                     device=dev, **local), uc,
+        "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, 256), local "
+        "start", "adaptive_align_flags", ak.adaptive_align_plain,
+        ak.adaptive_align)
+    phase("21, adaptive_align_flags main path")
+    kw = dict(size=(32, 256), batch=2048, seq_cap=512, device=dev, **local)
+    ad_ft = trace_path(BatchAligner(*blosum, trace=True, **kw), uc,
+                       "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, "
+                       "256), local start", "adaptive_align_flags_trace",
+                       BatchAligner(*blosum, **kw))
+    xprot = xdrop_protein_pairs(np.random.default_rng(7), 8192)
+    kw = dict(size=(32, 32), batch=8192, seq_cap=1100, x_drop=50, device=dev,
+              **local)
+    what = ("protein 800..999 with len/10 substitutions, BLOSUM62 -11/-1, "
+            "x_drop 50, (32, 32), local start")
+    lane_fx = main_path(BatchAligner(*blosum, **kw), xprot, what,
+                         "lane_align_flags_xdrop", lk.lane_align_plain,
+                         lk.lane_align)
+    phase("21, lane_align_flags_xdrop main path")
+    lane_fxt = trace_path(BatchAligner(*blosum, trace=True, **kw), xprot,
+                          what, "lane_align_flags_xdrop_trace",
+                          BatchAligner(*blosum, **kw))
+    kw = dict(size=(32, 256), seq_cap=512, x_drop=50, device=dev, **local)
+    what = ("uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, x_drop 50, "
+            "(32, 256), local start")
+    ad_fx = main_path(BatchAligner(*blosum, batch=len(uc), **kw), uc, what,
+                       "adaptive_align_flags_xdrop", ak.adaptive_align_plain,
+                       ak.adaptive_align)
+    phase("21, adaptive_align_flags_xdrop main path")
+    ad_fxt = trace_path(BatchAligner(*blosum, trace=True, batch=2048, **kw),
+                        uc, what, "adaptive_align_flags_xdrop_trace",
+                        BatchAligner(*blosum, batch=2048, **kw))
+
+    # 22. free start gaps: the nanopore-like reads at (32, 32), traced
+    kw = dict(size=(32, 32), batch=len(ont), seq_cap=1100, device=dev,
+              free_query_start_gaps=True)
+    lane_ft = [trace_path(
+        BatchAligner(nuc, ngaps, trace=True, **kw), ont,
+        "nanopore-like 800..999 bases, 10% edits, NucMatrix(2, -4) -6/-2, "
+        "(32, 32), free query start gaps", "lane_align_flags_trace",
+        BatchAligner(nuc, ngaps, **kw))]
+
+    # 23. free end gaps: the Illumina-like reads (100..150 < 256) at lane
+    # (256, 256), global and traced
+    kw = dict(size=(256, 256), batch=len(ill), seq_cap=180, device=dev,
+              free_query_end_gaps=True)
+    what = ("Illumina-like 100..150 bases, 1% edits, NucMatrix(2, -4) -6/-2, "
+            "(256, 256), free query end gaps")
+    lane_f = main_path(BatchAligner(nuc, ngaps, **kw), ill, what,
+                        "lane_align_flags", lk.lane_align_plain,
+                        lk.lane_align)
+    phase("23, lane_align_flags main path")
+    lane_ft.append(trace_path(BatchAligner(nuc, ngaps, trace=True, **kw), ill,
+                              what, "lane_align_flags_trace",
+                              BatchAligner(nuc, ngaps, **kw)))
+    lane_ft = merged(*lane_ft)
+
+    # 24. profile flags: the SCOP-style pairs at lane (32, 32) with local
+    # start, adaptive (32, 256) with free start gaps, lane (256, 256) with
+    # free end gaps; the first two with x-drop 50 and traced (2048 pairs)
+    what = "SCOP-style seq-PSSM 30..199, gap opens -13..-9, close 0"
+    if max(len(q) for q, _ in scop) >= 256:
+        raise AssertionError("a SCOP query is too long for free end gaps")
+    lane_pf = [profile_path(ProfileAligner(
+        (32, 32), batch=len(scop), seq_cap=slen + 32, local_start=True,
+        device=dev), scop, f"{what}, (32, 32), local start",
+        "lane_align_profile_flags")]
+    lane_pf.append(profile_path(ProfileAligner(
+        (256, 256), batch=len(scop), seq_cap=slen + 256,
+        free_query_end_gaps=True, device=dev), scop,
+        f"{what}, (256, 256), free query end gaps",
+        "lane_align_profile_flags"))
+    lane_pf = merged(*lane_pf)
+    ad_pf = profile_path(ProfileAligner(
+        batch=len(scop), seq_cap=slen + 32, free_query_start_gaps=True,
+        device=dev), scop, f"{what}, (32, 256), free query start gaps",
+        "adaptive_align_profile_flags")
+    lane_pfx = profile_path(ProfileAligner(
+        (32, 32), batch=len(scop), seq_cap=slen + 32, x_drop=50,
+        local_start=True, device=dev), scop,
+        f"{what}, x_drop 50, (32, 32), local start",
+        "lane_align_profile_flags_xdrop")
+    ad_pfx = profile_path(ProfileAligner(
+        batch=len(scop), seq_cap=slen + 32, x_drop=50,
+        free_query_start_gaps=True, device=dev), scop,
+        f"{what}, x_drop 50, (32, 256), free query start gaps",
+        "adaptive_align_profile_flags_xdrop")
+    flag_traces = {}
+    for size, x, flag, name in (
+            ((32, 32), None, "local_start", "lane_align_profile_flags_trace"),
+            ((32, 256), None, "free_query_start_gaps",
+             "adaptive_align_profile_flags_trace"),
+            ((32, 32), 50, "local_start",
+             "lane_align_profile_flags_xdrop_trace"),
+            ((32, 256), 50, "free_query_start_gaps",
+             "adaptive_align_profile_flags_xdrop_trace")):
+        kw = dict(batch=2048, seq_cap=slen + 32, x_drop=x, device=dev,
+                  **{flag: True})
+        flag_traces[name] = profile_trace_path(
+            ProfileAligner(size, trace=True, **kw), ProfileAligner(size, **kw),
+            scop[:2048], f"{what}, {size}" + (f", x_drop {x}" if x else "")
+            + f", {flag.replace('_', ' ')}", name)
 
     print(json.dumps({"kernels": [
         {
@@ -1907,6 +2365,45 @@ def main():
             ("adaptive_align_profile", ad_p),
             ("adaptive_align_profile_xdrop", ad_px),
             *trace_paths.items())
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"block_aligner_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            **numbers,
+            "library_ms": None,
+        }
+        for name, source, replaces, numbers in (
+            ("lane_align_byte", "lane_flags", LANE_BYTE, lane_b),
+            ("lane_align_byte_trace", "lane_flags", LANE_BYTE, lane_bt),
+            ("adaptive_align_byte", "adaptive_flags", AD_BYTE, ad_b),
+            ("adaptive_align_byte_trace", "adaptive_flags", AD_BYTE, ad_bt),
+            ("lane_align_flags", "lane_flags", LANE_FREE_END, lane_f),
+            ("lane_align_flags_xdrop", "lane_flags", LANE_FLAGS, lane_fx),
+            ("lane_align_flags_trace", "lane_flags", LANE_FLAGS, lane_ft),
+            ("lane_align_flags_xdrop_trace", "lane_flags", LANE_ZERO_BIT,
+             lane_fxt),
+            ("adaptive_align_flags", "adaptive_flags", AD_FLAGS, ad_f),
+            ("adaptive_align_flags_xdrop", "adaptive_flags", AD_FLAGS,
+             ad_fx),
+            ("adaptive_align_flags_trace", "adaptive_flags", AD_ZERO_BIT,
+             ad_ft),
+            ("adaptive_align_flags_xdrop_trace", "adaptive_flags",
+             AD_ZERO_BIT, ad_fxt),
+            ("lane_align_profile_flags", "lane_profile_flags", LANE_FLAGS,
+             lane_pf),
+            ("lane_align_profile_flags_xdrop", "lane_profile_flags",
+             LANE_FLAGS, lane_pfx),
+            ("adaptive_align_profile_flags", "adaptive_profile_flags",
+             AD_FLAGS, ad_pf),
+            ("adaptive_align_profile_flags_xdrop", "adaptive_profile_flags",
+             AD_FLAGS, ad_pfx),
+            *((name, ("lane_profile_flags" if name.startswith("lane") else
+                      "adaptive_profile_flags"),
+               LANE_ZERO_BIT if name.startswith("lane") else AD_FLAGS,
+               numbers)
+              for name, numbers in flag_traces.items()))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -119,14 +119,16 @@ def test_pick_route_matches_jax(args):
 
 @pytest.mark.parametrize("kwargs", [
     dict(size=(64, 1024)), dict(seq_cap=20000),
-    dict(trace=True, local_start=True), dict(local_start=True),
-    dict(free_query_start_gaps=True), dict(free_query_end_gaps=True),
-    dict(matrix=tba.BYTES1), dict(mesh=object()),
+    dict(size=(64, 1024), trace=True, local_start=True),
+    dict(seq_cap=20000, local_start=True),
+    dict(free_query_start_gaps=True, use_lane_kernel=False),
+    dict(free_query_end_gaps=True, mesh=object()),
+    dict(matrix=tba.BYTES1, size=(64, 1024)), dict(mesh=object()),
     dict(use_lane_kernel=False),
     dict(size=(64, 1024), trace=True),
-    dict(size=(32, 256), local_start=True),
-    dict(size=(16, 64), free_query_end_gaps=True),
-    dict(size=(32, 256), matrix=tba.BYTES1),
+    dict(size=(32, 512), local_start=True),
+    dict(size=(16, 64), seq_cap=20000, free_query_end_gaps=True),
+    dict(size=(32, 256), seq_cap=20000, matrix=tba.BYTES1),
 ], ids=["big", "long_lane", "trace_local_start", "local_start",
         "free_start", "free_end", "byte", "mesh", "engine",
         "big_trace", "adaptive_local_start",

@@ -127,6 +127,12 @@ inline int __reduce_max_sync(unsigned, int v) {
   for (int k = 1; k < 32; ++k) r = std::max(r, buf[k]);
   return r;
 }
+inline bool __any_sync(unsigned, int v) {
+  const int* buf = post_(v != 0);
+  for (int k = 0; k < 32; ++k)
+    if (buf[k]) return true;
+  return false;
+}
 inline int __reduce_min_sync(unsigned, int v) {
   const int* buf = post_(v);
   int r = buf[0];
@@ -211,13 +217,13 @@ def emulated(tmp_path_factory):
         assert n == 1, f"{name}: kernel launch not found"
         # the profile libraries include the kernel source by this name
         (out / f"{name}.cu").write_text(src)
-    for name, mod in (("lane_kernel", lk), ("adaptive_kernel", ak),
-                      ("lane_profile", lk), ("adaptive_profile", ak)):
+    for name in lk.LIBRARIES:
+        mod = lk if name.startswith("lane") else ak
         (out / f"{name}.cpp").write_text(
             (out / f"{name}.cu").read_text() if name.endswith("kernel")
             else (_build.CSRC / f"{name}.cu").read_text())
         so = out / f"lib{name}.so"
-        # all four compile at once
+        # all eight compile at once
         builds[name] = (mod, so, subprocess.Popen(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
              str(out), "-o", str(so), str(out / f"{name}.cpp")],
@@ -230,13 +236,15 @@ def emulated(tmp_path_factory):
     return libs
 
 
-def launch(fn, pk, out, *ints, x=-1, trace=None):
+def launch(fn, pk, out, *ints, x=-1, trace=None, cfg=None):
     """Call a C entry point; ``trace`` holds the (words, desc, steps)
-    buffers of a trace launch."""
+    buffers of a trace launch; ``cfg`` gives the flags and byte mode of a
+    flags library's launch."""
     ptrs = [None] * 3 if trace is None else [t.data_ptr() for t in trace]
+    modes = (0, 0, 0) if cfg is None else lk.mode_args(pk.gaps, cfg)
     err = fn(pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
              pk.table.data_ptr(), out.data_ptr(), *ptrs, *ints, pk.gaps[0],
-             pk.gaps[1], x, None)
+             pk.gaps[1], x, *modes, None)
     assert err == 0
     return out
 
@@ -430,7 +438,7 @@ def test_entry_points_reject_bad_arguments(emulated):
     bad = emulated["adaptive_kernel"].adaptive_align_launch(
         pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
         pk.table.data_ptr(), out.data_ptr(), None, None, None, 1, 256, 32,
-        32, 32, 100, -11, -1, -1, None)
+        32, 32, 100, -11, -1, -1, 0, 0, 0, None)
     assert bad != 0  # min == max is not an adaptive configuration
     msg = emulated["adaptive_kernel"].adaptive_error_string(bad)
     assert msg == b"emulated"
@@ -439,7 +447,8 @@ def test_entry_points_reject_bad_arguments(emulated):
                       "cpu")
     args = (pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
             pk.table.data_ptr(), out.data_ptr())
-    ints = (1, cfg.seq_cap, 32, 32, 512, cfg.max_steps, -11, -1, -1, None)
+    ints = (1, cfg.seq_cap, 32, 32, 512, cfg.max_steps, -11, -1, -1, 0, 0, 0,
+            None)
     fn = emulated["adaptive_kernel"].adaptive_align_launch
     assert fn(*args, None, None, None, *ints) != 0  # 512 needs trace
     bufs = poisoned_trace(cfg, 1, 512)
@@ -505,5 +514,90 @@ def test_adaptive_kernel_source_profile_matches_plain(emulated, size, x,
         assert saves > 0 and restores > 0
         ran = torch.arange(cfg.max_steps) < bufs[2][0]
         assert int(torch.where(ran, bufs[1][:, 0, 3], 0).max()) == 512
+    else:
+        assert torch.equal(got, want)
+
+
+FLAG_MODES = {"byte": dict(byte_mode=True), "local": dict(local_start=True),
+              "fstart": dict(free_query_start_gaps=True),
+              "fend": dict(free_query_end_gaps=True),
+              "byte-fend": dict(byte_mode=True, free_query_end_gaps=True),
+              "byte-local": dict(byte_mode=True, local_start=True)}
+
+
+@pytest.mark.parametrize("size,mode,x,trace,profile", [
+    ((16, 16), "byte", -1, False, False), ((32, 32), "byte", -1, True, False),
+    ((16, 16), "byte-fend", -1, True, False),
+    ((32, 32), "local", -1, True, False), ((16, 16), "local", 30, True, False),
+    ((32, 32), "fstart", -1, False, False),
+    ((64, 64), "fstart", 30, True, False),
+    ((32, 32), "fend", -1, False, False), ((64, 64), "fend", -1, True, False),
+    ((32, 32), "local", -1, True, True), ((16, 16), "fend", -1, False, True),
+    ((16, 64), "byte", -1, False, False), ((16, 32), "byte", -1, True, False),
+    ((16, 32), "byte-local", -1, False, False),
+    ((16, 64), "local", -1, True, False), ((16, 64), "local", 40, False, False),
+    ((16, 64), "fstart", -1, True, False),
+    ((32, 128), "fend", -1, False, False),
+    ((32, 128), "fend", -1, True, False),
+    ((16, 64), "fstart", -1, True, True),
+    ((32, 512), "local", -1, True, False),
+], ids=lambda v: str(v))
+def test_kernel_source_flags_match_plain(emulated, size, mode, x, trace,
+                                         profile):
+    """The instances of the flags libraries (``csrc/*_flags.cu``):
+    ByteMatrix on pairs over all 256 bytes (byte 0 included), local start,
+    free start and free end gaps (queries shorter than the min size), with
+    x-drop where the flag allows it, trace, profiles, adaptive blocks that
+    grow (at (32, 512) a pair whose blocks reach 512 rows); outputs, and in
+    trace mode step counts, descriptors and words (local start's zero bits
+    included), equal the plain version's."""
+    lo, hi = size
+    modes = FLAG_MODES[mode]
+    rng = np.random.default_rng(hi + x + len(mode))
+    kw = dict(x_drop=x >= 0, trace=trace, profile=profile, **modes)
+    byte = modes.get("byte_mode", False)
+    alpha = 256 if byte else 32
+    cap = 1536 if hi == 512 else 768
+    if lo == hi:
+        cfg = lk.LaneKernelConfig(hi, cap, alpha, **kw)
+        ints = (cfg.seq_cap, alpha, hi, cfg.max_steps)
+    else:
+        cfg = ak.AdaptiveKernelConfig(lo, hi, cap, alpha, **kw)
+        ints = (cfg.seq_cap, alpha, lo, hi, cfg.max_steps)
+    if byte:
+        pairs = chip_smoke.byte_pairs(rng, 10, 120)
+    elif profile:
+        pairs = chip_smoke.profile_pairs(rng, 10, 120)
+    elif hi == 512:
+        pairs = [grown_pairs()[0]] + protein_pairs(1, 5)
+    elif mode in ("fstart", "fend"):
+        # rarer events (a grow from a checkpoint at query row 0, a tracker
+        # row past qlen) need more and longer pairs
+        pairs = chip_smoke.structural_pairs(rng, chip_smoke.AA, 40, 300)
+    else:
+        pairs = chip_smoke.structural_pairs(rng, chip_smoke.AA, 16, 150)
+    if cfg.free_query_end_gaps:
+        pairs = [(q[: lo - 1], r) for q, r in pairs]
+    if profile:
+        pk = pack_profile(pairs, cfg, "cpu", x_drop=max(x, 0))
+    else:
+        matrix = scores.BYTES1 if byte else scores.BLOSUM62
+        pk = lk.pack_lane(pairs, matrix, cfg, Gaps(-11, -1), "cpu",
+                          x_drop=max(x, 0))
+    name = lk.library("lane" if lo == hi else "adaptive", cfg)
+    fn = getattr(emulated[name], ("lane" if lo == hi else "adaptive")
+                 + "_align_launch")
+    tw = lk.trace_words(cfg)
+    bufs = poisoned_trace(cfg, len(pairs), hi * tw) if trace else None
+    got = launch(fn, pk, torch.full((len(pairs), 4 if lk.wide(cfg) else 2),
+                                    -7, dtype=torch.int32),
+                 len(pairs), *ints, x=x, trace=bufs, cfg=cfg)
+    want = (lk.lane_align_plain if lo == hi
+            else ak.adaptive_align_plain)(*pk, cfg)
+    if trace:
+        chip_smoke.check_trace((got, *bufs), want, f"{mode} {size}", tw)
+        if hi == 512:
+            ran = torch.arange(cfg.max_steps) < bufs[2][0]
+            assert int(torch.where(ran, bufs[1][:, 0, 3], 0).max()) == 512
     else:
         assert torch.equal(got, want)

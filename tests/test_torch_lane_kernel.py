@@ -159,12 +159,13 @@ def test_wrapper_raises_off_the_cpu_and_card():
 def test_kernel_entry_point_matches_binding():
     """The C signature and the ctypes argument list agree (the binding
     passes 8 pointers: 5 for the inputs and the output, 3 for the trace
-    buffers; 8 ints and the stream)."""
+    buffers; 11 ints (8, then the flags and byte mode's match and mismatch
+    scores) and the stream)."""
     src = (_build.CSRC / "lane_kernel.cu").read_text()
     sig = re.search(r'extern "C" int lane_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 8 + [False] * 8 + [True]
+        [True] * 8 + [False] * 11 + [True]
     assert _build.library_path("lane_kernel").parent == _build.BUILD
     assert _build.library_path("lane_kernel").name.startswith("liblane_kernel-")
 

@@ -320,14 +320,17 @@ def test_align_profile_exp_all_matches_oracle_ladder():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(size=(32, 1024)), NotImplementedError, "slice 6"),
-    (dict(size=(1024, 1024)), NotImplementedError, "slice 6"),
+    (dict(size=(32, 1024)), NotImplementedError, "queue 2 item 5"),
+    (dict(size=(1024, 1024)), NotImplementedError, "queue 2 item 5"),
     (dict(size=(32, 16384)), ValueError, "8192"),
-    (dict(local_start=True), NotImplementedError, "slice 5"),
-    (dict(free_query_start_gaps=True), NotImplementedError, "slice 5"),
-    (dict(free_query_end_gaps=True), NotImplementedError, "slice 5"),
-    (dict(use_lane_kernel=False), NotImplementedError, "queue 1 item 4"),
-    (dict(mesh=object()), NotImplementedError, "queue 1 item 8"),
+    (dict(size=(32, 1024), local_start=True), NotImplementedError,
+     "queue 2 item 5"),
+    (dict(free_query_start_gaps=True, use_lane_kernel=False),
+     NotImplementedError, "queue 1 item 3"),
+    (dict(free_query_end_gaps=True, mesh=object()), NotImplementedError,
+     "queue 1 item 6"),
+    (dict(use_lane_kernel=False), NotImplementedError, "queue 1 item 3"),
+    (dict(mesh=object()), NotImplementedError, "queue 1 item 6"),
     (dict(local_start=True, free_query_start_gaps=True), AssertionError,
      "exclude"),
     (dict(x_drop=5, free_query_end_gaps=True), AssertionError, "exclude"),

@@ -4,6 +4,7 @@ byte conversion and helpers; and the port imports without JAX."""
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -94,8 +95,12 @@ def test_convert_from_jax():
     assert np.array_equal(m.table, jscores.NW1.table)
     m.table[0, 0] = 99  # a copy: the JAX table is untouched
     assert jscores.NW1.table[0, 0] != 99
+    byte = matrix_from_jax(jscores.BYTES1)
+    assert isinstance(byte, tscores.ByteMatrix)
+    assert (byte.match_score, byte.mismatch_score) == (
+        jscores.BYTES1.match_score, jscores.BYTES1.mismatch_score)
     with pytest.raises(ValueError):
-        matrix_from_jax(jscores.BYTES1)
+        matrix_from_jax(SimpleNamespace(kind="dense"))
 
 
 def test_port_imports_without_jax():

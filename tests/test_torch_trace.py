@@ -79,11 +79,15 @@ def cap_for(pairs, S):
     return max(256, -(-(1 + maxlen + S + 16) // 128) * 128)
 
 
-def plain_trace(pairs, size, x=None, matrix=jba.BLOSUM62, gaps=PROTEIN[1]):
-    """The plain version's trace of ``pairs``: (out, Trace, ends)."""
+def plain_trace(pairs, size, x=None, matrix=jba.BLOSUM62, gaps=PROTEIN[1],
+                flags=None):
+    """The plain version's trace of ``pairs``, with ``flags`` (keyword
+    arguments of the configurations): (out, Trace, ends)."""
     lo, hi = size
-    kw = dict(x_drop=x is not None, trace=True)
-    alpha = 32 if matrix.kind != "nuc" else 16
+    flags = flags or {}
+    kw = dict(x_drop=x is not None, trace=True,
+              byte_mode=matrix.kind == "byte", **flags)
+    alpha = {"nuc": 16, "byte": 256}.get(matrix.kind, 32)
     if lo == hi:
         cfg = lk.LaneKernelConfig(hi, cap_for(pairs, hi), alpha, **kw)
         plain = lk.lane_align_plain
@@ -94,17 +98,20 @@ def plain_trace(pairs, size, x=None, matrix=jba.BLOSUM62, gaps=PROTEIN[1]):
     pk = lk.pack_lane(pairs, pm, cfg, tba.gaps_from_jax(gaps), "cpu",
                       x_drop=x or 0)
     out, words, desc, steps = plain(*pk, cfg)
-    tr = Trace(words.numpy(), desc.numpy(), steps.numpy(), pm)
-    if x is None:
-        ends = [(len(q), len(r)) for q, r in pairs]
-    else:
+    tr = Trace(words.numpy(), desc.numpy(), steps.numpy(), pm,
+               local_start=cfg.local_start,
+               free_query_start_gaps=cfg.free_query_start_gaps)
+    if lk.wide(cfg):
         ends = [(int(o[1]), int(o[2])) for o in out]
+    else:
+        ends = [(len(q), len(r)) for q, r in pairs]
     return out, tr, ends
 
 
-def oracle_runs(pairs, size, x=None, matrix=jba.BLOSUM62, gaps=PROTEIN[1]):
+def oracle_runs(pairs, size, x=None, matrix=jba.BLOSUM62, gaps=PROTEIN[1],
+                flags=None):
     """``BlockOracle(trace=True)`` on each pair: yields (result, oracle)."""
-    orc = jba.BlockOracle(trace=True, x_drop=x is not None)
+    orc = jba.BlockOracle(trace=True, x_drop=x is not None, **(flags or {}))
     for q, r in pairs:
         orc.align(jba.PaddedBytes.from_bytes(q, size[1], matrix),
                   jba.PaddedBytes.from_bytes(r, size[1], matrix), matrix,
