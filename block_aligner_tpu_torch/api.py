@@ -1,26 +1,33 @@
 """Batched alignment API of the port (counterpart of ``block_aligner_tpu/api.py``).
 
-``BatchAligner`` serves two of the routes ``pick_route`` names, in global
-or x-drop mode (``x_drop=X``), with or without trace (``trace=True``), with
-an amino-acid or nucleotide table or a ``ByteMatrix`` (global and trace),
-and with the reference's ``local_start``, ``free_query_start_gaps`` and
-``free_query_end_gaps`` flags:
+``BatchAligner`` serves three of the routes ``pick_route`` names:
 
 * "lane": fixed block sizes (min == max <= 512), the lane kernel;
 * "adaptive": growing and shrinking blocks (min < max <= 256, and max 512
   with trace), the adaptive kernel; the package's default size (32, 256)
-  is one.
+  is one;
+* "big": blocks past 512 (512 < max <= 8192, min == max > 512 included,
+  and (min, 512) without trace), the big-block kernel, in global and
+  x-drop mode with a score table; the reference's long-read bands (128,
+  1024) and (512, 8192) are two.
+
+On the lane and adaptive routes it runs in global or x-drop mode
+(``x_drop=X``), with or without trace (``trace=True``), with an
+amino-acid or nucleotide table or a ``ByteMatrix`` (global and trace), and
+with the reference's ``local_start``, ``free_query_start_gaps`` and
+``free_query_end_gaps`` flags; the big route's other modes raise
+``NotImplementedError``.
 
 In trace mode each batch's trace comes back to the host: ``trace()``,
 ``cigar`` and ``cigar_eq`` give the reference's CIGARs of the last batch,
 and ``align_all_trace`` the CIGARs of any number of pairs.
-``align_exp_all`` retries pairs with doubled min block sizes over both
-routes, global or x-drop.  ``ProfileAligner`` and
+``align_exp_all`` retries pairs with doubled min block sizes over the
+three routes, global or x-drop.  ``ProfileAligner`` and
 ``align_profile_exp_all`` do the same for (query, ``AAProfile``) pairs,
 sequence-to-PSSM, on the same two routes (min < max <= 512 adaptive, min
-== max <= 512 lane), with the same flags.  The other routes ("big",
-"long", "long_lane", "engine") and a mesh raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+== max <= 512 lane), with the same flags.  The other routes (profiles
+past 512, "long", "long_lane", "engine") and a mesh raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from .core.scores import ByteMatrix, Gaps
 from .core.traceback import Trace
 from .ops._profile import pack_profile
 from .ops.adaptive_kernel import AdaptiveKernelConfig, adaptive_align
+from .ops.big_kernel import BigKernelConfig, big_align
 from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane, wide
 
 __all__ = ["BatchAligner", "ProfileAligner", "align_exp_all",
@@ -112,7 +120,8 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 # ROADMAP.md item that brings each configuration the port lacks
 _SLICE = {
-    "big": "queue 2 item 5, kernel C (big blocks)",
+    "big": "queue 2 item 5, kernel C's trace (5a), ByteMatrix (5b), flag "
+           "(5c) and profile (5d) modes",
     "long": "queue 1 item 5 (long-sequence API)",
     "long_lane": "queue 1 item 5 (long-sequence API)",
     "engine": "queue 1 item 3 (PyTorch lockstep engine)",
@@ -125,8 +134,12 @@ def _not_yet(what: str, key: str):
         f"{what} is not ported yet: ROADMAP.md {_SLICE[key]}")
 
 
+_KERNELS = {"lane": lane_align, "adaptive": adaptive_align,
+            "big": big_align}
+
+
 class _Routed:
-    """What the aligners of the lane and adaptive routes share: a batch is
+    """What the aligners of the kernel routes share: a batch is
     packed (``_pack``), launched (``_dispatch``) and decoded (``_decode``);
     ``align_all`` pipelines the three over any number of pairs.  A
     subclass sets ``route``, ``cfg``, ``trace_mode``, ``device``,
@@ -159,14 +172,13 @@ class _Routed:
 
     def _dispatch(self, staged):
         """Launch the device work for a staged batch (asynchronous on CUDA)."""
-        kernel = lane_align if self.route == "lane" else adaptive_align
-        return kernel(staged.codes, staged.qlen, staged.rlen, staged.table,
-                      staged.gaps, self.cfg)
+        return _KERNELS[self.route](staged.codes, staged.qlen, staged.rlen,
+                                    staged.table, staged.gaps, self.cfg)
 
     def _decode(self, staged, out) -> List[AlignResult]:
         """Fetch a dispatched batch's results; the lane route sets
-        ``last_suspect``, the adaptive route checks the step cap.  Both
-        hold the flag in their output's last column; x-drop mode and free
+        ``last_suspect``, the adaptive and big routes check the step cap.
+        Each holds the flag in its output's last column; x-drop mode and free
         query end gaps hold the best position in columns 1 and 2.  In trace
         mode the steps every pair executed (up to the batch's most) come
         back and make the ``Trace`` of ``trace()``."""
@@ -184,8 +196,8 @@ class _Routed:
             self.last_suspect = out[:, -1].astype(bool)
         elif out[:, -1].any():
             raise RuntimeError(
-                f"{int(out[:, -1].sum())} pairs hit the adaptive kernel's step "
-                f"cap ({self.cfg.max_steps} steps); raise seq_cap")
+                f"{int(out[:, -1].sum())} pairs hit the {self.route} kernel's "
+                f"step cap ({self.cfg.max_steps} steps); raise seq_cap")
         if wide(self.cfg):
             ql, rl = out[:, 1], out[:, 2]
         else:
@@ -257,7 +269,7 @@ class _Routed:
 
 
 class BatchAligner(_Routed):
-    """Batched aligner on one device, on the lane or adaptive route.
+    """Batched aligner on one device, on the lane, adaptive or big route.
 
     Same surface as the JAX package's ``BatchAligner`` for those routes:
     ``align_batch``, ``align_all``, ``stage``/``align_staged``,
@@ -276,8 +288,9 @@ class BatchAligner(_Routed):
     ``trace`` the last batch's trace stays on the host (``trace()``,
     ``cigar``, ``cigar_eq``); ``align_all`` then keeps the caller's order
     and the last batch's trace, and ``align_all_trace`` returns every
-    pair's CIGAR.  ``device`` places the packed tensors: a CUDA device runs
-    the kernels, the CPU their plain versions.
+    pair's CIGAR.  The big route (blocks past 512) runs global and x-drop
+    mode with a score table only.  ``device`` places the packed tensors: a
+    CUDA device runs the kernels, the CPU their plain versions.
     """
 
     def __init__(
@@ -326,8 +339,17 @@ class BatchAligner(_Routed):
             free_query_start_gaps=free_query_start_gaps,
             free_query_end_gaps=free_query_end_gaps, is_byte=is_byte,
         )
-        if route not in ("lane", "adaptive"):
+        if route not in ("lane", "adaptive", "big"):
             _not_yet(f"route {route!r} (size {size}, seq_cap {seq_cap})", route)
+        if route == "big":
+            later = [name for name, on in (
+                ("trace", trace), ("a ByteMatrix", is_byte),
+                ("local_start", local_start),
+                ("free_query_start_gaps", free_query_start_gaps),
+                ("free_query_end_gaps", free_query_end_gaps)) if on]
+            if later:
+                _not_yet(f"route 'big' (size {size}) with {', '.join(later)}",
+                         "big")
         if use_lane_kernel is False:
             _not_yet("use_lane_kernel=False", "engine")
         if mesh is not None:
@@ -348,9 +370,12 @@ class BatchAligner(_Routed):
                      free_query_end_gaps=free_query_end_gaps)
         if route == "lane":
             self.cfg = LaneKernelConfig(min_size, cap, alpha, **modes)
-        else:
+        elif route == "adaptive":
             self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha,
                                             **modes)
+        else:
+            self.cfg = BigKernelConfig(min_size, max_size, cap, alpha,
+                                       x_drop=x_drop is not None)
         self.last_suspect: Optional[np.ndarray] = None
 
     @property
@@ -433,7 +458,8 @@ def align_exp_all(matrix, gaps: Gaps, pairs, target_scores,
     ``x_drop``.
 
     Each pair is retried with a doubled min block size until its score
-    reaches its target or the min size passes the max.  Returns
+    reaches its target or the min size passes the max (levels past 512 take
+    the big route).  Returns
     ``(results, min_sizes)``: ``min_sizes[k]`` is the min size that reached
     the target, or None.  Pairs under target are batched together at each
     level, so the work per level shrinks with them; each level has one

@@ -1,0 +1,576 @@
+// Big-block adaptive alignment of a batch of sequence pairs, global or
+// x-drop, for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// ops/big_kernel.py.
+//
+// Replaces: block_aligner_tpu/ops/big_kernel.py::build_big_engine (its
+// Pallas `kernel`) in global and in x-drop mode with a score table: the grow
+// / shrink / checkpoint machine for 512 < max_size <= 8192, and (min, 512)
+// without trace.  It computes the same score (x-drop: the best score and
+// its position) and the same step-cap overrun flag, bit for bit; the
+// machine is the adaptive kernel's (csrc/adaptive_kernel.cu), described in
+// ops/adaptive_kernel.py, whose adaptive_align_plain, run on a
+// BigKernelConfig, is the plain PyTorch version of this kernel.
+//
+// What bounds it: integer ALU work (a handful of adds and maxes per DP
+// cell) and latency: each of a rect's 8 columns per step depends on the
+// one before, each column carries a max-plus prefix scan down a block of up
+// to 8192 rows, and each step's decision depends on the last column.
+// Bytes are not the limit: a pair reads its codes and writes 8 or 16 bytes.
+//
+// What the design does about it:
+// * one thread block per pair, 4 warps (8 from max_size 4096), and each
+//   pair runs its own step loop until it freezes or x-drop ends it;
+// * the block state lives in shared memory, not registers: a block of
+//   8192 rows would need 256 registers a lane per border in a warp.  Every
+//   DP value is the reference's i16 (relative to ZERO = 2^14, saturating at
+//   both rails), so the borders are stored as i16 losslessly: the active
+//   column (D, C), the passive border (D, R) and the two checkpoint
+//   borders take 8 x max_size x 2 bytes, and two staging planes of a
+//   column (D before its vertical gaps, the scan within a warp) 4 x
+//   max_size bytes; 160 KB at 8192, sized at launch;
+// * per-step work tracks the current block size sz: a step of a rect of
+//   height h gives each warp NA = max(1, h / (32 W)) slots of 32 rows,
+//   the warps in order (warp w holds rows [32 NA w, 32 NA (w + 1))), and
+//   warps past h idle at the barriers.  Row r sits in lane r % 32, so its
+//   16-residue class (the x-drop tracker's) is lane % 16 in every layout;
+// * the column's vertical-gap scan R[p] = max_{q <= p} (v[q] + e (p - q))
+//   runs in three levels: a warp shuffle scan of each slot, the slots of a
+//   warp chained through lane 31, and the warps chained through shared
+//   memory after one barrier a column (a segment ending in t composes with
+//   the carry c before it as max(t_local, c + e (loc + 1))).  It equals
+//   the reference's saturating chunked scan: every candidate below the i16
+//   rail loses to the zero correction e ((row % 8) + 1);
+// * the passive border shifts by 8 rows a step and a shrink halves the
+//   block by moving its rows: both only move a plane's base (each plane
+//   is a ring of max_size rows), and a swap of the borders only swaps
+//   which planes are active; a checkpoint save or restore copies the
+//   block's rows, and a restore resets the bases;
+// * scores come from the table in shared memory by both codes, so a
+//   restore only moves the anchor; the TPU's code-keyed score fetch, which
+//   needs a symmetric table, does not exist here;
+// * the pair's scalar state is replicated in every thread, which takes the
+//   same decisions from the same shared values;
+// * x-drop is a template flag.  Each column folds a warp's rows into one
+//   key per residue, value * (max_size / 16) + chunk (|key| < 2^25 at
+//   8192), kept in shared memory, and the step's end folds the 8 columns
+//   into each thread's tracker of its residue.
+// Several pairs per block at small sizes, i16x2 arithmetic and the DPX
+// instructions are left to later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int STEP = 8;             // columns per step
+constexpr int ZERO = 1 << 14;       // score bias
+constexpr int NEG = -32768;         // the i16 rails
+constexpr int POS = 32767;
+constexpr int INT_MIN_ = -2147483647 - 1;
+constexpr int FAR = -(1 << 30);     // below every scan value, far from overflow
+constexpr int MAX_ALPHA = 32;
+constexpr int MAX_WARPS = 8;
+constexpr int SUFFIX = STEP / 4;    // shrink suffix rows
+constexpr unsigned FULL = 0xffffffffu;
+// rect phases; the initial rect is a GROW_R with psz == 0
+constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
+
+__device__ __forceinline__ int sat(int x) { return max(x, NEG); }
+__device__ __forceinline__ int sat2(int x) { return min(max(x, NEG), POS); }
+
+// Warps a block of this max_size runs with, and its shared planes' bytes.
+inline int warps_for(int max_size) { return max_size >= 4096 ? 8 : 4; }
+inline size_t plane_bytes(int max_size) {
+  return (size_t)10 * max_size * sizeof(short);
+}
+
+// The four border planes: D planes 0 and 1, C / R planes 2 and 3; the
+// active border is D plane `a` and C plane 2 + a, the passive one the
+// others.  Each plane is a ring of S rows from its own base.
+struct Planes {
+  short* p[4];
+  int base[4];
+  int a, mask;
+  __device__ __forceinline__ short& at(int q, int r) {
+    return p[q][(base[q] + r) & mask];
+  }
+  __device__ __forceinline__ int aD() const { return a; }
+  __device__ __forceinline__ int aC() const { return 2 + a; }
+  __device__ __forceinline__ int pD() const { return 1 - a; }
+  __device__ __forceinline__ int pR() const { return 3 - a; }
+};
+
+struct Pair {  // one pair's step-machine state, the same in every thread
+  int I, J, off, offmax, sz, psz, cpos, dir, pdir, corn;
+  int ckI, ckJ, ckOff, best, yiter, gnm;
+  bool done, rest;
+  int dmax;  // this thread's part of the rect maximum
+  // x-drop: the tracker of residue lane % 16 (running max, chunk origin,
+  // column), the GROW_D half's banked candidate, the best's position and
+  // the count of failing decisions
+  int vm, ai, aj, gdmax, gdbi, gdbj, xbi, xbj, xiter;
+};
+
+// Checkpoint save of rows [0, sz): the column borders (D, C) and row
+// borders (D, R) of the rect just completed; `ro` says whether its lanes
+// were the query.  Row r is copied by thread r % T, as in the restore.
+__device__ __forceinline__ void save_ckpt(Planes& P, short* const* ck,
+                                          bool ro, int sz, int tid, int T) {
+  for (int r = tid; r < sz; r += T) {
+    ck[0][r] = ro ? P.at(P.aD(), r) : P.at(P.pD(), r);
+    ck[1][r] = ro ? P.at(P.aC(), r) : P.at(P.pR(), r);
+    ck[2][r] = ro ? P.at(P.pD(), r) : P.at(P.aD(), r);
+    ck[3][r] = ro ? P.at(P.pR(), r) : P.at(P.aC(), r);
+  }
+}
+
+// The tracker's best residue: the max over residues (returned), and at the
+// lowest residue holding it the position in the rect's (lane, column) axes.
+__device__ __forceinline__ int tracker_best(const Pair& m, int lane, int& ai,
+                                            int& aj) {
+  const int cm = __reduce_max_sync(FULL, m.vm);
+  const int r = __reduce_min_sync(FULL, m.vm == cm ? (lane & 15) : 16);
+  ai = __shfl_sync(FULL, m.ai, r) + r;
+  aj = __shfl_sync(FULL, m.aj, r);
+  return cm;
+}
+
+template <bool XDROP>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+big_align_kernel(const uint8_t* __restrict__ codes,
+                 const int* __restrict__ qlen, const int* __restrict__ rlen,
+                 const int* __restrict__ table, int* __restrict__ out, int cap,
+                 int alpha, int S, int min_size, int max_steps, int gopen,
+                 int gext, int xdrop) {
+  extern __shared__ short planes[];
+  __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
+  __shared__ int wagg[2][MAX_WARPS];  // a warp's scan at its last row
+  __shared__ int wdp[2][MAX_WARPS];   // ... and D before the scan there
+  __shared__ int red[MAX_WARPS];      // the warps' rect maxima
+  __shared__ int tailD[STEP], tailR[STEP];  // a shift's bottom cells
+  __shared__ int wkey[XDROP ? STEP : 1][MAX_WARPS][16];  // tracker keys
+  __shared__ int score;  // global mode: the frozen cell's score
+
+  const int T = blockDim.x, W = T >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  for (int k = tid; k < alpha * alpha; k += T) tab[k] = table[k];
+  for (int k = tid; k < 8 * S; k += T) planes[k] = 0;
+  if (tid == 0) score = 0;
+  const uint8_t* qs = codes + (size_t)b * 2 * cap;
+  const uint8_t* rs = qs + cap;
+  const int ql = qlen[b], rl = rlen[b];
+  Planes P{{planes, planes + S, planes + 2 * S, planes + 3 * S},
+           {0, 0, 0, 0}, 0, S - 1};
+  short* const ck[4] = {planes + 4 * S, planes + 5 * S, planes + 6 * S,
+                        planes + 7 * S};
+  short* const DP = planes + 8 * S;  // a column's D before its R merge
+  short* const TL = planes + 9 * S;  // its scan within the warp
+  const int chunks = S >> 4, log_ch = __ffs(chunks) - 1;
+  const int zc = gext * ((lane & 7) + 1);  // the scan's zero correction
+  // the reference's start state (src/scan_block.rs:291-317): a grow from
+  // size 0, best 0, a virgin checkpoint at the origin
+  Pair m{0, 0, 0, 0, min_size, 0, 0, DIR_GR, DIR_GR, NEG,
+         0, 0, 0, 0, 0, 1, false, false, NEG,
+         INT_MIN_, 0, 0, INT_MIN_, 0, 0, 0, 0, 0};
+
+  int s = 0;
+  for (; s < max_steps && !m.done; ++s) {
+    __syncthreads();  // the previous step's reads are done
+    const bool shift = m.dir == DIR_R || m.dir == DIR_D;
+    const bool right_or = m.dir == DIR_R || m.dir == DIR_GR;  // lanes = query
+    const int sz = m.sz;
+    if (m.rest) {
+      // a grow starts down-oriented from the checkpoint's borders
+      P.a = 0;
+      P.base[0] = P.base[1] = P.base[2] = P.base[3] = 0;
+      for (int r = tid; r < sz; r += T) {
+        P.p[0][r] = ck[2][r];
+        P.p[2][r] = ck[3][r];
+        P.p[1][r] = ck[0][r];
+        P.p[3][r] = ck[1][r];
+      }
+      m.rest = false;
+    }
+    int cvec = NEG;
+    if (shift) {
+      // offset rebase (reference: src/scan_block.rs:148-151) of both
+      // borders: the passive one is not read before the step's end, where
+      // the reference rebases it
+      const int oa = min(max(m.off - m.offmax, NEG), POS);
+      m.off = m.offmax;
+      for (int r = tid; r < sz; r += T)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) P.at(q, r) = (short)sat2(P.at(q, r) + oa);
+      if ((m.dir == DIR_R && m.pdir == DIR_D) ||
+          (m.dir == DIR_D && m.pdir == DIR_R))
+        cvec = sat2(m.corn + oa);
+    }
+    // the rect maximum restarts with each rect; GROW_R continues GROW_D's
+    if (m.cpos == 0 && m.dir != DIR_GR) m.dmax = NEG;
+    const int h = m.dir == DIR_GD ? m.psz : sz;  // rect height
+    const int ls = right_or ? m.I : m.J;         // lane start
+    const int cstart = m.dir == DIR_R   ? m.J + sz - STEP
+                       : m.dir == DIR_D ? m.I + sz - STEP
+                                        : (m.dir == DIR_GD ? m.I : m.J) +
+                                              m.psz + m.cpos;
+    const int lane_len = right_or ? ql : rl;
+    const int col_len = right_or ? rl : ql;
+    // freeze predicate: never inside GROW_D
+    const bool fra = ls + h > lane_len && m.dir != DIR_GD;
+    const int frt = col_len - cstart;
+    const int fridx = min(max(lane_len - ls, 0), S - 1);
+    const bool origin = m.dir == DIR_GR && m.psz == 0 && m.cpos == 0 && m.J == 0;
+    const uint8_t* lseq = right_or ? qs : rs;
+    const uint8_t* cseq = right_or ? rs : qs;
+    const int cpos_new = m.cpos + STEP;
+    const bool phase_done = cpos_new >= (shift ? STEP : sz - m.psz);
+    // this step's layout: NA slots of 32 rows a warp, the warps in order
+    const int NA = max(1, h / (32 * W));
+    const int rows_w = 32 * NA, r0 = warp * rows_w;
+    const bool active = r0 < h;
+    const int nwarps = min(W, (h + rows_w - 1) / rows_w);
+    __syncthreads();  // the restored or rebased borders are visible
+    // the diagonal into the warp's first row: the corner, or the row above
+    int diag_in = NEG;
+    if (active && lane == 0) diag_in = warp == 0 ? cvec : P.at(P.aD(), r0 - 1);
+    // a shift's next corner: row 7 of its rebased passive border
+    const int corn_next = shift ? P.at(P.pD(), STEP - 1) : m.corn;
+
+    bool frozen = false;
+    for (int w = 0; w < STEP; ++w) {
+      const int par = w & 1;
+      const int* trow =
+          tab + min((int)cseq[min(cstart + w, cap - 1)], alpha - 1) * alpha;
+      if (active) {
+        // pass 1: D before the vertical gaps, C, and the scan of D + (open
+        // - extend) within the warp's rows
+        int up_last = diag_in, tcar = FAR, t = 0, d = 0;
+        for (int k = 0; k < NA; ++k) {
+          const int r = r0 + k * 32 + lane;
+          const int dold = P.at(P.aD(), r), cold = P.at(P.aC(), r);
+          // the diagonal: row r - 1 of the previous column
+          int up = __shfl_up_sync(FULL, dold, 1);
+          if (lane == 0) up = up_last;
+          up_last = __shfl_sync(FULL, dold, 31);
+          const int lc = min((int)lseq[min(ls + r, cap - 1)], alpha - 1);
+          d = sat2(up + trow[lc]);
+          if (origin && w == 0 && r == 0) d = ZERO;  // the DP origin
+          const int c = max(sat(cold + gext), sat(dold + gopen));
+          d = max(d, c);
+          t = d + (gopen - gext);
+#pragma unroll
+          for (int dd = 1; dd < 32; dd <<= 1) {
+            const int o = __shfl_up_sync(FULL, t, dd);
+            if (lane >= dd) t = max(t, o + gext * dd);
+          }
+          t = max(t, tcar + gext * (lane + 1));
+          tcar = __shfl_sync(FULL, t, 31);
+          P.at(P.aC(), r) = (short)c;
+          DP[r] = (short)d;
+          // below the rail a scan value loses to the zero correction
+          TL[r] = (short)max(t, NEG);
+        }
+        if (lane == 31) {
+          wagg[par][warp] = t;
+          wdp[par][warp] = d;
+        }
+      }
+      __syncthreads();  // the warps' scans are visible
+      if (active) {
+        // pass 2: the carry of the warps above, R, and the final D
+        int cw = FAR;
+        for (int v = 0; v < warp; ++v) cw = max(wagg[par][v], cw + gext * rows_w);
+        int key = INT_MIN_;
+        for (int k = 0; k < NA; ++k) {
+          const int r = r0 + k * 32 + lane;
+          const int R =
+              max(max((int)TL[r], cw + gext * (k * 32 + lane + 1)), zc);
+          const int D = max((int)DP[r], R);
+          P.at(P.aD(), r) = (short)D;
+          if (r < h) {
+            m.dmax = max(m.dmax, D);
+            if constexpr (XDROP) key = max(key, D * chunks + (r >> 4));
+            if (r == h - 1) {
+              // the rect's bottom cells: staged for a shift, written into
+              // the passive border at row psz + cpos + w for a grow half
+              if (shift) {
+                tailD[w] = D;
+                tailR[w] = R;
+              } else {
+                P.at(P.pD(), m.psz + m.cpos + w) = (short)D;
+                P.at(P.pR(), m.psz + m.cpos + w) = (short)R;
+              }
+            }
+            if (!XDROP && fra && w >= frt && r == fridx)
+              score = m.off + D - ZERO;
+          }
+        }
+        // the next column's diagonal into the warp's first row: the final
+        // D of the row above it, whose R is the carry cw
+        diag_in = warp == 0 ? NEG
+                            : max(wdp[par][warp - 1], max(cw, gext * STEP));
+        if constexpr (XDROP) {
+          // the residue's max over the warp's rows: lanes l and l ^ 16
+          key = max(key, __shfl_xor_sync(FULL, key, 16));
+          if (lane < 16) wkey[w][warp][lane] = key;
+        }
+      }
+      if (!XDROP && fra && w >= frt) {
+        // freeze: the rect covering (qlen, rlen) reached the last column
+        frozen = true;
+        break;
+      }
+    }
+    if (phase_done && m.dir != DIR_GD) {
+      // the rect completes: each warp's part of its maximum
+      const int v = __reduce_max_sync(FULL, m.dmax);
+      if (lane == 0) red[warp] = v;
+    }
+    __syncthreads();  // the step's cells, bottom cells and keys are visible
+    if (frozen) {
+      m.done = true;
+      break;
+    }
+    if constexpr (XDROP) {
+      // the 16-residue tracker, column by column: the running max of
+      // residue lane % 16, reached last at the highest chunk and the latest
+      // column; a column whose max is NEG ties there at the last chunk, as
+      // in the plain version, whose rows past the height are NEG
+      const int rho = lane & 15;
+      for (int w = 0; w < STEP; ++w) {
+        int key = INT_MIN_;
+        for (int v = 0; v < nwarps; ++v) key = max(key, wkey[w][v][rho]);
+        const int cmax = key >> log_ch;
+        if (cmax >= m.vm) {
+          m.vm = cmax;
+          m.ai = ls + 16 * (cmax == NEG ? chunks - 1 : key & (chunks - 1));
+          m.aj = cstart + w;
+        }
+      }
+    }
+    if (shift) {
+      // a shift's end (reference: src/scan_block.rs:165-177, 349-355): keep
+      // row 7 as the next corner, shift the passive border by 8 and splice
+      // in the bottom cells
+      m.corn = corn_next;
+      P.base[P.pD()] += STEP;
+      P.base[P.pR()] += STEP;
+      if (tid < STEP) {
+        P.at(P.pD(), sz - STEP + tid) = (short)tailD[tid];
+        P.at(P.pR(), sz - STEP + tid) = (short)tailR[tid];
+      }
+      __syncthreads();  // the spliced rows are visible
+    }
+    m.cpos = phase_done ? 0 : cpos_new;
+    if (!phase_done) continue;
+
+    if (m.dir == DIR_GD) {
+      // GROW_D -> GROW_R: the lane axis flips to the query
+      P.a ^= 1;
+      m.dir = DIR_GR;
+      if constexpr (XDROP) {
+        // bank the GROW_D half's candidate (lanes = reference) and restart
+        // the tracker for GROW_R
+        int ai, aj;
+        m.gdmax = tracker_best(m, lane, ai, aj);
+        m.gdbi = aj;
+        m.gdbj = ai;
+        m.vm = INT_MIN_;
+      }
+      continue;
+    }
+    // rect completion: the reference's decision ladder
+    // (src/scan_block.rs:439-565)
+    const int d0 = m.dir;
+    const bool was_grow = d0 == DIR_GR;
+    const bool ro = d0 == DIR_R || d0 == DIR_GR;
+    int cur_max = red[0];
+    for (int v = 1; v < W; ++v) cur_max = max(cur_max, red[v]);
+    const int off_max = m.off + cur_max - ZERO;
+    m.offmax = off_max;
+    int ydi = m.yiter + 1;
+    m.gnm = was_grow ? 1 : 0;
+    const bool new_best = off_max > m.best;
+    const bool save = new_best && sz < S;
+    if (save) {
+      m.ckI = m.I;
+      m.ckJ = m.J;
+      m.ckOff = m.off;
+      m.gnm = 0;
+    }
+    // a completed grow saves its doubled borders even without a new best
+    // (reference: src/scan_block.rs:432-435)
+    if (save || (was_grow && sz < S)) save_ckpt(P, ck, ro, sz, tid, T);
+    if (new_best) {
+      m.best = off_max;
+      ydi = 0;
+    }
+    if constexpr (XDROP) {
+      if (new_best) {
+        // the rect tracker's candidate; a grow takes the GROW_D half's when
+        // it beats the GROW_R half's strictly (reference:
+        // src/scan_block.rs:463-482)
+        int ai, aj;
+        const int cmr = tracker_best(m, lane, ai, aj);
+        const bool use_right = !was_grow || cmr >= m.gdmax;
+        m.xbi = use_right ? (ro ? ai : aj) : m.gdbi;
+        m.xbj = use_right ? (ro ? aj : ai) : m.gdbj;
+      }
+      m.vm = INT_MIN_;
+      m.gdmax = INT_MIN_;
+      // the end: the max fell more than x below the best at two decisions in
+      // a row (X_DROP_ITER = 2), or the rect covers both ends; it pre-empts
+      // this rect's grow, shrink and move (reference: src/scan_block.rs:497-507)
+      const bool xfail = off_max < m.best - xdrop;
+      const bool stop = xfail && m.xiter >= 1;
+      m.xiter = xfail ? m.xiter + 1 : 0;
+      if (stop || (m.I + sz > ql && m.J + sz > rl)) {
+        m.done = true;
+        continue;
+      }
+    }
+    // forced moves skip both heuristics (src/scan_block.rs:509-516)
+    const bool forced_down = m.J + sz > rl;
+    const bool free_rect = !forced_down && m.I + sz <= ql;
+    bool shrink = false;
+    if (free_rect && 2 * sz <= S && (ydi > sz / STEP - 1 || m.gnm == 1)) {
+      // grow: double and restart from the checkpoint
+      m.psz = sz;
+      m.sz = 2 * sz;
+      m.I = m.ckI;
+      m.J = m.ckJ;
+      m.off = m.ckOff;
+      m.rest = true;
+      m.dir = DIR_GD;
+      ydi = 0;
+    } else {
+      if (free_rect && sz > min_size && ydi == 0) {
+        // shrink when the border suffix holds the rect maximum
+        // (src/scan_block.rs:534-559)
+        int suf = INT_MIN_;
+        for (int r = sz - SUFFIX; r < sz; ++r)
+          suf = max(suf, max((int)P.at(P.aD(), r), (int)P.at(P.pD(), r)));
+        shrink = suf >= cur_max;
+      }
+      if (shrink) {
+        // halve into the suffix corner: rows [half, sz) become [0, half)
+        const int half = sz >> 1;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) P.base[q] += half;
+        m.sz = half;
+        m.I += half;
+        m.J += half;
+        m.ckI = m.I;
+        m.ckJ = m.J;
+        m.ckOff = m.off;
+        save_ckpt(P, ck, ro, half, tid, T);
+        ydi = 0;
+      }
+      // direction from the first 8 rows of both borders
+      // (src/scan_block.rs:560-565)
+      int ah = INT_MIN_, ph = INT_MIN_;
+      for (int r = 0; r < STEP; ++r) {
+        ah = max(ah, (int)P.at(P.aD(), r));
+        ph = max(ph, (int)P.at(P.pD(), r));
+      }
+      const int right_max = ro ? ah : ph, down_max = ro ? ph : ah;
+      const bool godown = forced_down || (free_rect && down_max > right_max);
+      if (godown) m.I += STEP; else m.J += STEP;
+      m.dir = godown ? DIR_D : DIR_R;
+      // the lane axis flipped: the borders trade roles
+      if (ro == godown) P.a ^= 1;
+    }
+    m.yiter = ydi;
+    // a shrink forces GROW_D as the previous direction, which kills the next
+    // rect's corner (src/scan_block.rs:541)
+    m.pdir = shrink ? DIR_GD : d0;
+  }
+  __syncthreads();  // the frozen cell's score is visible
+  if (tid == 0) {
+    if constexpr (XDROP) {
+      out[4 * b] = m.best;
+      out[4 * b + 1] = m.xbi;
+      out[4 * b + 2] = m.xbj;
+      out[4 * b + 3] = m.done ? 0 : 1;
+    } else {
+      out[2 * b] = score;
+      out[2 * b + 1] = m.done ? 0 : 1;
+    }
+  }
+}
+
+template <bool X>
+cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
+                   const int* table, int* out, int B, int cap, int alpha,
+                   int min_size, int max_size, int max_steps, int gopen,
+                   int gext, int xdrop, cudaStream_t stream) {
+  const size_t smem = plane_bytes(max_size);
+  cudaError_t err = cudaFuncSetAttribute(
+      big_align_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  big_align_kernel<X><<<B, warps_for(max_size) * 32, smem, stream>>>(
+      codes, qlen, rlen, table, out, cap, alpha, max_size, min_size,
+      max_steps, gopen, gext, xdrop);
+  return cudaGetLastError();
+}
+
+bool bad_sizes(int min_size, int max_size) {
+  return min_size < 16 || (min_size & (min_size - 1)) || max_size < 512 ||
+         max_size > 8192 || (max_size & (max_size - 1)) ||
+         min_size > max_size || (min_size == max_size && max_size == 512);
+}
+
+}  // namespace
+
+// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
+// x_drop < 0: global mode, out (B, 2) int32 = (score, overrun); else x-drop
+// with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
+// overrun).  One thread block per pair.  Returns the cudaError_t of the
+// launch.
+extern "C" int big_align_launch(const void* codes, const void* qlen,
+                                const void* rlen, const void* table, void* out,
+                                int B, int cap, int alpha, int min_size,
+                                int max_size, int max_steps, int gopen,
+                                int gext, int x_drop, void* stream) {
+  if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA ||
+      bad_sizes(min_size, max_size))
+    return (int)cudaErrorInvalidValue;
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* q = static_cast<const int*>(qlen);
+  const auto* r = static_cast<const int*>(rlen);
+  const auto* t = static_cast<const int*>(table);
+  auto* o = static_cast<int*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  return x_drop < 0
+             ? (int)launch<false>(c, q, r, t, o, B, cap, alpha, min_size,
+                                  max_size, max_steps, gopen, gext, x_drop, st)
+             : (int)launch<true>(c, q, r, t, o, B, cap, alpha, min_size,
+                                 max_size, max_steps, gopen, gext, x_drop, st);
+}
+
+// The launch of a max_size's instance (x-drop if `x_drop`): shape[0]
+// threads a block, shape[1] bytes of dynamic shared memory, and shape[2]
+// blocks resident on an SM of the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int big_launch_shape(int max_size, int x_drop, int* shape) {
+  if (bad_sizes(16, max_size)) return (int)cudaErrorInvalidValue;
+  const size_t smem = plane_bytes(max_size);
+  const int threads = warps_for(max_size) * 32;
+  auto kernel = x_drop ? big_align_kernel<true> : big_align_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                      smem);
+  shape[0] = threads;
+  shape[1] = (int)smem;
+  shape[2] = blocks;
+  return (int)err;
+}
+
+extern "C" const char* big_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

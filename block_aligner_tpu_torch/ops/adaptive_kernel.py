@@ -135,12 +135,15 @@ class AdaptiveKernelConfig:
 
 
 def _sat(x):
-    # only the lower i16 rail is reachable: rect maxima are rebased to ZERO
-    return x.clamp(min=NEG)
+    # i16 saturation: at max_size <= 512 only the lower rail is reachable
+    # (rect maxima are rebased to ZERO); past 512 (``ops/big_kernel.py``) a
+    # grow's columns run long enough without a rebase to reach the upper one
+    return x.clamp(NEG, I16_MAX)
 
 
 def adaptive_align_plain(codes, qlen, rlen, table, gaps,
-                         cfg: AdaptiveKernelConfig, count_cells: bool = False):
+                         cfg: AdaptiveKernelConfig, count_cells: bool = False,
+                         top_size: bool = False):
     """Plain PyTorch version: all pairs in lockstep under masks.
 
     Returns a (B, 2) int32 tensor of (score, overrun), overrun 1 where a
@@ -155,7 +158,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     ``count_cells`` it also returns, last, each pair's DP cell count, (B,)
     int64: the rect height for every column up to and including the freeze
     column (x-drop: every column of every step up to the one that ends the
-    pair)."""
+    pair).  With ``top_size`` it also returns, last, the largest block size
+    each pair reached, (B,) int32."""
     S, MIN, A, cap = cfg.max_size, cfg.min_size, cfg.alpha, cfg.seq_cap
     dev = codes.device
     B = codes.shape[0]
@@ -200,6 +204,7 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     rest = torch.zeros(B, dtype=torch.bool, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     cells = torch.zeros(B, dtype=torch.int64, device=dev)
+    top = sz.clone()
     tr = cfg.trace
     if tr:
         # per step: words (B, S), descriptors (B, 4); executed steps per
@@ -498,6 +503,7 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         # next rect's corner (reference: src/scan_block.rs:541)
         pdir = torch.where(rdone, torch.where(shrink, DIR_GD, d0), pdir)
         sz = torch.where(grow, 2 * sz, torch.where(shrink, half, sz))
+        top = torch.maximum(top, sz)
         # direction from the post-shrink borders' first 8 rows
         # (reference: src/scan_block.rs:560-565)
         free_ng = free & ~grow
@@ -523,6 +529,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
                 stack_steps(t_desc, (B, 4), dev), nsteps)
     if count_cells:
         res += (cells,)
+    if top_size:
+        res += (top,)
     return res if len(res) > 1 else out
 
 

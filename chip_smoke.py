@@ -7,12 +7,13 @@ Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``,
-   their profile libraries ``{lane,adaptive}_profile.cu`` and the flags
+   their profile libraries ``{lane,adaptive}_profile.cu``, the flags
    libraries ``{lane,adaptive}_flags.cu`` and
-   ``{lane,adaptive}_profile_flags.cu`` into ``build/`` (keyed on the
-   sources), one ``nvcc -Xptxas -v`` each, all eight started together, with
-   the registers, stack and spills of every kernel instance; load the
-   builds;
+   ``{lane,adaptive}_profile_flags.cu`` and the big-block kernel
+   ``big_kernel.cu`` into ``build/`` (keyed on the sources), one ``nvcc
+   -Xptxas -v`` each, all nine started together, with the registers, stack
+   and spills of every kernel instance, the lane and adaptive ones held to
+   the counts pinned in ``chip_smoke_ptxas.txt``; load the builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
    on the card, exact equality of score and suspect flag at blocks 16..512
    on seeded random protein and DNA pairs, and the reference's golden
@@ -112,27 +113,45 @@ Phases, each reported on its own line:
 24. profile flags: the SCOP-style pairs of phase 16 at lane (32, 32) with
    local start and at (256, 256) with free query end gaps, adaptive (32,
    256) with free query start gaps, the first and the last also with
-   x_drop 50 and traced (2048 pairs).
+   x_drop 50 and traced (2048 pairs);
+25. the big-block kernel (``csrc/big_kernel.cu``) against its plain
+   version, global: seeded protein and DNA pairs with structural indels at
+   (32, 512), (64, 1024), (512, 1024) and fixed (1024, 1024), 4 growth
+   pairs (phase 29's) at fixed (2048, 4096), and a capped run that
+   overruns; its launch shapes (threads, dynamic shared bytes, blocks per
+   SM);
+26. the same in x-drop mode (protein x 0 and 100, DNA x 20), and every
+   growth pair at (512, 8192) with x_drop 1000: all four outputs equal;
+27. the big main path, the reference's <10 kbp 1%-10% band: 1024
+   nanopore-like pairs of 5..10 kbp with 10% edits
+   (``examples_tpu/common.py::load_nanopore_pairs``, seed 1234; the JAX
+   package's ``run_results.py::bench_nanopore_band10k``),
+   ``NucMatrix.new_simple(2, -4)``, gaps -6/-2, size (128, 1024), global,
+   then with x_drop 50 (the pairs that end short of their ends counted);
+28. the uc30 pairs of phase 6 at (32, 512) without trace, which
+   ``pick_route`` sends to the big kernel;
+29. 32 DNA growth pairs (``growth_pairs``: a random middle between two
+   flanks) at (512, 8192) with the whole 16384-position code budget, whose
+   blocks must grow to 4096 and to 8192.
 
 On every main path the kernels must have launched (their counts are set to
-0 just before the path and read just after) and every result must equal
-the plain version's; kernel times come from CUDA events, packing is timed
-apart.  A trace main path runs ``align_all_trace``; its results must
-equal the non-trace instance's (none exists at max size 512), every CIGAR
-must sum to its end position and rescore to its score (with local start
-from wherever it starts, with free query start gaps from query row 0; with
-free query end gaps to at most its score, every CIGAR then held against
-the plain version's), and the first 512 must equal those walked from the
-plain version's trace; pack, the trace's
-copy-back and the walk are timed on the host clock.  A profile trace path
-holds every CIGAR to its end and to its score under the reference's
-profile costs (``rescore_profile``); a CIGAR that does not rescore (the
-reference's own walk misses on some pairs with position-specific gap
-opens) must equal the plain version's.  The line before the last is a
-JSON summary of the kernels; the last line is ``{"ok": true, "device":
-{...}}``.  Any failure raises, so the script exits non-zero and prints no
-result.  It needs the repository around it and a CUDA device; without
-either it fails.
+0 just before the path and read just after) and every result must equal the
+plain version's; kernel times come from CUDA events, packing and decoding
+are timed apart.  A trace main path runs ``align_all_trace``; its results
+must equal the non-trace instance's (none exists at max size 512), every
+CIGAR must sum to its end position and rescore to its score (with local
+start from wherever it starts, with free query start gaps from query row 0;
+with free query end gaps to at most its score, every CIGAR then held
+against the plain version's), and the first 512 must equal those walked
+from the plain version's trace; pack, the trace's copy-back and the walk
+are timed on the host clock.  A profile trace path holds every CIGAR to its
+end and to its score under the reference's profile costs
+(``rescore_profile``); a CIGAR that does not rescore (the reference's own
+walk misses on some pairs with position-specific gap opens) must equal the
+plain version's.  The line before the last is a JSON summary of the
+kernels; the last line is ``{"ok": true, "device": {...}}``.  Any failure
+raises, so the script exits non-zero and prints no result.  It needs the
+repository around it and a CUDA device; without either it fails.
 """
 
 from __future__ import annotations
@@ -501,6 +520,28 @@ def grow_profile_pairs(rng, n, length=560, inserted=300):
             grow_to_512_pairs(rng, n, length, inserted)]
 
 
+def growth_pairs(rng, n):
+    """DNA pairs whose blocks grow to 4096 or 8192 at (512, 8192): a flank,
+    a random middle of 1200..3200 bases drawn apart for each side, and a
+    second flank, the flanks with 5% edits on the reference side (the JAX
+    package's 4096-growth test builds its pair so; the middle stalls the
+    y-drop counter, and no grown block finds a new best before it spans
+    the middle).  At most 8100 bases a side, within (512, 8192)'s code
+    budget of 16384."""
+    from examples_tpu.common import rand_mutate, rand_seq
+
+    pairs = []
+    for k in range(n):
+        a, m, c = ((600, 3000, 4500), (600, 1500, 2500), (300, 3200, 4600),
+                   (1000, 1200, 1500))[k % 4]
+        A, C = rand_seq(rng, b"ACGT", a), rand_seq(rng, b"ACGT", c)
+        pairs.append((A + rand_seq(rng, b"ACGT", m) + C,
+                      rand_mutate(rng, A, a // 20, b"ACGT")
+                      + rand_seq(rng, b"ACGT", m)
+                      + rand_mutate(rng, C, c // 20, b"ACGT")))
+    return pairs
+
+
 def x_dropped(out, staged):
     """How many pairs of an x-drop run ended short of (qlen, rlen): their
     best position lies before the end of the query or the reference."""
@@ -554,6 +595,11 @@ def parse_ptxas(log, name):
             fn = (f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}"
                   f"{', trace' if m[4] == '1' else ''}"
                   f"{', profile' if m[5] == '1' else ''}{flags}>")
+        # csrc/big_kernel.cu's instances: x-drop or global
+        m = re.search(r"Compiling entry function '\w*?\d(big_align_kernel)"
+                      r"ILb([01])E", line)
+        if m:
+            fn = f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}>"
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -566,6 +612,27 @@ def parse_ptxas(log, name):
     if not lines:
         raise AssertionError(f"no ptxas report for {name}:\n{log}")
     return lines
+
+
+PINNED_PTXAS = "chip_smoke_ptxas.txt"
+
+
+def check_pinned_ptxas(reports):
+    """The lane and adaptive libraries' instances must keep the registers,
+    stack and spills pinned in ``chip_smoke_ptxas.txt`` (their sources'
+    counts with this toolkit; a kernel edit must leave the other
+    instances' counts alone).  A new ``nvcc`` may move them all: re-pin
+    from a run of unchanged sources."""
+    with open(os.path.join(ROOT, PINNED_PTXAS)) as f:
+        pinned = sorted(line.strip() for line in f if line.strip())
+    got = sorted(line for line in reports if not line.startswith("big_"))
+    if got != pinned:
+        raise AssertionError(
+            f"ptxas counts differ from {PINNED_PTXAS}: new "
+            f"{sorted(set(got) - set(pinned))[:6]}, pinned "
+            f"{sorted(set(pinned) - set(got))[:6]}")
+    print(f"[ptxas] the {len(got)} lane and adaptive instances keep the "
+          f"counts pinned in {PINNED_PTXAS}")
 
 
 def cuda_ms(fn, reps):
@@ -610,8 +677,15 @@ def bound(staged, cells, int32_per_s, x_drop=False, ops=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def wrappers(lk, ak):
+    """The kernel wrappers whose launches a path counts."""
+    from block_aligner_tpu_torch.ops import big_kernel
+
+    return lk.lane_align, ak.adaptive_align, big_kernel.big_align
+
+
 def reset_launches(lk, ak):
-    for fn in (lk.lane_align, ak.adaptive_align):
+    for fn in wrappers(lk, ak):
         lk.reset_counts(fn)
 
 
@@ -621,7 +695,7 @@ def expect_launches(lk, ak, what, *launched):
     name is its wrapper's, then ``_profile``, ``_byte``, ``_flags``,
     ``_xdrop``, ``_trace``."""
     counts = {}
-    for fn in (lk.lane_align, ak.adaptive_align):
+    for fn in wrappers(lk, ak):
         for c in lk.COUNTERS:
             name = fn.__name__ + "".join(
                 f"_{m}" for m in ("profile", "byte", "flags", "xdrop",
@@ -965,8 +1039,10 @@ def main():
     from block_aligner_tpu_torch.core import scores
     from block_aligner_tpu_torch.ops import _build
     from block_aligner_tpu_torch.ops import adaptive_kernel as ak
+    from block_aligner_tpu_torch.ops import big_kernel as bk
     from block_aligner_tpu_torch.ops import lane_kernel as lk
-    from examples_tpu.common import load_uc_pairs, rand_mutate, rand_seq
+    from examples_tpu.common import (load_nanopore_pairs, load_uc_pairs,
+                                     rand_mutate, rand_seq)
 
     last = [time.perf_counter()]
 
@@ -998,17 +1074,19 @@ def main():
     # 2. build: one nvcc per library, all started together, each with
     # ptxas's report
     t0 = time.perf_counter()
-    names = lk.LIBRARIES
+    names = (*lk.LIBRARIES, bk.LIBRARY)
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda n: build_and_report(_build, n), names))
     paths = [path for path, _ in built]
     reports = [line for _, lines in built for line in lines]
-    for name in names:
+    for name in lk.LIBRARIES:
         (lk if name.startswith("lane") else ak)._lib(name)
+    bk._lib()
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in reports:
         print(f"[ptxas] {line}")
+    check_pinned_ptxas(reports)
     phase("1-2, device and build")
 
     # 3. lane kernel vs plain version on the card (these launches are not
@@ -1293,11 +1371,13 @@ def main():
           f"(lane, adaptive) {exp_launches}")
     phase("7, align_exp_all")
 
-    def main_path(al, work, what, name, plain_fn, kernel_fn):
+    def main_path(al, work, what, name, plain_fn, kernel_fn, top=False):
         """Drive a main path (stage + align_staged, then align_all) with
         the launch counts reset just before it and read just after, hold
-        every result against the plain version on the card, and time it;
-        returns the path's numbers for the kernels line."""
+        every result against the plain version on the card, and time it
+        (the kernel with CUDA events; pack, align_staged and decode on the
+        host clock); returns the path's numbers for the kernels line, and
+        with ``top`` the largest block size each pair reached."""
         torch.cuda.synchronize()
         reset_launches(lk, ak)
         staged, pack_ms = host_ms(lambda: al.stage(work))
@@ -1310,8 +1390,9 @@ def main():
                                  "align_staged")
         if flags is not None and not np.array_equal(al.last_suspect, flags):
             raise AssertionError(f"{what}: align_all suspect flags disagree")
-        (want, cells), plain_ms = host_ms(
-            lambda: plain_fn(*staged, al.cfg, count_cells=True))
+        (want, cells, *tops), plain_ms = host_ms(
+            lambda: plain_fn(*staged, al.cfg, count_cells=True,
+                             **({"top_size": True} if top else {})))
         last = np.zeros(len(res), np.int32) if flags is None else flags
         got = torch.from_numpy(np.column_stack(
             [[(r.score, r.query_idx, r.reference_idx) for r in res], last])
@@ -1326,6 +1407,8 @@ def main():
             raise AssertionError(f"{what}: differs from the plain version: max "
                                  f"abs err {err}")
         kernel_ms = cuda_ms(lambda: kernel_fn(*staged, al.cfg), 10)
+        out = al._dispatch(staged)
+        _, decode_ms = host_ms(lambda: al._decode(staged, out))
         bnd, by = bound(staged, cells, int32_per_s, x_drop=wide,
                         ops=ops_per_cell(al.cfg))
         B, n_cells = len(work), int(cells.sum())
@@ -1342,10 +1425,12 @@ def main():
               f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
               f"launch of {B} pairs, CUDA events, mean of 10); bound "
               f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
-              f"align_staged {run_ms * 1e3 / B:.4f} us/pair; plain "
+              f"align_staged {run_ms * 1e3 / B:.4f} us/pair (decode "
+              f"{decode_ms * 1e3 / B:.4f}); plain "
               f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
-        return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
-                "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+        numbers = {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
+                   "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+        return (numbers, tops[0]) if top else numbers
 
     # 8. the lane x-drop main path
     xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
@@ -2271,6 +2356,136 @@ def main():
             scop[:2048], f"{what}, {size}" + (f", x_drop {x}" if x else "")
             + f", {flag.replace('_', ' ')}", name)
 
+    # 25-26. the big kernel vs its plain version, global then x-drop: the
+    # structural pairs at (32, 512), (64, 1024), (512, 1024) and (1024,
+    # 1024), fixed (2048, 4096) and the growth pairs of phase 29, and a
+    # capped run; the nanopore pairs of phase 27 are held on every pair
+    # there
+    grow = growth_pairs(np.random.default_rng(3), 32)
+    dna = (nuc, ngaps)
+    big_sizes = ((32, 512), (64, 1024), (512, 1024), (1024, 1024))
+
+    def big_vs_plain(pairs, size, matrix, gaps, x, cap=None):
+        """big_align against big_align_plain on the card; returns the
+        pairs whose best lies short of their ends and the largest block
+        sizes reached."""
+        maxlen = max(max(len(q), len(r)) for q, r in pairs)
+        cfg = bk.BigKernelConfig(
+            *size, cap or max(256, -(-(1 + maxlen + size[1] + 16) // 128)
+                              * 128), 16 if matrix.kind == "nuc" else 32,
+            x_drop=x is not None)
+        pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
+        got = bk.big_align(*pk, cfg)
+        torch.cuda.synchronize()
+        want, top = bk.big_align_plain(*pk, cfg, top_size=True)
+        check_equal(got, want, f"big {size} x_drop={x} {matrix.kind}")
+        if got[:, -1].any():
+            raise AssertionError(f"big {size}: a pair hit the step cap")
+        return (x_dropped(got, pk) if x is not None else 0), top
+
+    def big_capped(x, steps):
+        cfg = with_step_cap(bk.BigKernelConfig(32, 1024, 1792,
+                                               x_drop=x is not None), steps)
+        pk = bk.pack_big(structural_pairs(rng, AA, 96, 600), scores.BLOSUM62,
+                         cfg, Gaps(-11, -1), dev, x or 0)
+        got = bk.big_align(*pk, cfg)
+        torch.cuda.synchronize()
+        check_equal(got, bk.big_align_plain(*pk, cfg), f"big, {steps} steps")
+        over = int(got[:, -1].sum())
+        if not 0 < over < len(got):
+            raise AssertionError(f"big: {over} of {len(got)} pairs overran "
+                                 f"{steps} steps")
+        return over, len(got)
+
+    shapes = {S: bk.launch_shape(bk.BigKernelConfig(16, S, 16384))
+              for S in (512, 1024, 2048, 4096, 8192)}
+    print("[big-shape] threads, dynamic shared bytes and blocks per SM "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor) by max size: "
+          + "; ".join(f"{S}: {t}, {b}, {n}" for S, (t, b, n) in
+                      shapes.items()))
+    checked, tops = 0, set()
+    for size in big_sizes:
+        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
+                                       (*dna, DNA)):
+            pairs = structural_pairs(rng, alphabet, 96, 700)
+            tops |= set(big_vs_plain(pairs, size, matrix, gaps, None)[1]
+                        .tolist())
+            checked += len(pairs)
+    _, top = big_vs_plain(grow[:4], (2048, 4096), *dna, None)
+    over, n_capped = big_capped(None, 40)
+    print(f"[big-vs-plain] {checked} pairs at {', '.join(map(str, big_sizes))}"
+          " (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths "
+          f"0..700, structural indels; blocks reached {sorted(tops)}), and 4 "
+          f"growth pairs at fixed (2048, 4096) (blocks {top.tolist()}): "
+          "score and overrun equal; with a 40-step cap on "
+          f"{n_capped} pairs, {over} of which overran; the lane and adaptive "
+          "instances keep their pinned ptxas counts (phase 2)")
+    phase("25, big kernel vs plain")
+
+    checked = dropped = 0
+    for size in big_sizes:
+        for (matrix, gaps, alphabet), x in (
+                ((scores.BLOSUM62, Gaps(-11, -1), AA), 0),
+                ((*dna, DNA), 20), ((scores.BLOSUM62, Gaps(-11, -1), AA), 100)):
+            pairs = structural_pairs(rng, alphabet, 96, 700)
+            dropped += big_vs_plain(pairs, size, matrix, gaps, x)[0]
+            checked += len(pairs)
+    gdrop, gtop = big_vs_plain(grow, (512, 8192), *dna, 1000, cap=16384)
+    over, n_capped = big_capped(50, 25)
+    if not dropped:
+        raise AssertionError("no big x-drop pair ended short of its ends")
+    print(f"[big-xdrop-vs-plain] {checked} pairs at "
+          f"{', '.join(map(str, big_sizes))} (protein x 0 and 100, DNA x 20): "
+          "best, position and overrun equal; "
+          f"{dropped} best positions short of (qlen, rlen); the {len(grow)} "
+          f"growth pairs at (512, 8192) with x 1000 ({gdrop} short of their "
+          f"ends, blocks reached {sorted(set(gtop.tolist()))}); with a "
+          f"25-step cap on {n_capped} pairs, {over} of which overran")
+    phase("26, big x-drop kernel vs plain")
+
+    # 27. the big main path: the reference's <10 kbp 1%-10% band (128,
+    # 1024) on the JAX package's nanopore workload
+    # (run_results.py::bench_nanopore_band10k), global and x-drop
+    nano = load_nanopore_pairs(n_pairs=1024, max_len=10000, seed=1234)
+    ncap = max(max(len(q), len(r)) for q, r in nano)
+    what = ("nanopore-like 5000..9999 bases, 10% edits, NucMatrix(2, -4) "
+            "-6/-2, (128, 1024)")
+    big_g = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
+                                   seq_cap=ncap, device=dev), nano, what,
+                      "big_align", bk.big_align_plain, bk.big_align)
+    phase("27, big_align main path")
+    big_x = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
+                                   seq_cap=ncap, x_drop=50, device=dev), nano,
+                      f"{what}, x_drop 50", "big_align_xdrop",
+                      bk.big_align_plain, bk.big_align)
+    phase("27, big_align_xdrop main path")
+
+    # 28. uc30 at (32, 512) without trace, which pick_route sends to the
+    # big kernel
+    big_uc = main_path(
+        BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 512),
+                     batch=len(uc), seq_cap=512, device=dev), uc,
+        "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, 512)",
+        "big_align", bk.big_align_plain, bk.big_align)
+    phase("28, big_align uc30 (32, 512)")
+
+    # 29. growth: DNA pairs whose long random middles make the blocks grow
+    # to 4096 and 8192, at (512, 8192) with the whole code budget
+    gal = BatchAligner(*dna, size=(512, 8192), batch=len(grow), seq_cap=8175,
+                       device=dev)
+    if gal.cfg.seq_cap != 16384:
+        raise AssertionError(f"growth seq_cap {gal.cfg.seq_cap}")
+    big_gr, gtop = main_path(
+        gal, grow, "DNA growth pairs: a flank, a random middle of 1200..3200 "
+        "on both sides, a flank (5% edits), NucMatrix(2, -4) -6/-2, (512, "
+        "8192)", "big_align", bk.big_align_plain, bk.big_align, top=True)
+    reached = {int(t): int((gtop == t).sum()) for t in gtop.unique()}
+    if not {4096, 8192} <= set(reached):
+        raise AssertionError(f"growth pairs reached {reached}")
+    print(f"[big-growth] blocks reached (size: pairs) {reached}")
+    phase("29, big_align growth main path")
+    big_g = merged(big_g, big_uc, big_gr)
+
     print(json.dumps({"kernels": [
         {
             "name": "lane_align",
@@ -2365,6 +2580,17 @@ def main():
             ("adaptive_align_profile", ad_p),
             ("adaptive_align_profile_xdrop", ad_px),
             *trace_paths.items())
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/big_kernel.cu",
+            "replaces": "block_aligner_tpu/ops/big_kernel.py:400",
+            **numbers,
+            "library_ms": None,
+        }
+        for name, numbers in (("big_align", big_g),
+                              ("big_align_xdrop", big_x))
     ] + [
         {
             "name": name,

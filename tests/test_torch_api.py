@@ -118,7 +118,7 @@ def test_pick_route_matches_jax(args):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(size=(64, 1024)), dict(seq_cap=20000),
+    dict(size=(64, 1024), free_query_start_gaps=True), dict(seq_cap=20000),
     dict(size=(64, 1024), trace=True, local_start=True),
     dict(seq_cap=20000, local_start=True),
     dict(free_query_start_gaps=True, use_lane_kernel=False),

@@ -1,8 +1,8 @@
-"""The CUDA sources themselves on the CPU: ``csrc/lane_kernel.cu`` and
-``csrc/adaptive_kernel.cu`` compiled as C++ against a small header that
-emulates the few CUDA features they use, called through their own C entry
-points and ``bind``, and held exactly against the plain versions, in
-global, x-drop and trace mode.
+"""The CUDA sources themselves on the CPU: ``csrc/lane_kernel.cu``,
+``csrc/adaptive_kernel.cu`` and ``csrc/big_kernel.cu`` compiled as C++
+against a small header that emulates the few CUDA features they use, called
+through their own C entry points and ``bind``, and held exactly against the
+plain versions, in global, x-drop and trace mode.
 
 The emulation runs one block at a time (so ``__shared__`` arrays may be
 function statics), each of its CUDA threads a fiber on one host thread;
@@ -27,6 +27,7 @@ from block_aligner_tpu_torch.core import scores
 from block_aligner_tpu_torch.ops import _build
 from block_aligner_tpu_torch.ops._profile import pack_profile
 from block_aligner_tpu_torch.ops import adaptive_kernel as ak
+from block_aligner_tpu_torch.ops import big_kernel as bk
 from block_aligner_tpu_torch.ops import lane_kernel as lk
 from test_torch_adaptive_kernel import protein_pairs
 from test_torch_trace import grown_pairs
@@ -141,7 +142,19 @@ inline int __reduce_min_sync(unsigned, int v) {
 }
 inline void __syncwarp() { warp_().bar->arrive_and_wait(); }
 inline void __syncthreads() { block_->arrive_and_wait(); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 namespace emu {
 template <class F>
@@ -193,11 +206,24 @@ void launch(unsigned grid, unsigned block, F body) {
     }
   }
 }
+// A launch with dynamic shared memory: one buffer for the block at work,
+// filled with junk, as the card's is.
+inline std::vector<char> dynamic_;
+template <class F>
+void launch_shared(unsigned grid, unsigned block, size_t bytes, F body) {
+  dynamic_.assign(bytes, 0x5a);
+  launch(grid, block, body);
+}
 }  // namespace emu
 """
 
 LAUNCH = re.compile(r"(\w+)<<<(\w+), (WARPS \* 32), 0, stream>>>\((.*?)\);",
                     re.S)
+# csrc/big_kernel.cu: a launch with dynamic shared memory, and its
+# declaration
+BIG_LAUNCH = re.compile(r"(\w+<\w+>)<<<(\w+), (.*?), (\w+), stream>>>"
+                        r"\((.*?)\);", re.S)
+BIG_SHARED = "extern __shared__ short planes[];"
 
 
 @pytest.fixture(scope="module")
@@ -217,13 +243,20 @@ def emulated(tmp_path_factory):
         assert n == 1, f"{name}: kernel launch not found"
         # the profile libraries include the kernel source by this name
         (out / f"{name}.cu").write_text(src)
-    for name in lk.LIBRARIES:
-        mod = lk if name.startswith("lane") else ak
+    src = (_build.CSRC / f"{bk.LIBRARY}.cu").read_text()
+    src, n = BIG_LAUNCH.subn(
+        r"emu::launch_shared(\2, \3, \4, [=] { \1(\5); });", src)
+    assert n == 1 and src.count(BIG_SHARED) == 1, "big kernel launch not found"
+    src = src.replace(BIG_SHARED, "short* const planes = "
+                      "reinterpret_cast<short*>(emu::dynamic_.data());")
+    (out / f"{bk.LIBRARY}.cu").write_text(src)
+    for name in (*lk.LIBRARIES, bk.LIBRARY):
+        mod = {"lane": lk, "adaptive": ak}.get(name.split("_")[0], bk)
         (out / f"{name}.cpp").write_text(
             (out / f"{name}.cu").read_text() if name.endswith("kernel")
             else (_build.CSRC / f"{name}.cu").read_text())
         so = out / f"lib{name}.so"
-        # all eight compile at once
+        # all nine compile at once
         builds[name] = (mod, so, subprocess.Popen(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
              str(out), "-o", str(so), str(out / f"{name}.cpp")],
@@ -601,3 +634,72 @@ def test_kernel_source_flags_match_plain(emulated, size, mode, x, trace,
             assert int(torch.where(ran, bufs[1][:, 0, 3], 0).max()) == 512
     else:
         assert torch.equal(got, want)
+
+
+def big_launch(lib, pk, cfg, x=-1):
+    """``csrc/big_kernel.cu``'s entry point on a packed batch."""
+    out = torch.full((pk.codes.shape[0], 4 if x >= 0 else 2), -7,
+                     dtype=torch.int32)
+    err = lib.big_align_launch(
+        pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
+        pk.table.data_ptr(), out.data_ptr(), pk.codes.shape[0], cfg.seq_cap,
+        cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps, pk.gaps[0],
+        pk.gaps[1], x, None)
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("size,setup,x", [
+    ((32, 512), "protein", -1), ((64, 1024), "dna", -1),
+    ((32, 512), "protein", 50), ((128, 1024), "dna", 20),
+    ((1024, 1024), "protein", -1), ((2048, 4096), "dna", -1),
+], ids=["32-512-protein", "64-1024-dna", "32-512-x-drop",
+        "128-1024-dna-x-drop", "1024-1024-protein", "2048-4096-dna"])
+def test_big_kernel_source_matches_plain(emulated, size, setup, x):
+    """Big-kernel instances against the plain version: edge cases, homologs
+    with indels and unrelated pairs (x-drop ends some early); at (32, 512)
+    a pair whose blocks grow to 512 rows (four warps of four slots), at
+    (1024, 1024) fixed blocks of 1024 rows (eight slots a warp), and at
+    (2048, 4096) the eight-warp instance."""
+    matrix, gaps, alphabet = SETUPS[setup]
+    rng = np.random.default_rng(size[1] + x)
+    pairs = chip_smoke.structural_pairs(rng, alphabet, 8, 200)
+    if size == (32, 512):
+        pairs = [grown_pairs()[1 if x >= 0 else 0]] + pairs
+    cfg = bk.BigKernelConfig(*size, 1664 if size[1] == 512 else 4352,
+                             32 if setup == "protein" else 16, x_drop=x >= 0)
+    pk = bk.pack_big(pairs, matrix, cfg, gaps, "cpu", x_drop=max(x, 0))
+    got = big_launch(emulated[bk.LIBRARY], pk, cfg, x)
+    assert torch.equal(got, bk.big_align_plain(*pk, cfg))
+    if x >= 0:
+        assert chip_smoke.x_dropped(got, pk) > 0
+
+
+def test_big_entry_point_matches_binding(emulated):
+    """The C signature of ``csrc/big_kernel.cu`` and its ctypes argument
+    list agree (5 pointers for the inputs and the output, 9 ints, the
+    stream); the entry point refuses sizes the big route does not take, and
+    reports its launch shape (threads, dynamic shared bytes)."""
+    src = (_build.CSRC / f"{bk.LIBRARY}.cu").read_text()
+    sig = re.search(r'extern "C" int big_align_launch\((.*?)\)', src, re.S)
+    params = [p.strip() for p in sig.group(1).split(",")]
+    lib = emulated[bk.LIBRARY]
+    assert [p.startswith(("const void*", "void*")) for p in params] == \
+        [True] * 5 + [False] * 9 + [True]
+    assert len(lib.big_align_launch.argtypes) == len(params)
+    assert _build.library_path(bk.LIBRARY).name.startswith("libbig_kernel-")
+    cfg = bk.BigKernelConfig(16, 1024, 1152)
+    pk = bk.pack_big([(b"A", b"A")], scores.BLOSUM62, cfg, Gaps(-11, -1),
+                     "cpu")
+    out = torch.zeros((1, 2), dtype=torch.int32)
+    for lo, hi in [(16, 256), (32, 16384), (512, 512), (24, 1024),
+                   (2048, 1024)]:
+        assert lib.big_align_launch(
+            pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
+            pk.table.data_ptr(), out.data_ptr(), 1, cfg.seq_cap, 32, lo, hi,
+            cfg.max_steps, -11, -1, -1, None) != 0
+    assert tuple(big_launch(lib, pk, cfg)[0].tolist()) == (4, 0)
+    shape = (ctypes.c_int * 3)()
+    for S, want in [(1024, (128, 20480)), (8192, (256, 163840))]:
+        assert lib.big_launch_shape(S, 1, ctypes.addressof(shape)) == 0
+        assert tuple(shape)[:2] == want
