@@ -7,8 +7,9 @@ max, the adaptive kernel, ``csrc/adaptive_kernel.cu``); and the same for
 sequence-to-PSSM pairs through ``ProfileAligner`` and
 ``align_profile_exp_all`` (the kernels' profile instances,
 ``csrc/lane_profile.cu`` and ``csrc/adaptive_profile.cu``).  Blocks past
-512 take a third route of ``BatchAligner``, global and x-drop: the
-big-block kernel, ``csrc/big_kernel.cu``.  Each
+512 take a third route of ``BatchAligner``, global and x-drop, with or
+without trace: the big-block kernel, ``csrc/big_kernel.cu`` (its trace
+instances ``csrc/big_trace.cu``).  Each
 hand-written CUDA kernel runs on the GPU and its plain PyTorch version on
 the CPU.  The package imports torch and numpy, never JAX or
 ``block_aligner_tpu``.

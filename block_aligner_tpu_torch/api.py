@@ -8,14 +8,14 @@
   is one;
 * "big": blocks past 512 (512 < max <= 8192, min == max > 512 included,
   and (min, 512) without trace), the big-block kernel, in global and
-  x-drop mode with a score table; the reference's long-read bands (128,
-  1024) and (512, 8192) are two.
+  x-drop mode with a score table, with or without trace; the reference's
+  long-read bands (128, 1024) and (512, 8192) are two.
 
 On the lane and adaptive routes it runs in global or x-drop mode
 (``x_drop=X``), with or without trace (``trace=True``), with an
 amino-acid or nucleotide table or a ``ByteMatrix`` (global and trace), and
 with the reference's ``local_start``, ``free_query_start_gaps`` and
-``free_query_end_gaps`` flags; the big route's other modes raise
+``free_query_end_gaps`` flags; the big route's ByteMatrix and flags raise
 ``NotImplementedError``.
 
 In trace mode each batch's trace comes back to the host: ``trace()``,
@@ -42,6 +42,7 @@ from .core.result import AlignResult
 from .core.scores import ByteMatrix, Gaps
 from .core.traceback import Trace
 from .ops._profile import pack_profile
+from .ops._trace import DESC_FIELDS
 from .ops.adaptive_kernel import AdaptiveKernelConfig, adaptive_align
 from .ops.big_kernel import BigKernelConfig, big_align
 from .ops.lane_kernel import LaneKernelConfig, lane_align, pack_lane, wide
@@ -118,10 +119,31 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
+def _block_trace(words, desc, steps, used):
+    """A block-sized trace (``ops/_trace.py``) on the host, as ``Trace``
+    takes it: ``(words, desc, steps, offsets)``.  Only the descriptors
+    of executed steps and the words each pair wrote cross to the host, as
+    one int32 tensor gathered on the device, through ``to_host``."""
+    steps_h = steps.cpu().numpy()
+    used_h = used.cpu().numpy().astype(np.int64)
+    T, B = (int(steps_h.max()) if steps_h.size else 0), steps_h.size
+    ran = torch.arange(T, device=desc.device)[:, None] < steps[None, :]
+    parts = [desc[:T][ran].reshape(-1)]
+    parts += [words[b, :u] for b, u in enumerate(used_h.tolist()) if u]
+    flat = to_host(torch.cat(parts))
+    n = DESC_FIELDS * int(steps_h.sum())
+    d = np.zeros((T, B, DESC_FIELDS), np.int32)
+    d[np.arange(T)[:, None] < steps_h[None, :]] = flat[:n].reshape(
+        -1, DESC_FIELDS)
+    # pair b's words start at the sum of the counters before it
+    base = np.cumsum(used_h) - used_h
+    return flat[n:], d, steps_h, base[None, :] + d[:, :, 4]
+
+
 # ROADMAP.md item that brings each configuration the port lacks
 _SLICE = {
-    "big": "queue 2 item 5, kernel C's trace (5a), ByteMatrix (5b), flag "
-           "(5c) and profile (5d) modes",
+    "big": "queue 2 item 5, kernel C's ByteMatrix (5b), flag (5c) and "
+           "profile (5d) modes",
     "long": "queue 1 item 5 (long-sequence API)",
     "long_lane": "queue 1 item 5 (long-sequence API)",
     "engine": "queue 1 item 3 (PyTorch lockstep engine)",
@@ -177,12 +199,19 @@ class _Routed:
 
     def _decode(self, staged, out) -> List[AlignResult]:
         """Fetch a dispatched batch's results; the lane route sets
-        ``last_suspect``, the adaptive and big routes check the step cap.
-        Each holds the flag in its output's last column; x-drop mode and free
-        query end gaps hold the best position in columns 1 and 2.  In trace
-        mode the steps every pair executed (up to the batch's most) come
-        back and make the ``Trace`` of ``trace()``."""
-        if self.trace_mode:
+        ``last_suspect``, the adaptive and big routes check the step cap
+        (and the big route's trace budget).  Each holds the flag in its
+        output's last column; x-drop mode and free query end gaps hold the
+        best position in columns 1 and 2.  In trace mode the steps every
+        pair executed (up to the batch's most) come back and make the
+        ``Trace`` of ``trace()``; on the big route only the executed
+        descriptors and the words each pair wrote."""
+        if self.trace_mode and self.route == "big":
+            words, desc, steps, offsets = _block_trace(*out[1:])
+            self._last_trace = Trace(words, desc, steps, self.matrix,
+                                     offsets=offsets)
+            out = out[0]
+        elif self.trace_mode:
             out, words, desc, steps = out
             steps = steps.cpu().numpy()
             T = int(steps.max()) if steps.size else 0
@@ -195,9 +224,13 @@ class _Routed:
         if self.route == "lane":
             self.last_suspect = out[:, -1].astype(bool)
         elif out[:, -1].any():
+            budget = (f" or its trace budget ({self.cfg.trace_budget} words "
+                      "a pair)" if self.trace_mode and self.route == "big"
+                      else "")
             raise RuntimeError(
                 f"{int(out[:, -1].sum())} pairs hit the {self.route} kernel's "
-                f"step cap ({self.cfg.max_steps} steps); raise seq_cap")
+                f"step cap ({self.cfg.max_steps} steps){budget}; raise "
+                "seq_cap")
         if wide(self.cfg):
             ql, rl = out[:, 1], out[:, 2]
         else:
@@ -289,8 +322,9 @@ class BatchAligner(_Routed):
     ``cigar``, ``cigar_eq``); ``align_all`` then keeps the caller's order
     and the last batch's trace, and ``align_all_trace`` returns every
     pair's CIGAR.  The big route (blocks past 512) runs global and x-drop
-    mode with a score table only.  ``device`` places the packed tensors: a
-    CUDA device runs the kernels, the CPU their plain versions.
+    mode, with or without trace, with a score table only.  ``device``
+    places the packed tensors: a CUDA device runs the kernels, the CPU
+    their plain versions.
     """
 
     def __init__(
@@ -343,7 +377,7 @@ class BatchAligner(_Routed):
             _not_yet(f"route {route!r} (size {size}, seq_cap {seq_cap})", route)
         if route == "big":
             later = [name for name, on in (
-                ("trace", trace), ("a ByteMatrix", is_byte),
+                ("a ByteMatrix", is_byte),
                 ("local_start", local_start),
                 ("free_query_start_gaps", free_query_start_gaps),
                 ("free_query_end_gaps", free_query_end_gaps)) if on]
@@ -375,7 +409,7 @@ class BatchAligner(_Routed):
                                             **modes)
         else:
             self.cfg = BigKernelConfig(min_size, max_size, cap, alpha,
-                                       x_drop=x_drop is not None)
+                                       x_drop=x_drop is not None, trace=trace)
         self.last_suspect: Optional[np.ndarray] = None
 
     @property
@@ -396,8 +430,9 @@ class BatchAligner(_Routed):
 
     def stage(self, pairs):
         """Pack a batch onto the device; ``align_staged`` runs it, as often
-        as wanted, without packing again.  Adaptive trace has no staged
-        runs (the JAX package refuses them too): use ``align_batch``."""
+        as wanted, without packing again, traced too on the big route.
+        Adaptive trace has no staged runs (the JAX package refuses them
+        too): use ``align_batch``."""
         if self.trace_mode and self.route == "adaptive":
             raise ValueError("stage/align_staged do not run adaptive trace: "
                              "use align_batch, align_all or align_all_trace")

@@ -22,6 +22,15 @@ return, for every step ``s`` a pair ``b`` executed:
 * ``steps[b]``: the steps the pair executed.  Rows of later steps, and rows
   at or past a step's height, hold whatever the buffer held before.
 
+The big kernel (``ops/big_kernel.py``) writes a block-sized layout: a step
+writes only the rows of its height, at a running per-pair word counter, and
+its descriptor carries a fifth field, the counter before the step (its word
+offset, ``ops/_trace.py``).  ``Trace`` reads both layouts through per-step
+offsets: row ``lane`` of step ``t`` of pair ``b`` is word ``offsets[t, b] +
+lane`` of the flattened words, where the dense layout's offsets are ``(t *
+B + b) * W``.  A rect's steps share its height, so when a kernel writes its
+steps in order, a rect's words are ``n * h`` contiguous words.
+
 In local-start mode each step has a second word per row after the S words
 of its 4-bit cells, ``words[s, b, S + row]``: bit ``w`` says that column
 ``w``'s D equals the relative zero (reference: src/scan_block.rs:1184-1186),
@@ -205,18 +214,23 @@ class _Rect:
     """One rect of a pair's replayed list: ``n`` steps from step ``t0``.
     Its bits unpack, as ``[place_col, lane]`` arrays, on first use."""
 
-    __slots__ = ("row", "col", "right", "h", "t0", "n", "_words", "_b", "_t",
+    __slots__ = ("row", "col", "right", "h", "t0", "n", "_flat", "_off", "_t",
                  "_t2", "_zero", "_rows")
 
-    def __init__(self, row, col, right, h, t0, n, words, b, rows):
+    def __init__(self, row, col, right, h, t0, n, flat, off, rows):
         self.row, self.col, self.right, self.h = row, col, right, h
         self.t0, self.n = t0, n
-        self._words, self._b, self._rows = words, b, rows
+        self._flat, self._rows = flat, rows
+        self._off = off[t0 : t0 + n]  # the word offsets of the rect's steps
         self._t = self._t2 = self._zero = None
+
+    def _read(self, shift):
+        """The (n, h) words ``shift`` words past each step's first row."""
+        return self._flat[self._off[:, None] + shift + np.arange(self.h)]
 
     def _mat(self):
         if self._t is None:
-            w = self._words[self.t0 : self.t0 + self.n, self._b, : self.h]
+            w = self._read(0)
             sh = (4 * np.arange(STEP_))[None, :, None]
             nib = ((w[:, None, :] >> sh) & 15).reshape(STEP_ * self.n, self.h)
             self._t, self._t2 = nib & 3, nib >> 2
@@ -234,8 +248,7 @@ class _Rect:
     def zero(self):
         """Local start's zero bits, ``[place_col, lane]``."""
         if self._zero is None:
-            w = self._words[self.t0 : self.t0 + self.n, self._b,
-                            self._rows : self._rows + self.h]
+            w = self._read(self._rows)
             sh = np.arange(STEP_)[None, :, None]
             self._zero = ((w[:, None, :] >> sh) & 1).reshape(
                 STEP_ * self.n, self.h)
@@ -248,14 +261,18 @@ class Trace:
 
     ``words`` (T, B, S), (T, B, 2S) with ``local_start``, ``desc`` (T, B,
     4) and ``steps`` (B,) are as the module docstring describes, with T at
-    least the largest step count.  ``matrix`` converts sequences to codes
+    least the largest step count.  With ``offsets`` (T, B) the layout is the
+    block-sized one: step ``t`` of pair ``b`` starts at word ``offsets[t,
+    b]`` of ``words``' flat view, and ``desc`` may carry the offsets as a
+    fifth field, which ``Trace`` does not read (this layout has no place
+    for local start's zero bits yet).  ``matrix`` converts sequences to codes
     for ``cigar_eq`` and ``cigars_all(eq=True)``: M resolves into = or X by
     code, as the reference compares its padded codes (a ``ByteMatrix``'s
     codes are the bytes).  ``local_start`` and ``free_query_start_gaps``
     are the flags the trace was computed with; the walks stop where they
     say."""
 
-    def __init__(self, words, desc, steps, matrix=None, *,
+    def __init__(self, words, desc, steps, matrix=None, *, offsets=None,
                  local_start: bool = False,
                  free_query_start_gaps: bool = False):
         self.words = np.asarray(words)
@@ -264,13 +281,25 @@ class Trace:
         self.matrix = matrix
         self.local_start = local_start
         self.free_query_start_gaps = free_query_start_gaps
-        # the rows of a step's 4-bit cells
-        self.rows = self.words.shape[-1] // (2 if local_start else 1)
         T, B = self.desc.shape[:2]
-        if self.words.shape[:2] != (T, B) or self.steps.shape != (B,):
+        if offsets is None:
+            if self.words.shape[:2] != (T, B):
+                raise ValueError(f"trace shapes disagree: words "
+                                 f"{self.words.shape}, desc {self.desc.shape}")
+            W = self.words.shape[-1]
+            # the rows of a step's 4-bit cells
+            self.rows = W // (2 if local_start else 1)
+            offsets = (np.arange(T)[:, None] * B + np.arange(B)) * W
+        elif local_start:
+            raise ValueError("the block-sized trace layout has no local start")
+        else:
+            self.rows = 0
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        if self.offsets.shape != (T, B) or self.steps.shape != (B,):
             raise ValueError(
-                f"trace shapes disagree: words {self.words.shape}, desc "
-                f"{self.desc.shape}, steps {self.steps.shape}")
+                f"trace shapes disagree: desc {self.desc.shape}, offsets "
+                f"{self.offsets.shape}, steps {self.steps.shape}")
+        self._flat = self.words.reshape(-1)
         if B and int(self.steps.max()) > T:
             raise ValueError(f"steps up to {int(self.steps.max())} exceed the "
                              f"{T} steps of the trace")
@@ -325,7 +354,8 @@ class Trace:
         right, row, col, t0, steps, h = self._rect_origin(np.full(n, b),
                                                           np.arange(n))
         return [_Rect(int(row[x]), int(col[x]), bool(right[x]), int(h[x]),
-                      int(t0[x]), int(steps[x]), self.words, b, self.rows)
+                      int(t0[x]), int(steps[x]), self._flat,
+                      self.offsets[:, b], self.rows)
                 for x in range(n)]
 
     def blocks(self, b: int) -> List[Rectangle]:
@@ -376,10 +406,10 @@ class Trace:
         if n > self.desc.shape[1]:
             raise ValueError(f"{n} endpoints for a trace of "
                              f"{self.desc.shape[1]} pairs")
-        T, B, W = self.words.shape
+        T = self.desc.shape[0]
         S = self.rows
         lut = _packed_lut()
-        words = np.ascontiguousarray(self.words).reshape(-1)
+        words = self._flat
         ar = np.arange(n)
         i, j = ij[:, 0].copy(), ij[:, 1].copy()
         if eq:
@@ -431,7 +461,8 @@ class Trace:
                 raise RuntimeError(f"traceback of pairs {bad} reached a cell "
                                    "past their rect's steps or height")
             # finished pairs read word 0 and ignore it
-            flat = np.where(active, ((t0 + (pc >> 3)) * B + ar) * W + lane, 0)
+            t = np.clip(t0 + (pc >> 3), 0, max(T - 1, 0))
+            flat = np.where(active, self.offsets[t, ar] + lane, 0)
             w = words[flat].astype(np.int64)
             stop = np.zeros(n, bool)
             if self.free_query_start_gaps:

@@ -91,7 +91,8 @@ namespace {
 
 constexpr int STEP = 8;             // columns per step
 constexpr int ZERO = 1 << 14;       // score bias
-constexpr int NEG = -32768;         // the i16 lower rail
+constexpr int NEG = -32768;         // the i16 rails
+constexpr int POS = 32767;
 constexpr int INT_MIN_ = -2147483647 - 1;
 constexpr int MAX_ALPHA = 32;
 constexpr int WARPS = 4;            // pairs per thread block
@@ -124,8 +125,9 @@ constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
 #define ADAPTIVE_MODE_ARGS
 #endif
 
-// only the lower rail is reachable: rect maxima are rebased to ZERO
-__device__ __forceinline__ int sat(int x) { return max(x, NEG); }
+// i16 saturation at both rails, as the reference's adds (the upper one
+// is reached where a block's columns run far without a rebase)
+__device__ __forceinline__ int sat(int x) { return min(max(x, NEG), POS); }
 
 // The score of query code `code` in a profile position's row: byte code % 4
 // of word code / 4, biased by 128.  No word holds a code past 27, which

@@ -1,15 +1,30 @@
 // Big-block adaptive alignment of a batch of sequence pairs, global or
-// x-drop, for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
-// ops/big_kernel.py.
+// x-drop, with or without trace, for Hopper (sm_90a).  Plain C interface,
+// loaded with ctypes by ops/big_kernel.py; the trace instances build from
+// csrc/big_trace.cu.
 //
 // Replaces: block_aligner_tpu/ops/big_kernel.py::build_big_engine (its
-// Pallas `kernel`) in global and in x-drop mode with a score table: the grow
-// / shrink / checkpoint machine for 512 < max_size <= 8192, and (min, 512)
-// without trace.  It computes the same score (x-drop: the best score and
-// its position) and the same step-cap overrun flag, bit for bit; the
+// Pallas `kernel`) in global and in x-drop mode with a score table, with or
+// without trace: the grow / shrink / checkpoint machine for 512 < max_size
+// <= 8192, and (min, 512).  It computes the same score (x-drop: the best
+// score and its position) and the same overrun flag, bit for bit; the
 // machine is the adaptive kernel's (csrc/adaptive_kernel.cu), described in
 // ops/adaptive_kernel.py, whose adaptive_align_plain, run on a
 // BigKernelConfig, is the plain PyTorch version of this kernel.
+//
+// Trace (ops/_trace.py, core/traceback.py): the reference's 4 bits a cell,
+// t | t2 << 2 (src/scan_block.rs:1166-1190), 8 columns a row's word, in a
+// layout sized by the block that ran: each pair writes the words of a step's
+// rect height at its own running counter, and the step's descriptor (flags,
+// lane start, column start, height, the counter before the step).  The
+// checkpoint save and restore decided at a step's end ride the next step's
+// flags, save before restore.  A step whose rows would pass the pair's word
+// budget stops the pair with the overrun flag, as the step cap does.  A
+// row's word is staged in shared memory by the thread that owns the row (a
+// thread holds up to 32 slots of rows) and written once at the step's end;
+// the R-open bit of row r belongs to row r + 1, so the first row of a slot
+// takes it from lane 31 of the slot before and the first row of a warp from
+// the warp above, whose R there is the scan's carry.
 //
 // What bounds it: integer ALU work (a handful of adds and maxes per DP
 // cell) and latency: each of a rect's 8 columns per step depends on the
@@ -54,6 +69,8 @@
 //   key per residue, value * (max_size / 16) + chunk (|key| < 2^25 at
 //   8192), kept in shared memory, and the step's end folds the 8 columns
 //   into each thread's tracker of its residue.
+// * trace stages a row's word in shared memory (4 bytes a row more, 192 KB
+//   at 8192 in all) and writes it once at the step's end, coalesced.
 // Several pairs per block at small sizes, i16x2 arithmetic and the DPX
 // instructions are left to later work.
 
@@ -75,13 +92,37 @@ constexpr unsigned FULL = 0xffffffffu;
 // rect phases; the initial rect is a GROW_R with psz == 0
 constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 
+#ifndef BIG_TRACE
+// csrc/big_trace.cu builds the trace instances apart.  Their code is
+// compiled in by the preprocessor, so that this library's instances compile
+// exactly the code they had.
+#define BIG_TRACE false
+#endif
+#if BIG_TRACE
+// descriptor flags (core/traceback.py)
+constexpr int F_RIGHT = 1, F_START = 2, F_SAVE = 4, F_RESTORE = 8;
+// the trace buffers: words (B, budget), descriptors (max_steps, B, 5), the
+// steps each pair ran and the words it wrote (B,)
+#define BIG_TRACE_PARAMS                               \
+  , int* __restrict__ twords, int* __restrict__ tdesc, \
+      int* __restrict__ tsteps, int* __restrict__ tused, int budget
+#define BIG_TRACE_ARGS                                 \
+  , static_cast<int*>(words), static_cast<int*>(desc), \
+      static_cast<int*>(steps), static_cast<int*>(used), budget
+#else
+#define BIG_TRACE_PARAMS
+#define BIG_TRACE_ARGS
+#endif
+
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
 __device__ __forceinline__ int sat2(int x) { return min(max(x, NEG), POS); }
 
-// Warps a block of this max_size runs with, and its shared planes' bytes.
+// Warps a block of this max_size runs with, and its shared planes' bytes:
+// ten i16 planes of max_size rows, and with trace a staged word a row.
 inline int warps_for(int max_size) { return max_size >= 4096 ? 8 : 4; }
 inline size_t plane_bytes(int max_size) {
-  return (size_t)10 * max_size * sizeof(short);
+  return (size_t)max_size *
+         (10 * sizeof(short) + (BIG_TRACE ? sizeof(unsigned) : 0));
 }
 
 // The four border planes: D planes 0 and 1, C / R planes 2 and 3; the
@@ -141,7 +182,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                  const int* __restrict__ qlen, const int* __restrict__ rlen,
                  const int* __restrict__ table, int* __restrict__ out, int cap,
                  int alpha, int S, int min_size, int max_steps, int gopen,
-                 int gext, int xdrop) {
+                 int gext, int xdrop BIG_TRACE_PARAMS) {
   extern __shared__ short planes[];
   __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
   __shared__ int wagg[2][MAX_WARPS];  // a warp's scan at its last row
@@ -166,6 +207,13 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                         planes + 7 * S};
   short* const DP = planes + 8 * S;  // a column's D before its R merge
   short* const TL = planes + 9 * S;  // its scan within the warp
+#if BIG_TRACE
+  // a row's word of the step's cells, staged by the thread of the row
+  unsigned* const WD = reinterpret_cast<unsigned*>(planes + 10 * S);
+  // the words written, the steps run, the checkpoint events of the next
+  // step's descriptor
+  int tpos = 0, nsteps = 0, pend = 0;
+#endif
   const int chunks = S >> 4, log_ch = __ffs(chunks) - 1;
   const int zc = gext * ((lane & 7) + 1);  // the scan's zero correction
   // the reference's start state (src/scan_block.rs:291-317): a grow from
@@ -176,6 +224,11 @@ big_align_kernel(const uint8_t* __restrict__ codes,
 
   int s = 0;
   for (; s < max_steps && !m.done; ++s) {
+#if BIG_TRACE
+    // a step whose rows pass the budget stops the pair: an overrun
+    if (tpos + (m.dir == DIR_GD ? m.psz : m.sz) > budget) break;
+    ++nsteps;
+#endif
     __syncthreads();  // the previous step's reads are done
     const bool shift = m.dir == DIR_R || m.dir == DIR_D;
     const bool right_or = m.dir == DIR_R || m.dir == DIR_GR;  // lanes = query
@@ -221,6 +274,17 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     const int frt = col_len - cstart;
     const int fridx = min(max(lane_len - ls, 0), S - 1);
     const bool origin = m.dir == DIR_GR && m.psz == 0 && m.cpos == 0 && m.J == 0;
+#if BIG_TRACE
+    if (tid == 0) {
+      int* d = tdesc + ((size_t)s * gridDim.x + b) * 5;
+      d[0] = (right_or ? F_RIGHT : 0) | (m.cpos == 0 ? F_START : 0) | pend;
+      d[1] = ls;
+      d[2] = cstart;
+      d[3] = h;
+      d[4] = tpos;
+    }
+    pend = 0;
+#endif
     const uint8_t* lseq = right_or ? qs : rs;
     const uint8_t* cseq = right_or ? rs : qs;
     const int cpos_new = m.cpos + STEP;
@@ -282,11 +346,34 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         int cw = FAR;
         for (int v = 0; v < warp; ++v) cw = max(wagg[par][v], cw + gext * rows_w);
         int key = INT_MIN_;
+#if BIG_TRACE
+        // the R-open bit (R == D + open - extend) of the row above the
+        // warp's first row, 0 above row 0; its R is max(cw, its zero
+        // correction e * 8)
+        int rup = warp == 0 ? 0
+                            : max(cw, gext * STEP) ==
+                                  wdp[par][warp - 1] + gopen - gext;
+#endif
         for (int k = 0; k < NA; ++k) {
           const int r = r0 + k * 32 + lane;
           const int R =
               max(max((int)TL[r], cw + gext * (k * 32 + lane + 1)), zc);
           const int D = max((int)DP[r], R);
+#if BIG_TRACE
+          {
+            // t = (D == C) | (D == R) << 1, t2 = (C == C_open) | R bit << 1
+            // with the R bit of the row above
+            const int c = P.at(P.aC(), r);
+            const int ropen = R == DP[r] + gopen - gext;
+            int rin = __shfl_up_sync(FULL, ropen, 1);
+            if (lane == 0) rin = rup;
+            rup = __shfl_sync(FULL, ropen, 31);
+            const unsigned nib = (D == c) | (D == R) << 1 |
+                                 (c == sat(P.at(P.aD(), r) + gopen)) << 2 |
+                                 rin << 3;
+            WD[r] = (w == 0 ? 0u : WD[r]) | nib << (4 * w);
+          }
+#endif
           P.at(P.aD(), r) = (short)D;
           if (r < h) {
             m.dmax = max(m.dmax, D);
@@ -322,6 +409,15 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         break;
       }
     }
+#if BIG_TRACE
+    // the step's words, each written once by the thread that staged it
+    if (active)
+      for (int k = 0; k < NA; ++k) {
+        const int r = r0 + k * 32 + lane;
+        if (r < h) twords[(size_t)b * budget + tpos + r] = (int)WD[r];
+      }
+    tpos += h;
+#endif
     if (phase_done && m.dir != DIR_GD) {
       // the rect completes: each warp's part of its maximum
       const int v = __reduce_max_sync(FULL, m.dmax);
@@ -402,6 +498,9 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     // a completed grow saves its doubled borders even without a new best
     // (reference: src/scan_block.rs:432-435)
     if (save || (was_grow && sz < S)) save_ckpt(P, ck, ro, sz, tid, T);
+#if BIG_TRACE
+    if (save || (was_grow && sz < S)) pend |= F_SAVE;
+#endif
     if (new_best) {
       m.best = off_max;
       ydi = 0;
@@ -444,6 +543,9 @@ big_align_kernel(const uint8_t* __restrict__ codes,
       m.rest = true;
       m.dir = DIR_GD;
       ydi = 0;
+#if BIG_TRACE
+      pend |= F_RESTORE;
+#endif
     } else {
       if (free_rect && sz > min_size && ydi == 0) {
         // shrink when the border suffix holds the rect maximum
@@ -466,6 +568,9 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         m.ckOff = m.off;
         save_ckpt(P, ck, ro, half, tid, T);
         ydi = 0;
+#if BIG_TRACE
+        pend |= F_SAVE;
+#endif
       }
       // direction from the first 8 rows of both borders
       // (src/scan_block.rs:560-565)
@@ -488,6 +593,10 @@ big_align_kernel(const uint8_t* __restrict__ codes,
   }
   __syncthreads();  // the frozen cell's score is visible
   if (tid == 0) {
+#if BIG_TRACE
+    tsteps[b] = nsteps;
+    tused[b] = tpos;
+#endif
     if constexpr (XDROP) {
       out[4 * b] = m.best;
       out[4 * b + 1] = m.xbi;
@@ -502,9 +611,10 @@ big_align_kernel(const uint8_t* __restrict__ codes,
 
 template <bool X>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
-                   const int* table, int* out, int B, int cap, int alpha,
+                   const int* table, int* out, void* words, void* desc,
+                   void* steps, void* used, int B, int cap, int alpha,
                    int min_size, int max_size, int max_steps, int gopen,
-                   int gext, int xdrop, cudaStream_t stream) {
+                   int gext, int xdrop, int budget, cudaStream_t stream) {
   const size_t smem = plane_bytes(max_size);
   cudaError_t err = cudaFuncSetAttribute(
       big_align_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -512,7 +622,7 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
   if (err != cudaSuccess) return err;
   big_align_kernel<X><<<B, warps_for(max_size) * 32, smem, stream>>>(
       codes, qlen, rlen, table, out, cap, alpha, max_size, min_size,
-      max_steps, gopen, gext, xdrop);
+      max_steps, gopen, gext, xdrop BIG_TRACE_ARGS);
   return cudaGetLastError();
 }
 
@@ -527,15 +637,21 @@ bool bad_sizes(int min_size, int max_size) {
 // codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
 // x_drop < 0: global mode, out (B, 2) int32 = (score, overrun); else x-drop
 // with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
-// overrun).  One thread block per pair.  Returns the cudaError_t of the
-// launch.
+// overrun).  The trace library (csrc/big_trace.cu) also writes words (B,
+// budget), desc (max_steps, B, 5), steps and used (B,) int32; this one
+// takes null trace pointers.  One thread block per pair.  Returns the
+// cudaError_t of the launch.
 extern "C" int big_align_launch(const void* codes, const void* qlen,
                                 const void* rlen, const void* table, void* out,
-                                int B, int cap, int alpha, int min_size,
-                                int max_size, int max_steps, int gopen,
-                                int gext, int x_drop, void* stream) {
+                                void* words, void* desc, void* steps,
+                                void* used, int B, int cap, int alpha,
+                                int min_size, int max_size, int max_steps,
+                                int gopen, int gext, int x_drop, int budget,
+                                void* stream) {
+  const bool traced = words && desc && steps && used && budget > 0;
   if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA ||
-      bad_sizes(min_size, max_size))
+      bad_sizes(min_size, max_size) ||
+      traced != BIG_TRACE || (!BIG_TRACE && (words || desc || steps || used)))
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
@@ -544,13 +660,16 @@ extern "C" int big_align_launch(const void* codes, const void* qlen,
   auto* o = static_cast<int*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   return x_drop < 0
-             ? (int)launch<false>(c, q, r, t, o, B, cap, alpha, min_size,
-                                  max_size, max_steps, gopen, gext, x_drop, st)
-             : (int)launch<true>(c, q, r, t, o, B, cap, alpha, min_size,
-                                 max_size, max_steps, gopen, gext, x_drop, st);
+             ? (int)launch<false>(c, q, r, t, o, words, desc, steps, used, B,
+                                  cap, alpha, min_size, max_size, max_steps,
+                                  gopen, gext, x_drop, budget, st)
+             : (int)launch<true>(c, q, r, t, o, words, desc, steps, used, B,
+                                 cap, alpha, min_size, max_size, max_steps,
+                                 gopen, gext, x_drop, budget, st);
 }
 
-// The launch of a max_size's instance (x-drop if `x_drop`): shape[0]
+// The launch of a max_size's instance (x-drop if `x_drop`; the trace
+// library's trace instance): shape[0]
 // threads a block, shape[1] bytes of dynamic shared memory, and shape[2]
 // blocks resident on an SM of the current device
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).

@@ -43,3 +43,53 @@ def trace_buffers(out, cfg, rows):
     steps = torch.empty(B, dtype=torch.int32, device=dev)
     return ((out, words, desc, steps),
             (words.data_ptr(), desc.data_ptr(), steps.data_ptr()))
+
+
+# The big kernel's block-sized layout (``ops/big_kernel.py``): a step writes
+# only the words of its rect height, at the pair's running word counter, and
+# its descriptor carries the counter before the step as a fifth field.
+DESC_FIELDS = 5
+
+
+def block_trace_buffers(out, cfg):
+    """The big kernel's result in trace mode, ``(out, words, desc, steps,
+    used)``, and the trace pointers of its launch: words (B,
+    ``cfg.trace_budget``), desc (``cfg.max_steps``, B, 5), the steps each
+    pair ran and the words it wrote (B,).  Left unfilled, as
+    ``trace_buffers``."""
+    B, dev = out.shape[0], out.device
+    words = torch.empty((B, cfg.trace_budget), dtype=torch.int32, device=dev)
+    desc = torch.empty((cfg.max_steps, B, DESC_FIELDS), dtype=torch.int32,
+                       device=dev)
+    steps = torch.empty(B, dtype=torch.int32, device=dev)
+    used = torch.empty(B, dtype=torch.int32, device=dev)
+    return ((out, words, desc, steps, used),
+            (words.data_ptr(), desc.data_ptr(), steps.data_ptr(),
+             used.data_ptr()))
+
+
+def compact_step(buf, used, word, h, ran):
+    """Write rows [0, h) of one step's dense words ``word`` (B, S) of the
+    pairs in ``ran`` into ``buf`` (B, budget) at each pair's counter
+    ``used``, and advance those counters by h in place.  Returns the step's
+    word offsets, the counters before it."""
+    off = used.clone()
+    rows = torch.arange(word.shape[1], device=word.device)
+    b, r = (ran[:, None] & (rows < h[:, None])).nonzero(as_tuple=True)
+    buf[b, used[b] + r] = word[b, r]
+    used += torch.where(ran, h, 0).to(used.dtype)
+    return off
+
+
+def compact_trace(words, desc, steps, budget):
+    """A dense trace ``(words, desc, steps)`` (``core/traceback.py``) in the
+    block-sized layout: ``(words (B, budget), desc (T, B, 5), used (B,))``
+    through ``compact_step``, step by step; rows a pair did not write stay
+    0."""
+    T, B, _ = words.shape
+    buf = torch.zeros((B, budget), dtype=torch.int32, device=words.device)
+    used = torch.zeros(B, dtype=torch.int32, device=words.device)
+    offs = [compact_step(buf, used, words[t], desc[t, :, 3], t < steps)
+            for t in range(T)]
+    off = stack_steps(offs, (B,), words.device)
+    return buf, torch.cat([desc, off[:, :, None]], 2), used

@@ -78,7 +78,8 @@ from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
 from ..core.traceback import F_RESTORE, F_RIGHT, F_SAVE, F_START
 from . import _build
 from ._profile import ProfileFetch
-from ._trace import as_int32, stack_steps, trace_bits, trace_buffers
+from ._trace import (DESC_FIELDS, as_int32, compact_step, stack_steps,
+                     trace_bits, trace_buffers)
 from .lane_kernel import (check_inputs, check_modes, count_launch, library,
                           mode_args, reset_counts, trace_words, wide, x_value)
 
@@ -135,15 +136,15 @@ class AdaptiveKernelConfig:
 
 
 def _sat(x):
-    # i16 saturation: at max_size <= 512 only the lower rail is reachable
-    # (rect maxima are rebased to ZERO); past 512 (``ops/big_kernel.py``) a
-    # grow's columns run long enough without a rebase to reach the upper one
+    # i16 saturation at both rails, as the reference's adds: a grow's columns
+    # run without a rebase, so with large scores (a ByteMatrix) or past 512
+    # rows (``ops/big_kernel.py``) a cell reaches the upper one
     return x.clamp(NEG, I16_MAX)
 
 
 def adaptive_align_plain(codes, qlen, rlen, table, gaps,
                          cfg: AdaptiveKernelConfig, count_cells: bool = False,
-                         top_size: bool = False):
+                         top_size: bool = False, budget=None):
     """Plain PyTorch version: all pairs in lockstep under masks.
 
     Returns a (B, 2) int32 tensor of (score, overrun), overrun 1 where a
@@ -159,7 +160,13 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     int64: the rect height for every column up to and including the freeze
     column (x-drop: every column of every step up to the one that ends the
     pair).  With ``top_size`` it also returns, last, the largest block size
-    each pair reached, (B,) int32."""
+    each pair reached, (B,) int32.
+
+    With a trace ``budget`` (words a pair may write) the trace takes the big
+    kernel's block-sized layout (``ops/_trace.py``), compacted step by step:
+    ``(out, words (B, budget), desc (T, B, 5), steps, used)``; a pair whose
+    next step's rows would pass the budget stops there with the overrun
+    flag, as at the step cap."""
     S, MIN, A, cap = cfg.max_size, cfg.min_size, cfg.alpha, cfg.seq_cap
     dev = codes.device
     B = codes.shape[0]
@@ -180,6 +187,9 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     cols = torch.arange(STEP, device=dev)
     bidx = torch.arange(B, device=dev)[:, None]
     zc = (e * (rows % STEP + 1)).to(i32)
+    # the gap scan max_{q <= p} (v[q] + e (p - q)) as e p + a running
+    # max of v[q] - e q
+    erows = (e * rows).to(i32)
 
     def full(v, shape=(B,)):
         return torch.full(shape, v, dtype=i32, device=dev)
@@ -212,6 +222,10 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         t_words, t_desc = [], []
         nsteps, pend = full(0), full(0)
         zcol = full(0, (B, 1))
+        if budget is not None:
+            t_buf = torch.zeros((B, budget), dtype=i32, device=dev)
+            used = full(0)
+    halted = torch.zeros(B, dtype=torch.bool, device=dev)
     if wide(cfg):
         x = int(gaps[2])
         r16 = torch.arange(16, dtype=i32, device=dev)
@@ -233,6 +247,14 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
                     torch.where(sel, xaj, INT_MIN).amax(1))
     s = 0
     while s < cfg.max_steps and not bool(done.all()):
+        if tr and budget is not None:
+            # a step whose rows pass the budget stops the pair: an overrun
+            halt = ~done & (used + torch.where(dirn == DIR_GD, psz, sz)
+                            > budget)
+            halted |= halt
+            done = done | halt
+            if bool(done.all()):
+                break
         # ---- rect step start ----
         shift = (dirn == DIR_R) | (dirn == DIR_D)
         right_or = (dirn == DIR_R) | (dirn == DIR_GR)  # lanes = query
@@ -266,10 +288,13 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         frt = col_len - cstart
         fridx = (lane_len - ls).clamp(0, S - 1)
         if tr:
-            nsteps += (~done).to(i32)
+            ran = ~done
+            nsteps += ran.to(i32)
             flags = (right_or.to(i32) * F_RIGHT
                      | (cpos == 0).to(i32) * F_START | pend)
-            t_desc.append(torch.stack([flags, ls, cstart, h], 1))
+            # the block-sized layout's fifth field: the step's word offset
+            t_desc.append(torch.stack([flags, ls, cstart, h] + (
+                [] if budget is None else [used]), 1))
             pend = full(0)
             word = torch.zeros((B, S), dtype=torch.int64, device=dev)
             zword = torch.zeros((B, S), dtype=torch.int64, device=dev)
@@ -314,13 +339,10 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             c_end = (torch.where(fetch.right, _sat(C11 + close), C11)
                      if cfg.profile else C11)
             D11 = torch.maximum(D11, c_end)
-            # max-plus prefix scan in log steps, then the zero correction
+            # max-plus prefix scan, then the zero correction
             D11_open = t = (_sat(D11 + dopen) if cfg.profile
                             else D11 + dopen)
-            k = 1
-            while k < S:
-                t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
-                k *= 2
+            t = torch.cummax(t - erows, 1).values + erows
             R11 = torch.maximum(t, zc)
             r_end = (torch.where(fetch.right, R11, _sat(R11 + close))
                      if cfg.profile else R11)
@@ -363,8 +385,12 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
 
         # ---- rect step end ----
         if tr:
-            t_words.append(as_int32(torch.cat([word, zword], 1)
-                                    if cfg.local_start else word))
+            word = as_int32(torch.cat([word, zword], 1)
+                            if cfg.local_start else word)
+            if budget is None:
+                t_words.append(word)
+            else:
+                compact_step(t_buf, used, word, h, ran)
         active = ~done
         d0 = dirn
         cpos_new = cpos + STEP
@@ -521,12 +547,15 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
         actD, pasD = torch.where(swap, pasD, actD), torch.where(swap, actD, pasD)
         actC, pasR = torch.where(swap, pasR, actC), torch.where(swap, actC, pasR)
         s += 1
-    over = (~done).to(i32)
+    over = (~done | halted).to(i32)
     out = torch.stack([best, xbi, xbj, over] if wide(cfg) else [out, over], 1)
     res = (out,)
-    if tr:
+    if tr and budget is None:
         res += (stack_steps(t_words, (B, S * trace_words(cfg)), dev),
                 stack_steps(t_desc, (B, 4), dev), nsteps)
+    elif tr:
+        res += (t_buf, stack_steps(t_desc, (B, DESC_FIELDS), dev), nsteps,
+                used)
     if count_cells:
         res += (cells,)
     if top_size:

@@ -1,10 +1,10 @@
 """Big-block adaptive alignment of a batch of sequence pairs, global or
-x-drop: the configuration, the packer, the plain PyTorch version and the
-wrapper of the CUDA kernel.
+x-drop, with or without trace: the configuration, the packer, the plain
+PyTorch version and the wrapper of the CUDA kernel.
 
 Counterpart of ``block_aligner_tpu/ops/big_kernel.py``: ``build_big_engine``
-(512 < max_size <= 8192, and (min, 512) without trace) in global and in
-x-drop mode, scoring sequence pairs by a table.  Its machine is the
+(512 < max_size <= 8192, and (min, 512)) in global and in x-drop mode, with
+or without trace, scoring sequence pairs by a table.  Its machine is the
 adaptive kernel's (``ops/adaptive_kernel.py``): the same grow / shrink /
 checkpoint ladder min, 2 min, ..., max, the same 8-column rects, the same
 16-residue x-drop tracker and X_DROP_ITER = 2 hysteresis; only the block is
@@ -24,9 +24,19 @@ table) has no counterpart here: the CUDA kernel (``csrc/big_kernel.cu``)
 keeps a pair's borders and checkpoint in one thread block's shared memory
 and reads scores from the table by both codes.
 
-Trace, ByteMatrix, the local-start and free-gap flags, profiles and the
-segmented 16384 band are later slices of kernel C: their configurations
-raise ``ValueError`` naming the ROADMAP item that brings them.
+Trace takes a layout sized by the block that ran (``ops/_trace.py``), not
+the lane and adaptive kernels' dense (steps, B, max_size) words, which at
+the (128, 1024) long-read band would take ~40 MB a pair: a pair writes the
+rows of each step's height at its own running word counter, up to
+``trace_budget`` words, and a step that would pass it stops the pair with
+the overrun flag, as the step cap does.  The JAX kernel's segment-compacted
+slots (``big_kernel.py:167-182``) and its slot budget play these parts
+there; the budget here is no smaller than theirs, so a pair never runs out
+where the JAX kernel completes.
+
+ByteMatrix, the local-start and free-gap flags, profiles and the segmented
+16384 band are later slices of kernel C: their configurations raise
+``ValueError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 
 from ..core.result import STEP
 from . import _build
+from ._trace import block_trace_buffers
 from .adaptive_kernel import adaptive_align_plain
 from .lane_kernel import (check_inputs, count_launch, pack_lane, reset_counts,
                           wide, x_value)
@@ -46,11 +57,11 @@ from .lane_kernel import (check_inputs, count_launch, pack_lane, reset_counts,
 __all__ = ["BigKernelConfig", "pack_big", "big_align_plain", "big_align"]
 
 LIBRARY = "big_kernel"  # csrc/big_kernel.cu
+TRACE_LIBRARY = "big_trace"  # its trace instances, csrc/big_trace.cu
 MAX_CAP = 16384  # code positions per sequence (JAX api.py:84-87)
 
 # the modes of kernel C still to port, and the ROADMAP.md item of each
 _LATER = {
-    "trace": "queue 2 item 5a (kernel C trace)",
     "byte_mode": "queue 2 item 5b (kernel C ByteMatrix)",
     "local_start": "queue 2 item 5c (kernel C flags)",
     "free_query_start_gaps": "queue 2 item 5c (kernel C flags)",
@@ -66,9 +77,9 @@ class BigKernelConfig:
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
     x_drop: bool = False  # x-drop mode; the x value travels in the gaps
+    trace: bool = False  # also return the block-sized trace (ops/_trace.py)
     # the modes of later slices, which raise (``_LATER``); they are fields so
     # that the adaptive machine and the lane helpers read this configuration
-    trace: bool = False
     profile: bool = False
     byte_mode: bool = False
     local_start: bool = False
@@ -106,6 +117,14 @@ class BigKernelConfig:
         ``big_kernel.py:277-281``)."""
         return (4 * self.seq_cap + 32 * self.max_size) // STEP
 
+    @property
+    def trace_budget(self) -> int:
+        """Trace words a pair may write: the JAX kernel's default slot
+        budget in rows (``eff_trace_slots`` x ``seg`` at seg 256,
+        ``big_kernel.py:311-320``), every step at the min size or 256 rows
+        and 8 steps at the max size."""
+        return self.max_steps * max(self.min_size, 256) + 8 * self.max_size
+
 
 def pack_big(pairs, matrix, cfg: BigKernelConfig, gaps, device,
              x_drop: int = 0):
@@ -120,16 +139,21 @@ def big_align_plain(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig,
     configuration, all pairs in lockstep at the full width ``max_size``.
     Returns (B, 2) int32 (score, overrun), in x-drop mode (B, 4) (best
     score, its query position, its reference position, overrun); with
-    ``count_cells`` also each pair's DP cell count, (B,) int64, and with
-    ``top_size`` the largest block size each pair reached, (B,) int32."""
-    return adaptive_align_plain(codes, qlen, rlen, table, gaps, cfg,
-                                count_cells, top_size)
+    ``cfg.trace`` ``(out, words, desc, steps, used)``, the block-sized
+    trace of ``ops/_trace.py``, compacted step by step within
+    ``cfg.trace_budget`` words a pair; with ``count_cells`` also each
+    pair's DP cell count, (B,) int64, and with ``top_size`` the largest
+    block size each pair reached, (B,) int32."""
+    return adaptive_align_plain(
+        codes, qlen, rlen, table, gaps, cfg, count_cells, top_size,
+        budget=cfg.trace_budget if cfg.trace else None)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points of ``csrc/big_kernel.cu``."""
+    """Declare the C entry points of ``csrc/big_kernel.cu`` (either
+    library)."""
     lib.big_align_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.big_align_launch.restype = ctypes.c_int
     lib.big_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
@@ -140,9 +164,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    """``csrc/big_kernel.cu``, built and bound."""
-    return bind(_build.load(LIBRARY))
+def _lib(trace: bool = False) -> ctypes.CDLL:
+    """``csrc/big_kernel.cu``, or with ``trace`` its trace instances
+    (``csrc/big_trace.cu``), built and bound."""
+    return bind(_build.load(TRACE_LIBRARY if trace else LIBRARY))
 
 
 def launch_shape(cfg: BigKernelConfig):
@@ -150,22 +175,28 @@ def launch_shape(cfg: BigKernelConfig):
     launch of ``cfg``'s kernel instance on the current CUDA device, the
     last from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     got = (ctypes.c_int * 3)()
-    err = _lib().big_launch_shape(cfg.max_size, int(cfg.x_drop),
-                                  ctypes.addressof(got))
+    lib = _lib(cfg.trace)
+    err = lib.big_launch_shape(cfg.max_size, int(cfg.x_drop),
+                               ctypes.addressof(got))
     if err:
         raise RuntimeError("big kernel occupancy query failed: "
-                           f"{_lib().big_error_string(err).decode()}")
+                           f"{lib.big_error_string(err).decode()}")
     return tuple(got)
 
 
 def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
     """(score, overrun) per pair as a (B, 2) int32 tensor; in x-drop mode
     (best score, query position, reference position, overrun) as (B, 4).
+    With ``cfg.trace`` it returns ``(out, words, desc, steps, used)``, the
+    block-sized trace of ``ops/_trace.py``: each pair wrote the descriptors
+    of its own ``steps`` and ``used`` words; overrun is also set where a
+    pair's trace would pass ``cfg.trace_budget``.
 
     CPU tensors take ``big_align_plain``; CUDA tensors launch the kernel of
-    ``csrc/big_kernel.cu`` on the current stream, one thread block per
-    pair, or raise.  The wrapper counts its launches by instance:
-    ``big_align.launches`` (global) and ``big_align.xdrop_launches``."""
+    ``csrc/big_kernel.cu`` (trace: ``csrc/big_trace.cu``) on the current
+    stream, one thread block per pair, or raise.  The wrapper counts its
+    launches by instance: ``big_align.launches`` (global),
+    ``xdrop_launches``, ``trace_launches`` and ``xdrop_trace_launches``."""
     if codes.device.type == "cpu":
         return big_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -175,21 +206,24 @@ def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
     check_inputs(codes, qlen, rlen, table, cfg)
     out = torch.empty((B, 4 if wide(cfg) else 2), dtype=torch.int32,
                       device=dev)
+    res, ptrs = (block_trace_buffers(out, cfg) if cfg.trace
+                 else (out, (None,) * 4))
     if B == 0:
-        return out
-    lib = _lib()
+        return res
+    lib = _lib(cfg.trace)
     with torch.cuda.device(dev):
         err = lib.big_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
-            table.data_ptr(), out.data_ptr(), B, cfg.seq_cap, cfg.alpha,
-            cfg.min_size, cfg.max_size, cfg.max_steps, int(gaps[0]),
-            int(gaps[1]), x_value(gaps, cfg),
+            table.data_ptr(), out.data_ptr(), *ptrs, B, cfg.seq_cap,
+            cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps,
+            int(gaps[0]), int(gaps[1]), x_value(gaps, cfg),
+            cfg.trace_budget if cfg.trace else 0,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("big kernel launch failed: "
                            f"{lib.big_error_string(err).decode()}")
     count_launch(big_align, cfg)
-    return out
+    return res
 
 
 reset_counts(big_align)

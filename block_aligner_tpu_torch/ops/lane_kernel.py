@@ -16,7 +16,7 @@ pair's state is an S-cell block whose active border ACT (D and C values
 along the block's lane axis) advances 8 columns per step, and whose passive
 border PAS (D and R values along the other axis) records the bottom cells.
 Values are i16 relative to ``ZERO`` plus a per-pair i32 offset, rebased to
-the previous step's maximum each step; only the lower i16 rail saturates.
+the previous step's maximum each step; both i16 rails saturate.
 
 * The first S/8 steps are the reference's initial grow: lanes are the
   query, columns 0..S-1 of the reference, bottom cells written straight
@@ -67,7 +67,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.result import I16_MAX, I16_MIN, STEP, ZERO
 from ..core.scores import INVALID
@@ -240,9 +239,9 @@ def pack_lane(pairs, matrix, cfg: LaneKernelConfig, gaps, device,
 
 
 def _sat(x):
-    # only the lower i16 rail is reachable: block maxima are rebased to
-    # ZERO every step
-    return x.clamp(min=NEG)
+    # i16 saturation at both rails, as the reference's adds: the first S/8
+    # steps run without a rebase, so a cell can reach the upper one
+    return x.clamp(NEG, I16_MAX)
 
 
 def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
@@ -283,6 +282,9 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
     bidx = torch.arange(B, device=dev)[:, None]
     # the closed form of the chunked prefix scan's zero correction
     zc = (e * (rows % STEP + 1)).to(i32)
+    # the gap scan max_{q <= p} (v[q] + e (p - q)) as e p + a running
+    # max of v[q] - e q
+    erows = (e * rows).to(i32)
 
     def full(v, shape=(B,)):
         return torch.full(shape, v, dtype=i32, device=dev)
@@ -387,13 +389,10 @@ def lane_align_plain(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig,
             c_end = (torch.where(fetch.right, _sat(C11 + close), C11)
                      if cfg.profile else C11)
             D11 = torch.maximum(D11, c_end)
-            # max-plus prefix scan in log steps, then the zero correction
+            # max-plus prefix scan, then the zero correction
             D11_open = t = (_sat(D11 + dopen) if cfg.profile
                             else D11 + dopen)
-            k = 1
-            while k < S:
-                t = torch.maximum(t, F.pad(t[:, :-k], (k, 0), value=NEG) + e * k)
-                k *= 2
+            t = torch.cummax(t - erows, 1).values + erows
             R11 = torch.maximum(t, zc)
             r_end = (torch.where(fetch.right, R11, _sat(R11 + close))
                      if cfg.profile else R11)

@@ -9,11 +9,13 @@ Phases, each reported on its own line:
 2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``,
    their profile libraries ``{lane,adaptive}_profile.cu``, the flags
    libraries ``{lane,adaptive}_flags.cu`` and
-   ``{lane,adaptive}_profile_flags.cu`` and the big-block kernel
-   ``big_kernel.cu`` into ``build/`` (keyed on the sources), one ``nvcc
-   -Xptxas -v`` each, all nine started together, with the registers, stack
-   and spills of every kernel instance, the lane and adaptive ones held to
-   the counts pinned in ``chip_smoke_ptxas.txt``; load the builds;
+   ``{lane,adaptive}_profile_flags.cu``, the big-block kernel
+   ``big_kernel.cu`` and its trace instances ``big_trace.cu`` into
+   ``build/`` (keyed on the sources), one ``nvcc -Xptxas -v`` each, all ten
+   started together, with the registers, stack and spills of every kernel
+   instance, the lane and adaptive ones and the big kernel's global and
+   x-drop ones held to the counts pinned in ``chip_smoke_ptxas.txt``; load
+   the builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
    on the card, exact equality of score and suspect flag at blocks 16..512
    on seeded random protein and DNA pairs, and the reference's golden
@@ -120,8 +122,9 @@ Phases, each reported on its own line:
    pairs (phase 29's) at fixed (2048, 4096), and a capped run that
    overruns; its launch shapes (threads, dynamic shared bytes, blocks per
    SM);
-26. the same in x-drop mode (protein x 0 and 100, DNA x 20), and every
-   growth pair at (512, 8192) with x_drop 1000: all four outputs equal;
+26. the same in x-drop mode (protein x 0 and 100, DNA x 20), and 8 of
+   the growth pairs at (512, 8192) with x_drop 1000: all four outputs
+   equal;
 27. the big main path, the reference's <10 kbp 1%-10% band: 1024
    nanopore-like pairs of 5..10 kbp with 10% edits
    (``examples_tpu/common.py::load_nanopore_pairs``, seed 1234; the JAX
@@ -132,7 +135,24 @@ Phases, each reported on its own line:
    ``pick_route`` sends to the big kernel;
 29. 32 DNA growth pairs (``growth_pairs``: a random middle between two
    flanks) at (512, 8192) with the whole 16384-position code budget, whose
-   blocks must grow to 4096 and to 8192.
+   blocks must grow to 4096 and to 8192;
+30. the big kernel's trace instances (``csrc/big_trace.cu``) against the
+   plain version: the structural pairs of phase 25 at (64, 1024), (512,
+   1024) and (1024, 1024), protein and DNA, global and x 20 and 100, and
+   4 growth pairs at fixed (2048, 4096): outputs, step
+   counts, word counters, the descriptors of every executed step and the
+   words below each counter equal, and the CIGARs walked from both; a run
+   under a reduced trace budget where some pairs overrun; the trace
+   instances' launch shapes;
+31. the traced nanopore band: phase 27's 1024 pairs at (128, 1024)
+   through ``align_all_trace`` in batches of 256, global and x 50, held
+   against phase 27's non-trace instance and plain version, the first 128
+   CIGARs against the plain version's trace; the trace bytes copied per
+   pair against what the cells need (4 bits each), the budget and a dense
+   layout;
+32. traced growth: four of phase 29's growth pairs at (512, 8192), whose
+   traced steps reach 4096 and 8192 rows, every CIGAR against the plain
+   version's.
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal the
@@ -142,8 +162,8 @@ must equal the non-trace instance's (none exists at max size 512), every
 CIGAR must sum to its end position and rescore to its score (with local
 start from wherever it starts, with free query start gaps from query row 0;
 with free query end gaps to at most its score, every CIGAR then held
-against the plain version's), and the first 512 must equal those walked
-from the plain version's trace; pack, the trace's copy-back and the walk
+against the plain version's), and the first 512 (the big route's first 128)
+must equal those walked from the plain version's trace; pack, the trace's copy-back and the walk
 are timed on the host clock.  A profile trace path holds every CIGAR to its
 end and to its score under the reference's profile costs
 (``rescore_profile``); a CIGAR that does not rescore (the reference's own
@@ -164,6 +184,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from itertools import product
 from types import SimpleNamespace
 
 import numpy as np
@@ -550,13 +571,23 @@ def x_dropped(out, staged):
     return int(ends.sum())
 
 
+def capped(cfg, **limits):
+    """``cfg`` with the properties named in ``limits`` (its step cap
+    ``max_steps``, a big-kernel trace budget ``trace_budget``) lowered."""
+    cls = type("Capped", (type(cfg),), limits)
+    return cls(**{f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg)})
+
+
 def with_step_cap(cfg, steps):
     """``cfg`` with its step cap lowered to ``steps``."""
-    class Capped(type(cfg)):
-        max_steps = steps
+    return capped(cfg, max_steps=steps)
 
-    return Capped(**{f.name: getattr(cfg, f.name)
-                     for f in dataclasses.fields(cfg)})
+
+def with_trace_budget(cfg, words):
+    """A big-kernel ``cfg`` with its trace budget lowered to ``words`` a
+    pair."""
+    return capped(cfg, trace_budget=words)
 
 
 def build_and_report(_build, name):
@@ -585,8 +616,10 @@ def ptxas_report(_build, name):
 def parse_ptxas(log, name):
     """The per-instance lines of a ``-Xptxas -v`` log of library ``name``;
     an instance of the flags libraries (``csrc/*_flags.cu``) is marked
-    ``flags``."""
+    ``flags``, one of the big kernel's trace library (``csrc/big_trace.cu``)
+    ``trace``."""
     flags = ", flags" if name.endswith("_flags") else ""
+    trace = ", trace" if name == "big_trace" else ""
     lines, fn, frame = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
@@ -599,7 +632,7 @@ def parse_ptxas(log, name):
         m = re.search(r"Compiling entry function '\w*?\d(big_align_kernel)"
                       r"ILb([01])E", line)
         if m:
-            fn = f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}>"
+            fn = f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}{trace}>"
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -618,21 +651,22 @@ PINNED_PTXAS = "chip_smoke_ptxas.txt"
 
 
 def check_pinned_ptxas(reports):
-    """The lane and adaptive libraries' instances must keep the registers,
-    stack and spills pinned in ``chip_smoke_ptxas.txt`` (their sources'
-    counts with this toolkit; a kernel edit must leave the other
-    instances' counts alone).  A new ``nvcc`` may move them all: re-pin
-    from a run of unchanged sources."""
+    """The lane and adaptive libraries' instances and the big kernel's
+    global and x-drop ones must keep the registers, stack and spills pinned
+    in ``chip_smoke_ptxas.txt`` (their sources' counts with this toolkit; a
+    kernel edit must leave the other instances' counts alone).  A new
+    ``nvcc`` may move them all: re-pin from a run of unchanged sources."""
     with open(os.path.join(ROOT, PINNED_PTXAS)) as f:
         pinned = sorted(line.strip() for line in f if line.strip())
-    got = sorted(line for line in reports if not line.startswith("big_"))
+    got = sorted(line for line in reports if ", trace>" not in line
+                 or not line.startswith("big_"))
     if got != pinned:
         raise AssertionError(
             f"ptxas counts differ from {PINNED_PTXAS}: new "
             f"{sorted(set(got) - set(pinned))[:6]}, pinned "
             f"{sorted(set(pinned) - set(got))[:6]}")
-    print(f"[ptxas] the {len(got)} lane and adaptive instances keep the "
-          f"counts pinned in {PINNED_PTXAS}")
+    print(f"[ptxas] the {len(got)} lane, adaptive and big (global and "
+          f"x-drop) instances keep the counts pinned in {PINNED_PTXAS}")
 
 
 def cuda_ms(fn, reps):
@@ -750,6 +784,53 @@ def check_trace(got, want, what, words_per_row=1):
                              f"{int(words[t, b, r])}")
     fl = torch.where(ran, desc[:, :, 0], 0)
     return int(((fl >> 2) & 1).sum()), int(((fl >> 3) & 1).sum())
+
+
+def check_big_trace(got, want, what):
+    """A big trace instance's ``(out, words, desc, steps, used)`` against
+    its plain version's: equal outputs, step counts and word counters,
+    equal descriptors of every step a pair executed (its word offset
+    included), and equal words below each pair's counter, which are the
+    rows of its steps' heights.  Returns the count of checkpoint saves and
+    restores in the executed descriptors."""
+    import torch
+
+    check_equal(got[0], want[0], what)
+    out, words, desc, steps, used = want
+    for k, name in ((3, "step counts"), (4, "word counters")):
+        if not torch.equal(got[k], want[k]):
+            bad = (got[k] != want[k]).nonzero()[:5, 0].tolist()
+            raise AssertionError(f"kernel != plain {what}: {name} of pairs "
+                                 f"{bad}: {got[k][bad].tolist()} vs "
+                                 f"{want[k][bad].tolist()}")
+    T = desc.shape[0]
+    ran = torch.arange(T, device=steps.device)[:, None] < steps[None, :]
+    gd = got[2][:T]
+    if not torch.equal(gd[ran], desc[ran]):
+        t, b = ((gd != desc).any(2) & ran).nonzero()[0].tolist()
+        raise AssertionError(f"kernel != plain {what}: descriptor of pair {b} "
+                             f"step {t}: {gd[t, b].tolist()} vs "
+                             f"{desc[t, b].tolist()}")
+    for b in range(words.shape[0]):
+        u = int(used[b])
+        diff = (got[1][b, :u] != words[b, :u]).nonzero()
+        if len(diff):
+            r = int(diff[0, 0])
+            raise AssertionError(f"kernel != plain {what}: word {r} of pair "
+                                 f"{b}: {int(got[1][b, r])} vs "
+                                 f"{int(words[b, r])}")
+    fl = torch.where(ran, desc[:, :, 0], 0)
+    return int(((fl >> 2) & 1).sum()), int(((fl >> 3) & 1).sum())
+
+
+def block_trace(res, matrix):
+    """The host ``Trace`` of a big trace instance's ``(out, words, desc,
+    steps, used)``, as ``BatchAligner`` builds it."""
+    from block_aligner_tpu_torch import api
+    from block_aligner_tpu_torch.core.traceback import Trace
+
+    words, desc, steps, offsets = api._block_trace(*res[1:])
+    return Trace(words, desc, steps, matrix, offsets=offsets)
 
 
 def score_table(matrix):
@@ -969,11 +1050,15 @@ def walk_both(got, want, ends, matrix, what, cfg=None):
     from block_aligner_tpu_torch.core.traceback import Trace
 
     cig = []
-    for out, words, desc, steps in (got, want):
-        st = steps.cpu().numpy()
-        T = int(st.max())
-        tr = Trace(words[:T].cpu().numpy(), desc[:T].cpu().numpy(), st,
-                   matrix, **trace_flags(cfg))
+    for res in (got, want):
+        if len(res) == 5:  # the big kernel's block-sized trace
+            tr = block_trace(res, matrix)
+        else:
+            out, words, desc, steps = res
+            st = steps.cpu().numpy()
+            T = int(st.max())
+            tr = Trace(words[:T].cpu().numpy(), desc[:T].cpu().numpy(), st,
+                       matrix, **trace_flags(cfg))
         cig.append([str(c) for c in tr.cigars_all(ends)])
     if cig[0] != cig[1]:
         k = next(k for k in range(len(ends)) if cig[0][k] != cig[1][k])
@@ -1074,7 +1159,7 @@ def main():
     # 2. build: one nvcc per library, all started together, each with
     # ptxas's report
     t0 = time.perf_counter()
-    names = (*lk.LIBRARIES, bk.LIBRARY)
+    names = (*lk.LIBRARIES, bk.LIBRARY, bk.TRACE_LIBRARY)
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda n: build_and_report(_build, n), names))
     paths = [path for path, _ in built]
@@ -1082,6 +1167,7 @@ def main():
     for name in lk.LIBRARIES:
         (lk if name.startswith("lane") else ak)._lib(name)
     bk._lib()
+    bk._lib(trace=True)
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in reports:
@@ -1371,13 +1457,15 @@ def main():
           f"(lane, adaptive) {exp_launches}")
     phase("7, align_exp_all")
 
-    def main_path(al, work, what, name, plain_fn, kernel_fn, top=False):
+    def main_path(al, work, what, name, plain_fn, kernel_fn, top=False,
+                  keep=None):
         """Drive a main path (stage + align_staged, then align_all) with
         the launch counts reset just before it and read just after, hold
         every result against the plain version on the card, and time it
         (the kernel with CUDA events; pack, align_staged and decode on the
         host clock); returns the path's numbers for the kernels line, and
-        with ``top`` the largest block size each pair reached."""
+        with ``top`` the largest block size each pair reached.  ``keep``, a
+        dict, takes the plain version's output, cell counts and time."""
         torch.cuda.synchronize()
         reset_launches(lk, ak)
         staged, pack_ms = host_ms(lambda: al.stage(work))
@@ -1393,6 +1481,8 @@ def main():
         (want, cells, *tops), plain_ms = host_ms(
             lambda: plain_fn(*staged, al.cfg, count_cells=True,
                              **({"top_size": True} if top else {})))
+        if keep is not None:
+            keep.update(want=want, cells=cells, plain_ms=plain_ms)
         last = np.zeros(len(res), np.int32) if flags is None else flags
         got = torch.from_numpy(np.column_stack(
             [[(r.score, r.query_idx, r.reference_idx) for r in res], last])
@@ -1564,17 +1654,23 @@ def main():
           "equal too")
     phase("11, trace instances vs plain")
 
-    def trace_path(al, work, what, name, base):
+    def trace_path(al, work, what, name, base, plain=None, n_cmp=512):
         """Drive a trace main path through ``align_all_trace`` with the
         launch counts reset just before it and read just after; hold its
         results against the non-trace instance (``base``; None at max size
         512, which without trace is the big kernel's route) and the plain
-        version on the card, every CIGAR against its result, and the first
-        512 CIGARs against those of the plain version's trace; time it per
-        batch.  Returns the path's numbers for the kernels line."""
-        plain_fn = lk.lane_align_plain if al.route == "lane" \
-            else ak.adaptive_align_plain
-        kernel_fn = lk.lane_align if al.route == "lane" else ak.adaptive_align
+        version on the card (``plain``: the non-trace plain version's output,
+        cells and time from a main path on the same pairs, its time over
+        ``plain["pairs"]`` pairs where that path had more; else run here),
+        every CIGAR against its result, and the first ``n_cmp`` CIGARs
+        against those of the plain version's trace; time it per batch.
+        Returns the path's numbers for the kernels line."""
+        big = al.route == "big"
+        plain_fn = {"lane": lk.lane_align_plain,
+                    "adaptive": ak.adaptive_align_plain,
+                    "big": bk.big_align_plain}[al.route]
+        kernel_fn = {"lane": lk.lane_align, "adaptive": ak.adaptive_align,
+                     "big": bk.big_align}[al.route]
         x = al.x_drop or 0
         torch.cuda.synchronize()
         reset_launches(lk, ak)
@@ -1586,14 +1682,20 @@ def main():
         fend = al.cfg.free_query_end_gaps
         n_ops, below = check_cigars(cigars, work, res, al.matrix, al.gaps,
                                     what, cigar_start(al.cfg), at_most=fend)
-        # the plain version: every result, and the first 512 CIGARs
+        # the plain version: every result, and the first n_cmp CIGARs
         cfg0 = al.cfg if base is None else dataclasses.replace(al.cfg,
                                                                trace=False)
-        pk = lk.pack_lane(work, al.matrix, cfg0, al.gaps, dev, x_drop=x)
-        plain_res, plain_ms = host_ms(
-            lambda: plain_fn(*pk, cfg0, count_cells=True))
-        want, cells = plain_res[0], plain_res[-1]
-        del plain_res
+        if plain is None:
+            pk = lk.pack_lane(work, al.matrix, cfg0, al.gaps, dev, x_drop=x)
+            plain_res, plain_ms = host_ms(
+                lambda: plain_fn(*pk, cfg0, count_cells=True))
+            want, cells = plain_res[0], plain_res[-1]
+            del plain_res
+        else:
+            want, cells, plain_ms = (plain["want"], plain["cells"],
+                                     plain["plain_ms"])
+        # the pairs the plain version's time covers
+        n_plain = (plain or {}).get("pairs", len(work))
         got = torch.tensor([(r.score, r.query_idx, r.reference_idx)
                             for r in res], dtype=torch.int32)
         want = want.cpu()
@@ -1604,17 +1706,24 @@ def main():
         if err:
             raise AssertionError(f"{what}: differs from the plain version: "
                                  f"max abs err {err}")
-        # the first 512 CIGARs (with free end gaps all) against the plain
+        # the first n_cmp CIGARs (with free end gaps all) against the plain
         # version's
-        n_cmp = len(work) if fend else min(512, len(work))
+        n_cmp = len(work) if fend else min(n_cmp, len(work))
+        trace_plain_ms = 0.0
         for k in range(0, n_cmp, al.batch_size):
             sub = work[k : min(k + al.batch_size, n_cmp)]
             pk = lk.pack_lane(sub, al.matrix, al.cfg, al.gaps, dev,
                               x_drop=x)
-            _, words, desc, steps = plain_fn(*pk, al.cfg)
-            tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
-                       steps.cpu().numpy(), al.matrix, **trace_flags(al.cfg))
-            del words, desc
+            got_p, ms = host_ms(lambda: plain_fn(*pk, al.cfg))
+            trace_plain_ms += ms
+            if big:
+                tr = block_trace(got_p, al.matrix)
+            else:
+                _, words, desc, steps = got_p
+                tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
+                           steps.cpu().numpy(), al.matrix,
+                           **trace_flags(al.cfg))
+            del got_p
             ends = [(r.query_idx, r.reference_idx)
                     for r in res[k : k + len(sub)]]
             if [str(c) for c in tr.cigars_all(ends)] != [
@@ -1627,7 +1736,7 @@ def main():
         # (cigars_all)
         t = {"pack": 0.0, "kernel": 0.0, "twin": 0.0, "copy": 0.0,
              "decode": 0.0, "walk": 0.0}
-        nbytes = 0
+        nbytes = copied = 0
         for k in range(0, len(work), al.batch_size):
             chunk = work[k : k + al.batch_size]
             staged, ms = host_ms(lambda: al._pack(chunk))
@@ -1636,9 +1745,12 @@ def main():
             if base is not None:
                 t["twin"] += cuda_ms(lambda: kernel_fn(*staged, cfg0), 3)
             disp = kernel_fn(*staged, al.cfg)
-            T = int(disp[3].max())
-            _, ms = host_ms(lambda: [api.to_host(disp[1][:T]),
-                                     api.to_host(disp[2][:T])])
+            if big:
+                _, ms = host_ms(lambda: api._block_trace(*disp[1:]))
+            else:
+                T = int(disp[3].max())
+                _, ms = host_ms(lambda: [api.to_host(disp[1][:T]),
+                                         api.to_host(disp[2][:T])])
             t["copy"] += ms
             got_b, ms = host_ms(lambda: al._decode(staged, disp))
             t["decode"] += ms
@@ -1650,12 +1762,16 @@ def main():
             # words of its rows inside the height written once
             trb = al.trace()
             ran = np.arange(trb.desc.shape[0])[:, None] < trb.steps[None, :]
+            # the big route: 5 descriptor fields, the word counters, and the
+            # words of each step's rows (those that cross to the host)
+            moved = (4 * trb.desc.shape[2] * int(ran.sum())
+                     + 4 * lk.trace_words(al.cfg)
+                     * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
+            copied += moved
             nbytes += (staged.codes.numel() + 4 * (2 * len(chunk)
                        + staged.table.numel())
                        + (16 if lk.wide(al.cfg) else 8) * len(chunk)
-                       + 4 * len(chunk) + 16 * int(ran.sum())
-                       + 4 * lk.trace_words(al.cfg)
-                       * int(np.where(ran, trb.desc[:, :, 3], 0).sum()))
+                       + (8 if big else 4) * len(chunk) + moved)
         ops = ops_per_cell(al.cfg)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = int(cells.sum()) * ops / int32_per_s * 1e3
@@ -1663,6 +1779,19 @@ def main():
                                                               "operations")
         B = len(work)
         sc = got[:, 0].numpy()
+        if big:
+            # the trace's bytes against what its cells need (4 bits a cell),
+            # the budget allocated and a dense (steps, B, max_size) layout
+            need = int(cells.sum()) / 2
+            if not copied <= 2 * need:
+                raise AssertionError(f"{what}: {copied} trace bytes copied, "
+                                     f"more than twice the {need:.0f} its "
+                                     "cells need")
+            print(f"[{name}-bytes] {what}: trace bytes per pair: copied "
+                  f"{copied / B:.0f} (words and executed descriptors), cells "
+                  f"/ 8 x 4 B {need / B:.0f}, budget allocated "
+                  f"{4 * al.cfg.trace_budget}, dense layout "
+                  f"{4 * al.cfg.max_steps * al.cfg.max_size}")
         print(f"[{name}-main] {B} pairs, {what}: align_all_trace in batches "
               f"of {al.batch_size}; {name} launches {launches}; results equal "
               + ("the non-trace instance's and " if base is not None else "")
@@ -1671,8 +1800,8 @@ def main():
               + (f"rescores to at most its score, {below} below (the best of "
                  "another row of row qlen's residue class); all equal the "
                  "plain version's; " if fend else
-                 f"rescores to its score ({n_ops} ops); the first 512 equal "
-                 "the plain version's; ")
+                 f"rescores to its score ({n_ops} ops); the first {n_cmp} "
+                 "equal the plain version's; ")
               + "scores "
               f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
               f"{int(cells.sum())} DP cells, {int(cells.sum()) / B:.0f} per "
@@ -1688,8 +1817,9 @@ def main():
               f"{t['copy'] * 1e3 / B:.4f}, _decode (copy, replay, results) "
               f"{t['decode'] * 1e3 / B:.4f}, walk (cigars_all) "
               f"{t['walk'] * 1e3 / B:.4f}, align_all_trace "
-              f"{path_ms * 1e3 / B:.4f}, plain {plain_ms * 1e3 / B:.4f} "
-              f"({plain_ms:.1f} ms)")
+              f"{path_ms * 1e3 / B:.4f}, plain {plain_ms * 1e3 / n_plain:.4f} "
+              f"({plain_ms:.1f} ms for {n_plain} pairs; with trace, the first "
+              f"{n_cmp} pairs: {trace_plain_ms:.1f} ms)")
         phase(f"{name}, {what}")
         return {"launches": launches, "max_abs_err": err, "ms": t["kernel"],
                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
@@ -2133,16 +2263,16 @@ def main():
         return got
 
     def flag_pairs(cfg, grow):
-        """32 pairs of lengths 0..300 for ``cfg``'s mode, and with ``grow``
+        """32 pairs of lengths 0..200 for ``cfg``'s mode, and with ``grow``
         2 whose adaptive blocks grow to 512; free end gaps cut the queries
         short of the min size."""
         if cfg.byte_mode:
-            pairs = byte_pairs(rng, 32, 300)
+            pairs = byte_pairs(rng, 32, 200)
         elif cfg.profile:
-            pairs = profile_pairs(rng, 32, 300) + (
+            pairs = profile_pairs(rng, 32, 200) + (
                 grow_profile_pairs(rng, 2) if grow else [])
         else:
-            pairs = structural_pairs(rng, AA, 32, 300) + (
+            pairs = structural_pairs(rng, AA, 32, 200) + (
                 grow_to_512_pairs(rng, 2, 560, 300) if grow else [])
         if cfg.free_query_end_gaps:
             pairs = [(q[: cfg.min_size - 1], r) for q, r in pairs]
@@ -2430,14 +2560,15 @@ def main():
             pairs = structural_pairs(rng, alphabet, 96, 700)
             dropped += big_vs_plain(pairs, size, matrix, gaps, x)[0]
             checked += len(pairs)
-    gdrop, gtop = big_vs_plain(grow, (512, 8192), *dna, 1000, cap=16384)
+    gdrop, gtop = big_vs_plain(grow[:8], (512, 8192), *dna, 1000,
+                               cap=16384)
     over, n_capped = big_capped(50, 25)
     if not dropped:
         raise AssertionError("no big x-drop pair ended short of its ends")
     print(f"[big-xdrop-vs-plain] {checked} pairs at "
           f"{', '.join(map(str, big_sizes))} (protein x 0 and 100, DNA x 20): "
           "best, position and overrun equal; "
-          f"{dropped} best positions short of (qlen, rlen); the {len(grow)} "
+          f"{dropped} best positions short of (qlen, rlen); 8 of the "
           f"growth pairs at (512, 8192) with x 1000 ({gdrop} short of their "
           f"ends, blocks reached {sorted(set(gtop.tolist()))}); with a "
           f"25-step cap on {n_capped} pairs, {over} of which overran")
@@ -2450,14 +2581,16 @@ def main():
     ncap = max(max(len(q), len(r)) for q, r in nano)
     what = ("nanopore-like 5000..9999 bases, 10% edits, NucMatrix(2, -4) "
             "-6/-2, (128, 1024)")
+    nano_g, nano_x = {}, {}  # the plain version's, for phase 31
     big_g = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
                                    seq_cap=ncap, device=dev), nano, what,
-                      "big_align", bk.big_align_plain, bk.big_align)
+                      "big_align", bk.big_align_plain, bk.big_align,
+                      keep=nano_g)
     phase("27, big_align main path")
     big_x = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
                                    seq_cap=ncap, x_drop=50, device=dev), nano,
                       f"{what}, x_drop 50", "big_align_xdrop",
-                      bk.big_align_plain, bk.big_align)
+                      bk.big_align_plain, bk.big_align, keep=nano_x)
     phase("27, big_align_xdrop main path")
 
     # 28. uc30 at (32, 512) without trace, which pick_route sends to the
@@ -2475,16 +2608,124 @@ def main():
                        device=dev)
     if gal.cfg.seq_cap != 16384:
         raise AssertionError(f"growth seq_cap {gal.cfg.seq_cap}")
+    grow_plain = {}  # the plain version's, for phase 32
     big_gr, gtop = main_path(
         gal, grow, "DNA growth pairs: a flank, a random middle of 1200..3200 "
         "on both sides, a flank (5% edits), NucMatrix(2, -4) -6/-2, (512, "
-        "8192)", "big_align", bk.big_align_plain, bk.big_align, top=True)
+        "8192)", "big_align", bk.big_align_plain, bk.big_align, top=True,
+        keep=grow_plain)
     reached = {int(t): int((gtop == t).sum()) for t in gtop.unique()}
     if not {4096, 8192} <= set(reached):
         raise AssertionError(f"growth pairs reached {reached}")
     print(f"[big-growth] blocks reached (size: pairs) {reached}")
     phase("29, big_align growth main path")
     big_g = merged(big_g, big_uc, big_gr)
+
+    # 30. the big trace instances (csrc/big_trace.cu) vs the plain version:
+    # structural pairs at (64, 1024), (512, 1024) and (1024, 1024), global
+    # and x 20 and 100, 4 growth pairs at fixed (2048, 4096), and a reduced
+    # trace budget
+    def big_trace_vs_plain(pairs, size, matrix, gaps, x, cap=None,
+                           budget=None):
+        """big_align against big_align_plain with trace on the card: equal
+        outputs, step counts, word counters, executed descriptors and
+        words, and equal CIGARs walked from both for the pairs that did not
+        overrun; returns (saves, restores, overruns, the tallest step)."""
+        maxlen = max(max(len(q), len(r)) for q, r in pairs)
+        cfg = bk.BigKernelConfig(
+            *size, cap or max(256, -(-(1 + maxlen + size[1] + 16) // 128)
+                              * 128), 16 if matrix.kind == "nuc" else 32,
+            x_drop=x is not None, trace=True)
+        if budget:
+            cfg = with_trace_budget(cfg, budget)
+        pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
+        got = bk.big_align(*pk, cfg)
+        torch.cuda.synchronize()
+        want = bk.big_align_plain(*pk, cfg)
+        what = f"big trace {size} x_drop={x} {matrix.kind}"
+        saves, restores = check_big_trace(got, want, what)
+        out = want[0].cpu()
+        done = (out[:, -1] == 0).nonzero()[:, 0].tolist()
+        ends = [(int(out[k, 1]), int(out[k, 2])) if x is not None
+                else (len(pairs[k][0]), len(pairs[k][1])) for k in done]
+
+        def sub(res):
+            return tuple(t[:, done] if t.dim() == 3 else t[done] for t in res)
+
+        walk_both(sub(got), sub(want), ends, matrix, what)
+        desc, steps = want[2], want[3]
+        ran = torch.arange(desc.shape[0], device=dev)[:, None] < steps
+        return (saves, restores, int(out[:, -1].sum()),
+                int(torch.where(ran, desc[:, :, 3], 0).max()))
+
+    checked, events, tall = 0, [0, 0], set()
+    for size in ((64, 1024), (512, 1024), (1024, 1024)):
+        for (matrix, gaps, alphabet), x in product(
+                ((scores.BLOSUM62, Gaps(-11, -1), AA), (*dna, DNA)),
+                (None, 20, 100)):
+            pairs = structural_pairs(rng, alphabet, 32, 700)
+            sv, rs, _, h = big_trace_vs_plain(pairs, size, matrix, gaps, x)
+            events[0] += sv
+            events[1] += rs
+            tall.add(h)
+            checked += len(pairs)
+    grown = big_trace_vs_plain(grow[:4], (2048, 4096), *dna, None)[3]
+    _, _, over, _ = big_trace_vs_plain(structural_pairs(rng, AA, 64, 600),
+                                       (32, 1024), scores.BLOSUM62,
+                                       Gaps(-11, -1), None, budget=6000)
+    if not 0 < over < 64 or not all(events) or grown != 4096:
+        raise AssertionError(f"big trace: {over} of 64 pairs overran the "
+                             f"budget; events {events}; growth steps to "
+                             f"{grown}")
+    tshapes = {(S, xd): bk.launch_shape(bk.BigKernelConfig(
+        16, S, 16384, x_drop=xd, trace=True))
+        for S in (512, 1024, 2048, 4096, 8192) for xd in (False, True)}
+    print("[big-shape] trace instances, global / x-drop: threads, dynamic "
+          "shared bytes and blocks per SM by max size: " + "; ".join(
+              f"{S}: {tshapes[S, False]} / {tshapes[S, True]}"
+              for S in (512, 1024, 2048, 4096, 8192)))
+    print(f"[big-trace-vs-plain] {checked} pairs at (64, 1024), (512, 1024) "
+          "and (1024, 1024) (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, "
+          "-4) -6/-2, lengths 0..700, structural indels), global and x 20 "
+          "and 100 (steps up to "
+          f"{max(tall)} rows), and 4 growth pairs at fixed (2048, 4096), "
+          "global: outputs, step counts, word counters, "
+          "descriptors and words equal, and the CIGARs walked from both; "
+          f"{events[0]} checkpoint saves and {events[1]} grow restores; under "
+          f"a budget of 6000 words on 64 pairs at (32, 1024), {over} of "
+          "which overran, the traces equal too")
+    phase("30, big trace instances vs plain")
+
+    # 31. the traced nanopore band: phase 27's pairs through
+    # align_all_trace in batches of 256, global and x 50, held against
+    # phase 27's non-trace instance and plain version
+    tkw = dict(size=(128, 1024), batch=256, seq_cap=ncap, device=dev)
+    big_t = trace_path(BatchAligner(*dna, trace=True, **tkw), nano, what,
+                       "big_align_trace", BatchAligner(*dna, **tkw),
+                       plain=nano_g, n_cmp=128)
+    big_xt = trace_path(
+        BatchAligner(*dna, trace=True, x_drop=50, **tkw), nano,
+        f"{what}, x_drop 50", "big_align_xdrop_trace",
+        BatchAligner(*dna, x_drop=50, **tkw), plain=nano_x, n_cmp=128)
+
+    # 32. traced growth: two of phase 29's growth pairs whose blocks reach
+    # 4096 and two that reach 8192, at (512, 8192) with trace
+    pick = ([k for k in range(len(grow)) if gtop[k] == 4096][:2]
+            + [k for k in range(len(grow)) if gtop[k] == 8192][:2])
+    gkw = dict(size=(512, 8192), batch=4, seq_cap=8175, device=dev)
+    tal = BatchAligner(*dna, trace=True, **gkw)
+    big_gt = trace_path(
+        tal, [grow[k] for k in pick], "DNA growth pairs of phase 29 (two "
+        "reach 4096, two 8192), NucMatrix(2, -4) -6/-2, (512, 8192)",
+        "big_align_trace", BatchAligner(*dna, **gkw),
+        plain=dict(grow_plain, want=grow_plain["want"][pick],
+                   cells=grow_plain["cells"][pick], pairs=len(grow)))
+    tr = tal.trace()
+    heights = [int(tr.desc[: tr.steps[b], b, 3].max()) for b in range(4)]
+    if sorted(heights) != [4096, 4096, 8192, 8192]:
+        raise AssertionError(f"traced growth reached {heights}")
+    print(f"[big-trace-growth] traced steps reached {heights} rows")
+    big_t = merged(big_t, big_gt)
 
     print(json.dumps({"kernels": [
         {
@@ -2591,6 +2832,17 @@ def main():
         }
         for name, numbers in (("big_align", big_g),
                               ("big_align_xdrop", big_x))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "block_aligner_tpu_torch/csrc/big_trace.cu",
+            "replaces": "block_aligner_tpu/ops/big_kernel.py:1389",
+            **numbers,
+            "library_ms": None,
+        }
+        for name, numbers in (("big_align_trace", big_t),
+                              ("big_align_xdrop_trace", big_xt))
     ] + [
         {
             "name": name,

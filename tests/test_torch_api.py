@@ -125,7 +125,7 @@ def test_pick_route_matches_jax(args):
     dict(free_query_end_gaps=True, mesh=object()),
     dict(matrix=tba.BYTES1, size=(64, 1024)), dict(mesh=object()),
     dict(use_lane_kernel=False),
-    dict(size=(64, 1024), trace=True),
+    dict(size=(64, 1024), trace=True, matrix=tba.BYTES1),
     dict(size=(32, 512), local_start=True),
     dict(size=(16, 64), seq_cap=20000, free_query_end_gaps=True),
     dict(size=(32, 256), seq_cap=20000, matrix=tba.BYTES1),

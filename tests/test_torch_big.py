@@ -147,8 +147,9 @@ def test_wrapper_devices_and_counts():
 
 
 def test_config_validation():
-    """Sizes, capacity and modes; the block and step cap are the JAX
-    configuration's (``big_kernel.py:277-281``)."""
+    """Sizes, capacity and modes; the block, the step cap and the trace
+    budget are the JAX configuration's (``big_kernel.py:277-281``, its
+    default slot budget in rows at seg 256, ``:311-320``)."""
     for bad in [(16, 256, 1024), (16, 16384, 16384), (24, 1024, 2048),
                 (2048, 1024, 4096), (512, 512, 1024), (16, 1024, 1000),
                 (16, 1024, 1024), (16, 8192, 16512)]:
@@ -156,17 +157,18 @@ def test_config_validation():
             bk.BigKernelConfig(*bad)
     with pytest.raises(ValueError):
         bk.BigKernelConfig(16, 1024, 2048, alpha=20)
-    for mode, item in [("trace", "5a"), ("byte_mode", "5b"),
-                       ("local_start", "5c"), ("free_query_start_gaps", "5c"),
+    for mode, item in [("byte_mode", "5b"), ("local_start", "5c"), ("free_query_start_gaps", "5c"),
                        ("free_query_end_gaps", "5c"), ("profile", "5d")]:
         with pytest.raises(ValueError, match=f"ROADMAP.md queue 2 item {item}"):
             bk.BigKernelConfig(16, 1024, 2048, **{mode: True})
     for lo, hi, cap in [(32, 512, 768), (128, 1024, 11136), (1024, 1024, 2048),
                         (512, 8192, 9088)]:
-        cfg = bk.BigKernelConfig(lo, hi, cap)
+        cfg = bk.BigKernelConfig(lo, hi, cap, trace=True)
         want = jbig.BigKernelConfig(batch=128, min_size=lo, max_size=hi,
-                                    seq_cap=cap)
+                                    seq_cap=cap, trace=True)
         assert (cfg.block, cfg.max_steps) == (want.block, want.max_steps)
+        assert cfg.trace_budget == want.eff_trace_slots * want.seg == (
+            cfg.max_steps * max(lo, 256) + 8 * hi)
 
 
 def test_pack_big_is_pack_lane():

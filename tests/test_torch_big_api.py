@@ -102,7 +102,8 @@ def test_routes(size, trace, route):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(trace=True), dict(matrix=tba.BYTES1), dict(local_start=True),
+    dict(trace=True, matrix=tba.BYTES1), dict(matrix=tba.BYTES1),
+    dict(local_start=True),
     dict(free_query_start_gaps=True), dict(free_query_end_gaps=True),
 ], ids=["trace", "byte", "local_start", "free_start", "free_end"])
 def test_later_modes_raise(kwargs):

@@ -54,6 +54,24 @@ def fields(results):
     return [(r.score, r.query_idx, r.reference_idx) for r in results]
 
 
+# scores large enough to reach the upper i16 rail within a block's un-rebased
+# columns
+RAIL = jba.ByteMatrix(100, -1)
+
+
+def rail_pairs():
+    """The lane route's rail pair, 400 A against 400 A at (512, 512): the
+    first 64 steps have no rebase, so D saturates at 32767 and the score is
+    32767 - 16384 = 16383, not 40000.  The adaptive route's, at (16, 512)
+    with trace: 450 A against 100 A, 260 random letters and 350 A; the
+    blocks grow past the insert from the checkpoint before it, and the grow
+    rect's matches gain more than 16383 over its offset."""
+    rng = np.random.default_rng(1)
+    mid = rng.choice(np.frombuffer(b"CDEFGHIKLMNP", np.uint8), 260)
+    return ((b"A" * 400, b"A" * 400),
+            (b"A" * 450, b"A" * 100 + mid.tobytes() + b"A" * 350))
+
+
 @pytest.mark.parametrize("size", [(16, 16), (32, 32), (16, 32), (16, 64)],
                          ids=["16", "32", "16-32", "16-64"])
 def test_plain_matches_oracle(size):
@@ -156,3 +174,20 @@ def test_packing_and_rejections():
                 dict(alpha=256, byte_mode=True, profile=True)):
         with pytest.raises(ValueError):
             lk.LaneKernelConfig(16, 256, **bad)
+
+
+def test_upper_rail():
+    """Both rail pairs (``rail_pairs``) give ``BlockOracle``'s scores, which
+    saturate at the upper i16 rail as the reference's adds do (a one-sided
+    clamp gives 40000 and 44730): the lane route through ``BatchAligner``,
+    the adaptive route traced, its CIGAR the oracle's."""
+    lane, grow = rail_pairs()
+    al = tba.BatchAligner(tba.matrix_from_jax(RAIL), tba.gaps_from_jax(GAPS),
+                          (512, 512), batch=1, seq_cap=400, device="cpu")
+    orc = jba.BlockOracle()
+    orc.align(*(jba.PaddedBytes.from_bytes(s, 512, RAIL) for s in lane),
+              RAIL, GAPS, (512, 512), 0)
+    assert al.route == "lane"
+    assert al.align_batch([lane])[0].score == orc.res().score == 16383
+    tr, _ = check_against_oracle([grow], (16, 512), matrix=RAIL)
+    assert int(tr.desc[:, 0, 3].max()) == 512

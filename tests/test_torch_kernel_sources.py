@@ -31,6 +31,7 @@ from block_aligner_tpu_torch.ops import big_kernel as bk
 from block_aligner_tpu_torch.ops import lane_kernel as lk
 from test_torch_adaptive_kernel import protein_pairs
 from test_torch_trace import grown_pairs
+from test_torch_byte import rail_pairs
 
 EMULATION = r"""
 #pragma once
@@ -59,7 +60,7 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 // The running CUDA thread's state; the scheduler swaps it per fiber.
 inline dim3 threadIdx, blockIdx;
-inline dim3 blockDim;
+inline dim3 blockDim, gridDim;
 inline unsigned turn_ = 0;
 namespace emu {
 // Every CUDA thread of a block is a fiber on one host thread; a fiber
@@ -161,6 +162,7 @@ template <class F>
 void launch(unsigned grid, unsigned block, F body) {
   constexpr size_t kStack = 256 << 10;
   blockDim.x = block;
+  gridDim.x = grid;
   std::function<void()> fn = body;
   body_ = &fn;
   std::vector<Fiber> fibers(block);
@@ -250,13 +252,13 @@ def emulated(tmp_path_factory):
     src = src.replace(BIG_SHARED, "short* const planes = "
                       "reinterpret_cast<short*>(emu::dynamic_.data());")
     (out / f"{bk.LIBRARY}.cu").write_text(src)
-    for name in (*lk.LIBRARIES, bk.LIBRARY):
+    for name in (*lk.LIBRARIES, bk.LIBRARY, bk.TRACE_LIBRARY):
         mod = {"lane": lk, "adaptive": ak}.get(name.split("_")[0], bk)
         (out / f"{name}.cpp").write_text(
             (out / f"{name}.cu").read_text() if name.endswith("kernel")
             else (_build.CSRC / f"{name}.cu").read_text())
         so = out / f"lib{name}.so"
-        # all nine compile at once
+        # all ten compile at once
         builds[name] = (mod, so, subprocess.Popen(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
              str(out), "-o", str(so), str(out / f"{name}.cpp")],
@@ -636,17 +638,57 @@ def test_kernel_source_flags_match_plain(emulated, size, mode, x, trace,
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("size,trace", [((512, 512), False),
+                                        ((16, 512), True)],
+                         ids=["lane", "adaptive-trace"])
+def test_kernel_source_upper_rail(emulated, size, trace):
+    """The byte instances on ``test_torch_byte.rail_pairs``: D saturates at
+    the upper i16 rail, so the scores are ``BlockOracle``'s (16383 and
+    36972), equal to the plain versions', and so are the traces."""
+    lo, hi = size
+    pair = rail_pairs()[0 if lo == hi else 1]
+    kw = dict(trace=trace, byte_mode=True)
+    if lo == hi:
+        cfg = lk.LaneKernelConfig(hi, 1024, 256, **kw)
+        ints = (cfg.seq_cap, 256, hi, cfg.max_steps)
+    else:
+        cfg = ak.AdaptiveKernelConfig(lo, hi, 1280, 256, **kw)
+        ints = (cfg.seq_cap, 256, lo, hi, cfg.max_steps)
+    pk = lk.pack_lane([pair], scores.ByteMatrix(100, -1), cfg, Gaps(-11, -1),
+                      "cpu")
+    kernel = "lane" if lo == hi else "adaptive"
+    fn = getattr(emulated[lk.library(kernel, cfg)], kernel + "_align_launch")
+    bufs = poisoned_trace(cfg, 1, hi) if trace else None
+    got = launch(fn, pk, torch.full((1, 2), -7, dtype=torch.int32), 1, *ints,
+                 trace=bufs, cfg=cfg)
+    want = (lk.lane_align_plain if lo == hi
+            else ak.adaptive_align_plain)(*pk, cfg)
+    if trace:
+        chip_smoke.check_trace((got, *bufs), want, f"rail {size}")
+    else:
+        assert torch.equal(got, want)
+    assert int(got[0, 0]) == (16383 if lo == hi else 36972)
+
+
 def big_launch(lib, pk, cfg, x=-1):
-    """``csrc/big_kernel.cu``'s entry point on a packed batch."""
-    out = torch.full((pk.codes.shape[0], 4 if x >= 0 else 2), -7,
-                     dtype=torch.int32)
+    """``csrc/big_kernel.cu``'s entry point on a packed batch; with
+    ``cfg.trace`` (the library of ``csrc/big_trace.cu``) it returns ``(out,
+    words, desc, steps, used)``, the trace buffers filled with -5 where the
+    kernel writes nothing."""
+    B = pk.codes.shape[0]
+    out = torch.full((B, 4 if x >= 0 else 2), -7, dtype=torch.int32)
+    bufs = ((torch.full((B, cfg.trace_budget), -5, dtype=torch.int32),
+             torch.full((cfg.max_steps, B, 5), -5, dtype=torch.int32),
+             torch.full((B,), -5, dtype=torch.int32),
+             torch.full((B,), -5, dtype=torch.int32)) if cfg.trace else ())
     err = lib.big_align_launch(
         pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
-        pk.table.data_ptr(), out.data_ptr(), pk.codes.shape[0], cfg.seq_cap,
+        pk.table.data_ptr(), out.data_ptr(),
+        *([t.data_ptr() for t in bufs] or [None] * 4), B, cfg.seq_cap,
         cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps, pk.gaps[0],
-        pk.gaps[1], x, None)
+        pk.gaps[1], x, cfg.trace_budget if cfg.trace else 0, None)
     assert err == 0
-    return out
+    return (out, *bufs) if cfg.trace else out
 
 
 @pytest.mark.parametrize("size,setup,x", [
@@ -677,29 +719,84 @@ def test_big_kernel_source_matches_plain(emulated, size, setup, x):
 
 def test_big_entry_point_matches_binding(emulated):
     """The C signature of ``csrc/big_kernel.cu`` and its ctypes argument
-    list agree (5 pointers for the inputs and the output, 9 ints, the
-    stream); the entry point refuses sizes the big route does not take, and
-    reports its launch shape (threads, dynamic shared bytes)."""
+    list agree (5 pointers for the inputs and the output, 4 for the trace
+    buffers, 10 ints, the stream); the entry point refuses sizes the big
+    route does not take, trace buffers in the library without trace and
+    their absence in the trace library (``csrc/big_trace.cu``), and reports
+    its launch shape (threads, dynamic shared bytes: 4 a row more with
+    trace)."""
     src = (_build.CSRC / f"{bk.LIBRARY}.cu").read_text()
     sig = re.search(r'extern "C" int big_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
-    lib = emulated[bk.LIBRARY]
+    lib, tlib = emulated[bk.LIBRARY], emulated[bk.TRACE_LIBRARY]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 5 + [False] * 9 + [True]
+        [True] * 9 + [False] * 10 + [True]
     assert len(lib.big_align_launch.argtypes) == len(params)
     assert _build.library_path(bk.LIBRARY).name.startswith("libbig_kernel-")
     cfg = bk.BigKernelConfig(16, 1024, 1152)
     pk = bk.pack_big([(b"A", b"A")], scores.BLOSUM62, cfg, Gaps(-11, -1),
                      "cpu")
     out = torch.zeros((1, 2), dtype=torch.int32)
+    ptrs = (pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
+            pk.table.data_ptr(), out.data_ptr())
     for lo, hi in [(16, 256), (32, 16384), (512, 512), (24, 1024),
                    (2048, 1024)]:
         assert lib.big_align_launch(
-            pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
-            pk.table.data_ptr(), out.data_ptr(), 1, cfg.seq_cap, 32, lo, hi,
-            cfg.max_steps, -11, -1, -1, None) != 0
+            *ptrs, None, None, None, None, 1, cfg.seq_cap, 32, lo, hi,
+            cfg.max_steps, -11, -1, -1, 0, None) != 0
+    bufs = [out.data_ptr()] * 4
+    assert lib.big_align_launch(*ptrs, *bufs, 1, cfg.seq_cap, 32, 16, 1024,
+                                cfg.max_steps, -11, -1, -1, 64, None) != 0
+    assert tlib.big_align_launch(*ptrs, None, None, None, None, 1,
+                                 cfg.seq_cap, 32, 16, 1024, cfg.max_steps,
+                                 -11, -1, -1, 64, None) != 0
     assert tuple(big_launch(lib, pk, cfg)[0].tolist()) == (4, 0)
     shape = (ctypes.c_int * 3)()
     for S, want in [(1024, (128, 20480)), (8192, (256, 163840))]:
         assert lib.big_launch_shape(S, 1, ctypes.addressof(shape)) == 0
         assert tuple(shape)[:2] == want
+        assert tlib.big_launch_shape(S, 1, ctypes.addressof(shape)) == 0
+        assert tuple(shape)[:2] == (want[0], want[1] // 20 * 24)
+
+
+@pytest.mark.parametrize("size,setup,x,budget", [
+    ((32, 512), "protein", -1, None), ((128, 1024), "dna", 20, None),
+    ((64, 1024), "protein", -1, 600),
+], ids=["32-512-protein", "128-1024-dna-x-drop", "64-1024-budget"])
+def test_big_kernel_source_trace_matches_plain(emulated, size, setup, x,
+                                               budget):
+    """The trace instances (``csrc/big_trace.cu``) against the plain
+    version: outputs, step counts, word counters, the descriptors of every
+    executed step and the words below each counter, and the CIGARs walked
+    from both.  At (32, 512) a pair grows to 512 rows (four warps of four
+    slots), so the R-open bit crosses slots and warps; at (128, 1024) it
+    crosses the four warps' single slots; under a budget of 600 words a
+    pair the two longest pairs overrun and the edge cases finish."""
+    matrix, gaps, alphabet = SETUPS[setup]
+    rng = np.random.default_rng(size[1] + x + 1)
+    pairs = chip_smoke.structural_pairs(rng, alphabet, 6, 200)
+    if size == (32, 512):
+        pairs = [grown_pairs()[0]] + pairs
+    cfg = bk.BigKernelConfig(*size, 1664 if size[1] == 512 else 2304,
+                             32 if setup == "protein" else 16, x_drop=x >= 0,
+                             trace=True)
+    if budget:
+        cfg = chip_smoke.with_trace_budget(cfg, budget)
+    pk = bk.pack_big(pairs, matrix, cfg, gaps, "cpu", x_drop=max(x, 0))
+    got = big_launch(emulated[bk.TRACE_LIBRARY], pk, cfg, x)
+    want = bk.big_align_plain(*pk, cfg)
+    saves, restores = chip_smoke.check_big_trace(got, want, f"{size}")
+    out = want[0]
+    ends = ([(int(o[1]), int(o[2])) for o in out] if x >= 0 else
+            [(len(q), len(r)) for q, r in pairs])
+    done = (out[:, -1] == 0).nonzero()[:, 0].tolist()
+    chip_smoke.walk_both(
+        tuple(t[:, done] if t.dim() == 3 else t[done] for t in got),
+        tuple(t[:, done] if t.dim() == 3 else t[done] for t in want),
+        [ends[k] for k in done], matrix, f"{size}")
+    if size == (32, 512):
+        assert saves > 0 and restores > 0
+        ran = torch.arange(cfg.max_steps) < got[3][0]
+        assert int(torch.where(ran, got[2][:, 0, 3], 0).max()) == 512
+    if budget:
+        assert 0 < int(out[:, -1].sum()) < len(pairs)
