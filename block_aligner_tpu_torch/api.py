@@ -7,16 +7,14 @@
   with trace), the adaptive kernel; the package's default size (32, 256)
   is one;
 * "big": blocks past 512 (512 < max <= 8192, min == max > 512 included,
-  and (min, 512) without trace), the big-block kernel, in global and
-  x-drop mode with a score table, with or without trace; the reference's
+  and (min, 512) without trace), the big-block kernel; the reference's
   long-read bands (128, 1024) and (512, 8192) are two.
 
-On the lane and adaptive routes it runs in global or x-drop mode
-(``x_drop=X``), with or without trace (``trace=True``), with an
-amino-acid or nucleotide table or a ``ByteMatrix`` (global and trace), and
-with the reference's ``local_start``, ``free_query_start_gaps`` and
-``free_query_end_gaps`` flags; the big route's ByteMatrix and flags raise
-``NotImplementedError``.
+On all three routes it runs in global or x-drop mode (``x_drop=X``), with
+or without trace (``trace=True``), with an amino-acid or nucleotide table
+or a ``ByteMatrix`` (global and trace), and with the reference's
+``local_start``, ``free_query_start_gaps`` and ``free_query_end_gaps``
+flags.
 
 In trace mode each batch's trace comes back to the host: ``trace()``,
 ``cigar`` and ``cigar_eq`` give the reference's CIGARs of the last batch,
@@ -122,8 +120,9 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 def _block_trace(words, desc, steps, used):
     """A block-sized trace (``ops/_trace.py``) on the host, as ``Trace``
     takes it: ``(words, desc, steps, offsets)``.  Only the descriptors
-    of executed steps and the words each pair wrote cross to the host, as
-    one int32 tensor gathered on the device, through ``to_host``."""
+    of executed steps and the words each pair wrote (with local start each
+    step's zero words after its trace words) cross to the host, as one
+    int32 tensor gathered on the device, through ``to_host``."""
     steps_h = steps.cpu().numpy()
     used_h = used.cpu().numpy().astype(np.int64)
     T, B = (int(steps_h.max()) if steps_h.size else 0), steps_h.size
@@ -142,8 +141,8 @@ def _block_trace(words, desc, steps, used):
 
 # ROADMAP.md item that brings each configuration the port lacks
 _SLICE = {
-    "big": "queue 2 item 5, kernel C's ByteMatrix (5b), flag (5c) and "
-           "profile (5d) modes",
+    "big": "queue 2 item 5d (kernel C's profile mode; 5e, its segmented "
+           "16384 band, follows)",
     "long": "queue 1 item 5 (long-sequence API)",
     "long_lane": "queue 1 item 5 (long-sequence API)",
     "engine": "queue 1 item 3 (PyTorch lockstep engine)",
@@ -206,20 +205,20 @@ class _Routed:
         pair executed (up to the batch's most) come back and make the
         ``Trace`` of ``trace()``; on the big route only the executed
         descriptors and the words each pair wrote."""
+        flags = dict(local_start=self.cfg.local_start,
+                     free_query_start_gaps=self.cfg.free_query_start_gaps)
         if self.trace_mode and self.route == "big":
             words, desc, steps, offsets = _block_trace(*out[1:])
             self._last_trace = Trace(words, desc, steps, self.matrix,
-                                     offsets=offsets)
+                                     offsets=offsets, **flags)
             out = out[0]
         elif self.trace_mode:
             out, words, desc, steps = out
             steps = steps.cpu().numpy()
             T = int(steps.max()) if steps.size else 0
             words, desc = to_host(words[:T]), to_host(desc[:T])
-            self._last_trace = Trace(
-                words, desc, steps, self.matrix,
-                local_start=self.cfg.local_start,
-                free_query_start_gaps=self.cfg.free_query_start_gaps)
+            self._last_trace = Trace(words, desc, steps, self.matrix,
+                                     **flags)
         out = out.cpu().numpy()
         if self.route == "lane":
             self.last_suspect = out[:, -1].astype(bool)
@@ -321,8 +320,8 @@ class BatchAligner(_Routed):
     ``trace`` the last batch's trace stays on the host (``trace()``,
     ``cigar``, ``cigar_eq``); ``align_all`` then keeps the caller's order
     and the last batch's trace, and ``align_all_trace`` returns every
-    pair's CIGAR.  The big route (blocks past 512) runs global and x-drop
-    mode, with or without trace, with a score table only.  ``device``
+    pair's CIGAR.  The big route (blocks past 512) runs every mode too.
+    ``device``
     places the packed tensors: a CUDA device runs the kernels, the CPU
     their plain versions.
     """
@@ -375,15 +374,6 @@ class BatchAligner(_Routed):
         )
         if route not in ("lane", "adaptive", "big"):
             _not_yet(f"route {route!r} (size {size}, seq_cap {seq_cap})", route)
-        if route == "big":
-            later = [name for name, on in (
-                ("a ByteMatrix", is_byte),
-                ("local_start", local_start),
-                ("free_query_start_gaps", free_query_start_gaps),
-                ("free_query_end_gaps", free_query_end_gaps)) if on]
-            if later:
-                _not_yet(f"route 'big' (size {size}) with {', '.join(later)}",
-                         "big")
         if use_lane_kernel is False:
             _not_yet("use_lane_kernel=False", "engine")
         if mesh is not None:
@@ -408,8 +398,7 @@ class BatchAligner(_Routed):
             self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, alpha,
                                             **modes)
         else:
-            self.cfg = BigKernelConfig(min_size, max_size, cap, alpha,
-                                       x_drop=x_drop is not None, trace=trace)
+            self.cfg = BigKernelConfig(min_size, max_size, cap, alpha, **modes)
         self.last_suspect: Optional[np.ndarray] = None
 
     @property

@@ -34,8 +34,10 @@ steps in order, a rect's words are ``n * h`` contiguous words.
 In local-start mode each step has a second word per row after the S words
 of its 4-bit cells, ``words[s, b, S + row]``: bit ``w`` says that column
 ``w``'s D equals the relative zero (reference: src/scan_block.rs:1184-1186),
-where the walk stops.  With free query start gaps the walk stops at query
-row 0 of a right rect.
+where the walk stops.  In the block-sized layout a step's zero words follow
+its h words of 4-bit cells: row ``lane``'s is word ``offsets[t, b] + h +
+lane``.  With free query start gaps the walk stops at query row 0 of a
+right rect.
 
 ``Trace`` replays the events into each pair's rect list and walks CIGARs
 from it, one pair at a time (``cigar``) or every pair of a batch at once in
@@ -212,7 +214,8 @@ class _Codes:
 
 class _Rect:
     """One rect of a pair's replayed list: ``n`` steps from step ``t0``.
-    Its bits unpack, as ``[place_col, lane]`` arrays, on first use."""
+    Its bits unpack, as ``[place_col, lane]`` arrays, on first use; a
+    step's zero words lie ``rows`` words past its first row."""
 
     __slots__ = ("row", "col", "right", "h", "t0", "n", "_flat", "_off", "_t",
                  "_t2", "_zero", "_rows")
@@ -263,9 +266,9 @@ class Trace:
     4) and ``steps`` (B,) are as the module docstring describes, with T at
     least the largest step count.  With ``offsets`` (T, B) the layout is the
     block-sized one: step ``t`` of pair ``b`` starts at word ``offsets[t,
-    b]`` of ``words``' flat view, and ``desc`` may carry the offsets as a
-    fifth field, which ``Trace`` does not read (this layout has no place
-    for local start's zero bits yet).  ``matrix`` converts sequences to codes
+    b]`` of ``words``' flat view (with ``local_start`` its zero words
+    follow its h words), and ``desc`` may carry the offsets as a fifth
+    field, which ``Trace`` does not read.  ``matrix`` converts sequences to codes
     for ``cigar_eq`` and ``cigars_all(eq=True)``: M resolves into = or X by
     code, as the reference compares its padded codes (a ``ByteMatrix``'s
     codes are the bytes).  ``local_start`` and ``free_query_start_gaps``
@@ -290,9 +293,8 @@ class Trace:
             # the rows of a step's 4-bit cells
             self.rows = W // (2 if local_start else 1)
             offsets = (np.arange(T)[:, None] * B + np.arange(B)) * W
-        elif local_start:
-            raise ValueError("the block-sized trace layout has no local start")
         else:
+            # a step's zero words follow its own h words
             self.rows = 0
         self.offsets = np.asarray(offsets, dtype=np.int64)
         if self.offsets.shape != (T, B) or self.steps.shape != (B,):
@@ -355,7 +357,7 @@ class Trace:
                                                           np.arange(n))
         return [_Rect(int(row[x]), int(col[x]), bool(right[x]), int(h[x]),
                       int(t0[x]), int(steps[x]), self._flat,
-                      self.offsets[:, b], self.rows)
+                      self.offsets[:, b], self.rows or int(h[x]))
                 for x in range(n)]
 
     def blocks(self, b: int) -> List[Rectangle]:
@@ -468,7 +470,9 @@ class Trace:
             if self.free_query_start_gaps:
                 stop |= right & (i == 0)
             if self.local_start:
-                z = (words[flat + S].astype(np.int64) >> (pc & 7)) & 1
+                # the zero word: S words on (dense), or h (block-sized)
+                zw = words[flat + np.where(active, S or rh, 0)]
+                z = (zw.astype(np.int64) >> (pc & 7)) & 1
                 stop |= (table == 0) & (z == 1)
             stop &= active
             if stop.any():

@@ -1,13 +1,17 @@
 // Big-block adaptive alignment of a batch of sequence pairs, global or
 // x-drop, with or without trace, for Hopper (sm_90a).  Plain C interface,
 // loaded with ctypes by ops/big_kernel.py; the trace instances build from
-// csrc/big_trace.cu.
+// csrc/big_trace.cu, the FLAGS instances (ByteMatrix scoring and the
+// local-start and free-query-gap flags, read at run time) from
+// csrc/big_flags.cu and csrc/big_trace_flags.cu.
 //
 // Replaces: block_aligner_tpu/ops/big_kernel.py::build_big_engine (its
-// Pallas `kernel`) in global and in x-drop mode with a score table, with or
-// without trace: the grow / shrink / checkpoint machine for 512 < max_size
-// <= 8192, and (min, 512).  It computes the same score (x-drop: the best
-// score and its position) and the same overrun flag, bit for bit; the
+// Pallas `kernel`) in global and in x-drop mode with a score table or a
+// ByteMatrix, with the local-start, free-query-start-gap and
+// free-query-end-gap flags, with or without trace: the grow / shrink /
+// checkpoint machine for 512 < max_size <= 8192, and (min, 512).  It
+// computes the same score (x-drop and free end gaps: the best score and its
+// position) and the same overrun flag, bit for bit; the
 // machine is the adaptive kernel's (csrc/adaptive_kernel.cu), described in
 // ops/adaptive_kernel.py, whose adaptive_align_plain, run on a
 // BigKernelConfig, is the plain PyTorch version of this kernel.
@@ -71,6 +75,17 @@
 //   into each thread's tracker of its residue.
 // * trace stages a row's word in shared memory (4 bytes a row more, 192 KB
 //   at 8192 in all) and writes it once at the step's end, coalesced.
+// * the FLAGS instances (BIG_FLAGS) read the modes from a run-time
+//   argument.  Byte mode compares the two codes and never reads a table.
+//   Local start and free start gaps restart cells at the relative zero of
+//   the step's offset, clamp16(ZERO - off), taken after the step's rebase
+//   or restore.  Free end gaps run the x-drop tracker's per-column keys
+//   without x-drop, for the one residue a decision reads (row qlen's,
+//   qlen % 16): a key 2 D + (the row's 16-row chunk reaches past qlen), so
+//   the column's max and whether a row past qlen holds it fold in one max.
+//   Local start's trace has a second word a row, the 8 zero bits of the
+//   row (D == the relative zero), staged as one byte a row (1 byte a row
+//   more, 200 KB at 8192 in all) and written after the step's h words.
 // Several pairs per block at small sizes, i16x2 arithmetic and the DPX
 // instructions are left to later work.
 
@@ -98,6 +113,20 @@ constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 // exactly the code they had.
 #define BIG_TRACE false
 #endif
+#ifndef BIG_FLAGS
+// csrc/big_flags.cu and csrc/big_trace_flags.cu build the FLAGS instances
+// apart, behind the preprocessor as the trace code is
+#define BIG_FLAGS false
+#endif
+// the run-time modes of the FLAGS instances (the `flags` argument)
+constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
+#if BIG_FLAGS
+#define BIG_FLAGS_PARAMS , int flags, int bmatch, int bmismatch
+#define BIG_FLAGS_ARGS , flags, bmatch, bmismatch
+#else
+#define BIG_FLAGS_PARAMS
+#define BIG_FLAGS_ARGS
+#endif
 #if BIG_TRACE
 // descriptor flags (core/traceback.py)
 constexpr int F_RIGHT = 1, F_START = 2, F_SAVE = 4, F_RESTORE = 8;
@@ -118,11 +147,13 @@ __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
 __device__ __forceinline__ int sat2(int x) { return min(max(x, NEG), POS); }
 
 // Warps a block of this max_size runs with, and its shared planes' bytes:
-// ten i16 planes of max_size rows, and with trace a staged word a row.
+// ten i16 planes of max_size rows, with trace a staged word a row, and with
+// local start's trace a staged byte of zero bits a row.
 inline int warps_for(int max_size) { return max_size >= 4096 ? 8 : 4; }
-inline size_t plane_bytes(int max_size) {
+inline size_t plane_bytes(int max_size, int flags) {
   return (size_t)max_size *
-         (10 * sizeof(short) + (BIG_TRACE ? sizeof(unsigned) : 0));
+         (10 * sizeof(short) + (BIG_TRACE ? sizeof(unsigned) : 0) +
+          (BIG_TRACE && (flags & LOCAL_START) ? 1 : 0));
 }
 
 // The four border planes: D planes 0 and 1, C / R planes 2 and 3; the
@@ -182,20 +213,29 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                  const int* __restrict__ qlen, const int* __restrict__ rlen,
                  const int* __restrict__ table, int* __restrict__ out, int cap,
                  int alpha, int S, int min_size, int max_steps, int gopen,
-                 int gext, int xdrop BIG_TRACE_PARAMS) {
+                 int gext, int xdrop BIG_TRACE_PARAMS BIG_FLAGS_PARAMS) {
   extern __shared__ short planes[];
   __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
   __shared__ int wagg[2][MAX_WARPS];  // a warp's scan at its last row
   __shared__ int wdp[2][MAX_WARPS];   // ... and D before the scan there
   __shared__ int red[MAX_WARPS];      // the warps' rect maxima
   __shared__ int tailD[STEP], tailR[STEP];  // a shift's bottom cells
-  __shared__ int wkey[XDROP ? STEP : 1][MAX_WARPS][16];  // tracker keys
+  // tracker keys (x-drop, and free end gaps in the FLAGS instances)
+  __shared__ int wkey[XDROP || BIG_FLAGS ? STEP : 1][MAX_WARPS][16];
   __shared__ int score;  // global mode: the frozen cell's score
 
   const int T = blockDim.x, W = T >> 5;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
+#if BIG_FLAGS
+  // the modes; byte mode has no table
+  const bool local = flags & LOCAL_START, fstart = flags & FREE_START;
+  const bool fend = flags & FREE_END, byte = flags & BYTE_MODE;
+  if (!byte)
+    for (int k = tid; k < alpha * alpha; k += T) tab[k] = table[k];
+#else
   for (int k = tid; k < alpha * alpha; k += T) tab[k] = table[k];
+#endif
   for (int k = tid; k < 8 * S; k += T) planes[k] = 0;
   if (tid == 0) score = 0;
   const uint8_t* qs = codes + (size_t)b * 2 * cap;
@@ -213,6 +253,12 @@ big_align_kernel(const uint8_t* __restrict__ codes,
   // the words written, the steps run, the checkpoint events of the next
   // step's descriptor
   int tpos = 0, nsteps = 0, pend = 0;
+#if BIG_FLAGS
+  // local start: a row's zero bits, staged by the thread of the row; the
+  // words a row writes a step
+  uint8_t* const ZB = reinterpret_cast<uint8_t*>(planes + 12 * S);
+  const int tw = local ? 2 : 1;
+#endif
 #endif
   const int chunks = S >> 4, log_ch = __ffs(chunks) - 1;
   const int zc = gext * ((lane & 7) + 1);  // the scan's zero correction
@@ -226,7 +272,11 @@ big_align_kernel(const uint8_t* __restrict__ codes,
   for (; s < max_steps && !m.done; ++s) {
 #if BIG_TRACE
     // a step whose rows pass the budget stops the pair: an overrun
+#if BIG_FLAGS
+    if (tpos + tw * (m.dir == DIR_GD ? m.psz : m.sz) > budget) break;
+#else
     if (tpos + (m.dir == DIR_GD ? m.psz : m.sz) > budget) break;
+#endif
     ++nsteps;
 #endif
     __syncthreads();  // the previous step's reads are done
@@ -259,6 +309,12 @@ big_align_kernel(const uint8_t* __restrict__ codes,
           (m.dir == DIR_D && m.pdir == DIR_R))
         cvec = sat2(m.corn + oa);
     }
+#if BIG_FLAGS
+    // the relative zero of the step's (rebased or restored) offset, and
+    // whether free start gaps re-seed row 0 (a right rect at query row 0)
+    const int rz = min(max(ZERO - m.off, NEG), POS);
+    const bool ins0 = fstart && right_or && m.I == 0;
+#endif
     // the rect maximum restarts with each rect; GROW_R continues GROW_D's
     if (m.cpos == 0 && m.dir != DIR_GR) m.dmax = NEG;
     const int h = m.dir == DIR_GD ? m.psz : sz;  // rect height
@@ -304,8 +360,13 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     bool frozen = false;
     for (int w = 0; w < STEP; ++w) {
       const int par = w & 1;
+#if BIG_FLAGS
+      const int cc = min((int)cseq[min(cstart + w, cap - 1)], alpha - 1);
+      const int* trow = tab + (byte ? 0 : cc * alpha);
+#else
       const int* trow =
           tab + min((int)cseq[min(cstart + w, cap - 1)], alpha - 1) * alpha;
+#endif
       if (active) {
         // pass 1: D before the vertical gaps, C, and the scan of D + (open
         // - extend) within the warp's rows
@@ -318,8 +379,17 @@ big_align_kernel(const uint8_t* __restrict__ codes,
           if (lane == 0) up = up_last;
           up_last = __shfl_sync(FULL, dold, 31);
           const int lc = min((int)lseq[min(ls + r, cap - 1)], alpha - 1);
+#if BIG_FLAGS
+          // byte mode compares the codes; the flags restart cells at the
+          // relative zero
+          d = sat2(up + (byte ? (lc == cc ? bmatch : bmismatch) : trow[lc]));
+          if (origin && w == 0 && r == 0) d = ZERO;  // the DP origin
+          if (local) d = max(d, rz);
+          else if (ins0 && r == 0) d = rz;
+#else
           d = sat2(up + trow[lc]);
           if (origin && w == 0 && r == 0) d = ZERO;  // the DP origin
+#endif
           const int c = max(sat(cold + gext), sat(dold + gopen));
           d = max(d, c);
           t = d + (gopen - gext);
@@ -372,12 +442,25 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                                  (c == sat(P.at(P.aD(), r) + gopen)) << 2 |
                                  rin << 3;
             WD[r] = (w == 0 ? 0u : WD[r]) | nib << (4 * w);
+#if BIG_FLAGS
+            // local start: the cell restarted at the relative zero
+            if (local)
+              ZB[r] = (uint8_t)((w == 0 ? 0 : ZB[r]) | (D == rz) << w);
+#endif
           }
 #endif
           P.at(P.aD(), r) = (short)D;
           if (r < h) {
             m.dmax = max(m.dmax, D);
+#if BIG_FLAGS
             if constexpr (XDROP) key = max(key, D * chunks + (r >> 4));
+            // free end gaps: D, and whether the row's chunk reaches past
+            // qlen
+            else if (fend)
+              key = max(key, 2 * D + (ls + 16 * (r >> 4) + 16 > ql));
+#else
+            if constexpr (XDROP) key = max(key, D * chunks + (r >> 4));
+#endif
             if (r == h - 1) {
               // the rect's bottom cells: staged for a shift, written into
               // the passive border at row psz + cpos + w for a grow half
@@ -389,7 +472,11 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                 P.at(P.pR(), m.psz + m.cpos + w) = (short)R;
               }
             }
+#if BIG_FLAGS
+            if (!XDROP && !fend && fra && w >= frt && r == fridx)
+#else
             if (!XDROP && fra && w >= frt && r == fridx)
+#endif
               score = m.off + D - ZERO;
           }
         }
@@ -397,13 +484,21 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         // D of the row above it, whose R is the carry cw
         diag_in = warp == 0 ? NEG
                             : max(wdp[par][warp - 1], max(cw, gext * STEP));
+#if BIG_FLAGS
+        if (XDROP || fend) {
+#else
         if constexpr (XDROP) {
+#endif
           // the residue's max over the warp's rows: lanes l and l ^ 16
           key = max(key, __shfl_xor_sync(FULL, key, 16));
           if (lane < 16) wkey[w][warp][lane] = key;
         }
       }
+#if BIG_FLAGS
+      if (!XDROP && !fend && fra && w >= frt) {
+#else
       if (!XDROP && fra && w >= frt) {
+#endif
         // freeze: the rect covering (qlen, rlen) reached the last column
         frozen = true;
         break;
@@ -416,7 +511,17 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         const int r = r0 + k * 32 + lane;
         if (r < h) twords[(size_t)b * budget + tpos + r] = (int)WD[r];
       }
+#if BIG_FLAGS
+    // local start: the zero bits follow the step's h words
+    if (local && active)
+      for (int k = 0; k < NA; ++k) {
+        const int r = r0 + k * 32 + lane;
+        if (r < h) twords[(size_t)b * budget + tpos + h + r] = (int)ZB[r];
+      }
+    tpos += tw * h;
+#else
     tpos += h;
+#endif
 #endif
     if (phase_done && m.dir != DIR_GD) {
       // the rect completes: each warp's part of its maximum
@@ -444,6 +549,23 @@ big_align_kernel(const uint8_t* __restrict__ codes,
           m.aj = cstart + w;
         }
       }
+#if BIG_FLAGS
+    } else if (fend) {
+      // free end gaps: the running max of row qlen's residue, and the
+      // latest column where a row of a chunk reaching past qlen equals it;
+      // where the max is NEG the rows past the height (NEG in the plain
+      // version) equal it too, the last chunk of which reaches past qlen
+      // once ls + S does
+      const int rho = ql & 15;
+      for (int w = 0; w < STEP; ++w) {
+        int key = INT_MIN_;
+        for (int v = 0; v < nwarps; ++v) key = max(key, wkey[w][v][rho]);
+        const int cmax = key >> 1, vmn = max(m.vm, cmax);
+        if ((cmax >= m.vm && (key & 1)) || (vmn == NEG && ls + S > ql))
+          m.aj = cstart + w;
+        m.vm = vmn;
+      }
+#endif
     }
     if (shift) {
       // a shift's end (reference: src/scan_block.rs:165-177, 349-355): keep
@@ -483,6 +605,10 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     const bool ro = d0 == DIR_R || d0 == DIR_GR;
     int cur_max = red[0];
     for (int v = 1; v < W; ++v) cur_max = max(cur_max, red[v]);
+#if BIG_FLAGS
+    // free end gaps: the rect maximum is row qlen's residue's
+    if (fend) cur_max = m.vm;
+#endif
     const int off_max = m.off + cur_max - ZERO;
     m.offmax = off_max;
     int ydi = m.yiter + 1;
@@ -529,6 +655,22 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         continue;
       }
     }
+#if BIG_FLAGS
+    if (fend) {
+      // the best of row qlen at its residue's column, even on grows; a
+      // fresh tracker per rect; the end: both ends covered
+      if (new_best) {
+        m.xbi = ql;
+        m.xbj = m.aj;
+      }
+      m.vm = INT_MIN_;
+      m.aj = 0;
+      if (m.I + sz > ql && m.J + sz > rl) {
+        m.done = true;
+        continue;
+      }
+    }
+#endif
     // forced moves skip both heuristics (src/scan_block.rs:509-516)
     const bool forced_down = m.J + sz > rl;
     const bool free_rect = !forced_down && m.I + sz <= ql;
@@ -602,6 +744,13 @@ big_align_kernel(const uint8_t* __restrict__ codes,
       out[4 * b + 1] = m.xbi;
       out[4 * b + 2] = m.xbj;
       out[4 * b + 3] = m.done ? 0 : 1;
+#if BIG_FLAGS
+    } else if (fend) {
+      out[4 * b] = m.best;
+      out[4 * b + 1] = m.xbi;
+      out[4 * b + 2] = m.xbj;
+      out[4 * b + 3] = m.done ? 0 : 1;
+#endif
     } else {
       out[2 * b] = score;
       out[2 * b + 1] = m.done ? 0 : 1;
@@ -614,15 +763,16 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, void* words, void* desc,
                    void* steps, void* used, int B, int cap, int alpha,
                    int min_size, int max_size, int max_steps, int gopen,
-                   int gext, int xdrop, int budget, cudaStream_t stream) {
-  const size_t smem = plane_bytes(max_size);
+                   int gext, int xdrop, int budget, int flags, int bmatch,
+                   int bmismatch, cudaStream_t stream) {
+  const size_t smem = plane_bytes(max_size, flags);
   cudaError_t err = cudaFuncSetAttribute(
       big_align_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   big_align_kernel<X><<<B, warps_for(max_size) * 32, smem, stream>>>(
       codes, qlen, rlen, table, out, cap, alpha, max_size, min_size,
-      max_steps, gopen, gext, xdrop BIG_TRACE_ARGS);
+      max_steps, gopen, gext, xdrop BIG_TRACE_ARGS BIG_FLAGS_ARGS);
   return cudaGetLastError();
 }
 
@@ -632,25 +782,41 @@ bool bad_sizes(int min_size, int max_size) {
          min_size > max_size || (min_size == max_size && max_size == 512);
 }
 
+// The modes a library takes: none but in the FLAGS libraries, and there the
+// reference's exclusions (no local start with free start gaps, no x-drop
+// with free end gaps or byte mode)
+bool bad_flags(int flags, bool xdrop) {
+  return (flags & ~15) || (flags && !BIG_FLAGS) ||
+         ((flags & LOCAL_START) && (flags & FREE_START)) ||
+         (xdrop && (flags & (FREE_END | BYTE_MODE)));
+}
+
 }  // namespace
 
-// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32.
-// x_drop < 0: global mode, out (B, 2) int32 = (score, overrun); else x-drop
-// with x = x_drop, out (B, 4) int32 = (best, query pos, reference pos,
-// overrun).  The trace library (csrc/big_trace.cu) also writes words (B,
-// budget), desc (max_steps, B, 5), steps and used (B,) int32; this one
-// takes null trace pointers.  One thread block per pair.  Returns the
-// cudaError_t of the launch.
+// codes (B, 2, cap) uint8, qlen/rlen (B,) int32, table (alpha, alpha) int32
+// (byte mode: alpha 256 and no table read).  x_drop < 0: global mode, out
+// (B, 2) int32 = (score, overrun), with free end gaps (B, 4) as x-drop's;
+// else x-drop with x = x_drop, out (B, 4) int32 = (best, query pos,
+// reference pos, overrun).  The trace libraries (csrc/big_trace.cu,
+// csrc/big_trace_flags.cu) also write words (B, budget), desc (max_steps,
+// B, 5), steps and used (B,) int32; the others take null trace pointers.
+// `flags` (LOCAL_START | FREE_START | FREE_END | BYTE_MODE, as in
+// csrc/lane_kernel.cu's lane_align_launch) and byte mode's match and
+// mismatch scores are read by the FLAGS libraries (csrc/big_flags.cu,
+// csrc/big_trace_flags.cu); the others take flags 0.  One thread block per
+// pair.  Returns the cudaError_t of the launch.
 extern "C" int big_align_launch(const void* codes, const void* qlen,
                                 const void* rlen, const void* table, void* out,
                                 void* words, void* desc, void* steps,
                                 void* used, int B, int cap, int alpha,
                                 int min_size, int max_size, int max_steps,
                                 int gopen, int gext, int x_drop, int budget,
+                                int flags, int match, int mismatch,
                                 void* stream) {
   const bool traced = words && desc && steps && used && budget > 0;
-  if (B < 1 || cap < 1 || alpha < 1 || alpha > MAX_ALPHA ||
-      bad_sizes(min_size, max_size) ||
+  if (B < 1 || cap < 1 || alpha < 1 ||
+      ((flags & BYTE_MODE) ? alpha != 256 : alpha > MAX_ALPHA) ||
+      bad_sizes(min_size, max_size) || bad_flags(flags, x_drop >= 0) ||
       traced != BIG_TRACE || (!BIG_TRACE && (words || desc || steps || used)))
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
@@ -662,20 +828,24 @@ extern "C" int big_align_launch(const void* codes, const void* qlen,
   return x_drop < 0
              ? (int)launch<false>(c, q, r, t, o, words, desc, steps, used, B,
                                   cap, alpha, min_size, max_size, max_steps,
-                                  gopen, gext, x_drop, budget, st)
+                                  gopen, gext, x_drop, budget, flags, match,
+                                  mismatch, st)
              : (int)launch<true>(c, q, r, t, o, words, desc, steps, used, B,
                                  cap, alpha, min_size, max_size, max_steps,
-                                 gopen, gext, x_drop, budget, st);
+                                 gopen, gext, x_drop, budget, flags, match,
+                                 mismatch, st);
 }
 
 // The launch of a max_size's instance (x-drop if `x_drop`; the trace
-// library's trace instance): shape[0]
+// libraries' trace instance; `flags` as in big_align_launch): shape[0]
 // threads a block, shape[1] bytes of dynamic shared memory, and shape[2]
 // blocks resident on an SM of the current device
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int big_launch_shape(int max_size, int x_drop, int* shape) {
-  if (bad_sizes(16, max_size)) return (int)cudaErrorInvalidValue;
-  const size_t smem = plane_bytes(max_size);
+extern "C" int big_launch_shape(int max_size, int x_drop, int flags,
+                                int* shape) {
+  if (bad_sizes(16, max_size) || bad_flags(flags, x_drop))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = plane_bytes(max_size, flags);
   const int threads = warps_for(max_size) * 32;
   auto kernel = x_drop ? big_align_kernel<true> : big_align_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -46,17 +46,19 @@ def trace_buffers(out, cfg, rows):
 
 
 # The big kernel's block-sized layout (``ops/big_kernel.py``): a step writes
-# only the words of its rect height, at the pair's running word counter, and
-# its descriptor carries the counter before the step as a fifth field.
+# only the words of its rect height h, at the pair's running word counter
+# (with local start its h trace words, then the h zero words of the same
+# rows), and its descriptor carries the counter before the step as a fifth
+# field.
 DESC_FIELDS = 5
 
 
 def block_trace_buffers(out, cfg):
     """The big kernel's result in trace mode, ``(out, words, desc, steps,
     used)``, and the trace pointers of its launch: words (B,
-    ``cfg.trace_budget``), desc (``cfg.max_steps``, B, 5), the steps each
-    pair ran and the words it wrote (B,).  Left unfilled, as
-    ``trace_buffers``."""
+    ``cfg.trace_budget``, which counts words: twice a row budget with local
+    start), desc (``cfg.max_steps``, B, 5), the steps each pair ran and the
+    words it wrote (B,).  Left unfilled, as ``trace_buffers``."""
     B, dev = out.shape[0], out.device
     words = torch.empty((B, cfg.trace_budget), dtype=torch.int32, device=dev)
     desc = torch.empty((cfg.max_steps, B, DESC_FIELDS), dtype=torch.int32,
@@ -68,28 +70,33 @@ def block_trace_buffers(out, cfg):
              used.data_ptr()))
 
 
-def compact_step(buf, used, word, h, ran):
-    """Write rows [0, h) of one step's dense words ``word`` (B, S) of the
-    pairs in ``ran`` into ``buf`` (B, budget) at each pair's counter
-    ``used``, and advance those counters by h in place.  Returns the step's
-    word offsets, the counters before it."""
+def compact_step(buf, used, word, h, ran, planes=1):
+    """Write rows [0, h) of each of the ``planes`` words a row of one step's
+    dense words ``word`` (B, planes * S) (local start: 2, the zero bits
+    after the 4-bit cells) of the pairs in ``ran`` into ``buf`` (B, budget)
+    at each pair's counter ``used``, plane after plane, and advance those
+    counters by planes * h in place.  Returns the step's word offsets, the
+    counters before it."""
     off = used.clone()
-    rows = torch.arange(word.shape[1], device=word.device)
+    S = word.shape[1] // planes
+    rows = torch.arange(S, device=word.device)
     b, r = (ran[:, None] & (rows < h[:, None])).nonzero(as_tuple=True)
-    buf[b, used[b] + r] = word[b, r]
-    used += torch.where(ran, h, 0).to(used.dtype)
+    for p in range(planes):
+        buf[b, used[b] + p * h[b] + r] = word[b, p * S + r]
+    used += torch.where(ran, planes * h, 0).to(used.dtype)
     return off
 
 
-def compact_trace(words, desc, steps, budget):
-    """A dense trace ``(words, desc, steps)`` (``core/traceback.py``) in the
-    block-sized layout: ``(words (B, budget), desc (T, B, 5), used (B,))``
-    through ``compact_step``, step by step; rows a pair did not write stay
-    0."""
+def compact_trace(words, desc, steps, budget, planes=1):
+    """A dense trace ``(words, desc, steps)`` (``core/traceback.py``) with
+    ``planes`` words a row in the block-sized layout: ``(words (B, budget),
+    desc (T, B, 5), used (B,))`` through ``compact_step``, step by step;
+    rows a pair did not write stay 0."""
     T, B, _ = words.shape
     buf = torch.zeros((B, budget), dtype=torch.int32, device=words.device)
     used = torch.zeros(B, dtype=torch.int32, device=words.device)
-    offs = [compact_step(buf, used, words[t], desc[t, :, 3], t < steps)
+    offs = [compact_step(buf, used, words[t], desc[t, :, 3], t < steps,
+                         planes)
             for t in range(T)]
     off = stack_steps(offs, (B,), words.device)
     return buf, torch.cat([desc, off[:, :, None]], 2), used

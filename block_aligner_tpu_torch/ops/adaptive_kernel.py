@@ -166,7 +166,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     kernel's block-sized layout (``ops/_trace.py``), compacted step by step:
     ``(out, words (B, budget), desc (T, B, 5), steps, used)``; a pair whose
     next step's rows would pass the budget stops there with the overrun
-    flag, as at the step cap."""
+    flag, as at the step cap; with local start a step writes its h trace
+    words, then its rows' h zero words."""
     S, MIN, A, cap = cfg.max_size, cfg.min_size, cfg.alpha, cfg.seq_cap
     dev = codes.device
     B = codes.shape[0]
@@ -249,8 +250,8 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     while s < cfg.max_steps and not bool(done.all()):
         if tr and budget is not None:
             # a step whose rows pass the budget stops the pair: an overrun
-            halt = ~done & (used + torch.where(dirn == DIR_GD, psz, sz)
-                            > budget)
+            halt = ~done & (used + trace_words(cfg)
+                            * torch.where(dirn == DIR_GD, psz, sz) > budget)
             halted |= halt
             done = done | halt
             if bool(done.all()):
@@ -390,7 +391,7 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
             if budget is None:
                 t_words.append(word)
             else:
-                compact_step(t_buf, used, word, h, ran)
+                compact_step(t_buf, used, word, h, ran, trace_words(cfg))
         active = ~done
         d0 = dirn
         cpos_new = cpos + STEP

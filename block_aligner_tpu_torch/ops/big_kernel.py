@@ -4,14 +4,17 @@ PyTorch version and the wrapper of the CUDA kernel.
 
 Counterpart of ``block_aligner_tpu/ops/big_kernel.py``: ``build_big_engine``
 (512 < max_size <= 8192, and (min, 512)) in global and in x-drop mode, with
-or without trace, scoring sequence pairs by a table.  Its machine is the
+or without trace, scoring sequence pairs by a table or by byte equality
+(``cfg.byte_mode``), with or without the local-start and free-query-gap
+flags of ``ops/lane_kernel.py``.  Its machine is the
 adaptive kernel's (``ops/adaptive_kernel.py``): the same grow / shrink /
 checkpoint ladder min, 2 min, ..., max, the same 8-column rects, the same
 16-residue x-drop tracker and X_DROP_ITER = 2 hysteresis; only the block is
 larger, and ``min == max > 512`` makes it a fixed-block machine (its ladder
 is empty).  So ``big_align_plain`` is ``adaptive_align_plain`` run with this
 configuration, and computes the same score (x-drop: the best score and its
-position) and step-cap overrun flag as the JAX kernel and ``BlockOracle``,
+position; with free query end gaps the best of row qlen and its position)
+and step-cap overrun flag as the JAX kernel and ``BlockOracle``,
 bit for bit.  Past 512 rows a grow's columns run long enough without an
 offset rebase for a cell to reach the upper i16 rail, which the plain
 version saturates as the reference does.
@@ -29,14 +32,20 @@ the lane and adaptive kernels' dense (steps, B, max_size) words, which at
 the (128, 1024) long-read band would take ~40 MB a pair: a pair writes the
 rows of each step's height at its own running word counter, up to
 ``trace_budget`` words, and a step that would pass it stops the pair with
-the overrun flag, as the step cap does.  The JAX kernel's segment-compacted
-slots (``big_kernel.py:167-182``) and its slot budget play these parts
-there; the budget here is no smaller than theirs, so a pair never runs out
-where the JAX kernel completes.
+the overrun flag, as the step cap does.  With local start a step writes
+its rows' zero bits as a second word a row, after its h trace words, so its
+2 h words stay contiguous.  The JAX kernel's segment-compacted slots
+(``big_kernel.py:167-182``) and its slot budget play these parts there; the
+budget here is no smaller than theirs, so a pair never runs out where the
+JAX kernel completes.
 
-ByteMatrix, the local-start and free-gap flags, profiles and the segmented
-16384 band are later slices of kernel C: their configurations raise
-``ValueError`` naming the ROADMAP item that brings them.
+The modes read at run time (ByteMatrix and the three flags) run in
+libraries of their own, with and without trace (``csrc/big_flags.cu``,
+``csrc/big_trace_flags.cu``), as the lane and adaptive kernels' flags
+instances do, so the global, x-drop and trace libraries compile the code
+they had.  Profiles and the segmented 16384 band are later slices of kernel
+C: profile configurations raise ``ValueError`` naming the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -51,23 +60,21 @@ from ..core.result import STEP
 from . import _build
 from ._trace import block_trace_buffers
 from .adaptive_kernel import adaptive_align_plain
-from .lane_kernel import (check_inputs, count_launch, pack_lane, reset_counts,
+from .lane_kernel import (check_inputs, check_modes, count_launch, flag_bits,
+                          mode_args, pack_lane, reset_counts, trace_words,
                           wide, x_value)
 
 __all__ = ["BigKernelConfig", "pack_big", "big_align_plain", "big_align"]
 
 LIBRARY = "big_kernel"  # csrc/big_kernel.cu
 TRACE_LIBRARY = "big_trace"  # its trace instances, csrc/big_trace.cu
+FLAGS_LIBRARY = "big_flags"  # its FLAGS instances, csrc/big_flags.cu
+TRACE_FLAGS_LIBRARY = "big_trace_flags"  # csrc/big_trace_flags.cu
+LIBRARIES = (LIBRARY, TRACE_LIBRARY, FLAGS_LIBRARY, TRACE_FLAGS_LIBRARY)
 MAX_CAP = 16384  # code positions per sequence (JAX api.py:84-87)
 
 # the modes of kernel C still to port, and the ROADMAP.md item of each
-_LATER = {
-    "byte_mode": "queue 2 item 5b (kernel C ByteMatrix)",
-    "local_start": "queue 2 item 5c (kernel C flags)",
-    "free_query_start_gaps": "queue 2 item 5c (kernel C flags)",
-    "free_query_end_gaps": "queue 2 item 5c (kernel C flags)",
-    "profile": "queue 2 item 5d (kernel C profiles)",
-}
+_LATER = {"profile": "queue 2 item 5d (kernel C profiles)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,16 +82,17 @@ class BigKernelConfig:
     min_size: int  # starting block size, a power of two >= 16
     max_size: int  # S: block-size cap, a power of two in 512..8192
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
-    alpha: int = 32  # score-table side: 32 for amino acids, 16 for nucleotides
+    alpha: int = 32  # score-table side: 32 for amino acids, 16 for
+    # nucleotides, 256 in byte mode
     x_drop: bool = False  # x-drop mode; the x value travels in the gaps
     trace: bool = False  # also return the block-sized trace (ops/_trace.py)
-    # the modes of later slices, which raise (``_LATER``); they are fields so
-    # that the adaptive machine and the lane helpers read this configuration
+    byte_mode: bool = False  # ByteMatrix: equality scoring, alpha 256
+    local_start: bool = False  # an alignment may start at any cell
+    free_query_start_gaps: bool = False  # leading query gaps are free
+    free_query_end_gaps: bool = False  # trailing query gaps are free
+    # a later slice, which raises (``_LATER``); a field so that the adaptive
+    # machine and the lane helpers read this configuration
     profile: bool = False
-    byte_mode: bool = False
-    local_start: bool = False
-    free_query_start_gaps: bool = False
-    free_query_end_gaps: bool = False
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
@@ -99,12 +107,11 @@ class BigKernelConfig:
             raise ValueError(
                 f"seq_cap must be a multiple of 128 in max(256, max_size + "
                 f"{2 * STEP})..{MAX_CAP}, got {self.seq_cap}")
-        if self.alpha not in (16, 32):
-            raise ValueError(f"alpha must be 16 or 32, got {self.alpha}")
         for mode, item in _LATER.items():
             if getattr(self, mode):
                 raise ValueError(f"the big kernel's {mode} mode is not "
                                  f"ported yet: ROADMAP.md {item}")
+        check_modes(self)
 
     @property
     def block(self) -> int:
@@ -119,11 +126,13 @@ class BigKernelConfig:
 
     @property
     def trace_budget(self) -> int:
-        """Trace words a pair may write: the JAX kernel's default slot
-        budget in rows (``eff_trace_slots`` x ``seg`` at seg 256,
+        """Trace words (int32) a pair may write: the JAX kernel's default
+        slot budget (``eff_trace_slots`` x ``seg`` rows at seg 256,
         ``big_kernel.py:311-320``), every step at the min size or 256 rows
-        and 8 steps at the max size."""
-        return self.max_steps * max(self.min_size, 256) + 8 * self.max_size
+        and 8 steps at the max size, times the words a row takes (2 with
+        local start, ``trace_words``)."""
+        return trace_words(self) * (self.max_steps * max(self.min_size, 256)
+                                    + 8 * self.max_size)
 
 
 def pack_big(pairs, matrix, cfg: BigKernelConfig, gaps, device,
@@ -137,8 +146,9 @@ def big_align_plain(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig,
                     count_cells: bool = False, top_size: bool = False):
     """Plain PyTorch version: ``adaptive_align_plain`` on this
     configuration, all pairs in lockstep at the full width ``max_size``.
-    Returns (B, 2) int32 (score, overrun), in x-drop mode (B, 4) (best
-    score, its query position, its reference position, overrun); with
+    Returns (B, 2) int32 (score, overrun), in x-drop mode and with free
+    query end gaps (B, 4) (best score, its query position, its reference
+    position, overrun); with
     ``cfg.trace`` ``(out, words, desc, steps, used)``, the block-sized
     trace of ``ops/_trace.py``, compacted step by step within
     ``cfg.trace_budget`` words a pair; with ``count_cells`` also each
@@ -150,24 +160,30 @@ def big_align_plain(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig,
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points of ``csrc/big_kernel.cu`` (either
-    library)."""
+    """Declare the C entry points of ``csrc/big_kernel.cu`` (any of its
+    libraries)."""
     lib.big_align_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     lib.big_align_launch.restype = ctypes.c_int
-    lib.big_launch_shape.argtypes = [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+    lib.big_launch_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.big_launch_shape.restype = ctypes.c_int
     lib.big_error_string.argtypes = [ctypes.c_int]
     lib.big_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def library(cfg: BigKernelConfig) -> str:
+    """The name of the ``csrc/`` library that holds ``cfg``'s instance: the
+    trace library with trace, the FLAGS library with byte mode or a flag."""
+    if flag_bits(cfg):
+        return TRACE_FLAGS_LIBRARY if cfg.trace else FLAGS_LIBRARY
+    return TRACE_LIBRARY if cfg.trace else LIBRARY
+
+
 @functools.cache
-def _lib(trace: bool = False) -> ctypes.CDLL:
-    """``csrc/big_kernel.cu``, or with ``trace`` its trace instances
-    (``csrc/big_trace.cu``), built and bound."""
-    return bind(_build.load(TRACE_LIBRARY if trace else LIBRARY))
+def _lib(name: str) -> ctypes.CDLL:
+    """A library of ``csrc/big_kernel.cu`` (``library``), built and bound."""
+    return bind(_build.load(name))
 
 
 def launch_shape(cfg: BigKernelConfig):
@@ -175,8 +191,8 @@ def launch_shape(cfg: BigKernelConfig):
     launch of ``cfg``'s kernel instance on the current CUDA device, the
     last from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     got = (ctypes.c_int * 3)()
-    lib = _lib(cfg.trace)
-    err = lib.big_launch_shape(cfg.max_size, int(cfg.x_drop),
+    lib = _lib(library(cfg))
+    err = lib.big_launch_shape(cfg.max_size, int(cfg.x_drop), flag_bits(cfg),
                                ctypes.addressof(got))
     if err:
         raise RuntimeError("big kernel occupancy query failed: "
@@ -186,17 +202,20 @@ def launch_shape(cfg: BigKernelConfig):
 
 def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
     """(score, overrun) per pair as a (B, 2) int32 tensor; in x-drop mode
-    (best score, query position, reference position, overrun) as (B, 4).
-    With ``cfg.trace`` it returns ``(out, words, desc, steps, used)``, the
-    block-sized trace of ``ops/_trace.py``: each pair wrote the descriptors
-    of its own ``steps`` and ``used`` words; overrun is also set where a
-    pair's trace would pass ``cfg.trace_budget``.
+    and with free query end gaps (best score, query position, reference
+    position, overrun) as (B, 4).  With ``cfg.trace`` it returns ``(out,
+    words, desc, steps, used)``, the block-sized trace of ``ops/_trace.py``:
+    each pair wrote the descriptors of its own ``steps`` and ``used`` words;
+    overrun is also set where a pair's trace would pass
+    ``cfg.trace_budget``.
 
     CPU tensors take ``big_align_plain``; CUDA tensors launch the kernel of
-    ``csrc/big_kernel.cu`` (trace: ``csrc/big_trace.cu``) on the current
+    ``csrc/big_kernel.cu`` (the library ``library`` names) on the current
     stream, one thread block per pair, or raise.  The wrapper counts its
-    launches by instance: ``big_align.launches`` (global),
-    ``xdrop_launches``, ``trace_launches`` and ``xdrop_trace_launches``."""
+    launches by instance (``lane_kernel.COUNTERS``): ``big_align.launches``
+    (global), ``xdrop_launches``, ``trace_launches`` and
+    ``xdrop_trace_launches``, and the same with ``byte_`` or ``flags_``
+    (local start or free gaps) in front."""
     if codes.device.type == "cpu":
         return big_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -210,14 +229,14 @@ def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
                  else (out, (None,) * 4))
     if B == 0:
         return res
-    lib = _lib(cfg.trace)
+    lib = _lib(library(cfg))
     with torch.cuda.device(dev):
         err = lib.big_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
             table.data_ptr(), out.data_ptr(), *ptrs, B, cfg.seq_cap,
             cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps,
             int(gaps[0]), int(gaps[1]), x_value(gaps, cfg),
-            cfg.trace_budget if cfg.trace else 0,
+            cfg.trace_budget if cfg.trace else 0, *mode_args(gaps, cfg),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("big kernel launch failed: "

@@ -10,12 +10,12 @@ Phases, each reported on its own line:
    their profile libraries ``{lane,adaptive}_profile.cu``, the flags
    libraries ``{lane,adaptive}_flags.cu`` and
    ``{lane,adaptive}_profile_flags.cu``, the big-block kernel
-   ``big_kernel.cu`` and its trace instances ``big_trace.cu`` into
-   ``build/`` (keyed on the sources), one ``nvcc -Xptxas -v`` each, all ten
+   ``big_kernel.cu``, its trace instances ``big_trace.cu`` and its FLAGS
+   instances ``big_flags.cu`` and ``big_trace_flags.cu`` into ``build/``
+   (keyed on the sources), one ``nvcc -Xptxas -v`` each, all twelve
    started together, with the registers, stack and spills of every kernel
-   instance, the lane and adaptive ones and the big kernel's global and
-   x-drop ones held to the counts pinned in ``chip_smoke_ptxas.txt``; load
-   the builds;
+   instance, each held to the counts pinned in ``chip_smoke_ptxas.txt``;
+   load the builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
    on the card, exact equality of score and suspect flag at blocks 16..512
    on seeded random protein and DNA pairs, and the reference's golden
@@ -146,13 +146,40 @@ Phases, each reported on its own line:
    instances' launch shapes;
 31. the traced nanopore band: phase 27's 1024 pairs at (128, 1024)
    through ``align_all_trace`` in batches of 256, global and x 50, held
-   against phase 27's non-trace instance and plain version, the first 128
-   CIGARs against the plain version's trace; the trace bytes copied per
+   against phase 27's non-trace instance and plain version, the CIGARs of
+   the 32 pairs with the fewest cells against the plain version's trace
+   (its time is its longest pair's steps); the trace bytes copied per
    pair against what the cells need (4 bits each), the budget and a dense
    layout;
 32. traced growth: four of phase 29's growth pairs at (512, 8192), whose
    traced steps reach 4096 and 8192 rows, every CIGAR against the plain
-   version's.
+   version's;
+33. the big kernel's FLAGS instances (``csrc/big_flags.cu``,
+   ``csrc/big_trace_flags.cu``) against the plain version: 32-pair
+   structural batches at (128, 1024), (512, 1024) and (1024, 1024) with
+   ``ByteMatrix(1, -1)`` (all 256 bytes, byte 0) global and traced, local
+   start global, x 20 / 100 and traced, free query start gaps traced and
+   x 20 / 100, free query end gaps (queries shorter than the min size)
+   global and traced, and 2 growth pairs at (512, 8192) with traced local
+   start, whose steps reach 8192 rows (the largest shared memory, 25 bytes
+   a row): outputs, step counts, word counters, descriptors, words (the
+   zero words too) and CIGARs equal; the FLAGS instances' launch shapes at
+   1024, 4096 and 8192 rows;
+34. the byte band: phase 27's pairs with ``ByteMatrix(2, -4)``, -6/-2,
+   global and traced (``align_all_trace`` in batches of 256): on ACGT
+   reads byte equality scores as ``NucMatrix(2, -4)`` does, so every
+   result must equal phase 27's plain version's and every CIGAR phase
+   31's, pair for pair;
+35. local start with x_drop 50 on the same band, global and traced (the
+   CIGARs of the 32 pairs with the fewest cells against the plain
+   version's);
+36. glocal read-to-window: 1024 reads of 600..999 bases cut from the
+   nanopore pairs (``read_window_pairs``), each against its reference
+   window with 500..1499 random bases of flank a side, at (1024, 1024)
+   with free query start and end gaps, global and traced (the first 256
+   CIGARs against the plain version's);
+37. the (32, 512) band without trace on the uc30 pairs with
+   ``ByteMatrix(1, -1)``, and with local start under BLOSUM62.
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal the
@@ -162,8 +189,10 @@ must equal the non-trace instance's (none exists at max size 512), every
 CIGAR must sum to its end position and rescore to its score (with local
 start from wherever it starts, with free query start gaps from query row 0;
 with free query end gaps to at most its score, every CIGAR then held
-against the plain version's), and the first 512 (the big route's first 128)
-must equal those walked from the plain version's trace; pack, the trace's copy-back and the walk
+against the plain version's on the lane and adaptive routes, the first 256
+on the big route), and the first 512 (on the big route those of the 32
+pairs with the fewest cells) must equal those walked from the plain
+version's trace; pack, the trace's copy-back and the walk
 are timed on the host clock.  A profile trace path holds every CIGAR to its
 end and to its score under the reference's profile costs
 (``rescore_profile``); a CIGAR that does not rescore (the reference's own
@@ -286,6 +315,12 @@ LANE_ZERO_BIT = "block_aligner_tpu/ops/lane_kernel.py:895"
 AD_BYTE = "block_aligner_tpu/ops/adaptive_kernel.py:635"
 AD_FLAGS = "block_aligner_tpu/ops/adaptive_kernel.py:658"
 AD_ZERO_BIT = "block_aligner_tpu/ops/adaptive_kernel.py:736"
+# kernel C's byte compare, its relative-zero seeds (origin, free start gaps,
+# local start), its zero bit and its free-end tracker
+C_BYTE = "block_aligner_tpu/ops/big_kernel.py:1321"
+C_FLAGS = "block_aligner_tpu/ops/big_kernel.py:1337"
+C_ZERO_BIT = "block_aligner_tpu/ops/big_kernel.py:1406"
+C_FREE_END = "block_aligner_tpu/ops/big_kernel.py:1434"
 # byte mode compares the lane's byte with the entering one where the score
 # was a lookup: one compare-select.  Local start raises D to the relative
 # zero: one max; with trace its zero bit is a compare, a shift and an or.
@@ -563,6 +598,26 @@ def growth_pairs(rng, n):
     return pairs
 
 
+def read_window_pairs(rng, pairs, lo=600, hi=1000, flank=(500, 1500)):
+    """Read-to-window pairs from long-read pairs ``(q, r)``: a read of
+    lo..hi-1 bases cut from each ``r`` at a random start, and as its
+    reference the stretch of ``q`` it came from (positions scaled by the
+    length ratio, 100 bases of margin a side) between two random flanks of
+    flank[0]..flank[1]-1 bases."""
+    from examples_tpu.common import rand_seq
+
+    out = []
+    for q, r in pairs:
+        n = int(rng.integers(lo, hi))
+        s = int(rng.integers(0, len(r) - n))
+        a = max(0, s * len(q) // len(r) - 100)
+        b = min(len(q), (s + n) * len(q) // len(r) + 100)
+        out.append((r[s : s + n], rand_seq(rng, b"ACGT", int(rng.integers(
+            *flank))) + q[a:b] + rand_seq(rng, b"ACGT",
+                                          int(rng.integers(*flank)))))
+    return out
+
+
 def x_dropped(out, staged):
     """How many pairs of an x-drop run ended short of (qlen, rlen): their
     best position lies before the end of the query or the reference."""
@@ -616,10 +671,10 @@ def ptxas_report(_build, name):
 def parse_ptxas(log, name):
     """The per-instance lines of a ``-Xptxas -v`` log of library ``name``;
     an instance of the flags libraries (``csrc/*_flags.cu``) is marked
-    ``flags``, one of the big kernel's trace library (``csrc/big_trace.cu``)
-    ``trace``."""
+    ``flags``, one of the big kernel's trace libraries (``csrc/big_trace.cu``,
+    ``csrc/big_trace_flags.cu``) ``trace``."""
     flags = ", flags" if name.endswith("_flags") else ""
-    trace = ", trace" if name == "big_trace" else ""
+    trace = ", trace" if name.startswith("big_trace") else ""
     lines, fn, frame = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
@@ -632,7 +687,8 @@ def parse_ptxas(log, name):
         m = re.search(r"Compiling entry function '\w*?\d(big_align_kernel)"
                       r"ILb([01])E", line)
         if m:
-            fn = f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}{trace}>"
+            fn = (f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}{trace}"
+                  f"{flags}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -651,22 +707,21 @@ PINNED_PTXAS = "chip_smoke_ptxas.txt"
 
 
 def check_pinned_ptxas(reports):
-    """The lane and adaptive libraries' instances and the big kernel's
-    global and x-drop ones must keep the registers, stack and spills pinned
-    in ``chip_smoke_ptxas.txt`` (their sources' counts with this toolkit; a
-    kernel edit must leave the other instances' counts alone).  A new
-    ``nvcc`` may move them all: re-pin from a run of unchanged sources."""
+    """Every instance of the twelve libraries must keep the registers, stack
+    and spills pinned in ``chip_smoke_ptxas.txt`` (their sources' counts
+    with this toolkit; a kernel edit must leave the other instances' counts
+    alone).  A new ``nvcc`` may move them all: re-pin from a run of
+    unchanged sources."""
     with open(os.path.join(ROOT, PINNED_PTXAS)) as f:
         pinned = sorted(line.strip() for line in f if line.strip())
-    got = sorted(line for line in reports if ", trace>" not in line
-                 or not line.startswith("big_"))
+    got = sorted(reports)
     if got != pinned:
         raise AssertionError(
             f"ptxas counts differ from {PINNED_PTXAS}: new "
             f"{sorted(set(got) - set(pinned))[:6]}, pinned "
             f"{sorted(set(pinned) - set(got))[:6]}")
-    print(f"[ptxas] the {len(got)} lane, adaptive and big (global and "
-          f"x-drop) instances keep the counts pinned in {PINNED_PTXAS}")
+    print(f"[ptxas] the {len(got)} lane, adaptive and big instances keep the "
+          f"counts pinned in {PINNED_PTXAS}")
 
 
 def cuda_ms(fn, reps):
@@ -823,14 +878,16 @@ def check_big_trace(got, want, what):
     return int(((fl >> 2) & 1).sum()), int(((fl >> 3) & 1).sum())
 
 
-def block_trace(res, matrix):
+def block_trace(res, matrix, cfg=None):
     """The host ``Trace`` of a big trace instance's ``(out, words, desc,
-    steps, used)``, as ``BatchAligner`` builds it."""
+    steps, used)``, computed with ``cfg``'s flags, as ``BatchAligner``
+    builds it."""
     from block_aligner_tpu_torch import api
     from block_aligner_tpu_torch.core.traceback import Trace
 
     words, desc, steps, offsets = api._block_trace(*res[1:])
-    return Trace(words, desc, steps, matrix, offsets=offsets)
+    return Trace(words, desc, steps, matrix, offsets=offsets,
+                 **trace_flags(cfg))
 
 
 def score_table(matrix):
@@ -1052,7 +1109,7 @@ def walk_both(got, want, ends, matrix, what, cfg=None):
     cig = []
     for res in (got, want):
         if len(res) == 5:  # the big kernel's block-sized trace
-            tr = block_trace(res, matrix)
+            tr = block_trace(res, matrix, cfg)
         else:
             out, words, desc, steps = res
             st = steps.cpu().numpy()
@@ -1159,15 +1216,15 @@ def main():
     # 2. build: one nvcc per library, all started together, each with
     # ptxas's report
     t0 = time.perf_counter()
-    names = (*lk.LIBRARIES, bk.LIBRARY, bk.TRACE_LIBRARY)
+    names = (*lk.LIBRARIES, *bk.LIBRARIES)
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(lambda n: build_and_report(_build, n), names))
     paths = [path for path, _ in built]
     reports = [line for _, lines in built for line in lines]
     for name in lk.LIBRARIES:
         (lk if name.startswith("lane") else ak)._lib(name)
-    bk._lib()
-    bk._lib(trace=True)
+    for name in bk.LIBRARIES:
+        bk._lib(name)
     print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in reports:
@@ -1458,14 +1515,16 @@ def main():
     phase("7, align_exp_all")
 
     def main_path(al, work, what, name, plain_fn, kernel_fn, top=False,
-                  keep=None):
+                  keep=None, plain=None):
         """Drive a main path (stage + align_staged, then align_all) with
         the launch counts reset just before it and read just after, hold
         every result against the plain version on the card, and time it
         (the kernel with CUDA events; pack, align_staged and decode on the
         host clock); returns the path's numbers for the kernels line, and
         with ``top`` the largest block size each pair reached.  ``keep``, a
-        dict, takes the plain version's output, cell counts and time."""
+        dict, takes the plain version's output, cell counts and time;
+        ``plain``, such a dict from a path whose plain version computes the
+        same DP on the same pairs, stands for running it again."""
         torch.cuda.synchronize()
         reset_launches(lk, ak)
         staged, pack_ms = host_ms(lambda: al.stage(work))
@@ -1478,9 +1537,13 @@ def main():
                                  "align_staged")
         if flags is not None and not np.array_equal(al.last_suspect, flags):
             raise AssertionError(f"{what}: align_all suspect flags disagree")
-        (want, cells, *tops), plain_ms = host_ms(
-            lambda: plain_fn(*staged, al.cfg, count_cells=True,
-                             **({"top_size": True} if top else {})))
+        if plain is None:
+            (want, cells, *tops), plain_ms = host_ms(
+                lambda: plain_fn(*staged, al.cfg, count_cells=True,
+                                 **({"top_size": True} if top else {})))
+        else:
+            want, cells, plain_ms = (plain["want"], plain["cells"],
+                                     plain["plain_ms"])
         if keep is not None:
             keep.update(want=want, cells=cells, plain_ms=plain_ms)
         last = np.zeros(len(res), np.int32) if flags is None else flags
@@ -1654,7 +1717,8 @@ def main():
           "equal too")
     phase("11, trace instances vs plain")
 
-    def trace_path(al, work, what, name, base, plain=None, n_cmp=512):
+    def trace_path(al, work, what, name, base, plain=None, n_cmp=512,
+                   shortest=False, like=None, keep=None):
         """Drive a trace main path through ``align_all_trace`` with the
         launch counts reset just before it and read just after; hold its
         results against the non-trace instance (``base``; None at max size
@@ -1662,9 +1726,13 @@ def main():
         version on the card (``plain``: the non-trace plain version's output,
         cells and time from a main path on the same pairs, its time over
         ``plain["pairs"]`` pairs where that path had more; else run here),
-        every CIGAR against its result, and the first ``n_cmp`` CIGARs
-        against those of the plain version's trace; time it per batch.
-        Returns the path's numbers for the kernels line."""
+        every CIGAR against its result, and the first ``n_cmp`` CIGARs (with
+        ``shortest`` those of the ``n_cmp`` pairs with the fewest DP cells
+        in ``plain``, whose plain trace takes the fewest steps) against
+        those of the plain version's trace; with ``like``, CIGAR strings of another path on the same
+        pairs, every CIGAR must equal its counterpart; ``keep``, a dict,
+        takes this path's CIGAR strings.  Time it per batch.  Returns the
+        path's numbers for the kernels line."""
         big = al.route == "big"
         plain_fn = {"lane": lk.lane_align_plain,
                     "adaptive": ak.adaptive_align_plain,
@@ -1682,6 +1750,13 @@ def main():
         fend = al.cfg.free_query_end_gaps
         n_ops, below = check_cigars(cigars, work, res, al.matrix, al.gaps,
                                     what, cigar_start(al.cfg), at_most=fend)
+        strs = [str(c) for c in cigars]
+        if keep is not None:
+            keep["cigars"] = strs
+        if like is not None and strs != like:
+            k = next(k for k in range(len(strs)) if strs[k] != like[k])
+            raise AssertionError(f"{what}: CIGAR of pair {k} {strs[k]} "
+                                 f"differs from {like[k]}")
         # the plain version: every result, and the first n_cmp CIGARs
         cfg0 = al.cfg if base is None else dataclasses.replace(al.cfg,
                                                                trace=False)
@@ -1706,30 +1781,33 @@ def main():
         if err:
             raise AssertionError(f"{what}: differs from the plain version: "
                                  f"max abs err {err}")
-        # the first n_cmp CIGARs (with free end gaps all) against the plain
-        # version's
-        n_cmp = len(work) if fend else min(n_cmp, len(work))
+        # the first n_cmp CIGARs (or the fewest-cell pairs'; with free end gaps
+        # on the lane and adaptive routes all) against the plain version's
+        n_cmp = len(work) if fend and not big else min(n_cmp, len(work))
+        order = (np.argsort(cells.cpu().numpy(), kind="stable").tolist()
+                 if shortest else range(len(work)))
+        picked = list(order)[:n_cmp]
         trace_plain_ms = 0.0
         for k in range(0, n_cmp, al.batch_size):
-            sub = work[k : min(k + al.batch_size, n_cmp)]
+            idx = picked[k : k + al.batch_size]
+            sub = [work[i] for i in idx]
             pk = lk.pack_lane(sub, al.matrix, al.cfg, al.gaps, dev,
                               x_drop=x)
             got_p, ms = host_ms(lambda: plain_fn(*pk, al.cfg))
             trace_plain_ms += ms
             if big:
-                tr = block_trace(got_p, al.matrix)
+                tr = block_trace(got_p, al.matrix, al.cfg)
             else:
                 _, words, desc, steps = got_p
                 tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
                            steps.cpu().numpy(), al.matrix,
                            **trace_flags(al.cfg))
             del got_p
-            ends = [(r.query_idx, r.reference_idx)
-                    for r in res[k : k + len(sub)]]
-            if [str(c) for c in tr.cigars_all(ends)] != [
-                    str(c) for c in cigars[k : k + len(sub)]]:
+            ends = [(res[i].query_idx, res[i].reference_idx) for i in idx]
+            if [str(c) for c in tr.cigars_all(ends)] != [strs[i]
+                                                         for i in idx]:
                 raise AssertionError(f"{what}: CIGARs differ from the plain "
-                                     f"version's in pairs {k}..")
+                                     f"version's in pairs {idx[:4]}..")
         # times per batch: pack, kernel (CUDA events; the non-trace twin on
         # the same batches beside it), the trace's copy to the host alone,
         # _decode (that copy, the replay of the events, the results), walk
@@ -1780,28 +1858,34 @@ def main():
         B = len(work)
         sc = got[:, 0].numpy()
         if big:
-            # the trace's bytes against what its cells need (4 bits a cell),
-            # the budget allocated and a dense (steps, B, max_size) layout
-            need = int(cells.sum()) / 2
+            # the trace's bytes against what its cells need (4 bits a cell,
+            # 5 with local start), the budget allocated and a dense (steps,
+            # B, max_size) layout
+            need = int(cells.sum()) * (5 if al.cfg.local_start else 4) / 8
+            dense = (4 * lk.trace_words(al.cfg) * al.cfg.max_steps
+                     * al.cfg.max_size)
             if not copied <= 2 * need:
                 raise AssertionError(f"{what}: {copied} trace bytes copied, "
                                      f"more than twice the {need:.0f} its "
                                      "cells need")
             print(f"[{name}-bytes] {what}: trace bytes per pair: copied "
                   f"{copied / B:.0f} (words and executed descriptors), cells "
-                  f"/ 8 x 4 B {need / B:.0f}, budget allocated "
+                  f"x {5 if al.cfg.local_start else 4} bits {need / B:.0f}, "
+                  "budget allocated "
                   f"{4 * al.cfg.trace_budget}, dense layout "
-                  f"{4 * al.cfg.max_steps * al.cfg.max_size}")
+                  f"{dense}")
         print(f"[{name}-main] {B} pairs, {what}: align_all_trace in batches "
               f"of {al.batch_size}; {name} launches {launches}; results equal "
               + ("the non-trace instance's and " if base is not None else "")
               + "the plain version's; every CIGAR "
               f"spans to its end from its start ({cigar_start(al.cfg)}) and "
               + (f"rescores to at most its score, {below} below (the best of "
-                 "another row of row qlen's residue class); all equal the "
-                 "plain version's; " if fend else
-                 f"rescores to its score ({n_ops} ops); the first {n_cmp} "
-                 "equal the plain version's; ")
+                 "another row of row qlen's residue class); " if fend else
+                 f"rescores to its score ({n_ops} ops); ")
+              + (f"the {n_cmp} with the fewest cells" if shortest
+                 else f"the first {n_cmp}")
+              + " equal the plain version's; "
+              + ("all equal the other path's; " if like is not None else "")
               + "scores "
               f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
               f"{int(cells.sum())} DP cells, {int(cells.sum()) / B:.0f} per "
@@ -1818,7 +1902,7 @@ def main():
               f"{t['decode'] * 1e3 / B:.4f}, walk (cigars_all) "
               f"{t['walk'] * 1e3 / B:.4f}, align_all_trace "
               f"{path_ms * 1e3 / B:.4f}, plain {plain_ms * 1e3 / n_plain:.4f} "
-              f"({plain_ms:.1f} ms for {n_plain} pairs; with trace, the first "
+              f"({plain_ms:.1f} ms for {n_plain} pairs; with trace, "
               f"{n_cmp} pairs: {trace_plain_ms:.1f} ms)")
         phase(f"{name}, {what}")
         return {"launches": launches, "max_abs_err": err, "ms": t["kernel"],
@@ -2495,20 +2579,27 @@ def main():
     dna = (nuc, ngaps)
     big_sizes = ((32, 512), (64, 1024), (512, 1024), (1024, 1024))
 
-    def big_vs_plain(pairs, size, matrix, gaps, x, cap=None):
-        """big_align against big_align_plain on the card; returns the
-        pairs whose best lies short of their ends and the largest block
-        sizes reached."""
+    def big_cfg(pairs, size, matrix, x, cap, **modes):
+        """The big kernel's configuration for ``pairs`` with ``matrix``
+        (a ByteMatrix: byte mode) and the modes given."""
         maxlen = max(max(len(q), len(r)) for q, r in pairs)
-        cfg = bk.BigKernelConfig(
+        return bk.BigKernelConfig(
             *size, cap or max(256, -(-(1 + maxlen + size[1] + 16) // 128)
-                              * 128), 16 if matrix.kind == "nuc" else 32,
-            x_drop=x is not None)
+                              * 128),
+            {"nuc": 16, "byte": 256}.get(matrix.kind, 32),
+            x_drop=x is not None, byte_mode=matrix.kind == "byte", **modes)
+
+    def big_vs_plain(pairs, size, matrix, gaps, x, cap=None, **flags):
+        """big_align against big_align_plain on the card, with ``flags``
+        (the FLAGS instances'); returns the pairs whose best lies short of
+        their ends and the largest block sizes reached."""
+        cfg = big_cfg(pairs, size, matrix, x, cap, **flags)
         pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
         got = bk.big_align(*pk, cfg)
         torch.cuda.synchronize()
         want, top = bk.big_align_plain(*pk, cfg, top_size=True)
-        check_equal(got, want, f"big {size} x_drop={x} {matrix.kind}")
+        check_equal(got, want, f"big {size} x_drop={x} {matrix.kind} "
+                    f"{sorted(flags)}")
         if got[:, -1].any():
             raise AssertionError(f"big {size}: a pair hit the step cap")
         return (x_dropped(got, pk) if x is not None else 0), top
@@ -2626,33 +2717,30 @@ def main():
     # and x 20 and 100, 4 growth pairs at fixed (2048, 4096), and a reduced
     # trace budget
     def big_trace_vs_plain(pairs, size, matrix, gaps, x, cap=None,
-                           budget=None):
-        """big_align against big_align_plain with trace on the card: equal
-        outputs, step counts, word counters, executed descriptors and
-        words, and equal CIGARs walked from both for the pairs that did not
+                           budget=None, **flags):
+        """big_align against big_align_plain with trace on the card, with
+        ``flags`` (the FLAGS instances'): equal outputs, step counts, word
+        counters, executed descriptors and words (local start's zero words
+        too), and equal CIGARs walked from both for the pairs that did not
         overrun; returns (saves, restores, overruns, the tallest step)."""
-        maxlen = max(max(len(q), len(r)) for q, r in pairs)
-        cfg = bk.BigKernelConfig(
-            *size, cap or max(256, -(-(1 + maxlen + size[1] + 16) // 128)
-                              * 128), 16 if matrix.kind == "nuc" else 32,
-            x_drop=x is not None, trace=True)
+        cfg = big_cfg(pairs, size, matrix, x, cap, trace=True, **flags)
         if budget:
             cfg = with_trace_budget(cfg, budget)
         pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
         got = bk.big_align(*pk, cfg)
         torch.cuda.synchronize()
         want = bk.big_align_plain(*pk, cfg)
-        what = f"big trace {size} x_drop={x} {matrix.kind}"
+        what = f"big trace {size} x_drop={x} {matrix.kind} {sorted(flags)}"
         saves, restores = check_big_trace(got, want, what)
         out = want[0].cpu()
         done = (out[:, -1] == 0).nonzero()[:, 0].tolist()
-        ends = [(int(out[k, 1]), int(out[k, 2])) if x is not None
+        ends = [(int(out[k, 1]), int(out[k, 2])) if lk.wide(cfg)
                 else (len(pairs[k][0]), len(pairs[k][1])) for k in done]
 
         def sub(res):
             return tuple(t[:, done] if t.dim() == 3 else t[done] for t in res)
 
-        walk_both(sub(got), sub(want), ends, matrix, what)
+        walk_both(sub(got), sub(want), ends, matrix, what, cfg)
         desc, steps = want[2], want[3]
         ran = torch.arange(desc.shape[0], device=dev)[:, None] < steps
         return (saves, restores, int(out[:, -1].sum()),
@@ -2698,15 +2786,19 @@ def main():
 
     # 31. the traced nanopore band: phase 27's pairs through
     # align_all_trace in batches of 256, global and x 50, held against
-    # phase 27's non-trace instance and plain version
+    # phase 27's non-trace instance and plain version; the CIGARs of the 32
+    # pairs with the fewest cells against the plain version's trace (whose
+    # time is its step count's, not its pair count's)
     tkw = dict(size=(128, 1024), batch=256, seq_cap=ncap, device=dev)
+    nano_t = {}  # the CIGARs, for phase 34
     big_t = trace_path(BatchAligner(*dna, trace=True, **tkw), nano, what,
                        "big_align_trace", BatchAligner(*dna, **tkw),
-                       plain=nano_g, n_cmp=128)
+                       plain=nano_g, n_cmp=32, shortest=True, keep=nano_t)
     big_xt = trace_path(
         BatchAligner(*dna, trace=True, x_drop=50, **tkw), nano,
         f"{what}, x_drop 50", "big_align_xdrop_trace",
-        BatchAligner(*dna, x_drop=50, **tkw), plain=nano_x, n_cmp=128)
+        BatchAligner(*dna, x_drop=50, **tkw), plain=nano_x, n_cmp=32,
+        shortest=True)
 
     # 32. traced growth: two of phase 29's growth pairs whose blocks reach
     # 4096 and two that reach 8192, at (512, 8192) with trace
@@ -2726,6 +2818,143 @@ def main():
         raise AssertionError(f"traced growth reached {heights}")
     print(f"[big-trace-growth] traced steps reached {heights} rows")
     big_t = merged(big_t, big_gt)
+
+    # 33. the big kernel's FLAGS instances (csrc/big_flags.cu,
+    # csrc/big_trace_flags.cu) vs the plain version: 32-pair structural
+    # batches at (128, 1024), (512, 1024) and (1024, 1024), each mode at
+    # two sizes or more, traced and not, x-drop where the mode allows it;
+    # two growth pairs at (512, 8192) with traced local start, the
+    # instance whose shared memory is the largest; the launch shapes
+    protein = (scores.BLOSUM62, Gaps(-11, -1))
+    local, fstart = dict(local_start=True), dict(free_query_start_gaps=True)
+    fend = dict(free_query_end_gaps=True)
+    flag_cases = {
+        (128, 1024): (("byte", None, False), ("byte", None, True),
+                      ("local", None, True), ("local", 20, False),
+                      ("fstart", 100, True), ("fend", None, True)),
+        (512, 1024): (("byte", None, True), ("local", 100, True),
+                      ("fstart", None, True), ("fend", None, False)),
+        (1024, 1024): (("byte", None, False), ("local", None, False),
+                       ("local", 20, True), ("fstart", 20, False),
+                       ("fstart", None, True), ("fend", None, True)),
+    }
+    checked, tall = 0, set()
+    for size, cases in flag_cases.items():
+        for k, (mode, x, tr) in enumerate(cases):
+            flags = {"byte": {}, "local": local, "fstart": fstart,
+                     "fend": fend}[mode]
+            if mode == "byte":
+                matrix, gaps = byte1, Gaps(-11, -1)
+                pairs = byte_pairs(rng, 32, 700)
+            else:
+                matrix, gaps = (protein, dna)[k % 2]
+                pairs = structural_pairs(rng, AA if k % 2 == 0 else DNA, 32,
+                                         700)
+            if mode == "fend":
+                pairs = [(q[: size[0] - 1], r) for q, r in pairs]
+            if tr:
+                tall.add(big_trace_vs_plain(pairs, size, matrix, gaps, x,
+                                            **flags)[3])
+            else:
+                big_vs_plain(pairs, size, matrix, gaps, x, **flags)
+            checked += len(pairs)
+    h8 = big_trace_vs_plain(grow[:2], (512, 8192), *dna, None, cap=16384,
+                            **local)[3]
+    if h8 != 8192 or max(tall) != 1024:
+        raise AssertionError(f"big flags: traced steps reached {max(tall)} "
+                             f"rows, the local-start growth pairs {h8}")
+    print("[big-shape] FLAGS instances (global, x-drop, trace without and "
+          "with local start, x-drop trace with local start): threads, "
+          "dynamic shared bytes and blocks per SM by max size: " + "; ".join(
+              f"{S}: " + " / ".join(str(bk.launch_shape(bk.BigKernelConfig(
+                  16, S, 16384, x_drop=xd, trace=tr, **f)))
+                  for f, xd, tr in ((local, False, False),
+                                    (local, True, False), (fend, False, True),
+                                    (local, False, True), (local, True, True)))
+              for S in (1024, 4096, 8192)))
+    print(f"[big-flags-vs-plain] {checked} pairs at (128, 1024), (512, 1024) "
+          "and (1024, 1024): ByteMatrix(1, -1) -11/-1 (all 256 bytes, byte "
+          "0) global and traced; local start global, x 20 and 100, traced; "
+          "free start gaps traced, x 20 and 100; free end gaps (queries "
+          "shorter than the min size) global and traced; protein BLOSUM62 "
+          "-11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths 0..700, structural "
+          f"indels (steps up to {max(tall)} rows); and 2 growth pairs at "
+          f"(512, 8192) with traced local start (steps up to {h8} rows): "
+          "outputs equal, and traced step counts, word counters, "
+          "descriptors, words (the zero words too) and CIGARs")
+    phase("33, big FLAGS instances vs plain")
+
+    # 34. the byte band: phase 27's pairs with ByteMatrix(2, -4), which on
+    # ACGT reads scores as NucMatrix(2, -4) does, so phase 27's plain
+    # version is this path's: every result and (traced) every CIGAR must
+    # equal phase 27's and 31's, pair for pair
+    bkw = dict(size=(128, 1024), seq_cap=ncap, device=dev)
+    bwhat = ("nanopore-like 5000..9999 bases, 10% edits, ByteMatrix(2, -4) "
+             "-6/-2, (128, 1024)")
+    big_b = main_path(BatchAligner(byte2, ngaps, batch=len(nano), **bkw),
+                      nano, bwhat, "big_align_byte", bk.big_align_plain,
+                      bk.big_align, plain=nano_g)
+    print(f"[big-byte-vs-nuc] {len(nano)} nanopore-like pairs: ByteMatrix(2, "
+          "-4) results equal NucMatrix(2, -4)'s (phase 27) pair for pair")
+    phase("34, big_align_byte main path")
+    big_bt = trace_path(
+        BatchAligner(byte2, ngaps, trace=True, batch=256, **bkw), nano,
+        bwhat, "big_align_byte_trace",
+        BatchAligner(byte2, ngaps, batch=256, **bkw), plain=nano_g, n_cmp=0,
+        like=nano_t["cigars"])
+
+    # 35. local start with x_drop 50 on the same band: long-read
+    # extensions that may start anywhere
+    lkw = dict(size=(128, 1024), seq_cap=ncap, x_drop=50, device=dev,
+               **local)
+    lwhat = f"{what}, x_drop 50, local start"
+    nano_l = {}
+    big_fx = main_path(BatchAligner(*dna, batch=len(nano), **lkw), nano,
+                       lwhat, "big_align_flags_xdrop", bk.big_align_plain,
+                       bk.big_align, keep=nano_l)
+    phase("35, big_align_flags_xdrop main path")
+    big_fxt = trace_path(
+        BatchAligner(*dna, trace=True, batch=256, **lkw), nano, lwhat,
+        "big_align_flags_xdrop_trace", BatchAligner(*dna, batch=256, **lkw),
+        plain=nano_l, n_cmp=32, shortest=True)
+
+    # 36. glocal read-to-window: 1024 reads of 600..999 bases cut from the
+    # nanopore pairs, each against its reference window with 500..1499
+    # random bases of flank on either side, free query start and end gaps
+    # at (1024, 1024): the whole read aligns, the window's overhangs are
+    # free
+    win = read_window_pairs(np.random.default_rng(1234), nano)
+    wcap = max(len(r) for _, r in win)
+    gkw = dict(size=(1024, 1024), seq_cap=wcap, device=dev, **fstart, **fend)
+    gwhat = ("reads 600..999 of the nanopore-like pairs against their "
+             "windows with 500..1499 random bases of flank a side, "
+             "NucMatrix(2, -4) -6/-2, (1024, 1024), free query start and end "
+             "gaps")
+    glocal = {}
+    big_f = main_path(BatchAligner(*dna, batch=len(win), **gkw), win, gwhat,
+                      "big_align_flags", bk.big_align_plain, bk.big_align,
+                      keep=glocal)
+    phase("36, big_align_flags main path")
+    big_ft = trace_path(
+        BatchAligner(*dna, trace=True, batch=256, **gkw), win, gwhat,
+        "big_align_flags_trace", BatchAligner(*dna, batch=256, **gkw),
+        plain=glocal, n_cmp=256)
+
+    # 37. the (32, 512) band without trace, which pick_route sends to the
+    # big kernel: the uc30 pairs with ByteMatrix(1, -1), and with local
+    # start under BLOSUM62
+    ukw = dict(size=(32, 512), batch=len(uc), seq_cap=512, device=dev)
+    big_ub = main_path(
+        BatchAligner(byte1, Gaps(-11, -1), **ukw), uc,
+        "uc30 homologs 50-256 + indels, ByteMatrix(1, -1) -11/-1, (32, 512)",
+        "big_align_byte", bk.big_align_plain, bk.big_align)
+    big_ul = main_path(
+        BatchAligner(*protein, local_start=True, **ukw), uc,
+        "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, 512), local "
+        "start", "big_align_flags", bk.big_align_plain, bk.big_align)
+    phase("37, big (32, 512) byte and local start")
+    big_b = merged(big_b, big_ub)
+    big_f = merged(big_f, big_ul)
 
     print(json.dumps({"kernels": [
         {
@@ -2843,6 +3072,23 @@ def main():
         }
         for name, numbers in (("big_align_trace", big_t),
                               ("big_align_xdrop_trace", big_xt))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"block_aligner_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            **numbers,
+            "library_ms": None,
+        }
+        for name, source, replaces, numbers in (
+            ("big_align_byte", "big_flags", C_BYTE, big_b),
+            ("big_align_byte_trace", "big_trace_flags", C_BYTE, big_bt),
+            ("big_align_flags", "big_flags", C_FREE_END, big_f),
+            ("big_align_flags_trace", "big_trace_flags", C_FREE_END, big_ft),
+            ("big_align_flags_xdrop", "big_flags", C_FLAGS, big_fx),
+            ("big_align_flags_xdrop_trace", "big_trace_flags", C_ZERO_BIT,
+             big_fxt))
     ] + [
         {
             "name": name,

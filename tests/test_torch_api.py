@@ -117,28 +117,60 @@ def test_pick_route_matches_jax(args):
     assert tba.pick_route(lo, hi, cap, **kw) == jax_pick_route(lo, hi, cap, **kw)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(size=(64, 1024), free_query_start_gaps=True), dict(seq_cap=20000),
-    dict(size=(64, 1024), trace=True, local_start=True),
-    dict(seq_cap=20000, local_start=True),
-    dict(free_query_start_gaps=True, use_lane_kernel=False),
-    dict(free_query_end_gaps=True, mesh=object()),
-    dict(matrix=tba.BYTES1, size=(64, 1024)), dict(mesh=object()),
-    dict(use_lane_kernel=False),
-    dict(size=(64, 1024), trace=True, matrix=tba.BYTES1),
-    dict(size=(32, 512), local_start=True),
-    dict(size=(16, 64), seq_cap=20000, free_query_end_gaps=True),
-    dict(size=(32, 256), seq_cap=20000, matrix=tba.BYTES1),
+# the configurations the big route's FLAGS instances brought: they align
+# there now, as BlockOracle does
+PORTED = ("big", "trace_local_start", "byte", "big_trace",
+          "adaptive_local_start")
+
+
+@pytest.mark.parametrize("kwargs,ported", [
+    (dict(size=(64, 1024), free_query_start_gaps=True), True),
+    (dict(seq_cap=20000), False),
+    (dict(size=(64, 1024), trace=True, local_start=True), True),
+    (dict(seq_cap=20000, local_start=True), False),
+    (dict(free_query_start_gaps=True, use_lane_kernel=False), False),
+    (dict(free_query_end_gaps=True, mesh=object()), False),
+    (dict(matrix=tba.BYTES1, size=(64, 1024)), True),
+    (dict(mesh=object()), False),
+    (dict(use_lane_kernel=False), False),
+    (dict(size=(64, 1024), trace=True, matrix=tba.BYTES1), True),
+    (dict(size=(32, 512), local_start=True), True),
+    (dict(size=(16, 64), seq_cap=20000, free_query_end_gaps=True), False),
+    (dict(size=(32, 256), seq_cap=20000, matrix=tba.BYTES1), False),
 ], ids=["big", "long_lane", "trace_local_start", "local_start",
         "free_start", "free_end", "byte", "mesh", "engine",
         "big_trace", "adaptive_local_start",
         "adaptive_free_end", "adaptive_byte"])
-def test_unported_configurations_raise(kwargs):
+def test_unported_configurations_raise(kwargs, ported):
+    """Configurations the port lacks raise ``NotImplementedError`` naming
+    their ROADMAP item; those the big route's ByteMatrix and flag
+    instances brought (``PORTED``) take the big route and give
+    ``BlockOracle``'s results (traced: its CIGARs) on two pairs."""
     kw = dict(matrix=tba.BLOSUM62, gaps=tba.Gaps(-11, -1), size=(32, 32),
               device="cpu")
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
-        tba.BatchAligner(**kw)
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
+            tba.BatchAligner(**kw)
+        return
+    al = tba.BatchAligner(**kw)
+    assert al.route == "big"
+    pairs = homolog_pairs(5, 7)[5:]
+    matrix = jba.BYTES1 if kw["matrix"] is tba.BYTES1 else jba.BLOSUM62
+    flags = {k: v for k, v in kwargs.items()
+             if k in ("local_start", "free_query_start_gaps")}
+    orc = jba.BlockOracle(trace=al.trace_mode, **flags)
+    hi = kw["size"][1]
+    for k, got in enumerate(al.align_batch(pairs)):
+        orc.align(*(jba.PaddedBytes.from_bytes(s, hi, matrix)
+                    for s in pairs[k]), matrix, jba.Gaps(-11, -1),
+                  kw["size"], 0)
+        want = orc.res()
+        assert (got.score, got.query_idx, got.reference_idx) == (
+            want.score, want.query_idx, want.reference_idx), k
+        if al.trace_mode:
+            i, j = got.query_idx, got.reference_idx
+            assert str(al.cigar(k, i, j)) == str(orc.cigar(i, j)), k
 
 
 @pytest.fixture(scope="module", params=[(16, 64), (32, 128)],

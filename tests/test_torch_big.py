@@ -147,9 +147,11 @@ def test_wrapper_devices_and_counts():
 
 
 def test_config_validation():
-    """Sizes, capacity and modes; the block, the step cap and the trace
-    budget are the JAX configuration's (``big_kernel.py:277-281``, its
-    default slot budget in rows at seg 256, ``:311-320``)."""
+    """Sizes, capacity and modes (profiles still raise; the ByteMatrix and
+    flag modes take the JAX configuration's exclusions); the block, the
+    step cap and the trace budget are the JAX configuration's
+    (``big_kernel.py:277-281``, its default slot budget in rows at seg 256,
+    ``:311-320``, two words a row with local start)."""
     for bad in [(16, 256, 1024), (16, 16384, 16384), (24, 1024, 2048),
                 (2048, 1024, 4096), (512, 512, 1024), (16, 1024, 1000),
                 (16, 1024, 1024), (16, 8192, 16512)]:
@@ -157,10 +159,22 @@ def test_config_validation():
             bk.BigKernelConfig(*bad)
     with pytest.raises(ValueError):
         bk.BigKernelConfig(16, 1024, 2048, alpha=20)
-    for mode, item in [("byte_mode", "5b"), ("local_start", "5c"), ("free_query_start_gaps", "5c"),
-                       ("free_query_end_gaps", "5c"), ("profile", "5d")]:
-        with pytest.raises(ValueError, match=f"ROADMAP.md queue 2 item {item}"):
-            bk.BigKernelConfig(16, 1024, 2048, **{mode: True})
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 5d"):
+        bk.BigKernelConfig(16, 1024, 2048, profile=True)
+    # the JAX configuration's exclusions (big_kernel.py:218-234)
+    for bad in [dict(byte_mode=True), dict(byte_mode=True, alpha=256,
+                                           x_drop=True),
+                dict(local_start=True, free_query_start_gaps=True),
+                dict(free_query_end_gaps=True, x_drop=True)]:
+        with pytest.raises(ValueError):
+            bk.BigKernelConfig(16, 1024, 2048, **bad)
+    for good in [dict(byte_mode=True, alpha=256, trace=True),
+                 dict(byte_mode=True, alpha=256, local_start=True),
+                 dict(local_start=True, x_drop=True, trace=True),
+                 dict(free_query_start_gaps=True, x_drop=True),
+                 dict(free_query_end_gaps=True, trace=True)]:
+        cfg = bk.BigKernelConfig(16, 1024, 2048, **good)
+        assert lk.wide(cfg) == bool(cfg.x_drop or cfg.free_query_end_gaps)
     for lo, hi, cap in [(32, 512, 768), (128, 1024, 11136), (1024, 1024, 2048),
                         (512, 8192, 9088)]:
         cfg = bk.BigKernelConfig(lo, hi, cap, trace=True)
@@ -169,6 +183,12 @@ def test_config_validation():
         assert (cfg.block, cfg.max_steps) == (want.block, want.max_steps)
         assert cfg.trace_budget == want.eff_trace_slots * want.seg == (
             cfg.max_steps * max(lo, 256) + 8 * hi)
+        local = bk.BigKernelConfig(lo, hi, cap, trace=True, local_start=True)
+        want = jbig.BigKernelConfig(batch=128, min_size=lo, max_size=hi,
+                                    seq_cap=cap, trace=True, local_start=True)
+        assert local.trace_budget == (want.eff_trace_slots * want.seg
+                                      * want.trace_words) == (
+            2 * cfg.trace_budget)
 
 
 def test_pack_big_is_pack_lane():

@@ -1,8 +1,9 @@
 """The big route as a whole: the port's ``BatchAligner`` on blocks past 512
 against the JAX package's (its big kernel in interpret mode, on one small
 configuration), x-drop through the aligner, ``align_exp_all`` with a max
-past 512 against a ``BlockOracle`` ladder, the route choices and the modes
-that still raise.  Every comparison is exact."""
+past 512 against a ``BlockOracle`` ladder, the route choices, the
+ByteMatrix and flag modes against ``BlockOracle`` and the profile mode that
+still raises.  Every comparison is exact."""
 
 import os
 
@@ -107,12 +108,38 @@ def test_routes(size, trace, route):
     dict(free_query_start_gaps=True), dict(free_query_end_gaps=True),
 ], ids=["trace", "byte", "local_start", "free_start", "free_end"])
 def test_later_modes_raise(kwargs):
-    kw = dict(matrix=tba.BLOSUM62, gaps=GAPS, size=(128, 1024), device="cpu")
+    """The modes that raised on the big route before its FLAGS instances
+    now route there and give ``BlockOracle``'s results on three pairs
+    (traced: its CIGARs too); profiles past 512 still raise, naming the
+    ROADMAP item that brings them."""
+    kw = dict(matrix=tba.BLOSUM62, gaps=GAPS, size=(128, 1024), batch=3,
+              seq_cap=300, device="cpu")
     kw.update(kwargs)
+    byte = kw["matrix"] is tba.BYTES1
+    rng = np.random.default_rng(len(kwargs) + 3 * byte)
+    pairs = (chip_smoke.byte_pairs(rng, 7, 250) if byte else
+             chip_smoke.structural_pairs(rng, chip_smoke.AA, 7, 250))[4:]
+    if kw.get("free_query_end_gaps"):
+        pairs = [(q[:100], r) for q, r in pairs]
+    al = tba.BatchAligner(**kw)
+    assert al.route == "big"
+    flags = {k: v for k, v in kwargs.items()
+             if k not in ("trace", "matrix")}
+    jm = jba.BYTES1 if byte else jba.BLOSUM62
+    orc = jba.BlockOracle(trace=al.trace_mode, **flags)
+    for k, got in enumerate(al.align_batch(pairs)):
+        q, r = pairs[k]
+        orc.align(jba.PaddedBytes.from_bytes(q, 1024, jm),
+                  jba.PaddedBytes.from_bytes(r, 1024, jm), jm,
+                  jba.Gaps(-11, -1), (128, 1024), 0)
+        want = orc.res()
+        assert (got.score, got.query_idx, got.reference_idx) == (
+            want.score, want.query_idx, want.reference_idx), k
+        if al.trace_mode:
+            i, j = got.query_idx, got.reference_idx
+            assert str(al.cigar(k, i, j)) == str(orc.cigar(i, j)), k
     with pytest.raises(NotImplementedError,
-                       match="route 'big'.*ROADMAP.md queue 2 item 5"):
-        tba.BatchAligner(**kw)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
+                       match="route 'big'.*ROADMAP.md queue 2 item 5d"):
         tba.ProfileAligner((128, 1024), device="cpu")
 
 

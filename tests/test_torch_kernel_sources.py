@@ -252,13 +252,13 @@ def emulated(tmp_path_factory):
     src = src.replace(BIG_SHARED, "short* const planes = "
                       "reinterpret_cast<short*>(emu::dynamic_.data());")
     (out / f"{bk.LIBRARY}.cu").write_text(src)
-    for name in (*lk.LIBRARIES, bk.LIBRARY, bk.TRACE_LIBRARY):
+    for name in (*lk.LIBRARIES, *bk.LIBRARIES):
         mod = {"lane": lk, "adaptive": ak}.get(name.split("_")[0], bk)
         (out / f"{name}.cpp").write_text(
             (out / f"{name}.cu").read_text() if name.endswith("kernel")
             else (_build.CSRC / f"{name}.cu").read_text())
         so = out / f"lib{name}.so"
-        # all ten compile at once
+        # all twelve compile at once
         builds[name] = (mod, so, subprocess.Popen(
             [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
              str(out), "-o", str(so), str(out / f"{name}.cpp")],
@@ -671,12 +671,13 @@ def test_kernel_source_upper_rail(emulated, size, trace):
 
 
 def big_launch(lib, pk, cfg, x=-1):
-    """``csrc/big_kernel.cu``'s entry point on a packed batch; with
-    ``cfg.trace`` (the library of ``csrc/big_trace.cu``) it returns ``(out,
-    words, desc, steps, used)``, the trace buffers filled with -5 where the
-    kernel writes nothing."""
+    """``csrc/big_kernel.cu``'s entry point on a packed batch, with
+    ``cfg``'s flags; with ``cfg.trace`` (the libraries of
+    ``csrc/big_trace.cu`` and ``csrc/big_trace_flags.cu``) it returns
+    ``(out, words, desc, steps, used)``, the trace buffers filled with -5
+    where the kernel writes nothing."""
     B = pk.codes.shape[0]
-    out = torch.full((B, 4 if x >= 0 else 2), -7, dtype=torch.int32)
+    out = torch.full((B, 4 if lk.wide(cfg) else 2), -7, dtype=torch.int32)
     bufs = ((torch.full((B, cfg.trace_budget), -5, dtype=torch.int32),
              torch.full((cfg.max_steps, B, 5), -5, dtype=torch.int32),
              torch.full((B,), -5, dtype=torch.int32),
@@ -686,7 +687,8 @@ def big_launch(lib, pk, cfg, x=-1):
         pk.table.data_ptr(), out.data_ptr(),
         *([t.data_ptr() for t in bufs] or [None] * 4), B, cfg.seq_cap,
         cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps, pk.gaps[0],
-        pk.gaps[1], x, cfg.trace_budget if cfg.trace else 0, None)
+        pk.gaps[1], x, cfg.trace_budget if cfg.trace else 0,
+        *lk.mode_args(pk.gaps, cfg), None)
     assert err == 0
     return (out, *bufs) if cfg.trace else out
 
@@ -720,17 +722,18 @@ def test_big_kernel_source_matches_plain(emulated, size, setup, x):
 def test_big_entry_point_matches_binding(emulated):
     """The C signature of ``csrc/big_kernel.cu`` and its ctypes argument
     list agree (5 pointers for the inputs and the output, 4 for the trace
-    buffers, 10 ints, the stream); the entry point refuses sizes the big
+    buffers, 13 ints, the stream); the entry point refuses sizes the big
     route does not take, trace buffers in the library without trace and
     their absence in the trace library (``csrc/big_trace.cu``), and reports
     its launch shape (threads, dynamic shared bytes: 4 a row more with
-    trace)."""
+    trace, and 1 more with local start's trace in
+    ``csrc/big_trace_flags.cu``)."""
     src = (_build.CSRC / f"{bk.LIBRARY}.cu").read_text()
     sig = re.search(r'extern "C" int big_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
     lib, tlib = emulated[bk.LIBRARY], emulated[bk.TRACE_LIBRARY]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 9 + [False] * 10 + [True]
+        [True] * 9 + [False] * 13 + [True]
     assert len(lib.big_align_launch.argtypes) == len(params)
     assert _build.library_path(bk.LIBRARY).name.startswith("libbig_kernel-")
     cfg = bk.BigKernelConfig(16, 1024, 1152)
@@ -743,20 +746,24 @@ def test_big_entry_point_matches_binding(emulated):
                    (2048, 1024)]:
         assert lib.big_align_launch(
             *ptrs, None, None, None, None, 1, cfg.seq_cap, 32, lo, hi,
-            cfg.max_steps, -11, -1, -1, 0, None) != 0
+            cfg.max_steps, -11, -1, -1, 0, 0, 0, 0, None) != 0
     bufs = [out.data_ptr()] * 4
     assert lib.big_align_launch(*ptrs, *bufs, 1, cfg.seq_cap, 32, 16, 1024,
-                                cfg.max_steps, -11, -1, -1, 64, None) != 0
+                                cfg.max_steps, -11, -1, -1, 64, 0, 0, 0,
+                                None) != 0
     assert tlib.big_align_launch(*ptrs, None, None, None, None, 1,
                                  cfg.seq_cap, 32, 16, 1024, cfg.max_steps,
-                                 -11, -1, -1, 64, None) != 0
+                                 -11, -1, -1, 64, 0, 0, 0, None) != 0
     assert tuple(big_launch(lib, pk, cfg)[0].tolist()) == (4, 0)
     shape = (ctypes.c_int * 3)()
+    ftlib = emulated[bk.TRACE_FLAGS_LIBRARY]
     for S, want in [(1024, (128, 20480)), (8192, (256, 163840))]:
-        assert lib.big_launch_shape(S, 1, ctypes.addressof(shape)) == 0
+        assert lib.big_launch_shape(S, 1, 0, ctypes.addressof(shape)) == 0
         assert tuple(shape)[:2] == want
-        assert tlib.big_launch_shape(S, 1, ctypes.addressof(shape)) == 0
+        assert tlib.big_launch_shape(S, 1, 0, ctypes.addressof(shape)) == 0
         assert tuple(shape)[:2] == (want[0], want[1] // 20 * 24)
+        assert ftlib.big_launch_shape(S, 0, 1, ctypes.addressof(shape)) == 0
+        assert tuple(shape)[:2] == (want[0], want[1] // 20 * 25)
 
 
 @pytest.mark.parametrize("size,setup,x,budget", [
@@ -800,3 +807,90 @@ def test_big_kernel_source_trace_matches_plain(emulated, size, setup, x,
         assert int(torch.where(ran, got[2][:, 0, 3], 0).max()) == 512
     if budget:
         assert 0 < int(out[:, -1].sum()) < len(pairs)
+
+
+@pytest.mark.parametrize("size,mode,x,trace", [
+    ((128, 1024), "byte", -1, False), ((64, 1024), "byte", -1, True),
+    ((128, 1024), "local", 20, False), ((32, 512), "local", -1, True),
+    ((1024, 1024), "local", -1, True), ((128, 1024), "local", 50, True),
+    ((128, 1024), "fstart", -1, True), ((128, 1024), "fend", -1, True),
+], ids=lambda v: str(v))
+def test_big_kernel_source_flags_match_plain(emulated, size, mode, x, trace):
+    """The FLAGS instances of the big kernel (``csrc/big_flags.cu``,
+    ``csrc/big_trace_flags.cu``) against the plain version: ByteMatrix on
+    pairs over all 256 bytes (byte 0 included), local start, free start
+    and free end gaps (queries shorter than the min size), with x-drop
+    where the mode allows it; outputs, and in trace mode step counts, word
+    counters, descriptors, words (local start's zero words after each
+    step's h words) and the CIGARs walked from both.  Traced local start
+    runs at 512 rows (a pair that grows to 512: four warps of four slots)
+    and at 1024 (four warps of eight slots), so a row's zero bits come from
+    every slot and warp."""
+    lo, hi = size
+    modes = FLAG_MODES[mode]
+    byte = mode == "byte"
+    rng = np.random.default_rng(hi + x + len(mode) + trace)
+    if byte:
+        pairs = chip_smoke.byte_pairs(rng, 8, 200)
+    elif hi == 512:
+        pairs = [grown_pairs()[0]] + protein_pairs(1, 5)
+    else:
+        pairs = chip_smoke.structural_pairs(rng, chip_smoke.AA, 8, 200)
+    if mode == "fend":
+        pairs = [(q[: lo - 1], r) for q, r in pairs]
+    cfg = bk.BigKernelConfig(lo, hi, 1664 if hi == 512 else 1280,
+                             256 if byte else 32, x_drop=x >= 0, trace=trace,
+                             **modes)
+    matrix = scores.BYTES1 if byte else scores.BLOSUM62
+    pk = bk.pack_big(pairs, matrix, cfg, Gaps(-11, -1), "cpu",
+                     x_drop=max(x, 0))
+    got = big_launch(emulated[bk.library(cfg)], pk, cfg, x)
+    want = bk.big_align_plain(*pk, cfg)
+    if not trace:
+        assert torch.equal(got, want)
+        return
+    chip_smoke.check_big_trace(got, want, f"{mode} {size}")
+    out = want[0]
+    ends = ([(int(o[1]), int(o[2])) for o in out] if lk.wide(cfg) else
+            [(len(q), len(r)) for q, r in pairs])
+    chip_smoke.walk_both(got, want, ends, matrix, f"{mode} {size}", cfg)
+    if hi == 512:
+        ran = torch.arange(cfg.max_steps) < got[3][0]
+        assert int(torch.where(ran, got[2][:, 0, 3], 0).max()) == 512
+
+
+def test_big_entry_point_rejects_bad_modes(emulated):
+    """``big_align_launch`` refuses what the configuration refuses: byte mode
+    with x-drop or with a table side other than 256, local start with free
+    start gaps, free end gaps with x-drop, an unknown flag, and any flag in
+    the libraries without FLAGS; the FLAGS libraries take valid ones (byte
+    mode with local start among them)."""
+    cfg = bk.BigKernelConfig(16, 1024, 1152)
+    pk = bk.pack_big([(b"A", b"A")], scores.BLOSUM62, cfg, Gaps(-11, -1),
+                     "cpu")
+    out = torch.zeros((1, 4), dtype=torch.int32)
+
+    # the trace buffers stay alive across every call that may write them
+    bufs = (torch.zeros((1, cfg.trace_budget), dtype=torch.int32),
+            torch.zeros((cfg.max_steps, 1, 5), dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32))
+
+    def call(name, alpha, x, flags, trace=False):
+        ptrs = [t.data_ptr() for t in bufs] if trace else [None] * 4
+        return emulated[name].big_align_launch(
+            pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
+            pk.table.data_ptr(), out.data_ptr(), *ptrs, 1, cfg.seq_cap,
+            alpha, 16, 1024, cfg.max_steps, -11, -1, x,
+            cfg.trace_budget if trace else 0, flags, 1, -1, None)
+
+    F = bk.FLAGS_LIBRARY
+    for alpha, x, flags in [(256, 10, 8), (32, 10, 8), (32, -1, 8),
+                            (32, -1, 3), (32, 10, 4), (32, -1, 16)]:
+        assert call(F, alpha, x, flags) != 0, (alpha, x, flags)
+    for name, trace in [(bk.LIBRARY, False), (bk.TRACE_LIBRARY, True)]:
+        assert call(name, 32, -1, 1, trace) != 0
+        assert call(name, 256, -1, 8, trace) != 0
+    assert call(F, 32, -1, 1) == 0 and tuple(out[0, :2].tolist()) == (4, 0)
+    assert call(bk.TRACE_FLAGS_LIBRARY, 32, 10, 2, trace=True) == 0
+    assert call(bk.TRACE_FLAGS_LIBRARY, 256, -1, 9, trace=True) == 0
