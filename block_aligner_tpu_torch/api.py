@@ -22,9 +22,9 @@ and ``align_all_trace`` the CIGARs of any number of pairs.
 ``align_exp_all`` retries pairs with doubled min block sizes over the
 three routes, global or x-drop.  ``ProfileAligner`` and
 ``align_profile_exp_all`` do the same for (query, ``AAProfile``) pairs,
-sequence-to-PSSM, on the same two routes (min < max <= 512 adaptive, min
-== max <= 512 lane), with the same flags.  The other routes (profiles
-past 512, "long", "long_lane", "engine") and a mesh raise
+sequence-to-PSSM, on the same three routes (min < max <= 512 adaptive,
+min == max <= 512 lane, 512 < max <= 8192 big), with the same flags.  The
+other routes ("long", "long_lane", "engine") and a mesh raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -141,8 +141,6 @@ def _block_trace(words, desc, steps, used):
 
 # ROADMAP.md item that brings each configuration the port lacks
 _SLICE = {
-    "big": "queue 2 item 5d (kernel C's profile mode; 5e, its segmented "
-           "16384 band, follows)",
     "long": "queue 1 item 5 (long-sequence API)",
     "long_lane": "queue 1 item 5 (long-sequence API)",
     "engine": "queue 1 item 3 (PyTorch lockstep engine)",
@@ -515,19 +513,19 @@ class ProfileAligner(_Routed):
     position-specific scores and gap open and close costs.
 
     The JAX package's ``ProfileAligner`` surface and routes: the adaptive
-    kernel for ``min < max <= 512`` and the lane kernel for ``min == max
-    <= 512``, global or with ``x_drop``, with or without ``trace``, with
-    the flags of ``BatchAligner``: ``align_batch``, ``align_all``
-    (length-sorted outside trace), ``stage``/``align_staged`` (without
-    trace), ``batch_size``, ``last_suspect`` on the lane route, ``trace()``
-    and ``cigar``.  All profiles of a batch share one gap extension.
-    Blocks past 512 (the big kernel), the engine (``use_lane_kernel=False``)
-    and a mesh raise ``NotImplementedError`` naming the ROADMAP item that
-    brings them; blocks past 8192 raise
-    ``ValueError`` as in the JAX package.  ``prof_len`` sizes the big
-    kernel's profile table there, so no route here reads it.  ``device``
-    places the packed tensors: a CUDA device runs the kernels, the CPU
-    their plain versions.
+    kernel for ``min < max <= 512``, the lane kernel for ``min == max <=
+    512`` and the big kernel for ``512 < max <= 8192``, global or with
+    ``x_drop``, with or without ``trace``, with the flags of
+    ``BatchAligner``: ``align_batch``, ``align_all`` (length-sorted outside
+    trace), ``stage``/``align_staged`` (without trace), ``batch_size``,
+    ``last_suspect`` on the lane route, ``trace()`` and ``cigar``.  All
+    profiles of a batch share one gap extension.  ``prof_len`` (default
+    ``seq_cap``) sizes the big kernel's profile table: profiles up to
+    ``prof_len`` positions, as in the JAX package.  The engine
+    (``use_lane_kernel=False``) and a mesh raise ``NotImplementedError``
+    naming the ROADMAP item that brings them; blocks past 8192 raise
+    ``ValueError`` as in the JAX package.  ``device`` places the packed
+    tensors: a CUDA device runs the kernels, the CPU their plain versions.
     """
 
     def __init__(
@@ -575,9 +573,8 @@ class ProfileAligner(_Routed):
                 "to run on the ~100x slower XLA engine anyway")
         else:
             route = "engine"
-        if route in ("big", "engine"):
-            _not_yet(f"ProfileAligner route {route!r} (size {size})"
-                     if route == "big" else "use_lane_kernel=False", route)
+        if route == "engine":
+            _not_yet("use_lane_kernel=False", route)
         if mesh is not None:
             _not_yet("mesh", "mesh")
         self.x_drop = x_drop
@@ -592,8 +589,15 @@ class ProfileAligner(_Routed):
                      free_query_end_gaps=free_query_end_gaps)
         if route == "lane":
             self.cfg = LaneKernelConfig(min_size, cap, **modes)
-        else:
+        elif route == "adaptive":
             self.cfg = AdaptiveKernelConfig(min_size, max_size, cap, **modes)
+        else:
+            # the JAX package's table of prof_len + 10 positions
+            # (api.py:1049-1050)
+            prof_cap = round_up(
+                (seq_cap if prof_len is None else prof_len) + 10, 128)
+            self.cfg = BigKernelConfig(min_size, max_size, cap, **modes,
+                                       prof_cap=prof_cap)
 
     def _length(self, pair) -> int:
         return len(pair[0]) + (pair[1].str_len if pair[1] else 0)

@@ -1,14 +1,17 @@
-// Big-block adaptive alignment of a batch of sequence pairs, global or
-// x-drop, with or without trace, for Hopper (sm_90a).  Plain C interface,
-// loaded with ctypes by ops/big_kernel.py; the trace instances build from
-// csrc/big_trace.cu, the FLAGS instances (ByteMatrix scoring and the
-// local-start and free-query-gap flags, read at run time) from
-// csrc/big_flags.cu and csrc/big_trace_flags.cu.
+// Big-block adaptive alignment of a batch of sequence pairs, or of (query,
+// profile) pairs, global or x-drop, with or without trace, for Hopper
+// (sm_90a).  Plain C interface, loaded with ctypes by ops/big_kernel.py;
+// the trace instances build from csrc/big_trace.cu, the FLAGS instances
+// (ByteMatrix scoring and the local-start and free-query-gap flags, read at
+// run time) from csrc/big_flags.cu and csrc/big_trace_flags.cu, the
+// profile instances (with the flags read at run time) from
+// csrc/big_profile.cu and csrc/big_trace_profile.cu.
 //
 // Replaces: block_aligner_tpu/ops/big_kernel.py::build_big_engine (its
 // Pallas `kernel`) in global and in x-drop mode with a score table or a
-// ByteMatrix, with the local-start, free-query-start-gap and
-// free-query-end-gap flags, with or without trace: the grow / shrink /
+// ByteMatrix or a profile (sequence-to-PSSM), with the local-start,
+// free-query-start-gap and free-query-end-gap flags, with or without trace:
+// the grow / shrink /
 // checkpoint machine for 512 < max_size <= 8192, and (min, 512).  It
 // computes the same score (x-drop and free end gaps: the best score and its
 // position) and the same overrun flag, bit for bit; the
@@ -86,6 +89,26 @@
 //   Local start's trace has a second word a row, the 8 zero bits of the
 //   row (D == the relative zero), staged as one byte a row (1 byte a row
 //   more, 200 KB at 8192 in all) and written after the step's h words.
+// * the profile instances (BIG_PROFILE, which also reads the flags) score a
+//   query against a table of 8 words a profile position (7 words of biased
+//   score bytes by query code, and the gap word open_C | open_R << 8 |
+//   close_C << 16; ops/_profile.py), clamping every profile position to
+//   rlen + 1, whose word is the all-zero pad (the JAX big kernel's
+//   contract), so the table holds the profile's own rows, not rlen +
+//   max_size.  A right rect (lanes = query rows, columns = profile
+//   positions) stages its 8 entering rows in shared memory once a step
+//   (256 bytes), and each row's thread picks its query code's byte; the
+//   column's gap costs are the same for every row.  A down rect's lane is a
+//   profile position: its thread reads its row's score word by the
+//   entering query code and its gap word from global memory, which L1
+//   keeps across the step's 8 columns; C and R swap their open costs, and
+//   R closes before the merge into D (a right rect closes C).  S gap words
+//   are not staged: at 8192 rows local start's trace already takes 200 KB.
+//   The vertical-gap scan is the same three levels; only its open term is
+//   the row's own, and the warps' carries take each warp's last row's R
+//   open and close.  Trace compares D with the gap-closed C and R, as the
+//   reference does, and so reproduces its down-to-right hand-off.  Rows
+//   read positions by index, so a restore still only moves the anchor.
 // Several pairs per block at small sizes, i16x2 arithmetic and the DPX
 // instructions are left to later work.
 
@@ -118,6 +141,14 @@ constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 // apart, behind the preprocessor as the trace code is
 #define BIG_FLAGS false
 #endif
+#ifndef BIG_PROFILE
+// csrc/big_profile.cu and csrc/big_trace_profile.cu build the profile
+// instances apart, with BIG_FLAGS, behind the preprocessor too
+#define BIG_PROFILE false
+#endif
+#if BIG_PROFILE && !BIG_FLAGS
+#error "the profile instances read the flags: define BIG_FLAGS too"
+#endif
 // the run-time modes of the FLAGS instances (the `flags` argument)
 constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
 #if BIG_FLAGS
@@ -126,6 +157,16 @@ constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
 #else
 #define BIG_FLAGS_PARAMS
 #define BIG_FLAGS_ARGS
+#endif
+#if BIG_PROFILE
+// the profile table's words per position: 7 score words (4 biased bytes
+// each, query codes 0..27), then the gap word
+constexpr int PROF_WORDS = 8;
+#define BIG_PROFILE_PARAMS , int prof_cap
+#define BIG_PROFILE_ARGS , prof_cap
+#else
+#define BIG_PROFILE_PARAMS
+#define BIG_PROFILE_ARGS
 #endif
 #if BIG_TRACE
 // descriptor flags (core/traceback.py)
@@ -145,6 +186,32 @@ constexpr int F_RIGHT = 1, F_START = 2, F_SAVE = 4, F_RESTORE = 8;
 
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
 __device__ __forceinline__ int sat2(int x) { return min(max(x, NEG), POS); }
+
+#if BIG_PROFILE
+// The score of query code `code` in a profile position's row: byte code % 4
+// of word code / 4, biased by 128; codes past 27 score -128 (as
+// csrc/adaptive_kernel.cu's prof_score).
+__device__ __forceinline__ int prof_score(const int* row, int code) {
+  const int word = row[min(code >> 2, PROF_WORDS - 1)];
+  return code < 4 * (PROF_WORDS - 1) ? ((word >> (8 * (code & 3))) & 255) - 128
+                                     : -128;
+}
+
+// A profile position's gap costs for one cell (reference:
+// src/scan_block.rs:651-705): on a right rect the position is the column's,
+// C opens with its open_C plus the extension, R with its open_R, and C
+// closes; on a down rect it is the row's and the roles swap: C opens with
+// open_R, R with open_C, and R closes.
+struct ProfGaps {
+  int copen, dopen, close;
+  __device__ __forceinline__ ProfGaps(int g, bool right, int gext) {
+    const int oc = (g & 255) - 128, orr = ((g >> 8) & 255) - 128;
+    copen = (right ? oc : orr) + gext;
+    dopen = right ? orr : oc;
+    close = ((g >> 16) & 255) - 128;
+  }
+};
+#endif
 
 // Warps a block of this max_size runs with, and its shared planes' bytes:
 // ten i16 planes of max_size rows, with trace a staged word a row, and with
@@ -213,9 +280,17 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                  const int* __restrict__ qlen, const int* __restrict__ rlen,
                  const int* __restrict__ table, int* __restrict__ out, int cap,
                  int alpha, int S, int min_size, int max_steps, int gopen,
-                 int gext, int xdrop BIG_TRACE_PARAMS BIG_FLAGS_PARAMS) {
+                 int gext,
+                 int xdrop BIG_TRACE_PARAMS BIG_FLAGS_PARAMS BIG_PROFILE_PARAMS) {
   extern __shared__ short planes[];
+#if BIG_PROFILE
+  // a right rect's 8 entering profile rows
+  __shared__ int prow[STEP * PROF_WORDS];
+  // a warp's last row: its D plus R open, and its close cost
+  __shared__ int wdo[2][MAX_WARPS], wcl[2][MAX_WARPS];
+#else
   __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
+#endif
   __shared__ int wagg[2][MAX_WARPS];  // a warp's scan at its last row
   __shared__ int wdp[2][MAX_WARPS];   // ... and D before the scan there
   __shared__ int red[MAX_WARPS];      // the warps' rect maxima
@@ -227,6 +302,18 @@ big_align_kernel(const uint8_t* __restrict__ codes,
   const int T = blockDim.x, W = T >> 5;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
+#if BIG_PROFILE
+  // the modes (no byte mode); the pair's query codes (cap) and profile
+  // words (prof_cap, 8), every profile position clamped to rlen + 1
+  const bool local = flags & LOCAL_START, fstart = flags & FREE_START;
+  const bool fend = flags & FREE_END;
+  for (int k = tid; k < 8 * S; k += T) planes[k] = 0;
+  if (tid == 0) score = 0;
+  const uint8_t* qs = codes + (size_t)b * cap;
+  const int* pw = table + (size_t)b * prof_cap * PROF_WORDS;
+  const int ql = qlen[b], rl = rlen[b];
+  const int pmax = min(rl + 1, prof_cap - 1);
+#else
 #if BIG_FLAGS
   // the modes; byte mode has no table
   const bool local = flags & LOCAL_START, fstart = flags & FREE_START;
@@ -241,6 +328,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
   const uint8_t* qs = codes + (size_t)b * 2 * cap;
   const uint8_t* rs = qs + cap;
   const int ql = qlen[b], rl = rlen[b];
+#endif
   Planes P{{planes, planes + S, planes + 2 * S, planes + 3 * S},
            {0, 0, 0, 0}, 0, S - 1};
   short* const ck[4] = {planes + 4 * S, planes + 5 * S, planes + 6 * S,
@@ -341,8 +429,15 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     }
     pend = 0;
 #endif
+#if BIG_PROFILE
+    // a right rect's entering profile rows, for every thread of the block
+    if (right_or && tid < STEP * PROF_WORDS)
+      prow[tid] = pw[(size_t)min(cstart + tid / PROF_WORDS, pmax) * PROF_WORDS +
+                     tid % PROF_WORDS];
+#else
     const uint8_t* lseq = right_or ? qs : rs;
     const uint8_t* cseq = right_or ? rs : qs;
+#endif
     const int cpos_new = m.cpos + STEP;
     const bool phase_done = cpos_new >= (shift ? STEP : sz - m.psz);
     // this step's layout: NA slots of 32 rows a warp, the warps in order
@@ -360,7 +455,10 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     bool frozen = false;
     for (int w = 0; w < STEP; ++w) {
       const int par = w & 1;
-#if BIG_FLAGS
+#if BIG_PROFILE
+      // a down rect's column: its query code
+      const int cc = qs[min(cstart + w, cap - 1)];
+#elif BIG_FLAGS
       const int cc = min((int)cseq[min(cstart + w, cap - 1)], alpha - 1);
       const int* trow = tab + (byte ? 0 : cc * alpha);
 #else
@@ -371,6 +469,9 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         // pass 1: D before the vertical gaps, C, and the scan of D + (open
         // - extend) within the warp's rows
         int up_last = diag_in, tcar = FAR, t = 0, d = 0;
+#if BIG_PROFILE
+        int dov = 0, clv = 0;  // the row's D plus R open, its close cost
+#endif
         for (int k = 0; k < NA; ++k) {
           const int r = r0 + k * 32 + lane;
           const int dold = P.at(P.aD(), r), cold = P.at(P.aC(), r);
@@ -378,6 +479,25 @@ big_align_kernel(const uint8_t* __restrict__ codes,
           int up = __shfl_up_sync(FULL, dold, 1);
           if (lane == 0) up = up_last;
           up_last = __shfl_sync(FULL, dold, 31);
+#if BIG_PROFILE
+          // a right rect's row scores its query code in the entering row; a
+          // down rect's row, a profile position, the entering query code in
+          // its own row
+          const int* row = right_or
+                               ? prow + w * PROF_WORDS
+                               : pw + (size_t)min(ls + r, pmax) * PROF_WORDS;
+          const ProfGaps g(row[PROF_WORDS - 1], right_or, gext);
+          d = sat2(up + prof_score(
+                            row, right_or ? (int)qs[min(ls + r, cap - 1)] : cc));
+          if (origin && w == 0 && r == 0) d = ZERO;  // the DP origin
+          if (local) d = max(d, rz);
+          else if (ins0 && r == 0) d = rz;
+          // a right rect closes C before the merge; C stays pre-close
+          const int c = max(sat2(cold + gext), sat2(dold + g.copen));
+          d = max(d, right_or ? sat2(c + g.close) : c);
+          t = dov = sat2(d + g.dopen);
+          clv = g.close;
+#else
           const int lc = min((int)lseq[min(ls + r, cap - 1)], alpha - 1);
 #if BIG_FLAGS
           // byte mode compares the codes; the flags restart cells at the
@@ -393,6 +513,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
           const int c = max(sat(cold + gext), sat(dold + gopen));
           d = max(d, c);
           t = d + (gopen - gext);
+#endif
 #pragma unroll
           for (int dd = 1; dd < 32; dd <<= 1) {
             const int o = __shfl_up_sync(FULL, t, dd);
@@ -408,6 +529,10 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         if (lane == 31) {
           wagg[par][warp] = t;
           wdp[par][warp] = d;
+#if BIG_PROFILE
+          wdo[par][warp] = dov;
+          wcl[par][warp] = clv;
+#endif
         }
       }
       __syncthreads();  // the warps' scans are visible
@@ -420,20 +545,45 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         // the R-open bit (R == D + open - extend) of the row above the
         // warp's first row, 0 above row 0; its R is max(cw, its zero
         // correction e * 8)
+#if BIG_PROFILE
+        int rup = warp == 0 ? 0 : max(cw, gext * STEP) == wdo[par][warp - 1];
+#else
         int rup = warp == 0 ? 0
                             : max(cw, gext * STEP) ==
                                   wdp[par][warp - 1] + gopen - gext;
+#endif
 #endif
         for (int k = 0; k < NA; ++k) {
           const int r = r0 + k * 32 + lane;
           const int R =
               max(max((int)TL[r], cw + gext * (k * 32 + lane + 1)), zc);
+#if BIG_PROFILE
+          // the row's gap costs again: a down rect closes R before the merge
+          const int* row = right_or
+                               ? prow + w * PROF_WORDS
+                               : pw + (size_t)min(ls + r, pmax) * PROF_WORDS;
+          const ProfGaps g(row[PROF_WORDS - 1], right_or, gext);
+          const int re = right_or ? R : sat2(R + g.close);
+          const int D = max((int)DP[r], re);
+#else
           const int D = max((int)DP[r], R);
+#endif
 #if BIG_TRACE
           {
             // t = (D == C) | (D == R) << 1, t2 = (C == C_open) | R bit << 1
             // with the R bit of the row above
             const int c = P.at(P.aC(), r);
+#if BIG_PROFILE
+            // profile: D against the gap-closed C and R
+            const int ropen = R == sat2(DP[r] + g.dopen);
+            int rin = __shfl_up_sync(FULL, ropen, 1);
+            if (lane == 0) rin = rup;
+            rup = __shfl_sync(FULL, ropen, 31);
+            const unsigned nib = (D == (right_or ? sat2(c + g.close) : c)) |
+                                 (D == re) << 1 |
+                                 (c == sat2(P.at(P.aD(), r) + g.copen)) << 2 |
+                                 rin << 3;
+#else
             const int ropen = R == DP[r] + gopen - gext;
             int rin = __shfl_up_sync(FULL, ropen, 1);
             if (lane == 0) rin = rup;
@@ -441,6 +591,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
             const unsigned nib = (D == c) | (D == R) << 1 |
                                  (c == sat(P.at(P.aD(), r) + gopen)) << 2 |
                                  rin << 3;
+#endif
             WD[r] = (w == 0 ? 0u : WD[r]) | nib << (4 * w);
 #if BIG_FLAGS
             // local start: the cell restarted at the relative zero
@@ -482,8 +633,19 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         }
         // the next column's diagonal into the warp's first row: the final
         // D of the row above it, whose R is the carry cw
+#if BIG_PROFILE
+        if (warp > 0) {
+          // a down rect's row above closes its R before the merge
+          const int ra = max(cw, gext * STEP);
+          diag_in = max(wdp[par][warp - 1],
+                        right_or ? ra : sat2(ra + wcl[par][warp - 1]));
+        } else {
+          diag_in = NEG;
+        }
+#else
         diag_in = warp == 0 ? NEG
                             : max(wdp[par][warp - 1], max(cw, gext * STEP));
+#endif
 #if BIG_FLAGS
         if (XDROP || fend) {
 #else
@@ -764,7 +926,7 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    void* steps, void* used, int B, int cap, int alpha,
                    int min_size, int max_size, int max_steps, int gopen,
                    int gext, int xdrop, int budget, int flags, int bmatch,
-                   int bmismatch, cudaStream_t stream) {
+                   int bmismatch, int prof_cap, cudaStream_t stream) {
   const size_t smem = plane_bytes(max_size, flags);
   cudaError_t err = cudaFuncSetAttribute(
       big_align_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -772,7 +934,8 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
   if (err != cudaSuccess) return err;
   big_align_kernel<X><<<B, warps_for(max_size) * 32, smem, stream>>>(
       codes, qlen, rlen, table, out, cap, alpha, max_size, min_size,
-      max_steps, gopen, gext, xdrop BIG_TRACE_ARGS BIG_FLAGS_ARGS);
+      max_steps, gopen, gext,
+      xdrop BIG_TRACE_ARGS BIG_FLAGS_ARGS BIG_PROFILE_ARGS);
   return cudaGetLastError();
 }
 
@@ -782,13 +945,15 @@ bool bad_sizes(int min_size, int max_size) {
          min_size > max_size || (min_size == max_size && max_size == 512);
 }
 
-// The modes a library takes: none but in the FLAGS libraries, and there the
-// reference's exclusions (no local start with free start gaps, no x-drop
-// with free end gaps or byte mode)
+// The modes a library takes: none but in the FLAGS and profile libraries,
+// and there the reference's exclusions (no local start with free start
+// gaps, no x-drop with free end gaps or byte mode, no byte mode with a
+// profile)
 bool bad_flags(int flags, bool xdrop) {
   return (flags & ~15) || (flags && !BIG_FLAGS) ||
          ((flags & LOCAL_START) && (flags & FREE_START)) ||
-         (xdrop && (flags & (FREE_END | BYTE_MODE)));
+         (xdrop && (flags & (FREE_END | BYTE_MODE))) ||
+         (BIG_PROFILE && (flags & BYTE_MODE));
 }
 
 }  // namespace
@@ -803,8 +968,13 @@ bool bad_flags(int flags, bool xdrop) {
 // `flags` (LOCAL_START | FREE_START | FREE_END | BYTE_MODE, as in
 // csrc/lane_kernel.cu's lane_align_launch) and byte mode's match and
 // mismatch scores are read by the FLAGS libraries (csrc/big_flags.cu,
-// csrc/big_trace_flags.cu); the others take flags 0.  One thread block per
-// pair.  Returns the cudaError_t of the launch.
+// csrc/big_trace_flags.cu) and the profile libraries (csrc/big_profile.cu,
+// csrc/big_trace_profile.cu, no byte mode); the others take flags 0.  The
+// profile libraries take prof_cap > 0 (a multiple of 128), the others 0:
+// there codes (B, cap) uint8 are the queries' codes, table (B, prof_cap,
+// 8) int32 the profiles' words (ops/_profile.py), rlen the profiles'
+// lengths (each below prof_cap - 1), and alpha and gopen are not read.  One
+// thread block per pair.  Returns the cudaError_t of the launch.
 extern "C" int big_align_launch(const void* codes, const void* qlen,
                                 const void* rlen, const void* table, void* out,
                                 void* words, void* desc, void* steps,
@@ -812,12 +982,13 @@ extern "C" int big_align_launch(const void* codes, const void* qlen,
                                 int min_size, int max_size, int max_steps,
                                 int gopen, int gext, int x_drop, int budget,
                                 int flags, int match, int mismatch,
-                                void* stream) {
+                                int prof_cap, void* stream) {
   const bool traced = words && desc && steps && used && budget > 0;
   if (B < 1 || cap < 1 || alpha < 1 ||
       ((flags & BYTE_MODE) ? alpha != 256 : alpha > MAX_ALPHA) ||
       bad_sizes(min_size, max_size) || bad_flags(flags, x_drop >= 0) ||
-      traced != BIG_TRACE || (!BIG_TRACE && (words || desc || steps || used)))
+      traced != BIG_TRACE || (!BIG_TRACE && (words || desc || steps || used)) ||
+      (prof_cap > 0) != BIG_PROFILE || prof_cap < 0 || prof_cap % 128)
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
@@ -829,15 +1000,16 @@ extern "C" int big_align_launch(const void* codes, const void* qlen,
              ? (int)launch<false>(c, q, r, t, o, words, desc, steps, used, B,
                                   cap, alpha, min_size, max_size, max_steps,
                                   gopen, gext, x_drop, budget, flags, match,
-                                  mismatch, st)
+                                  mismatch, prof_cap, st)
              : (int)launch<true>(c, q, r, t, o, words, desc, steps, used, B,
                                  cap, alpha, min_size, max_size, max_steps,
                                  gopen, gext, x_drop, budget, flags, match,
-                                 mismatch, st);
+                                 mismatch, prof_cap, st);
 }
 
 // The launch of a max_size's instance (x-drop if `x_drop`; the trace
-// libraries' trace instance; `flags` as in big_align_launch): shape[0]
+// libraries' trace instance, the profile libraries' profile instance;
+// `flags` as in big_align_launch): shape[0]
 // threads a block, shape[1] bytes of dynamic shared memory, and shape[2]
 // blocks resident on an SM of the current device
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).

@@ -1,0 +1,8 @@
+// The traced profile instances of csrc/big_kernel.cu, one library of their
+// own: trace (csrc/big_trace.cu) for (query, profile) pairs, with the
+// local-start, free-query-start-gap and free-query-end-gap flags read from
+// big_align_launch's `flags`.
+#define BIG_TRACE true
+#define BIG_FLAGS true
+#define BIG_PROFILE true
+#include "big_kernel.cu"

@@ -18,6 +18,13 @@ its own row, and its own gap costs apply, with the C and R roles swapped
 (``core/oracle.py::_SeqProfileFetch``).  The TPU kernels kept lane-window
 stacks of codes and rows for this; here every lane knows its row's
 position from the block's anchor.
+
+The big kernel (``ops/big_kernel.py``, a configuration with ``prof_cap``)
+takes the JAX big kernel's clamp contract (``big_kernel.py:693-705``,
+``:2148-2155``): its table holds ``prof_cap`` positions, a profile's own
+rows 0..str_len + 1 are packed, and every fetch of a position past rlen + 1
+reads position rlen + 1, whose word is the all-zero pad.  So the host
+gathers about str_len rows a profile, not str_len + max_size.
 """
 
 from __future__ import annotations
@@ -40,21 +47,26 @@ class ProfilePack(NamedTuple):
     codes: torch.Tensor  # (B, seq_cap) uint8: query codes, NULL padded
     qlen: torch.Tensor  # (B,) int32
     rlen: torch.Tensor  # (B,) int32: the profiles' lengths
-    table: torch.Tensor  # (B, seq_cap, 8) int32: the profiles' words
+    table: torch.Tensor  # (B, seq_cap, 8) int32: the profiles' words;
+    # (B, prof_cap, 8) for the big kernel
     gaps: tuple  # (0, extend, x): one gap extension for the whole batch
 
 
 def pack_profile(pairs, cfg, device, x_drop: int = 0) -> ProfilePack:
-    """Pack ``(query, AAProfile)`` pairs for ``lane_align`` or
-    ``adaptive_align`` in profile mode on ``device``; ``cfg.block`` is the
-    block size the packing must leave room for.  A pair whose profile is
-    None packs as an empty pair.  Rejects what the JAX packer rejects, with
-    its messages.
+    """Pack ``(query, AAProfile)`` pairs for ``lane_align``,
+    ``adaptive_align`` or ``big_align`` in profile mode on ``device``;
+    ``cfg.block`` is the block size the packing must leave room for.  With
+    a ``cfg.prof_cap`` (the big kernel) the table holds that many positions
+    and each profile's rows 0..str_len + 1 (the clamp contract above).  A
+    pair whose profile is None packs as an empty pair.  Rejects what the
+    JAX packers reject, with their messages.
 
     The host gathers every profile's packed rows into one array and the
     device scatters them into the zeroed table, so only the rows in use
     travel."""
     B, S, cap = len(pairs), cfg.block, cfg.seq_cap
+    pcap = cfg.prof_cap
+    npos = pcap or cap  # the table's positions
     dev = torch.device(device)
     qlen = np.zeros(B, np.int64)
     rlen = np.zeros(B, np.int64)
@@ -76,13 +88,18 @@ def pack_profile(pairs, cfg, device, x_drop: int = 0) -> ProfilePack:
         if 1 + len(q) + S + 16 > cap:
             raise AssertionError("query too long")
         queries.append(q)
-        cls[b] = cl = min(prof.curr_len, prof.str_len + S + 1, cap)
+        cls[b] = cl = (min(prof.curr_len, prof.str_len + 2) if pcap else
+                       min(prof.curr_len, prof.str_len + S + 1, cap))
         ps_parts.append(prof.pos_scores[:cl])
         for part, arr in zip(gaps, (prof.gap_open_C, prof.gap_open_R,
                                     prof.gap_close_C)):
             part.append(arr[:cl])
+    if pcap and B and int(rlen.max()) + 10 > pcap:
+        raise AssertionError(
+            f"prof_cap {pcap} must cover the longest profile + 10 (rlen max "
+            f"{int(rlen.max())})")
     codes = torch.full((B, cap), NULL_CODE, dtype=torch.uint8, device=dev)
-    table = torch.zeros((B, cap, PROF_WORDS), dtype=torch.int32, device=dev)
+    table = torch.zeros((B, npos, PROF_WORDS), dtype=torch.int32, device=dev)
     if ps_parts:
         ps = np.concatenate(ps_parts).astype(np.int32, copy=False)
         gv = np.stack([np.concatenate(g) for g in gaps], 1).astype(np.int64)
@@ -97,7 +114,7 @@ def pack_profile(pairs, cfg, device, x_drop: int = 0) -> ProfilePack:
         rows[:, 4 * PROF_SCORE_WORDS : -1] = gv
         rows[:, -1] = 0
         words = torch.from_numpy(rows.view("<u4").view(np.int32)).to(dev)
-        table.view(B * cap, PROF_WORDS)[_runs(cls, cap, dev)] = words
+        table.view(B * npos, PROF_WORDS)[_runs(cls, npos, dev)] = words
         qb = torch.frombuffer(bytearray().join(queries), dtype=torch.uint8)
         if qb.numel():
             # codes: the uppercased byte - 65, wrapping (AAProfile.convert)
@@ -135,13 +152,18 @@ def _byte(words, sub):
 class ProfileFetch:
     """The plain versions' profile scores and gap costs, one step at a
     time: ``step`` reads the step's codes and rows, ``column(w)`` gives
-    column w's scores and per-cell gap costs, each (B, S)."""
+    column w's scores and per-cell gap costs, each (B, S).  With ``rlen``
+    (the big kernel) every profile position is clamped to rlen + 1, as its
+    packer's contract says.  Only the two words a cell reads are gathered:
+    its score word and its position's gap word."""
 
-    def __init__(self, codes, table, e: int):
+    def __init__(self, codes, table, e: int, rlen=None):
         self.codes = codes.long()
-        self.table = table.to(torch.int64)
+        self.table = table
         self.e = e
         self.bidx = torch.arange(codes.shape[0], device=codes.device)[:, None]
+        self.last = (None if rlen is None else
+                     (rlen.long() + 1).clamp(max=table.shape[1] - 1)[:, None])
 
     def step(self, right, lpos, cpos):
         """``right`` (B,) bool: the lanes are query rows; ``lpos`` (B, S)
@@ -152,23 +174,27 @@ class ProfileFetch:
         # down step's by the column codes in their own rows
         self.lane_code = self.codes.gather(1, lpos)
         self.col_code = self.codes.gather(1, cpos)
+        if self.last is not None:
+            lpos, cpos = (torch.minimum(lpos, self.last),
+                          torch.minimum(cpos, self.last))
+        self.lpos = lpos
         self.col_rows = self.table[self.bidx, cpos]  # (B, 8, 8)
-        self.lane_rows = self.table[self.bidx, lpos]  # (B, S, 8)
+        self.lane_gap = self.table[self.bidx, lpos, PROF_WORDS - 1]  # (B, S)
 
     def column(self, w):
         """Column w's (scores, C open cost, R open cost, close cost), each
         (B, S) int32.  The close cost closes C on right steps and R on down
         steps."""
         right = self.right
-        rows = torch.where(right[:, :, None],
-                           self.col_rows[:, w : w + 1, :], self.lane_rows)
         code = torch.where(right, self.lane_code,
                            self.col_code[:, w : w + 1])
         idx = (code >> 2).clamp(max=PROF_WORDS - 1)
-        word = rows.gather(2, idx[:, :, None])
-        sc = torch.where(code < 4 * PROF_SCORE_WORDS,
-                         _byte(word[:, :, 0], code & 3), -128)
-        g = rows[:, :, PROF_WORDS - 1]
+        word = torch.where(right, self.col_rows[:, w].gather(1, idx),
+                           self.table[self.bidx, self.lpos, idx])
+        sc = torch.where(code < 4 * PROF_SCORE_WORDS, _byte(word, code & 3),
+                         -128)
+        g = torch.where(right, self.col_rows[:, w, PROF_WORDS - 1 :],
+                        self.lane_gap)
         oc, orr, cl = _byte(g, 0), _byte(g, 1), _byte(g, 2)
         i32 = torch.int32
         return (sc.to(i32), (torch.where(right, oc, orr) + self.e).to(i32),

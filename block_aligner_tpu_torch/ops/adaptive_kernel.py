@@ -109,6 +109,9 @@ class AdaptiveKernelConfig:
     local_start: bool = False  # an alignment may start at any cell
     free_query_start_gaps: bool = False  # leading query gaps are free
     free_query_end_gaps: bool = False  # trailing query gaps are free
+    # a profile table's positions when not seq_cap (the big kernel's
+    # ``prof_cap``); a class constant here
+    prof_cap = 0
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
@@ -176,7 +179,9 @@ def adaptive_align_plain(codes, qlen, rlen, table, gaps,
     fe = cfg.free_query_end_gaps
     i32 = torch.int32
     if cfg.profile:
-        fetch = ProfileFetch(codes, table, e)
+        # the big kernel's table clamps profile positions to rlen + 1
+        fetch = ProfileFetch(codes, table, e,
+                             rlen if cfg.prof_cap else None)
     else:
         seqs = codes.long().clamp(max=A - 1)
         if cfg.byte_mode:

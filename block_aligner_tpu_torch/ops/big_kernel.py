@@ -6,7 +6,8 @@ Counterpart of ``block_aligner_tpu/ops/big_kernel.py``: ``build_big_engine``
 (512 < max_size <= 8192, and (min, 512)) in global and in x-drop mode, with
 or without trace, scoring sequence pairs by a table or by byte equality
 (``cfg.byte_mode``), with or without the local-start and free-query-gap
-flags of ``ops/lane_kernel.py``.  Its machine is the
+flags of ``ops/lane_kernel.py``, and for (query, profile) pairs.  Its
+machine is the
 adaptive kernel's (``ops/adaptive_kernel.py``): the same grow / shrink /
 checkpoint ladder min, 2 min, ..., max, the same 8-column rects, the same
 16-residue x-drop tracker and X_DROP_ITER = 2 hysteresis; only the block is
@@ -43,9 +44,13 @@ The modes read at run time (ByteMatrix and the three flags) run in
 libraries of their own, with and without trace (``csrc/big_flags.cu``,
 ``csrc/big_trace_flags.cu``), as the lane and adaptive kernels' flags
 instances do, so the global, x-drop and trace libraries compile the code
-they had.  Profiles and the segmented 16384 band are later slices of kernel
-C: profile configurations raise ``ValueError`` naming the ROADMAP item that
-brings them.
+they had.  Sequence-to-PSSM pairs (``cfg.profile``) run in two more, with
+the flags read at run time (``csrc/big_profile.cu``,
+``csrc/big_trace_profile.cu``), on the inputs of
+``ops/_profile.py::pack_profile`` with the JAX big kernel's clamp contract:
+a table of ``cfg.prof_cap`` positions, every position past a profile's
+rlen + 1 read as rlen + 1, the all-zero pad.  The segmented 16384 band is
+a later slice of kernel C (ROADMAP queue 2 item 5e).
 """
 
 from __future__ import annotations
@@ -70,11 +75,11 @@ LIBRARY = "big_kernel"  # csrc/big_kernel.cu
 TRACE_LIBRARY = "big_trace"  # its trace instances, csrc/big_trace.cu
 FLAGS_LIBRARY = "big_flags"  # its FLAGS instances, csrc/big_flags.cu
 TRACE_FLAGS_LIBRARY = "big_trace_flags"  # csrc/big_trace_flags.cu
-LIBRARIES = (LIBRARY, TRACE_LIBRARY, FLAGS_LIBRARY, TRACE_FLAGS_LIBRARY)
+PROFILE_LIBRARY = "big_profile"  # its profile instances, csrc/big_profile.cu
+TRACE_PROFILE_LIBRARY = "big_trace_profile"  # csrc/big_trace_profile.cu
+LIBRARIES = (LIBRARY, TRACE_LIBRARY, FLAGS_LIBRARY, TRACE_FLAGS_LIBRARY,
+             PROFILE_LIBRARY, TRACE_PROFILE_LIBRARY)
 MAX_CAP = 16384  # code positions per sequence (JAX api.py:84-87)
-
-# the modes of kernel C still to port, and the ROADMAP.md item of each
-_LATER = {"profile": "queue 2 item 5d (kernel C profiles)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +95,9 @@ class BigKernelConfig:
     local_start: bool = False  # an alignment may start at any cell
     free_query_start_gaps: bool = False  # leading query gaps are free
     free_query_end_gaps: bool = False  # trailing query gaps are free
-    # a later slice, which raises (``_LATER``); a field so that the adaptive
-    # machine and the lane helpers read this configuration
-    profile: bool = False
+    profile: bool = False  # sequence-to-PSSM mode (ops/_profile.py)
+    prof_cap: int = 0  # profile mode: the table's positions, a multiple
+    # of 128 (JAX ``prof_cap``); 0 otherwise
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
@@ -107,10 +112,11 @@ class BigKernelConfig:
             raise ValueError(
                 f"seq_cap must be a multiple of 128 in max(256, max_size + "
                 f"{2 * STEP})..{MAX_CAP}, got {self.seq_cap}")
-        for mode, item in _LATER.items():
-            if getattr(self, mode):
-                raise ValueError(f"the big kernel's {mode} mode is not "
-                                 f"ported yet: ROADMAP.md {item}")
+        if (self.prof_cap % 128 or (self.prof_cap < 128 if self.profile
+                                    else self.prof_cap)):
+            raise ValueError("prof_cap must be a multiple of 128, at least "
+                             f"128 in profile mode and 0 otherwise, got "
+                             f"{self.prof_cap}")
         check_modes(self)
 
     @property
@@ -163,7 +169,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of ``csrc/big_kernel.cu`` (any of its
     libraries)."""
     lib.big_align_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
     lib.big_align_launch.restype = ctypes.c_int
     lib.big_launch_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.big_launch_shape.restype = ctypes.c_int
@@ -174,7 +180,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def library(cfg: BigKernelConfig) -> str:
     """The name of the ``csrc/`` library that holds ``cfg``'s instance: the
-    trace library with trace, the FLAGS library with byte mode or a flag."""
+    trace library with trace, the FLAGS library with byte mode or a flag,
+    the profile library (whose flags are read at run time) for profiles."""
+    if cfg.profile:
+        return TRACE_PROFILE_LIBRARY if cfg.trace else PROFILE_LIBRARY
     if flag_bits(cfg):
         return TRACE_FLAGS_LIBRARY if cfg.trace else FLAGS_LIBRARY
     return TRACE_LIBRARY if cfg.trace else LIBRARY
@@ -189,14 +198,24 @@ def _lib(name: str) -> ctypes.CDLL:
 def launch_shape(cfg: BigKernelConfig):
     """``(threads, dynamic shared bytes, thread blocks per SM)`` of one
     launch of ``cfg``'s kernel instance on the current CUDA device, the
-    last from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    last from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.  Raises
+    ``ValueError`` where the device refuses the instance its shared memory
+    (``cudaFuncSetAttribute`` past the 227 KB an H100 block may have)."""
+    return _launch_shape(cfg, torch.cuda.current_device())
+
+
+@functools.cache
+def _launch_shape(cfg: BigKernelConfig, device: int):
     got = (ctypes.c_int * 3)()
     lib = _lib(library(cfg))
     err = lib.big_launch_shape(cfg.max_size, int(cfg.x_drop), flag_bits(cfg),
                                ctypes.addressof(got))
     if err:
-        raise RuntimeError("big kernel occupancy query failed: "
-                           f"{lib.big_error_string(err).decode()}")
+        raise ValueError(
+            f"the big kernel at max_size {cfg.max_size} (trace "
+            f"{cfg.trace}, flags {flag_bits(cfg)}) cannot have the shared "
+            f"memory its planes need a thread block on this device: "
+            f"{lib.big_error_string(err).decode()}")
     return tuple(got)
 
 
@@ -214,8 +233,12 @@ def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
     stream, one thread block per pair, or raise.  The wrapper counts its
     launches by instance (``lane_kernel.COUNTERS``): ``big_align.launches``
     (global), ``xdrop_launches``, ``trace_launches`` and
-    ``xdrop_trace_launches``, and the same with ``byte_`` or ``flags_``
-    (local start or free gaps) in front."""
+    ``xdrop_trace_launches``, and the same with ``profile_``, ``byte_`` or
+    ``flags_`` (local start or free gaps) in front.
+
+    In profile mode (``cfg.profile``) the inputs are those of
+    ``ops/_profile.py::pack_profile``: codes (B, seq_cap) of the queries,
+    table (B, prof_cap, 8) of the profiles' words."""
     if codes.device.type == "cpu":
         return big_align_plain(codes, qlen, rlen, table, gaps, cfg)
     dev = codes.device
@@ -231,13 +254,14 @@ def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
         return res
     lib = _lib(library(cfg))
     with torch.cuda.device(dev):
+        launch_shape(cfg)  # raises where shared memory cannot hold it
         err = lib.big_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
             table.data_ptr(), out.data_ptr(), *ptrs, B, cfg.seq_cap,
             cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps,
             int(gaps[0]), int(gaps[1]), x_value(gaps, cfg),
             cfg.trace_budget if cfg.trace else 0, *mode_args(gaps, cfg),
-            torch.cuda.current_stream().cuda_stream)
+            cfg.prof_cap, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("big kernel launch failed: "
                            f"{lib.big_error_string(err).decode()}")

@@ -94,6 +94,9 @@ class LaneKernelConfig:
     local_start: bool = False  # an alignment may start at any cell
     free_query_start_gaps: bool = False  # leading query gaps are free
     free_query_end_gaps: bool = False  # trailing query gaps are free
+    # a profile table's positions when not seq_cap (the big kernel's
+    # ``prof_cap``); a class constant here
+    prof_cap = 0
 
     def __post_init__(self):
         S = self.block
@@ -572,8 +575,10 @@ def check_inputs(codes, qlen, rlen, table, cfg):
     shapes and layout their C entry points read."""
     dev, B, cap = codes.device, codes.shape[0], cfg.seq_cap
     if cfg.profile:
+        # the big kernel's table has prof_cap positions
         _check("codes", codes, torch.uint8, (B, cap), dev)
-        _check("table", table, torch.int32, (B, cap, PROF_WORDS), dev)
+        _check("table", table, torch.int32,
+               (B, cfg.prof_cap or cap, PROF_WORDS), dev)
     elif cfg.byte_mode:
         _check("codes", codes, torch.uint8, (B, 2, cap), dev)
         _check("table", table, torch.int32, (0,), dev)

@@ -3,19 +3,22 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
-Phases, each reported on its own line:
+Phases, each reported on its own line, in this order: 1, 2 for the big
+kernel's libraries (seconds), 25-37 while the lane and adaptive libraries
+(minutes) build, 2's end, 3-24, 38-42:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``,
    their profile libraries ``{lane,adaptive}_profile.cu``, the flags
    libraries ``{lane,adaptive}_flags.cu`` and
    ``{lane,adaptive}_profile_flags.cu``, the big-block kernel
-   ``big_kernel.cu``, its trace instances ``big_trace.cu`` and its FLAGS
-   instances ``big_flags.cu`` and ``big_trace_flags.cu`` into ``build/``
-   (keyed on the sources), one ``nvcc -Xptxas -v`` each, all twelve
-   started together, with the registers, stack and spills of every kernel
-   instance, each held to the counts pinned in ``chip_smoke_ptxas.txt``;
-   load the builds;
+   ``big_kernel.cu``, its trace instances ``big_trace.cu``, its FLAGS
+   instances ``big_flags.cu`` and ``big_trace_flags.cu`` and its profile
+   instances ``big_profile.cu`` and ``big_trace_profile.cu`` into
+   ``build/`` (keyed on the sources), one ``nvcc -Xptxas -v`` each, all
+   fourteen started together, with the registers, stack and spills of
+   every kernel instance, each held to the counts pinned in
+   ``chip_smoke_ptxas.txt`` once all are built; load the builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
    on the card, exact equality of score and suspect flag at blocks 16..512
    on seeded random protein and DNA pairs, and the reference's golden
@@ -122,9 +125,9 @@ Phases, each reported on its own line:
    pairs (phase 29's) at fixed (2048, 4096), and a capped run that
    overruns; its launch shapes (threads, dynamic shared bytes, blocks per
    SM);
-26. the same in x-drop mode (protein x 0 and 100, DNA x 20), and 8 of
-   the growth pairs at (512, 8192) with x_drop 1000: all four outputs
-   equal;
+26. the same in x-drop mode (protein x 0 and 100, DNA x 20), and the 4
+   shortest of the first 8 growth pairs at (512, 8192) with x_drop 1000:
+   all four outputs equal;
 27. the big main path, the reference's <10 kbp 1%-10% band: 1024
    nanopore-like pairs of 5..10 kbp with 10% edits
    (``examples_tpu/common.py::load_nanopore_pairs``, seed 1234; the JAX
@@ -144,16 +147,17 @@ Phases, each reported on its own line:
    words below each counter equal, and the CIGARs walked from both; a run
    under a reduced trace budget where some pairs overrun; the trace
    instances' launch shapes;
-31. the traced nanopore band: phase 27's 1024 pairs at (128, 1024)
-   through ``align_all_trace`` in batches of 256, global and x 50, held
+31. the traced nanopore band: the first 512 of phase 27's pairs at (128,
+   1024) through ``align_all_trace`` in batches of 256, global and x 50,
+   held
    against phase 27's non-trace instance and plain version, the CIGARs of
    the 32 pairs with the fewest cells against the plain version's trace
    (its time is its longest pair's steps); the trace bytes copied per
    pair against what the cells need (4 bits each), the budget and a dense
    layout;
 32. traced growth: four of phase 29's growth pairs at (512, 8192), whose
-   traced steps reach 4096 and 8192 rows, every CIGAR against the plain
-   version's;
+   traced steps reach 4096 and 8192 rows, the CIGARs of the two with the
+   fewest cells against the plain version's;
 33. the big kernel's FLAGS instances (``csrc/big_flags.cu``,
    ``csrc/big_trace_flags.cu``) against the plain version: 32-pair
    structural batches at (128, 1024), (512, 1024) and (1024, 1024) with
@@ -166,20 +170,47 @@ Phases, each reported on its own line:
    zero words too) and CIGARs equal; the FLAGS instances' launch shapes at
    1024, 4096 and 8192 rows;
 34. the byte band: phase 27's pairs with ``ByteMatrix(2, -4)``, -6/-2,
-   global and traced (``align_all_trace`` in batches of 256): on ACGT
+   global and (the first 512) traced (``align_all_trace`` in batches of
+   256): on ACGT
    reads byte equality scores as ``NucMatrix(2, -4)`` does, so every
    result must equal phase 27's plain version's and every CIGAR phase
    31's, pair for pair;
-35. local start with x_drop 50 on the same band, global and traced (the
-   CIGARs of the 32 pairs with the fewest cells against the plain
-   version's);
+35. local start with x_drop 50 on the same band, global and (the first
+   512) traced (the CIGARs of the 32 pairs with the fewest cells against
+   the plain version's);
 36. glocal read-to-window: 1024 reads of 600..999 bases cut from the
    nanopore pairs (``read_window_pairs``), each against its reference
    window with 500..1499 random bases of flank a side, at (1024, 1024)
    with free query start and end gaps, global and traced (the first 256
    CIGARs against the plain version's);
 37. the (32, 512) band without trace on the uc30 pairs with
-   ``ByteMatrix(1, -1)``, and with local start under BLOSUM62.
+   ``ByteMatrix(1, -1)``, and with local start under BLOSUM62;
+38. the reference's PSSM self-oracle (``examples/pssm_accuracy.rs:80-82``;
+   the JAX package's ``examples_tpu/pssm_accuracy.py``) on the big
+   kernel's profile instances (``csrc/big_profile.cu``): phase 16's 8192
+   SCOP-style pairs through ``ProfileAligner((2048, 2048), seq_cap=max_q +
+   16, prof_len=max_p + 16)``, global and (the first 2048, each of which
+   runs the first rect's 2048 columns) x 50, then ``pssm_accuracy.py``'s
+   table: how many lane and adaptive results at (32, 32), (32, 64), (64,
+   64), (64, 128) and (128, 128) equal the self-oracle's;
+39. growth: 4 strong-consensus profiles with random middles of 500..1400
+   positions, 2 more whose gap opens and closes vary by position and 2
+   such profiles whose queries miss a stretch of them, at (32, 2048),
+   global (blocks must reach 1024 and 2048, the varied ones too) and x 50,
+   and 2 at (512, 4096) whose blocks must reach 4096, against the plain
+   version; the profile instances' launch shapes at 1024..8192 rows;
+40. trace (``csrc/big_trace_profile.cu``): the self-oracle pairs traced in
+   batches of 256, global (all 8192) and x 50 (the first 1024), each
+   CIGAR rescored (``check_profile_cigars``) and the first 256 against the
+   plain version's; the (32, 2048) pairs of phase 39 traced, global and x
+   50, against the plain version down to the CIGARs;
+41. the flags on the self-oracle pairs: local start (and traced, 2048
+   pairs, and traced with x 50, 1024), on 2048 of them free query end gaps
+   and free query start gaps with x 50; on the (32, 2048) pairs of phase
+   39 traced local start and free start gaps against the plain version;
+42. ``align_profile_exp_all`` on 1024 of the self-oracle pairs over a
+   (256, 2048) ladder, the self-oracle's score as the target (8
+   unreachable), every result held against the plain version at its size.
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal the
@@ -321,6 +352,10 @@ C_BYTE = "block_aligner_tpu/ops/big_kernel.py:1321"
 C_FLAGS = "block_aligner_tpu/ops/big_kernel.py:1337"
 C_ZERO_BIT = "block_aligner_tpu/ops/big_kernel.py:1406"
 C_FREE_END = "block_aligner_tpu/ops/big_kernel.py:1434"
+# kernel C's profile fetch and per-cell gap costs, and its profile trace
+# against the gap-closed values
+C_PROFILE = "block_aligner_tpu/ops/big_kernel.py:1283"
+C_PROFILE_TRACE = "block_aligner_tpu/ops/big_kernel.py:1394"
 # byte mode compares the lane's byte with the entering one where the score
 # was a lookup: one compare-select.  Local start raises D to the relative
 # zero: one max; with trace its zero bit is a compare, a shift and an or.
@@ -481,6 +516,15 @@ def profile_of(rng, cons):
 
 # query bytes outside A..Z (lower case is upper-cased): codes 26 and 27
 # score by the profile's NULL and next column, every other one -128
+def deletion_profile_pairs(rng, length=300):
+    """Two (query, profile) pairs whose queries miss 70 and 80 positions of
+    their profile (``profile_of`` a random sequence of ``length``): their
+    profile gaps run along a down rect's rows, across its warps."""
+    cons = rng.choice(AA, size=length).tobytes()
+    return [(cons[:50] + cons[120:], profile_of(rng, cons)),
+            (cons[:150] + cons[230:], profile_of(rng, cons))]
+
+
 ODD_BYTES = np.frombuffer(b"[\\*-@x~", dtype=np.uint8)
 
 
@@ -574,6 +618,33 @@ def grow_profile_pairs(rng, n, length=560, inserted=300):
     adaptive blocks grow to 512 rows to cross it."""
     return [(q, blosum_profile(rng, r)) for q, r in
             grow_to_512_pairs(rng, n, length, inserted)]
+
+
+def consensus_growth_pairs(rng, n, flank, middle, varied=False):
+    """(query, profile) pairs whose blocks grow past 512: a strong-consensus
+    profile (``AAProfile.from_bytes``: 5 on the consensus residue, -4
+    elsewhere, gap opens -11, close 0, extend -1; the JAX package's
+    ``tests/test_big_profile.py::growth_pair``) of a flank, a random middle
+    of ``middle`` residues and a second flank, and as the query the same
+    flanks around a middle drawn apart, as ``growth_pairs`` builds DNA
+    pairs (an insert alone grows the blocks to 512 at most).  Flanks of
+    ``flank`` residues.  With ``varied`` the gap opens (-13..-9, C and R
+    apart) and close costs (-3..0) vary by position, as ``profile_of``'s
+    do."""
+    from block_aligner_tpu_torch.core.scores import AAProfile
+
+    pairs = []
+    for _ in range(n):
+        a, c, m1, m2 = (rng.choice(AA, size=k).tobytes()
+                        for k in (flank, flank, middle, middle))
+        prof = AAProfile.from_bytes(a + m1 + c, 2048, 5, -4, -11, 0, -11, -1)
+        if varied:
+            k = prof.str_len + 1
+            prof.gap_open_C[:k] = rng.integers(-13, -8, size=k)
+            prof.gap_close_C[:k] = rng.integers(-3, 1, size=k)
+            prof.gap_open_R[:k] = rng.integers(-13, -8, size=k)
+        pairs.append((a + m2 + c, prof))
+    return pairs
 
 
 def growth_pairs(rng, n):
@@ -672,8 +743,13 @@ def parse_ptxas(log, name):
     """The per-instance lines of a ``-Xptxas -v`` log of library ``name``;
     an instance of the flags libraries (``csrc/*_flags.cu``) is marked
     ``flags``, one of the big kernel's trace libraries (``csrc/big_trace.cu``,
-    ``csrc/big_trace_flags.cu``) ``trace``."""
-    flags = ", flags" if name.endswith("_flags") else ""
+    ``csrc/big_trace_flags.cu``, ``csrc/big_trace_profile.cu``) ``trace``,
+    one of its profile libraries (``csrc/big_profile.cu``,
+    ``csrc/big_trace_profile.cu``, which read the flags too) ``profile,
+    flags``."""
+    profile = (", profile" if name.startswith("big") and "profile" in name
+               else "")
+    flags = ", flags" if name.endswith("_flags") or profile else ""
     trace = ", trace" if name.startswith("big_trace") else ""
     lines, fn, frame = [], None, ""
     for line in log.splitlines():
@@ -688,7 +764,7 @@ def parse_ptxas(log, name):
                       r"ILb([01])E", line)
         if m:
             fn = (f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}{trace}"
-                  f"{flags}>")
+                  f"{profile}{flags}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -707,7 +783,7 @@ PINNED_PTXAS = "chip_smoke_ptxas.txt"
 
 
 def check_pinned_ptxas(reports):
-    """Every instance of the twelve libraries must keep the registers, stack
+    """Every instance of the fourteen libraries must keep the registers, stack
     and spills pinned in ``chip_smoke_ptxas.txt`` (their sources' counts
     with this toolkit; a kernel edit must leave the other instances' counts
     alone).  A new ``nvcc`` may move them all: re-pin from a run of
@@ -1214,305 +1290,46 @@ def main():
     dev = torch.device("cuda")
 
     # 2. build: one nvcc per library, all started together, each with
-    # ptxas's report
+    # ptxas's report.  The big kernel's libraries take seconds and the lane
+    # and adaptive ones minutes, so phases 25-37 run on the big kernel
+    # while those finish; the pinned counts are checked once all are in
     t0 = time.perf_counter()
-    names = (*lk.LIBRARIES, *bk.LIBRARIES)
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = list(pool.map(lambda n: build_and_report(_build, n), names))
-    paths = [path for path, _ in built]
-    reports = [line for _, lines in built for line in lines]
-    for name in lk.LIBRARIES:
-        (lk if name.startswith("lane") else ak)._lib(name)
-    for name in bk.LIBRARIES:
-        bk._lib(name)
-    print(f"[build] {', '.join(os.path.relpath(p, ROOT) for p in paths)} "
-          f"built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in reports:
-        print(f"[ptxas] {line}")
-    check_pinned_ptxas(reports)
-    phase("1-2, device and build")
 
-    # 3. lane kernel vs plain version on the card (these launches are not
-    # a main path's and are not counted)
-    rng = np.random.default_rng(7)
-    checked = 0
-    for S in (16, 32, 64, 256, 512):
-        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
-                                       (scores.NW1, Gaps(-2, -1), DNA)):
-            pairs = random_pairs(rng, alphabet, 192, 600)
-            cfg = lk.LaneKernelConfig(
-                S, -(-(1 + 600 + S + 16) // 128) * 128,
-                32 if matrix.kind == "aa" else 16)
-            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev)
-            got = lk.lane_align(*pk, cfg)
-            torch.cuda.synchronize()
-            check_equal(got, lk.lane_align_plain(*pk, cfg),
-                        f"at S={S} {matrix.kind}")
-            checked += len(pairs)
-    print(f"[lane-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
-          "(protein and DNA, lengths 0..600): score and suspect equal")
-    n_gold = check_goldens(GOLDEN, BatchAligner, Gaps, scores, dev)
-    print(f"[lane-golden] {n_gold} pinned reference scores equal "
-          "(incl. README example NW1 -2/-1 block 32 -> 7)")
-    phase("3, lane kernel vs plain")
+    def timed_build(name):
+        """``build_and_report`` and the seconds from t0 to its end."""
+        return build_and_report(_build, name), time.perf_counter() - t0
 
-    # 4. adaptive kernel vs plain version on the card
-    checked = overran = 0
-    ladders = ((16, 32), (16, 64), (32, 128), (32, 256), (64, 256))
-    for lo, hi in ladders:
-        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
-                                       (scores.NW1, Gaps(-2, -1), DNA)):
-            pairs = structural_pairs(rng, alphabet, 192, 600)
-            cfg = ak.AdaptiveKernelConfig(
-                lo, hi, -(-(1 + 600 + hi + 16) // 128) * 128,
-                32 if matrix.kind == "aa" else 16)
-            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev)
-            got = ak.adaptive_align(*pk, cfg)
-            torch.cuda.synchronize()
-            check_equal(got, ak.adaptive_align_plain(*pk, cfg),
-                        f"at ({lo}, {hi}) {matrix.kind}")
-            checked += len(pairs)
+    pool = ThreadPoolExecutor(len(lk.LIBRARIES) + len(bk.LIBRARIES))
+    builds = {name: pool.submit(timed_build, name)
+              for name in (*lk.LIBRARIES, *bk.LIBRARIES)}
+    reports = []
 
-    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768), 40)
-    pk = lk.pack_lane(structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
-                      cfg, Gaps(-11, -1), dev)
-    got = ak.adaptive_align(*pk, cfg)
-    torch.cuda.synchronize()
-    check_equal(got, ak.adaptive_align_plain(*pk, cfg), "with 40 steps")
-    overran = int(got[:, 1].sum())
-    if not 0 < overran < len(got):
-        raise AssertionError(f"{overran} of {len(got)} pairs overran 40 steps")
-    print(f"[adaptive-vs-plain] {checked} pairs at ladders "
-          f"{', '.join(map(str, ladders))} (protein and DNA, lengths 0..600, "
-          f"structural indels): score and overrun equal; and with a 40-step "
-          f"cap on {len(got)} pairs, {overran} of which overran")
-    n_gold = check_goldens(GOLDEN_ADAPTIVE, BatchAligner, Gaps, scores, dev)
-    print(f"[adaptive-golden] {n_gold} pinned adaptive scores equal")
-    phase("4, adaptive kernel vs plain")
+    def finish_builds(names):
+        """Wait for the builds of ``names``, load them, print their paths,
+        build time and ptxas lines."""
+        done = [builds[name].result() for name in names]
+        for name in names:
+            mod = {"lane": lk, "adaptive": ak}.get(name.split("_")[0], bk)
+            mod._lib(name)
+        libs = ", ".join(os.path.relpath(p, ROOT) for (p, _), _ in done)
+        print(f"[build] {libs} built {max(t for _, t in done):.1f} s after "
+              f"the builds started, loaded after "
+              f"{time.perf_counter() - t0:.1f} s")
+        for (_, lines), _ in done:
+            for line in lines:
+                print(f"[ptxas] {line}")
+            reports.extend(lines)
 
-    # 3-4, x-drop: both kernels' x-drop instances vs their plain versions
-    xsetups = ((scores.BLOSUM62, Gaps(-11, -1), AA, 50),
-               (scores.NW1, Gaps(-2, -1), DNA, 100))
-    checked = dropped = 0
-    for S in (16, 32, 64, 256, 512):
-        for matrix, gaps, alphabet, x in xsetups:
-            pairs = random_pairs(rng, alphabet, 192, 600)
-            cfg = lk.LaneKernelConfig(
-                S, -(-(1 + 600 + S + 16) // 128) * 128,
-                32 if matrix.kind == "aa" else 16, x_drop=True)
-            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
-            got = lk.lane_align(*pk, cfg)
-            torch.cuda.synchronize()
-            check_equal(got, lk.lane_align_plain(*pk, cfg),
-                        f"x-drop at S={S} {matrix.kind}")
-            checked += len(pairs)
-            dropped += x_dropped(got, pk)
-    if not dropped:
-        raise AssertionError("no lane x-drop pair ended short of its ends")
-    print(f"[lane-xdrop-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
-          "(protein x 50 and DNA x 100, lengths 0..600): best, position and "
-          f"suspect equal; {dropped} best positions short of (qlen, rlen)")
+    finish_builds(bk.LIBRARIES)
+    phase("1-2, device and the big kernel's builds")
 
-    checked = dropped = 0
-    for lo, hi in ladders:
-        for matrix, gaps, alphabet, x in xsetups:
-            pairs = structural_pairs(rng, alphabet, 192, 600)
-            cfg = ak.AdaptiveKernelConfig(
-                lo, hi, -(-(1 + 600 + hi + 16) // 128) * 128,
-                32 if matrix.kind == "aa" else 16, x_drop=True)
-            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
-            got = ak.adaptive_align(*pk, cfg)
-            torch.cuda.synchronize()
-            check_equal(got, ak.adaptive_align_plain(*pk, cfg),
-                        f"x-drop at ({lo}, {hi}) {matrix.kind}")
-            checked += len(pairs)
-            dropped += x_dropped(got, pk)
-    if not dropped:
-        raise AssertionError("no adaptive x-drop pair ended short of its ends")
-    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768, x_drop=True), 25)
-    pk = lk.pack_lane(structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
-                      cfg, Gaps(-11, -1), dev, x_drop=50)
-    got = ak.adaptive_align(*pk, cfg)
-    torch.cuda.synchronize()
-    check_equal(got, ak.adaptive_align_plain(*pk, cfg), "x-drop, 25 steps")
-    overran = int(got[:, 3].sum())
-    if not 0 < overran < len(got):
-        raise AssertionError(f"{overran} of {len(got)} x-drop pairs overran "
-                             "25 steps")
-    print(f"[adaptive-xdrop-vs-plain] {checked} pairs at ladders "
-          f"{', '.join(map(str, ladders))} (protein x 50 and DNA x 100, "
-          "lengths 0..600, structural indels): best, position and overrun "
-          f"equal; {dropped} best positions short of (qlen, rlen); with a "
-          f"25-step cap on {len(got)} pairs, {overran} of which overran")
-    phase("3-4, x-drop instances vs plain")
-
-    # 5. the lane main path
-    pairs = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
-    more = rand_protein_pairs(np.random.default_rng(1235), 16384, 1000, 100)
-    al = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
-                      batch=16384, seq_cap=1024, device=dev)
-    torch.cuda.synchronize()
-    reset_launches(lk, ak)
-    staged, pack_ms = host_ms(lambda: al.stage(pairs))
-    res, run_ms = host_ms(lambda: al.align_staged(staged))
-    suspect = al.last_suspect.copy()
-    res_all = al.align_all(pairs + more)
-    lane_launches = expect_launches(lk, ak, "lane main path",
-                                    "lane_align")["lane_align"]
-    for k, (q, r) in enumerate(pairs):
-        if (res[k].query_idx, res[k].reference_idx) != (len(q), len(r)):
-            raise AssertionError(f"pair {k}: end {res[k]} != ({len(q)}, {len(r)})")
-    if res_all[: len(pairs)] != res:
-        raise AssertionError("align_all disagrees with stage + align_staged")
-    if not np.array_equal(al.last_suspect[: len(pairs)], suspect):
-        raise AssertionError("align_all suspect flags disagree")
-    sc = np.array([x.score for x in res])
-    print(f"[lane-main] {len(pairs)} pairs 1000x1000 k=100 BLOSUM62 -11/-1 "
-          f"block 32: stage+align_staged and align_all({len(pairs) + len(more)}) "
-          f"agree; lane_align launches {lane_launches}; scores "
-          f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); suspect "
-          f"{int(suspect.sum())}")
-
-    # the kernel against the plain version on the main path's own inputs
-    cfg = al.cfg
-    args = (staged.codes, staged.qlen, staged.rlen, staged.table, staged.gaps)
-    (want, cells), plain_ms = host_ms(
-        lambda: lk.lane_align_plain(*args, cfg, count_cells=True))
-    got = torch.from_numpy(np.stack([sc, suspect], 1).astype(np.int32))
-    lane_err = int((got - want.cpu()).abs().max())
-    if lane_err:
-        raise AssertionError(f"lane main path differs from the plain version: "
-                             f"max abs err {lane_err}")
-    sub = al.stage(pairs[:512])
-    sub_args = (sub.codes, sub.qlen, sub.rlen, sub.table, sub.gaps)
-    want512, plain512_ms = host_ms(lambda: lk.lane_align_plain(*sub_args, cfg))
-    if not torch.equal(want512.cpu(), got[:512]):
-        raise AssertionError("first 512 main-path results differ from plain")
-    print(f"[lane-main-vs-plain] all {len(pairs)} results (incl. the first "
-          "512) equal the plain version on the card")
-
-    lane_ms = cuda_ms(lambda: lk.lane_align(*args, cfg), 10)
-    kernel512_ms = cuda_ms(lambda: lk.lane_align(*sub_args, cfg), 10)
-    lane_bound, lane_by = bound(staged, cells, int32_per_s)
-    B = len(pairs)
-    print(f"[time] {card}: lane kernel {lane_ms * 1e3 / B:.4f} us/pair "
-          f"({lane_ms:.3f} ms per launch of {B} pairs, CUDA events, mean of "
-          f"10); bound {lane_bound:.4f} ms by {lane_by} "
-          f"({int(cells.sum())} DP cells)")
-    print(f"[time] {card}: pack (stage, host clock) {pack_ms * 1e3 / B:.4f} us/pair")
-    print(f"[time] {card}: align_staged (launch, kernel, copy back, decode; "
-          f"host clock) {run_ms * 1e3 / B:.4f} us/pair")
-    print(f"[time] {card}: lane plain version {plain_ms * 1e3 / B:.4f} us/pair "
-          f"on all {B} pairs ({plain_ms:.1f} ms, host clock)")
-    print(f"[time] {card}: 512-pair subset: plain {plain512_ms * 1e3 / 512:.4f} "
-          f"us/pair, kernel {kernel512_ms * 1e3 / 512:.4f} us/pair")
-    lane_plain_ms = plain_ms
-    phase("5, lane main path")
-
-    # 6. the adaptive main path: the default size on homolog pairs, then on
-    # the long random pairs
+    # what phases 25-37 share with the others: the uc30 pairs (phase 6),
+    # the scoring of the DNA and byte paths, the main-path helpers
+    from block_aligner_tpu_torch.core.traceback import Trace
     uc = [(q, r) for q, r, _ in load_uc_pairs("uc30", per_bucket=1000, seed=1234)]
-    ucal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
-                        batch=len(uc), seq_cap=512, device=dev)
-    lrand = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
-    lral = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
-                        batch=len(lrand), seq_cap=1024, device=dev)
-    if ucal.route != "adaptive" or lral.route != "adaptive":
-        raise AssertionError("(32, 256) did not take the adaptive route")
-    torch.cuda.synchronize()
-    reset_launches(lk, ak)
-    runs = []
-    for al, work, what in ((ucal, uc, "uc30 homologs 50-256 + indels"),
-                           (lral, lrand, "random 1000x1000 k=100")):
-        staged, pack_ms = host_ms(lambda: al.stage(work))
-        res, run_ms = host_ms(lambda: al.align_staged(staged))
-        res_all = al.align_all(work)
-        runs.append((al, work, what, staged, res, pack_ms, run_ms, res_all))
-    ad_launches = expect_launches(lk, ak, "adaptive main path",
-                                  "adaptive_align")["adaptive_align"]
-    ad_err = 0
-    for al, work, what, staged, res, pack_ms, run_ms, res_all in runs:
-        B = len(work)
-        if res_all != res:
-            raise AssertionError(f"{what}: align_all disagrees with "
-                                 "stage + align_staged")
-        for k, (q, r) in enumerate(work):
-            if (res[k].query_idx, res[k].reference_idx) != (len(q), len(r)):
-                raise AssertionError(f"{what} pair {k}: end {res[k]}")
-        cfg = al.cfg
-        args = (staged.codes, staged.qlen, staged.rlen, staged.table,
-                staged.gaps)
-        (want, cells), plain_ms = host_ms(
-            lambda: ak.adaptive_align_plain(*args, cfg, count_cells=True))
-        sc = np.array([x.score for x in res])
-        got = torch.from_numpy(np.stack([sc, np.zeros_like(sc)], 1)
-                               .astype(np.int32))
-        err = int((got - want.cpu()).abs().max())
-        if err:
-            raise AssertionError(f"{what}: adaptive main path differs from the "
-                                 f"plain version: max abs err {err}")
-        ad_err = max(ad_err, err)
-        kernel_ms = cuda_ms(lambda: ak.adaptive_align(*args, cfg), 10)
-        bnd, by = bound(staged, cells, int32_per_s)
-        print(f"[adaptive-main] {B} pairs, {what}, BLOSUM62 -11/-1 (32, 256): "
-              "stage+align_staged and align_all agree and equal the plain "
-              f"version; scores {sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
-              f"{int(cells.sum())} DP cells, {int(cells.sum()) / B:.0f} per pair")
-        print(f"[time] {card}: adaptive, {what}: kernel "
-              f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
-              f"launch of {B} pairs, CUDA events, mean of 10); bound "
-              f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
-              f"align_staged {run_ms * 1e3 / B:.4f} us/pair; plain "
-              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
-        if what.startswith("uc30"):
-            ad_ms, ad_plain_ms, ad_bound, ad_by = kernel_ms, plain_ms, bnd, by
-    print(f"[adaptive-main] adaptive_align launches {ad_launches}")
-    phase("6, adaptive main path")
-
-    # 7. align_exp_all at (32, 256) on 1024 homolog pairs
-    pick = np.random.default_rng(5).choice(len(uc), 1024, replace=False)
-    exp_pairs = [uc[k] for k in pick]
-    fixed = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(256, 256),
-                         batch=1024, seq_cap=512, device=dev)
-    targets = [x.score for x in fixed.align_all(exp_pairs)]
-    for k in range(8):
-        targets[k] = 1 << 30  # never reached: these pairs run every level
-    torch.cuda.synchronize()
-    reset_launches(lk, ak)
-    exp_res, exp_min = align_exp_all(scores.BLOSUM62, Gaps(-11, -1), exp_pairs,
-                                     targets, (32, 256), batch=1024,
-                                     seq_cap=512, device=dev)
-    counts = expect_launches(lk, ak, "align_exp_all", "lane_align",
-                             "adaptive_align")
-    exp_launches = (counts["lane_align"], counts["adaptive_align"])
-
-    def check_exp_all(res, mins, targets, x_drop=None):
-        """Every result equals a direct BatchAligner run at the min size it
-        reports (None: the last level, 256); returns the count per size."""
-        settled = {}
-        for m in (32, 64, 128, 256, None):
-            idx = [k for k in range(len(exp_pairs)) if mins[k] == m]
-            settled[m] = len(idx)
-            if not idx:
-                continue
-            direct = BatchAligner(
-                scores.BLOSUM62, Gaps(-11, -1), size=(m or 256, 256),
-                batch=1024, seq_cap=512, x_drop=x_drop,
-                device=dev).align_all([exp_pairs[k] for k in idx])
-            for k, d in zip(idx, direct):
-                if res[k] != d or (m is None) != (d.score < targets[k]):
-                    raise AssertionError(
-                        f"align_exp_all pair {k} (min size {m}, x_drop "
-                        f"{x_drop}): {res[k]} vs direct {d}, target "
-                        f"{targets[k]}")
-        return settled
-
-    settled = check_exp_all(exp_res, exp_min, targets)
-    print(f"[align_exp_all] {len(exp_pairs)} uc30 pairs at (32, 256), target "
-          f"the 256-256 lane score: settled per min size {settled}; every "
-          f"result equals a direct BatchAligner run at its size; launches "
-          f"(lane, adaptive) {exp_launches}")
-    phase("7, align_exp_all")
+    nuc, ngaps = scores.NucMatrix.new_simple(2, -4), Gaps(-6, -2)
+    byte1, byte2 = scores.ByteMatrix(1, -1), scores.ByteMatrix(2, -4)
+    rng = np.random.default_rng(25)  # phases 25-37 draw from their own
 
     def main_path(al, work, what, name, plain_fn, kernel_fn, top=False,
                   keep=None, plain=None):
@@ -1584,138 +1401,6 @@ def main():
         numbers = {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
                    "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
         return (numbers, tops[0]) if top else numbers
-
-    # 8. the lane x-drop main path
-    xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
-                       batch=8192, seq_cap=1100, x_drop=50, device=dev)
-    lane_x = main_path(
-        xal, xdrop_protein_pairs(np.random.default_rng(7), 8192),
-        "protein 800..999 with len/10 substitutions, BLOSUM62 -11/-1, "
-        "x_drop 50, (32, 32)", "lane_align_xdrop", lk.lane_align_plain,
-        lk.lane_align)
-    phase("8, lane x-drop main path")
-
-    # 9. the adaptive x-drop main path: x_drop_accuracy's configuration,
-    # then the default size on the homolog pairs
-    drng = np.random.default_rng(1234)
-    dna = []
-    for _ in range(8192):
-        q = rand_seq(drng, b"ACGT", 300)
-        dna.append((q, rand_mutate(drng, q, 30, b"ACGT")))
-    xal = BatchAligner(scores.NucMatrix.new_simple(1, -1), Gaps(-2, -1),
-                       size=(32, 64), batch=8192, seq_cap=300 + 300 // 8 + 32,
-                       x_drop=50, device=dev)
-    ad_x = main_path(
-        xal, dna, "DNA 300 with 30 edits, NucMatrix(1, -1) -2/-1, x_drop 50, "
-        "(32, 64)", "adaptive_align_xdrop", ak.adaptive_align_plain,
-        ak.adaptive_align)
-    xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
-                       batch=len(uc), seq_cap=512, x_drop=50, device=dev)
-    main_path(xal, uc, "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, "
-               "x_drop 50, (32, 256)", "adaptive_align_xdrop",
-               ak.adaptive_align_plain, ak.adaptive_align)
-    phase("9, adaptive x-drop main paths")
-
-    # 10. align_exp_all with x-drop on the pairs of phase 7
-    fixed = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(256, 256),
-                         batch=1024, seq_cap=512, x_drop=50, device=dev)
-    targets = [x.score for x in fixed.align_all(exp_pairs)]
-    for k in range(8):
-        targets[k] = 1 << 30  # never reached: these pairs run every level
-    torch.cuda.synchronize()
-    reset_launches(lk, ak)
-    exp_res, exp_min = align_exp_all(scores.BLOSUM62, Gaps(-11, -1), exp_pairs,
-                                     targets, (32, 256), x_drop=50,
-                                     batch=1024, seq_cap=512, device=dev)
-    counts = expect_launches(lk, ak, "align_exp_all x-drop",
-                             "lane_align_xdrop", "adaptive_align_xdrop")
-    settled = check_exp_all(exp_res, exp_min, targets, x_drop=50)
-    print(f"[align_exp_all-xdrop] {len(exp_pairs)} uc30 pairs at (32, 256), "
-          f"x_drop 50, target the x-drop 256-256 lane score: settled per min "
-          f"size {settled}; every result equals a direct BatchAligner(x_drop"
-          f"=50) run at its size; launches (lane, adaptive) "
-          f"{(counts['lane_align_xdrop'], counts['adaptive_align_xdrop'])}")
-    phase("10, align_exp_all with x-drop")
-
-    # 11. the trace instances of both kernels vs their plain versions
-    from block_aligner_tpu_torch.core.traceback import Trace
-
-    def kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x, what, walk=True):
-        pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
-        kernel = lk.lane_align if isinstance(cfg, lk.LaneKernelConfig) \
-            else ak.adaptive_align
-        plain = lk.lane_align_plain if kernel is lk.lane_align \
-            else ak.adaptive_align_plain
-        got = kernel(*pk, cfg)
-        torch.cuda.synchronize()
-        want = plain(*pk, cfg)
-        events = check_trace(got, want, what)
-        if walk:
-            out = want[0].cpu().numpy()
-            ends = ([(int(o[1]), int(o[2])) for o in out] if cfg.x_drop else
-                    [(len(q), len(r)) for q, r in pairs])
-            walk_both(got, want, ends, matrix, what)
-        return got, events
-
-    setups = ((scores.BLOSUM62, Gaps(-11, -1), AA, 50),
-              (scores.NW1, Gaps(-2, -1), DNA, 100))
-    checked = 0
-    for S in (16, 32, 64, 256, 512):
-        for xd in (False, True):
-            for matrix, gaps, alphabet, x in setups:
-                pairs = random_pairs(rng, alphabet, 64, 400)
-                cfg = lk.LaneKernelConfig(
-                    S, -(-(1 + 400 + S + 16) // 128) * 128,
-                    32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
-                kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x if xd else 0,
-                                      f"lane trace S={S} x_drop={xd}")
-                checked += len(pairs)
-    print(f"[lane-trace-vs-plain] {checked} pairs at S in 16,32,64,256,512, "
-          "global and x-drop (protein x 50 and DNA x 100, lengths 0..400): "
-          "outputs, step counts, descriptors and words of every executed "
-          "step equal, and the CIGARs walked from both")
-    checked, saves, restores = 0, 0, 0
-    ladders_t = ladders + ((32, 512),)
-    for lo, hi in ladders_t:
-        for xd in (False, True):
-            for matrix, gaps, alphabet, x in setups:
-                pairs = structural_pairs(rng, alphabet, 64, 400)
-                if hi == 512 and matrix.kind == "aa":
-                    pairs += grow_to_512_pairs(rng, 4)
-                cfg = ak.AdaptiveKernelConfig(
-                    lo, hi, -(-(1 + 1150 + hi + 16) // 128) * 128,
-                    32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
-                got, (sv, rs) = kernel_vs_plain_trace(
-                    cfg, pairs, matrix, gaps, x if xd else 0,
-                    f"adaptive trace ({lo}, {hi}) x_drop={xd}")
-                if hi == 512 and matrix.kind == "aa":
-                    # every one of the 4 pairs, global and x-drop
-                    ran = (torch.arange(got[2].shape[0], device=dev)[:, None]
-                           < got[3][None, -4:])
-                    grown = torch.where(ran, got[2][:, -4:, 3], 0).amax(0)
-                    if not bool((grown == 512).all()):
-                        raise AssertionError(f"x_drop={xd}: blocks grew to "
-                                             f"{grown.tolist()}, not 512")
-                checked += len(pairs)
-                saves += sv
-                restores += rs
-    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768, trace=True), 40)
-    got, _ = kernel_vs_plain_trace(
-        cfg, structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
-        Gaps(-11, -1), 0, "adaptive trace, 40 steps", walk=False)
-    overran = int(got[0][:, 1].sum())
-    if not 0 < overran < len(got[0]) or not saves or not restores:
-        raise AssertionError(f"trace: {overran} pairs overran 40 steps; "
-                             f"{saves} saves, {restores} restores")
-    print(f"[adaptive-trace-vs-plain] {checked} pairs at ladders "
-          f"{', '.join(map(str, ladders_t))}, global and x-drop (lengths "
-          "0..400, structural indels; at (32, 512) 4 pairs that grow to "
-          "512 in both modes): outputs, step counts, descriptors and words "
-          f"equal, and the CIGARs; the descriptors held {saves} checkpoint "
-          f"saves and {restores} grow restores; with a 40-step cap on "
-          f"{len(got[0])} pairs, {overran} of which overran, the traces "
-          "equal too")
-    phase("11, trace instances vs plain")
 
     def trace_path(al, work, what, name, base, plain=None, n_cmp=512,
                    shortest=False, like=None, keep=None):
@@ -1914,9 +1599,824 @@ def main():
         return {**paths[0], "launches": sum(p["launches"] for p in paths),
                 "max_abs_err": max(p["max_abs_err"] for p in paths)}
 
+    # 25-26. the big kernel vs its plain version, global then x-drop: the
+    # structural pairs at (32, 512), (64, 1024), (512, 1024) and (1024,
+    # 1024), fixed (2048, 4096) and the growth pairs of phase 29, and a
+    # capped run; the nanopore pairs of phase 27 are held on every pair
+    # there
+    grow = growth_pairs(np.random.default_rng(3), 32)
+    dna = (nuc, ngaps)
+    big_sizes = ((32, 512), (64, 1024), (512, 1024), (1024, 1024))
+
+    def big_cfg(pairs, size, matrix, x, cap, **modes):
+        """The big kernel's configuration for ``pairs`` with ``matrix``
+        (a ByteMatrix: byte mode) and the modes given."""
+        maxlen = max(max(len(q), len(r)) for q, r in pairs)
+        return bk.BigKernelConfig(
+            *size, cap or max(256, -(-(1 + maxlen + size[1] + 16) // 128)
+                              * 128),
+            {"nuc": 16, "byte": 256}.get(matrix.kind, 32),
+            x_drop=x is not None, byte_mode=matrix.kind == "byte", **modes)
+
+    def big_vs_plain(pairs, size, matrix, gaps, x, cap=None, **flags):
+        """big_align against big_align_plain on the card, with ``flags``
+        (the FLAGS instances'); returns the pairs whose best lies short of
+        their ends and the largest block sizes reached."""
+        cfg = big_cfg(pairs, size, matrix, x, cap, **flags)
+        pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
+        got = bk.big_align(*pk, cfg)
+        torch.cuda.synchronize()
+        want, top = bk.big_align_plain(*pk, cfg, top_size=True)
+        check_equal(got, want, f"big {size} x_drop={x} {matrix.kind} "
+                    f"{sorted(flags)}")
+        if got[:, -1].any():
+            raise AssertionError(f"big {size}: a pair hit the step cap")
+        return (x_dropped(got, pk) if x is not None else 0), top
+
+    def big_capped(x, steps):
+        cfg = with_step_cap(bk.BigKernelConfig(32, 1024, 1792,
+                                               x_drop=x is not None), steps)
+        pk = bk.pack_big(structural_pairs(rng, AA, 96, 600), scores.BLOSUM62,
+                         cfg, Gaps(-11, -1), dev, x or 0)
+        got = bk.big_align(*pk, cfg)
+        torch.cuda.synchronize()
+        check_equal(got, bk.big_align_plain(*pk, cfg), f"big, {steps} steps")
+        over = int(got[:, -1].sum())
+        if not 0 < over < len(got):
+            raise AssertionError(f"big: {over} of {len(got)} pairs overran "
+                                 f"{steps} steps")
+        return over, len(got)
+
+    shapes = {S: bk.launch_shape(bk.BigKernelConfig(16, S, 16384))
+              for S in (512, 1024, 2048, 4096, 8192)}
+    print("[big-shape] threads, dynamic shared bytes and blocks per SM "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor) by max size: "
+          + "; ".join(f"{S}: {t}, {b}, {n}" for S, (t, b, n) in
+                      shapes.items()))
+    checked, tops = 0, set()
+    for size in big_sizes:
+        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
+                                       (*dna, DNA)):
+            pairs = structural_pairs(rng, alphabet, 96, 700)
+            tops |= set(big_vs_plain(pairs, size, matrix, gaps, None)[1]
+                        .tolist())
+            checked += len(pairs)
+    _, top = big_vs_plain(grow[:4], (2048, 4096), *dna, None)
+    over, n_capped = big_capped(None, 40)
+    print(f"[big-vs-plain] {checked} pairs at {', '.join(map(str, big_sizes))}"
+          " (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths "
+          f"0..700, structural indels; blocks reached {sorted(tops)}), and 4 "
+          f"growth pairs at fixed (2048, 4096) (blocks {top.tolist()}): "
+          "score and overrun equal; with a 40-step cap on "
+          f"{n_capped} pairs, {over} of which overran; the lane and adaptive "
+          "instances keep their pinned ptxas counts (phase 2)")
+    phase("25, big kernel vs plain")
+
+    checked = dropped = 0
+    for size in big_sizes:
+        for (matrix, gaps, alphabet), x in (
+                ((scores.BLOSUM62, Gaps(-11, -1), AA), 0),
+                ((*dna, DNA), 20), ((scores.BLOSUM62, Gaps(-11, -1), AA), 100)):
+            pairs = structural_pairs(rng, alphabet, 96, 700)
+            dropped += big_vs_plain(pairs, size, matrix, gaps, x)[0]
+            checked += len(pairs)
+    # the growth pairs with the shorter middles and flanks (3700 and 4600
+    # bases a side), whose plain run takes the fewest steps
+    gdrop, gtop = big_vs_plain([grow[k] for k in (1, 3, 5, 7)], (512, 8192),
+                               *dna, 1000, cap=16384)
+    over, n_capped = big_capped(50, 25)
+    if not dropped:
+        raise AssertionError("no big x-drop pair ended short of its ends")
+    print(f"[big-xdrop-vs-plain] {checked} pairs at "
+          f"{', '.join(map(str, big_sizes))} (protein x 0 and 100, DNA x 20): "
+          "best, position and overrun equal; "
+          f"{dropped} best positions short of (qlen, rlen); 4 of the "
+          f"growth pairs at (512, 8192) with x 1000 ({gdrop} short of their "
+          f"ends, blocks reached {sorted(set(gtop.tolist()))}); with a "
+          f"25-step cap on {n_capped} pairs, {over} of which overran")
+    phase("26, big x-drop kernel vs plain")
+
+    # 27. the big main path: the reference's <10 kbp 1%-10% band (128,
+    # 1024) on the JAX package's nanopore workload
+    # (run_results.py::bench_nanopore_band10k), global and x-drop
+    nano = load_nanopore_pairs(n_pairs=1024, max_len=10000, seed=1234)
+    ncap = max(max(len(q), len(r)) for q, r in nano)
+    what = ("nanopore-like 5000..9999 bases, 10% edits, NucMatrix(2, -4) "
+            "-6/-2, (128, 1024)")
+    nano_g, nano_x = {}, {}  # the plain version's, for phase 31
+    big_g = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
+                                   seq_cap=ncap, device=dev), nano, what,
+                      "big_align", bk.big_align_plain, bk.big_align,
+                      keep=nano_g)
+    phase("27, big_align main path")
+    big_x = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
+                                   seq_cap=ncap, x_drop=50, device=dev), nano,
+                      f"{what}, x_drop 50", "big_align_xdrop",
+                      bk.big_align_plain, bk.big_align, keep=nano_x)
+    phase("27, big_align_xdrop main path")
+
+    # 28. uc30 at (32, 512) without trace, which pick_route sends to the
+    # big kernel
+    big_uc = main_path(
+        BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 512),
+                     batch=len(uc), seq_cap=512, device=dev), uc,
+        "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, 512)",
+        "big_align", bk.big_align_plain, bk.big_align)
+    phase("28, big_align uc30 (32, 512)")
+
+    # 29. growth: DNA pairs whose long random middles make the blocks grow
+    # to 4096 and 8192, at (512, 8192) with the whole code budget
+    gal = BatchAligner(*dna, size=(512, 8192), batch=len(grow), seq_cap=8175,
+                       device=dev)
+    if gal.cfg.seq_cap != 16384:
+        raise AssertionError(f"growth seq_cap {gal.cfg.seq_cap}")
+    grow_plain = {}  # the plain version's, for phase 32
+    big_gr, gtop = main_path(
+        gal, grow, "DNA growth pairs: a flank, a random middle of 1200..3200 "
+        "on both sides, a flank (5% edits), NucMatrix(2, -4) -6/-2, (512, "
+        "8192)", "big_align", bk.big_align_plain, bk.big_align, top=True,
+        keep=grow_plain)
+    reached = {int(t): int((gtop == t).sum()) for t in gtop.unique()}
+    if not {4096, 8192} <= set(reached):
+        raise AssertionError(f"growth pairs reached {reached}")
+    print(f"[big-growth] blocks reached (size: pairs) {reached}")
+    phase("29, big_align growth main path")
+    big_g = merged(big_g, big_uc, big_gr)
+
+    # 30. the big trace instances (csrc/big_trace.cu) vs the plain version:
+    # structural pairs at (64, 1024), (512, 1024) and (1024, 1024), global
+    # and x 20 and 100, 4 growth pairs at fixed (2048, 4096), and a reduced
+    # trace budget
+    def big_trace_vs_plain(pairs, size, matrix, gaps, x, cap=None,
+                           budget=None, **flags):
+        """big_align against big_align_plain with trace on the card, with
+        ``flags`` (the FLAGS instances'): equal outputs, step counts, word
+        counters, executed descriptors and words (local start's zero words
+        too), and equal CIGARs walked from both for the pairs that did not
+        overrun; returns (saves, restores, overruns, the tallest step)."""
+        cfg = big_cfg(pairs, size, matrix, x, cap, trace=True, **flags)
+        if budget:
+            cfg = with_trace_budget(cfg, budget)
+        pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
+        got = bk.big_align(*pk, cfg)
+        torch.cuda.synchronize()
+        want = bk.big_align_plain(*pk, cfg)
+        what = f"big trace {size} x_drop={x} {matrix.kind} {sorted(flags)}"
+        saves, restores = check_big_trace(got, want, what)
+        out = want[0].cpu()
+        done = (out[:, -1] == 0).nonzero()[:, 0].tolist()
+        ends = [(int(out[k, 1]), int(out[k, 2])) if lk.wide(cfg)
+                else (len(pairs[k][0]), len(pairs[k][1])) for k in done]
+
+        def sub(res):
+            return tuple(t[:, done] if t.dim() == 3 else t[done] for t in res)
+
+        walk_both(sub(got), sub(want), ends, matrix, what, cfg)
+        desc, steps = want[2], want[3]
+        ran = torch.arange(desc.shape[0], device=dev)[:, None] < steps
+        return (saves, restores, int(out[:, -1].sum()),
+                int(torch.where(ran, desc[:, :, 3], 0).max()))
+
+    checked, events, tall = 0, [0, 0], set()
+    protein_aa = (scores.BLOSUM62, Gaps(-11, -1), AA)
+    for size in ((64, 1024), (512, 1024), (1024, 1024)):
+        for (matrix, gaps, alphabet), x in product(
+                (protein_aa, (*dna, DNA)), (None, 20, 100)):
+            pairs = structural_pairs(rng, alphabet, 32, 700)
+            sv, rs, _, h = big_trace_vs_plain(pairs, size, matrix, gaps, x)
+            events[0] += sv
+            events[1] += rs
+            tall.add(h)
+            checked += len(pairs)
+    grown = big_trace_vs_plain(grow[:4], (2048, 4096), *dna, None)[3]
+    _, _, over, _ = big_trace_vs_plain(structural_pairs(rng, AA, 64, 600),
+                                       (32, 1024), scores.BLOSUM62,
+                                       Gaps(-11, -1), None, budget=6000)
+    if not 0 < over < 64 or not all(events) or grown != 4096:
+        raise AssertionError(f"big trace: {over} of 64 pairs overran the "
+                             f"budget; events {events}; growth steps to "
+                             f"{grown}")
+    tshapes = {(S, xd): bk.launch_shape(bk.BigKernelConfig(
+        16, S, 16384, x_drop=xd, trace=True))
+        for S in (512, 1024, 2048, 4096, 8192) for xd in (False, True)}
+    print("[big-shape] trace instances, global / x-drop: threads, dynamic "
+          "shared bytes and blocks per SM by max size: " + "; ".join(
+              f"{S}: {tshapes[S, False]} / {tshapes[S, True]}"
+              for S in (512, 1024, 2048, 4096, 8192)))
+    print(f"[big-trace-vs-plain] {checked} pairs at (64, 1024), (512, 1024) "
+          "and (1024, 1024) (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, "
+          "-4) -6/-2, lengths 0..700, structural indels), global and x 20 "
+          "and 100 (steps up to "
+          f"{max(tall)} rows), and 4 growth pairs at fixed (2048, 4096), "
+          "global: outputs, step counts, word counters, "
+          "descriptors and words equal, and the CIGARs walked from both; "
+          f"{events[0]} checkpoint saves and {events[1]} grow restores; under "
+          f"a budget of 6000 words on 64 pairs at (32, 1024), {over} of "
+          "which overran, the traces equal too")
+    phase("30, big trace instances vs plain")
+
+    # 31. the traced nanopore band: the first 512 of phase 27's pairs
+    # through align_all_trace in batches of 256, global and x 50, held
+    # against phase 27's non-trace instance and plain version; the CIGARs
+    # of the 32 pairs with the fewest cells against the plain version's
+    # trace (whose time is its step count's, not its pair count's)
+    def first(plain, n):
+        """The first ``n`` pairs' part of a main path's plain output; its
+        time stays that of the path's ``pairs``."""
+        return dict(plain, want=plain["want"][:n], cells=plain["cells"][:n],
+                    pairs=len(plain["want"]))
+
+    tnano = nano[:512]
+    tkw = dict(size=(128, 1024), batch=256, seq_cap=ncap, device=dev)
+    nano_t = {}  # the CIGARs, for phase 34
+    big_t = trace_path(BatchAligner(*dna, trace=True, **tkw), tnano, what,
+                       "big_align_trace", BatchAligner(*dna, **tkw),
+                       plain=first(nano_g, 512), n_cmp=32, shortest=True,
+                       keep=nano_t)
+    big_xt = trace_path(
+        BatchAligner(*dna, trace=True, x_drop=50, **tkw), tnano,
+        f"{what}, x_drop 50", "big_align_xdrop_trace",
+        BatchAligner(*dna, x_drop=50, **tkw), plain=first(nano_x, 512),
+        n_cmp=32, shortest=True)
+
+    # 32. traced growth: two of phase 29's growth pairs whose blocks reach
+    # 4096 and two that reach 8192, at (512, 8192) with trace; the CIGARs of
+    # the two with the fewest cells against the plain version's trace
+    pick = ([k for k in range(len(grow)) if gtop[k] == 4096][:2]
+            + [k for k in range(len(grow)) if gtop[k] == 8192][:2])
+    gkw = dict(size=(512, 8192), batch=4, seq_cap=8175, device=dev)
+    tal = BatchAligner(*dna, trace=True, **gkw)
+    big_gt = trace_path(
+        tal, [grow[k] for k in pick], "DNA growth pairs of phase 29 (two "
+        "reach 4096, two 8192), NucMatrix(2, -4) -6/-2, (512, 8192)",
+        "big_align_trace", BatchAligner(*dna, **gkw),
+        plain=dict(grow_plain, want=grow_plain["want"][pick],
+                   cells=grow_plain["cells"][pick], pairs=len(grow)),
+        n_cmp=2, shortest=True)
+    tr = tal.trace()
+    heights = [int(tr.desc[: tr.steps[b], b, 3].max()) for b in range(4)]
+    if sorted(heights) != [4096, 4096, 8192, 8192]:
+        raise AssertionError(f"traced growth reached {heights}")
+    print(f"[big-trace-growth] traced steps reached {heights} rows")
+    big_t = merged(big_t, big_gt)
+
+    # 33. the big kernel's FLAGS instances (csrc/big_flags.cu,
+    # csrc/big_trace_flags.cu) vs the plain version: 32-pair structural
+    # batches at (128, 1024), (512, 1024) and (1024, 1024), each mode at
+    # two sizes or more, traced and not, x-drop where the mode allows it;
+    # two growth pairs at (512, 8192) with traced local start, the
+    # instance whose shared memory is the largest; the launch shapes
+    protein = (scores.BLOSUM62, Gaps(-11, -1))
+    local, fstart = dict(local_start=True), dict(free_query_start_gaps=True)
+    fend = dict(free_query_end_gaps=True)
+    flag_cases = {
+        (128, 1024): (("byte", None, False), ("byte", None, True),
+                      ("local", None, True), ("local", 20, False),
+                      ("fstart", 100, True), ("fend", None, True)),
+        (512, 1024): (("byte", None, True), ("local", 100, True),
+                      ("fstart", None, True), ("fend", None, False)),
+        (1024, 1024): (("byte", None, False), ("local", None, False),
+                       ("local", 20, True), ("fstart", 20, False),
+                       ("fstart", None, True), ("fend", None, True)),
+    }
+    checked, tall = 0, set()
+    for size, cases in flag_cases.items():
+        for k, (mode, x, tr) in enumerate(cases):
+            flags = {"byte": {}, "local": local, "fstart": fstart,
+                     "fend": fend}[mode]
+            if mode == "byte":
+                matrix, gaps = byte1, Gaps(-11, -1)
+                pairs = byte_pairs(rng, 32, 700)
+            else:
+                matrix, gaps = (protein, dna)[k % 2]
+                pairs = structural_pairs(rng, AA if k % 2 == 0 else DNA, 32,
+                                         700)
+            if mode == "fend":
+                pairs = [(q[: size[0] - 1], r) for q, r in pairs]
+            if tr:
+                tall.add(big_trace_vs_plain(pairs, size, matrix, gaps, x,
+                                            **flags)[3])
+            else:
+                big_vs_plain(pairs, size, matrix, gaps, x, **flags)
+            checked += len(pairs)
+    h8 = big_trace_vs_plain(grow[:2], (512, 8192), *dna, None, cap=16384,
+                            **local)[3]
+    if h8 != 8192 or max(tall) != 1024:
+        raise AssertionError(f"big flags: traced steps reached {max(tall)} "
+                             f"rows, the local-start growth pairs {h8}")
+    print("[big-shape] FLAGS instances (global, x-drop, trace without and "
+          "with local start, x-drop trace with local start): threads, "
+          "dynamic shared bytes and blocks per SM by max size: " + "; ".join(
+              f"{S}: " + " / ".join(str(bk.launch_shape(bk.BigKernelConfig(
+                  16, S, 16384, x_drop=xd, trace=tr, **f)))
+                  for f, xd, tr in ((local, False, False),
+                                    (local, True, False), (fend, False, True),
+                                    (local, False, True), (local, True, True)))
+              for S in (1024, 4096, 8192)))
+    print(f"[big-flags-vs-plain] {checked} pairs at (128, 1024), (512, 1024) "
+          "and (1024, 1024): ByteMatrix(1, -1) -11/-1 (all 256 bytes, byte "
+          "0) global and traced; local start global, x 20 and 100, traced; "
+          "free start gaps traced, x 20 and 100; free end gaps (queries "
+          "shorter than the min size) global and traced; protein BLOSUM62 "
+          "-11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths 0..700, structural "
+          f"indels (steps up to {max(tall)} rows); and 2 growth pairs at "
+          f"(512, 8192) with traced local start (steps up to {h8} rows): "
+          "outputs equal, and traced step counts, word counters, "
+          "descriptors, words (the zero words too) and CIGARs")
+    phase("33, big FLAGS instances vs plain")
+
+    # 34. the byte band: phase 27's pairs with ByteMatrix(2, -4), which on
+    # ACGT reads scores as NucMatrix(2, -4) does, so phase 27's plain
+    # version is this path's: every result and (traced) every CIGAR must
+    # equal phase 27's and 31's, pair for pair
+    bkw = dict(size=(128, 1024), seq_cap=ncap, device=dev)
+    bwhat = ("nanopore-like 5000..9999 bases, 10% edits, ByteMatrix(2, -4) "
+             "-6/-2, (128, 1024)")
+    big_b = main_path(BatchAligner(byte2, ngaps, batch=len(nano), **bkw),
+                      nano, bwhat, "big_align_byte", bk.big_align_plain,
+                      bk.big_align, plain=nano_g)
+    print(f"[big-byte-vs-nuc] {len(nano)} nanopore-like pairs: ByteMatrix(2, "
+          "-4) results equal NucMatrix(2, -4)'s (phase 27) pair for pair")
+    phase("34, big_align_byte main path")
+    big_bt = trace_path(
+        BatchAligner(byte2, ngaps, trace=True, batch=256, **bkw), tnano,
+        bwhat, "big_align_byte_trace",
+        BatchAligner(byte2, ngaps, batch=256, **bkw),
+        plain=first(nano_g, 512), n_cmp=0, like=nano_t["cigars"])
+
+    # 35. local start with x_drop 50 on the same band: long-read
+    # extensions that may start anywhere
+    lkw = dict(size=(128, 1024), seq_cap=ncap, x_drop=50, device=dev,
+               **local)
+    lwhat = f"{what}, x_drop 50, local start"
+    nano_l = {}
+    big_fx = main_path(BatchAligner(*dna, batch=len(nano), **lkw), nano,
+                       lwhat, "big_align_flags_xdrop", bk.big_align_plain,
+                       bk.big_align, keep=nano_l)
+    phase("35, big_align_flags_xdrop main path")
+    big_fxt = trace_path(
+        BatchAligner(*dna, trace=True, batch=256, **lkw), tnano, lwhat,
+        "big_align_flags_xdrop_trace", BatchAligner(*dna, batch=256, **lkw),
+        plain=first(nano_l, 512), n_cmp=32, shortest=True)
+
+    # 36. glocal read-to-window: 1024 reads of 600..999 bases cut from the
+    # nanopore pairs, each against its reference window with 500..1499
+    # random bases of flank on either side, free query start and end gaps
+    # at (1024, 1024): the whole read aligns, the window's overhangs are
+    # free
+    win = read_window_pairs(np.random.default_rng(1234), nano)
+    wcap = max(len(r) for _, r in win)
+    gkw = dict(size=(1024, 1024), seq_cap=wcap, device=dev, **fstart, **fend)
+    gwhat = ("reads 600..999 of the nanopore-like pairs against their "
+             "windows with 500..1499 random bases of flank a side, "
+             "NucMatrix(2, -4) -6/-2, (1024, 1024), free query start and end "
+             "gaps")
+    glocal = {}
+    big_f = main_path(BatchAligner(*dna, batch=len(win), **gkw), win, gwhat,
+                      "big_align_flags", bk.big_align_plain, bk.big_align,
+                      keep=glocal)
+    phase("36, big_align_flags main path")
+    big_ft = trace_path(
+        BatchAligner(*dna, trace=True, batch=256, **gkw), win, gwhat,
+        "big_align_flags_trace", BatchAligner(*dna, batch=256, **gkw),
+        plain=glocal, n_cmp=256)
+
+    # 37. the (32, 512) band without trace, which pick_route sends to the
+    # big kernel: the uc30 pairs with ByteMatrix(1, -1), and with local
+    # start under BLOSUM62
+    ukw = dict(size=(32, 512), batch=len(uc), seq_cap=512, device=dev)
+    big_ub = main_path(
+        BatchAligner(byte1, Gaps(-11, -1), **ukw), uc,
+        "uc30 homologs 50-256 + indels, ByteMatrix(1, -1) -11/-1, (32, 512)",
+        "big_align_byte", bk.big_align_plain, bk.big_align)
+    big_ul = main_path(
+        BatchAligner(*protein, local_start=True, **ukw), uc,
+        "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, 512), local "
+        "start", "big_align_flags", bk.big_align_plain, bk.big_align)
+    phase("37, big (32, 512) byte and local start")
+    big_b = merged(big_b, big_ub)
+    big_f = merged(big_f, big_ul)
+
+    # 2, continued: the lane and adaptive libraries, built meanwhile
+    finish_builds(lk.LIBRARIES)
+    pool.shutdown()
+    check_pinned_ptxas(reports)
+    phase("2, the lane and adaptive builds (after phases 25-37)")
+
+    # 3. lane kernel vs plain version on the card (these launches are not
+    # a main path's and are not counted)
+    rng = np.random.default_rng(7)
+    checked = 0
+    for S in (16, 32, 64, 256, 512):
+        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
+                                       (scores.NW1, Gaps(-2, -1), DNA)):
+            pairs = random_pairs(rng, alphabet, 192, 600)
+            cfg = lk.LaneKernelConfig(
+                S, -(-(1 + 600 + S + 16) // 128) * 128,
+                32 if matrix.kind == "aa" else 16)
+            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev)
+            got = lk.lane_align(*pk, cfg)
+            torch.cuda.synchronize()
+            check_equal(got, lk.lane_align_plain(*pk, cfg),
+                        f"at S={S} {matrix.kind}")
+            checked += len(pairs)
+    print(f"[lane-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
+          "(protein and DNA, lengths 0..600): score and suspect equal")
+    n_gold = check_goldens(GOLDEN, BatchAligner, Gaps, scores, dev)
+    print(f"[lane-golden] {n_gold} pinned reference scores equal "
+          "(incl. README example NW1 -2/-1 block 32 -> 7)")
+    phase("3, lane kernel vs plain")
+
+    # 4. adaptive kernel vs plain version on the card
+    checked = overran = 0
+    ladders = ((16, 32), (16, 64), (32, 128), (32, 256), (64, 256))
+    for lo, hi in ladders:
+        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
+                                       (scores.NW1, Gaps(-2, -1), DNA)):
+            pairs = structural_pairs(rng, alphabet, 192, 600)
+            cfg = ak.AdaptiveKernelConfig(
+                lo, hi, -(-(1 + 600 + hi + 16) // 128) * 128,
+                32 if matrix.kind == "aa" else 16)
+            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev)
+            got = ak.adaptive_align(*pk, cfg)
+            torch.cuda.synchronize()
+            check_equal(got, ak.adaptive_align_plain(*pk, cfg),
+                        f"at ({lo}, {hi}) {matrix.kind}")
+            checked += len(pairs)
+
+    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768), 40)
+    pk = lk.pack_lane(structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
+                      cfg, Gaps(-11, -1), dev)
+    got = ak.adaptive_align(*pk, cfg)
+    torch.cuda.synchronize()
+    check_equal(got, ak.adaptive_align_plain(*pk, cfg), "with 40 steps")
+    overran = int(got[:, 1].sum())
+    if not 0 < overran < len(got):
+        raise AssertionError(f"{overran} of {len(got)} pairs overran 40 steps")
+    print(f"[adaptive-vs-plain] {checked} pairs at ladders "
+          f"{', '.join(map(str, ladders))} (protein and DNA, lengths 0..600, "
+          f"structural indels): score and overrun equal; and with a 40-step "
+          f"cap on {len(got)} pairs, {overran} of which overran")
+    n_gold = check_goldens(GOLDEN_ADAPTIVE, BatchAligner, Gaps, scores, dev)
+    print(f"[adaptive-golden] {n_gold} pinned adaptive scores equal")
+    phase("4, adaptive kernel vs plain")
+
+    # 3-4, x-drop: both kernels' x-drop instances vs their plain versions
+    xsetups = ((scores.BLOSUM62, Gaps(-11, -1), AA, 50),
+               (scores.NW1, Gaps(-2, -1), DNA, 100))
+    checked = dropped = 0
+    for S in (16, 32, 64, 256, 512):
+        for matrix, gaps, alphabet, x in xsetups:
+            pairs = random_pairs(rng, alphabet, 192, 600)
+            cfg = lk.LaneKernelConfig(
+                S, -(-(1 + 600 + S + 16) // 128) * 128,
+                32 if matrix.kind == "aa" else 16, x_drop=True)
+            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
+            got = lk.lane_align(*pk, cfg)
+            torch.cuda.synchronize()
+            check_equal(got, lk.lane_align_plain(*pk, cfg),
+                        f"x-drop at S={S} {matrix.kind}")
+            checked += len(pairs)
+            dropped += x_dropped(got, pk)
+    if not dropped:
+        raise AssertionError("no lane x-drop pair ended short of its ends")
+    print(f"[lane-xdrop-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
+          "(protein x 50 and DNA x 100, lengths 0..600): best, position and "
+          f"suspect equal; {dropped} best positions short of (qlen, rlen)")
+
+    checked = dropped = 0
+    for lo, hi in ladders:
+        for matrix, gaps, alphabet, x in xsetups:
+            pairs = structural_pairs(rng, alphabet, 192, 600)
+            cfg = ak.AdaptiveKernelConfig(
+                lo, hi, -(-(1 + 600 + hi + 16) // 128) * 128,
+                32 if matrix.kind == "aa" else 16, x_drop=True)
+            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
+            got = ak.adaptive_align(*pk, cfg)
+            torch.cuda.synchronize()
+            check_equal(got, ak.adaptive_align_plain(*pk, cfg),
+                        f"x-drop at ({lo}, {hi}) {matrix.kind}")
+            checked += len(pairs)
+            dropped += x_dropped(got, pk)
+    if not dropped:
+        raise AssertionError("no adaptive x-drop pair ended short of its ends")
+    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768, x_drop=True), 25)
+    pk = lk.pack_lane(structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
+                      cfg, Gaps(-11, -1), dev, x_drop=50)
+    got = ak.adaptive_align(*pk, cfg)
+    torch.cuda.synchronize()
+    check_equal(got, ak.adaptive_align_plain(*pk, cfg), "x-drop, 25 steps")
+    overran = int(got[:, 3].sum())
+    if not 0 < overran < len(got):
+        raise AssertionError(f"{overran} of {len(got)} x-drop pairs overran "
+                             "25 steps")
+    print(f"[adaptive-xdrop-vs-plain] {checked} pairs at ladders "
+          f"{', '.join(map(str, ladders))} (protein x 50 and DNA x 100, "
+          "lengths 0..600, structural indels): best, position and overrun "
+          f"equal; {dropped} best positions short of (qlen, rlen); with a "
+          f"25-step cap on {len(got)} pairs, {overran} of which overran")
+    phase("3-4, x-drop instances vs plain")
+
+    # 5. the lane main path
+    pairs = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
+    more = rand_protein_pairs(np.random.default_rng(1235), 16384, 1000, 100)
+    al = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
+                      batch=16384, seq_cap=1024, device=dev)
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    staged, pack_ms = host_ms(lambda: al.stage(pairs))
+    res, run_ms = host_ms(lambda: al.align_staged(staged))
+    suspect = al.last_suspect.copy()
+    res_all = al.align_all(pairs + more)
+    lane_launches = expect_launches(lk, ak, "lane main path",
+                                    "lane_align")["lane_align"]
+    for k, (q, r) in enumerate(pairs):
+        if (res[k].query_idx, res[k].reference_idx) != (len(q), len(r)):
+            raise AssertionError(f"pair {k}: end {res[k]} != ({len(q)}, {len(r)})")
+    if res_all[: len(pairs)] != res:
+        raise AssertionError("align_all disagrees with stage + align_staged")
+    if not np.array_equal(al.last_suspect[: len(pairs)], suspect):
+        raise AssertionError("align_all suspect flags disagree")
+    sc = np.array([x.score for x in res])
+    print(f"[lane-main] {len(pairs)} pairs 1000x1000 k=100 BLOSUM62 -11/-1 "
+          f"block 32: stage+align_staged and align_all({len(pairs) + len(more)}) "
+          f"agree; lane_align launches {lane_launches}; scores "
+          f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); suspect "
+          f"{int(suspect.sum())}")
+
+    # the kernel against the plain version on the main path's own inputs
+    cfg = al.cfg
+    args = (staged.codes, staged.qlen, staged.rlen, staged.table, staged.gaps)
+    (want, cells), plain_ms = host_ms(
+        lambda: lk.lane_align_plain(*args, cfg, count_cells=True))
+    got = torch.from_numpy(np.stack([sc, suspect], 1).astype(np.int32))
+    lane_err = int((got - want.cpu()).abs().max())
+    if lane_err:
+        raise AssertionError(f"lane main path differs from the plain version: "
+                             f"max abs err {lane_err}")
+    sub = al.stage(pairs[:512])
+    sub_args = (sub.codes, sub.qlen, sub.rlen, sub.table, sub.gaps)
+    want512, plain512_ms = host_ms(lambda: lk.lane_align_plain(*sub_args, cfg))
+    if not torch.equal(want512.cpu(), got[:512]):
+        raise AssertionError("first 512 main-path results differ from plain")
+    print(f"[lane-main-vs-plain] all {len(pairs)} results (incl. the first "
+          "512) equal the plain version on the card")
+
+    lane_ms = cuda_ms(lambda: lk.lane_align(*args, cfg), 10)
+    kernel512_ms = cuda_ms(lambda: lk.lane_align(*sub_args, cfg), 10)
+    lane_bound, lane_by = bound(staged, cells, int32_per_s)
+    B = len(pairs)
+    print(f"[time] {card}: lane kernel {lane_ms * 1e3 / B:.4f} us/pair "
+          f"({lane_ms:.3f} ms per launch of {B} pairs, CUDA events, mean of "
+          f"10); bound {lane_bound:.4f} ms by {lane_by} "
+          f"({int(cells.sum())} DP cells)")
+    print(f"[time] {card}: pack (stage, host clock) {pack_ms * 1e3 / B:.4f} us/pair")
+    print(f"[time] {card}: align_staged (launch, kernel, copy back, decode; "
+          f"host clock) {run_ms * 1e3 / B:.4f} us/pair")
+    print(f"[time] {card}: lane plain version {plain_ms * 1e3 / B:.4f} us/pair "
+          f"on all {B} pairs ({plain_ms:.1f} ms, host clock)")
+    print(f"[time] {card}: 512-pair subset: plain {plain512_ms * 1e3 / 512:.4f} "
+          f"us/pair, kernel {kernel512_ms * 1e3 / 512:.4f} us/pair")
+    lane_plain_ms = plain_ms
+    phase("5, lane main path")
+
+    # 6. the adaptive main path: the default size on homolog pairs, then on
+    # the long random pairs
+    ucal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
+                        batch=len(uc), seq_cap=512, device=dev)
+    lrand = rand_protein_pairs(np.random.default_rng(1234), 16384, 1000, 100)
+    lral = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
+                        batch=len(lrand), seq_cap=1024, device=dev)
+    if ucal.route != "adaptive" or lral.route != "adaptive":
+        raise AssertionError("(32, 256) did not take the adaptive route")
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    runs = []
+    for al, work, what in ((ucal, uc, "uc30 homologs 50-256 + indels"),
+                           (lral, lrand, "random 1000x1000 k=100")):
+        staged, pack_ms = host_ms(lambda: al.stage(work))
+        res, run_ms = host_ms(lambda: al.align_staged(staged))
+        res_all = al.align_all(work)
+        runs.append((al, work, what, staged, res, pack_ms, run_ms, res_all))
+    ad_launches = expect_launches(lk, ak, "adaptive main path",
+                                  "adaptive_align")["adaptive_align"]
+    ad_err = 0
+    for al, work, what, staged, res, pack_ms, run_ms, res_all in runs:
+        B = len(work)
+        if res_all != res:
+            raise AssertionError(f"{what}: align_all disagrees with "
+                                 "stage + align_staged")
+        for k, (q, r) in enumerate(work):
+            if (res[k].query_idx, res[k].reference_idx) != (len(q), len(r)):
+                raise AssertionError(f"{what} pair {k}: end {res[k]}")
+        cfg = al.cfg
+        args = (staged.codes, staged.qlen, staged.rlen, staged.table,
+                staged.gaps)
+        (want, cells), plain_ms = host_ms(
+            lambda: ak.adaptive_align_plain(*args, cfg, count_cells=True))
+        sc = np.array([x.score for x in res])
+        got = torch.from_numpy(np.stack([sc, np.zeros_like(sc)], 1)
+                               .astype(np.int32))
+        err = int((got - want.cpu()).abs().max())
+        if err:
+            raise AssertionError(f"{what}: adaptive main path differs from the "
+                                 f"plain version: max abs err {err}")
+        ad_err = max(ad_err, err)
+        kernel_ms = cuda_ms(lambda: ak.adaptive_align(*args, cfg), 10)
+        bnd, by = bound(staged, cells, int32_per_s)
+        print(f"[adaptive-main] {B} pairs, {what}, BLOSUM62 -11/-1 (32, 256): "
+              "stage+align_staged and align_all agree and equal the plain "
+              f"version; scores {sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
+              f"{int(cells.sum())} DP cells, {int(cells.sum()) / B:.0f} per pair")
+        print(f"[time] {card}: adaptive, {what}: kernel "
+              f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
+              f"launch of {B} pairs, CUDA events, mean of 10); bound "
+              f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
+              f"align_staged {run_ms * 1e3 / B:.4f} us/pair; plain "
+              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
+        if what.startswith("uc30"):
+            ad_ms, ad_plain_ms, ad_bound, ad_by = kernel_ms, plain_ms, bnd, by
+    print(f"[adaptive-main] adaptive_align launches {ad_launches}")
+    phase("6, adaptive main path")
+
+    # 7. align_exp_all at (32, 256) on 1024 homolog pairs
+    pick = np.random.default_rng(5).choice(len(uc), 1024, replace=False)
+    exp_pairs = [uc[k] for k in pick]
+    fixed = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(256, 256),
+                         batch=1024, seq_cap=512, device=dev)
+    targets = [x.score for x in fixed.align_all(exp_pairs)]
+    for k in range(8):
+        targets[k] = 1 << 30  # never reached: these pairs run every level
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    exp_res, exp_min = align_exp_all(scores.BLOSUM62, Gaps(-11, -1), exp_pairs,
+                                     targets, (32, 256), batch=1024,
+                                     seq_cap=512, device=dev)
+    counts = expect_launches(lk, ak, "align_exp_all", "lane_align",
+                             "adaptive_align")
+    exp_launches = (counts["lane_align"], counts["adaptive_align"])
+
+    def check_exp_all(res, mins, targets, x_drop=None):
+        """Every result equals a direct BatchAligner run at the min size it
+        reports (None: the last level, 256); returns the count per size."""
+        settled = {}
+        for m in (32, 64, 128, 256, None):
+            idx = [k for k in range(len(exp_pairs)) if mins[k] == m]
+            settled[m] = len(idx)
+            if not idx:
+                continue
+            direct = BatchAligner(
+                scores.BLOSUM62, Gaps(-11, -1), size=(m or 256, 256),
+                batch=1024, seq_cap=512, x_drop=x_drop,
+                device=dev).align_all([exp_pairs[k] for k in idx])
+            for k, d in zip(idx, direct):
+                if res[k] != d or (m is None) != (d.score < targets[k]):
+                    raise AssertionError(
+                        f"align_exp_all pair {k} (min size {m}, x_drop "
+                        f"{x_drop}): {res[k]} vs direct {d}, target "
+                        f"{targets[k]}")
+        return settled
+
+    settled = check_exp_all(exp_res, exp_min, targets)
+    print(f"[align_exp_all] {len(exp_pairs)} uc30 pairs at (32, 256), target "
+          f"the 256-256 lane score: settled per min size {settled}; every "
+          f"result equals a direct BatchAligner run at its size; launches "
+          f"(lane, adaptive) {exp_launches}")
+    phase("7, align_exp_all")
+
+    # 8. the lane x-drop main path
+    xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 32),
+                       batch=8192, seq_cap=1100, x_drop=50, device=dev)
+    lane_x = main_path(
+        xal, xdrop_protein_pairs(np.random.default_rng(7), 8192),
+        "protein 800..999 with len/10 substitutions, BLOSUM62 -11/-1, "
+        "x_drop 50, (32, 32)", "lane_align_xdrop", lk.lane_align_plain,
+        lk.lane_align)
+    phase("8, lane x-drop main path")
+
+    # 9. the adaptive x-drop main path: x_drop_accuracy's configuration,
+    # then the default size on the homolog pairs
+    drng = np.random.default_rng(1234)
+    dna = []
+    for _ in range(8192):
+        q = rand_seq(drng, b"ACGT", 300)
+        dna.append((q, rand_mutate(drng, q, 30, b"ACGT")))
+    xal = BatchAligner(scores.NucMatrix.new_simple(1, -1), Gaps(-2, -1),
+                       size=(32, 64), batch=8192, seq_cap=300 + 300 // 8 + 32,
+                       x_drop=50, device=dev)
+    ad_x = main_path(
+        xal, dna, "DNA 300 with 30 edits, NucMatrix(1, -1) -2/-1, x_drop 50, "
+        "(32, 64)", "adaptive_align_xdrop", ak.adaptive_align_plain,
+        ak.adaptive_align)
+    xal = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 256),
+                       batch=len(uc), seq_cap=512, x_drop=50, device=dev)
+    main_path(xal, uc, "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, "
+               "x_drop 50, (32, 256)", "adaptive_align_xdrop",
+               ak.adaptive_align_plain, ak.adaptive_align)
+    phase("9, adaptive x-drop main paths")
+
+    # 10. align_exp_all with x-drop on the pairs of phase 7
+    fixed = BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(256, 256),
+                         batch=1024, seq_cap=512, x_drop=50, device=dev)
+    targets = [x.score for x in fixed.align_all(exp_pairs)]
+    for k in range(8):
+        targets[k] = 1 << 30  # never reached: these pairs run every level
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    exp_res, exp_min = align_exp_all(scores.BLOSUM62, Gaps(-11, -1), exp_pairs,
+                                     targets, (32, 256), x_drop=50,
+                                     batch=1024, seq_cap=512, device=dev)
+    counts = expect_launches(lk, ak, "align_exp_all x-drop",
+                             "lane_align_xdrop", "adaptive_align_xdrop")
+    settled = check_exp_all(exp_res, exp_min, targets, x_drop=50)
+    print(f"[align_exp_all-xdrop] {len(exp_pairs)} uc30 pairs at (32, 256), "
+          f"x_drop 50, target the x-drop 256-256 lane score: settled per min "
+          f"size {settled}; every result equals a direct BatchAligner(x_drop"
+          f"=50) run at its size; launches (lane, adaptive) "
+          f"{(counts['lane_align_xdrop'], counts['adaptive_align_xdrop'])}")
+    phase("10, align_exp_all with x-drop")
+
+    # 11. the trace instances of both kernels vs their plain versions
+
+    def kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x, what, walk=True):
+        pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
+        kernel = lk.lane_align if isinstance(cfg, lk.LaneKernelConfig) \
+            else ak.adaptive_align
+        plain = lk.lane_align_plain if kernel is lk.lane_align \
+            else ak.adaptive_align_plain
+        got = kernel(*pk, cfg)
+        torch.cuda.synchronize()
+        want = plain(*pk, cfg)
+        events = check_trace(got, want, what)
+        if walk:
+            out = want[0].cpu().numpy()
+            ends = ([(int(o[1]), int(o[2])) for o in out] if cfg.x_drop else
+                    [(len(q), len(r)) for q, r in pairs])
+            walk_both(got, want, ends, matrix, what)
+        return got, events
+
+    setups = ((scores.BLOSUM62, Gaps(-11, -1), AA, 50),
+              (scores.NW1, Gaps(-2, -1), DNA, 100))
+    checked = 0
+    for S in (16, 32, 64, 256, 512):
+        for xd in (False, True):
+            for matrix, gaps, alphabet, x in setups:
+                pairs = random_pairs(rng, alphabet, 64, 400)
+                cfg = lk.LaneKernelConfig(
+                    S, -(-(1 + 400 + S + 16) // 128) * 128,
+                    32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
+                kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x if xd else 0,
+                                      f"lane trace S={S} x_drop={xd}")
+                checked += len(pairs)
+    print(f"[lane-trace-vs-plain] {checked} pairs at S in 16,32,64,256,512, "
+          "global and x-drop (protein x 50 and DNA x 100, lengths 0..400): "
+          "outputs, step counts, descriptors and words of every executed "
+          "step equal, and the CIGARs walked from both")
+    checked, saves, restores = 0, 0, 0
+    ladders_t = ladders + ((32, 512),)
+    for lo, hi in ladders_t:
+        for xd in (False, True):
+            for matrix, gaps, alphabet, x in setups:
+                pairs = structural_pairs(rng, alphabet, 64, 400)
+                if hi == 512 and matrix.kind == "aa":
+                    pairs += grow_to_512_pairs(rng, 4)
+                cfg = ak.AdaptiveKernelConfig(
+                    lo, hi, -(-(1 + 1150 + hi + 16) // 128) * 128,
+                    32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
+                got, (sv, rs) = kernel_vs_plain_trace(
+                    cfg, pairs, matrix, gaps, x if xd else 0,
+                    f"adaptive trace ({lo}, {hi}) x_drop={xd}")
+                if hi == 512 and matrix.kind == "aa":
+                    # every one of the 4 pairs, global and x-drop
+                    ran = (torch.arange(got[2].shape[0], device=dev)[:, None]
+                           < got[3][None, -4:])
+                    grown = torch.where(ran, got[2][:, -4:, 3], 0).amax(0)
+                    if not bool((grown == 512).all()):
+                        raise AssertionError(f"x_drop={xd}: blocks grew to "
+                                             f"{grown.tolist()}, not 512")
+                checked += len(pairs)
+                saves += sv
+                restores += rs
+    cfg = with_step_cap(ak.AdaptiveKernelConfig(16, 64, 768, trace=True), 40)
+    got, _ = kernel_vs_plain_trace(
+        cfg, structural_pairs(rng, AA, 192, 600), scores.BLOSUM62,
+        Gaps(-11, -1), 0, "adaptive trace, 40 steps", walk=False)
+    overran = int(got[0][:, 1].sum())
+    if not 0 < overran < len(got[0]) or not saves or not restores:
+        raise AssertionError(f"trace: {overran} pairs overran 40 steps; "
+                             f"{saves} saves, {restores} restores")
+    print(f"[adaptive-trace-vs-plain] {checked} pairs at ladders "
+          f"{', '.join(map(str, ladders_t))}, global and x-drop (lengths "
+          "0..400, structural indels; at (32, 512) 4 pairs that grow to "
+          "512 in both modes): outputs, step counts, descriptors and words "
+          f"equal, and the CIGARs; the descriptors held {saves} checkpoint "
+          f"saves and {restores} grow restores; with a 40-step cap on "
+          f"{len(got[0])} pairs, {overran} of which overran, the traces "
+          "equal too")
+    phase("11, trace instances vs plain")
+
     # 12. the lane trace main paths: the reference's traced short reads
     ill, ont = short_read_pairs(np.random.default_rng(77))
-    nuc, ngaps = scores.NucMatrix.new_simple(2, -4), Gaps(-6, -2)
     paths = []
     for work, cap, what in (
             (ont, 1100, "nanopore-like 800..999 bases, 10% edits"),
@@ -2067,11 +2567,18 @@ def main():
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
-    def profile_path(al, work, what, name):
+    profile_plain = {"lane": lk.lane_align_plain,
+                     "adaptive": ak.adaptive_align_plain,
+                     "big": bk.big_align_plain}
+    profile_kernel = {"lane": lk.lane_align, "adaptive": ak.adaptive_align,
+                      "big": bk.big_align}
+
+    def profile_path(al, work, what, name, keep=None):
         """Drive a profile main path (stage + align_staged, then align_all)
         with the launch counts reset just before it and read just after;
         every result must equal the plain version's on the card; time it.
-        Returns the path's numbers for the kernels line."""
+        ``keep``, a dict, takes the results.  Returns the path's numbers for
+        the kernels line."""
         torch.cuda.synchronize()
         reset_launches(lk, ak)
         staged, pack_ms = host_ms(lambda: al.stage(work))
@@ -2082,9 +2589,10 @@ def main():
         if res_all != res:
             raise AssertionError(f"{what}: align_all disagrees with stage + "
                                  "align_staged")
-        plain_fn = lk.lane_align_plain if al.route == "lane" \
-            else ak.adaptive_align_plain
-        kernel_fn = lk.lane_align if al.route == "lane" else ak.adaptive_align
+        if keep is not None:
+            keep["res"] = res
+        plain_fn = profile_plain[al.route]
+        kernel_fn = profile_kernel[al.route]
         (want, cells), plain_ms = host_ms(
             lambda: plain_fn(*staged, al.cfg, count_cells=True))
         last = np.zeros(len(res), np.int32) if flags is None else flags
@@ -2188,18 +2696,21 @@ def main():
 
     # 18. the profile trace paths: the SCOP-style pairs in batches of 2048
     # on the lane (32, 32) and adaptive (32, 256) routes, global and x-drop
-    def profile_trace_path(al, base, work, what, name):
+    def profile_trace_path(al, base, work, what, name, n_cmp=512):
         """Align every batch with trace and walk each pair's CIGAR, with
         the launch counts reset just before and read just after; hold the
         results against the non-trace twin and the plain version, every
         CIGAR against its end and its score (``check_profile_cigars``: a
         pair that misses must have a down-to-right gap hand-off, and is held
-        to the plain version's CIGAR), the first 512 CIGARs against the
-        plain version's; time each layer per batch.  Returns the numbers
-        for the kernels line."""
-        plain_fn = lk.lane_align_plain if al.route == "lane" \
-            else ak.adaptive_align_plain
-        kernel_fn = lk.lane_align if al.route == "lane" else ak.adaptive_align
+        to the plain version's CIGAR), the first ``n_cmp`` CIGARs against
+        the plain version's; time each layer per batch.  Returns the
+        numbers for the kernels line."""
+        plain_fn = profile_plain[al.route]
+        kernel_fn = profile_kernel[al.route]
+        # the big route's plain trace takes a smaller word budget (its
+        # buffer is zeroed), which no pair may pass
+        tcfg = (with_trace_budget(al.cfg, min(al.cfg.trace_budget, 1 << 20))
+                if al.route == "big" else al.cfg)
         x = al.x_drop or 0
         cfg0 = dataclasses.replace(al.cfg, trace=False)
         torch.cuda.synchronize()
@@ -2252,16 +2763,24 @@ def main():
         if err:
             raise AssertionError(f"{what}: differs from the plain version: "
                                  f"max abs err {err}")
-        # the plain version's CIGARs: the first 512 pairs and every pair
+        # the plain version's CIGARs: the first n_cmp pairs and every pair
         # whose CIGAR does not rescore (a hand-off the walk cannot show)
-        for idx in (list(range(min(512, len(work)))), miss):
+        for idx in (list(range(min(n_cmp, len(work)))), miss):
             for k in range(0, len(idx), al.batch_size):
                 part = idx[k : k + al.batch_size]
                 sub = [work[i] for i in part]
-                pk = pack_profile(sub, al.cfg, dev, x_drop=x)
-                _, words, desc, steps = plain_fn(*pk, al.cfg)
-                tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
-                           steps.cpu().numpy(), **trace_flags(al.cfg))
+                pk = pack_profile(sub, tcfg, dev, x_drop=x)
+                got_p = plain_fn(*pk, tcfg)
+                if al.route == "big":
+                    if got_p[0][:, -1].any():
+                        raise AssertionError(f"{what}: the plain trace "
+                                             "passed its word budget")
+                    tr = block_trace(got_p, None, tcfg)
+                else:
+                    _, words, desc, steps = got_p
+                    tr = Trace(words.cpu().numpy(), desc.cpu().numpy(),
+                               steps.cpu().numpy(), **trace_flags(al.cfg))
+                del got_p
                 ends = [(res[i].query_idx, res[i].reference_idx)
                         for i in part]
                 if [str(c) for c in tr.cigars_all(ends)] != [
@@ -2280,7 +2799,8 @@ def main():
               f"block DP's profile costs; the other {len(miss)}, of the "
               f"{hand} whose CIGAR has a D run handed from a down rect's "
               "last lane to a right rect, rescore below their score and "
-              "equal the plain version's CIGARs, as do the first 512; "
+              "equal the plain version's CIGARs, as do the first "
+              f"{min(n_cmp, B)}; "
               f"{ops} runs; scores {sc.min()}..{sc.max()} (mean "
               f"{sc.mean():.1f}); {int(cells.sum())} DP cells; "
               f"{nbytes / B:.0f} trace bytes per pair")
@@ -2313,7 +2833,6 @@ def main():
     # versions: ByteMatrix on pairs over all 256 bytes with byte 0 and the
     # golden pair, and each flag, global, x-drop (not free end gaps) and
     # trace, sequence and profile
-    byte1 = scores.ByteMatrix(1, -1)
     two = ((False, False), (False, True))
     flag_sets = (("byte", dict(byte_mode=True), two),
                  ("local start", dict(local_start=True), modes),
@@ -2439,7 +2958,6 @@ def main():
         "uc30 homologs 50-256 + indels, ByteMatrix(1, -1) -11/-1, (32, 256)",
         "adaptive_align_byte", ak.adaptive_align_plain, ak.adaptive_align)
     phase("20, adaptive_align_byte main path")
-    byte2 = scores.ByteMatrix(2, -4)
     kw = dict(size=(32, 32), batch=len(ill), seq_cap=180, device=dev)
     bal = BatchAligner(byte2, ngaps, trace=True, **kw)
     lane_bt = trace_path(bal, ill, "Illumina-like 100..150 bases, 1% edits, "
@@ -2570,391 +3088,216 @@ def main():
             scop[:2048], f"{what}, {size}" + (f", x_drop {x}" if x else "")
             + f", {flag.replace('_', ' ')}", name)
 
-    # 25-26. the big kernel vs its plain version, global then x-drop: the
-    # structural pairs at (32, 512), (64, 1024), (512, 1024) and (1024,
-    # 1024), fixed (2048, 4096) and the growth pairs of phase 29, and a
-    # capped run; the nanopore pairs of phase 27 are held on every pair
-    # there
-    grow = growth_pairs(np.random.default_rng(3), 32)
-    dna = (nuc, ngaps)
-    big_sizes = ((32, 512), (64, 1024), (512, 1024), (1024, 1024))
+    # 38. the reference's PSSM self-oracle (examples/pssm_accuracy.rs:80-82;
+    # the JAX package's examples_tpu/pssm_accuracy.py:45-52): phase 16's
+    # SCOP-style pairs through one fixed (2048, 2048) block on kernel C's
+    # profile instance, global and (the first 2048) x 50, then
+    # pssm_accuracy.py's table: how many lane and adaptive results equal
+    # the self-oracle
+    max_q = max(len(q) for q, _ in scop)
+    max_p = max(p.len() for _, p in scop)
+    okw = dict(seq_cap=max_q + 16, prof_len=max_p + 16, device=dev)
+    owhat = ("SCOP-style seq-PSSM 30..199, gap opens -13..-9, close 0, "
+             "(2048, 2048)")
+    kept = {}
+    big_p = profile_path(ProfileAligner((2048, 2048), batch=len(scop),
+                                        **okw),
+                         scop, owhat, "big_align_profile", keep=kept)
+    self_oracle = [r.score for r in kept["res"]]
+    # without a freeze every pair runs the first rect's 2048 columns: the
+    # x-drop paths take the first 2048 pairs
+    big_px = profile_path(ProfileAligner((2048, 2048), batch=2048, x_drop=50,
+                                         **okw),
+                          scop[:2048], f"{owhat}, x_drop 50",
+                          "big_align_profile_xdrop")
+    table = []
+    acap = max(max_q, max_p)
+    for size in ((32, 32), (32, 64), (64, 64), (64, 128), (128, 128)):
+        res = ProfileAligner(size, batch=len(scop), seq_cap=acap + 32,
+                             device=dev).align_all(scop)
+        table.append((size, sum(r.score == w
+                                for r, w in zip(res, self_oracle))))
+    print("[pssm-accuracy] examples_tpu/pssm_accuracy.py's table against the "
+          "(2048, 2048) self-oracle, size,total,correct: " + "; ".join(
+              f"{lo}-{hi},{len(scop)},{n}" for (lo, hi), n in table))
+    phase("38, PSSM self-oracle (2048, 2048)")
 
-    def big_cfg(pairs, size, matrix, x, cap, **modes):
-        """The big kernel's configuration for ``pairs`` with ``matrix``
-        (a ByteMatrix: byte mode) and the modes given."""
-        maxlen = max(max(len(q), len(r)) for q, r in pairs)
-        return bk.BigKernelConfig(
-            *size, cap or max(256, -(-(1 + maxlen + size[1] + 16) // 128)
-                              * 128),
-            {"nuc": 16, "byte": 256}.get(matrix.kind, 32),
-            x_drop=x is not None, byte_mode=matrix.kind == "byte", **modes)
-
-    def big_vs_plain(pairs, size, matrix, gaps, x, cap=None, **flags):
-        """big_align against big_align_plain on the card, with ``flags``
-        (the FLAGS instances'); returns the pairs whose best lies short of
-        their ends and the largest block sizes reached."""
-        cfg = big_cfg(pairs, size, matrix, x, cap, **flags)
-        pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
+    # 39. growth: strong-consensus profiles whose random middles make the
+    # blocks grow, some with costs that vary by position, at (32, 2048)
+    # global (to 1024 and 2048) and x 50, and at (512, 4096) to 4096;
+    # kernel against the plain version
+    def profile_vs_plain_big(pairs, size, x=None, **modes):
+        """big_align against big_align_plain on profile pairs, with
+        ``modes``; with trace also the step counts, word counters,
+        descriptors, words and CIGARs walked from both, each CIGAR ending
+        at its result and rescoring under the profile costs (or, with the
+        reference's hand-off, below and equal to the plain one's); returns
+        the largest block sizes reached."""
+        pmax = max(p.str_len for _, p in pairs)
+        cfg = ProfileAligner(
+            size, seq_cap=max(max(len(q) for q, _ in pairs), pmax),
+            prof_len=pmax, x_drop=x, device=dev, **modes).cfg
+        pk = pack_profile(pairs, cfg, dev, x or 0)
         got = bk.big_align(*pk, cfg)
         torch.cuda.synchronize()
-        want, top = bk.big_align_plain(*pk, cfg, top_size=True)
-        check_equal(got, want, f"big {size} x_drop={x} {matrix.kind} "
-                    f"{sorted(flags)}")
-        if got[:, -1].any():
-            raise AssertionError(f"big {size}: a pair hit the step cap")
-        return (x_dropped(got, pk) if x is not None else 0), top
-
-    def big_capped(x, steps):
-        cfg = with_step_cap(bk.BigKernelConfig(32, 1024, 1792,
-                                               x_drop=x is not None), steps)
-        pk = bk.pack_big(structural_pairs(rng, AA, 96, 600), scores.BLOSUM62,
-                         cfg, Gaps(-11, -1), dev, x or 0)
-        got = bk.big_align(*pk, cfg)
-        torch.cuda.synchronize()
-        check_equal(got, bk.big_align_plain(*pk, cfg), f"big, {steps} steps")
-        over = int(got[:, -1].sum())
-        if not 0 < over < len(got):
-            raise AssertionError(f"big: {over} of {len(got)} pairs overran "
-                                 f"{steps} steps")
-        return over, len(got)
-
-    shapes = {S: bk.launch_shape(bk.BigKernelConfig(16, S, 16384))
-              for S in (512, 1024, 2048, 4096, 8192)}
-    print("[big-shape] threads, dynamic shared bytes and blocks per SM "
-          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor) by max size: "
-          + "; ".join(f"{S}: {t}, {b}, {n}" for S, (t, b, n) in
-                      shapes.items()))
-    checked, tops = 0, set()
-    for size in big_sizes:
-        for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
-                                       (*dna, DNA)):
-            pairs = structural_pairs(rng, alphabet, 96, 700)
-            tops |= set(big_vs_plain(pairs, size, matrix, gaps, None)[1]
-                        .tolist())
-            checked += len(pairs)
-    _, top = big_vs_plain(grow[:4], (2048, 4096), *dna, None)
-    over, n_capped = big_capped(None, 40)
-    print(f"[big-vs-plain] {checked} pairs at {', '.join(map(str, big_sizes))}"
-          " (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths "
-          f"0..700, structural indels; blocks reached {sorted(tops)}), and 4 "
-          f"growth pairs at fixed (2048, 4096) (blocks {top.tolist()}): "
-          "score and overrun equal; with a 40-step cap on "
-          f"{n_capped} pairs, {over} of which overran; the lane and adaptive "
-          "instances keep their pinned ptxas counts (phase 2)")
-    phase("25, big kernel vs plain")
-
-    checked = dropped = 0
-    for size in big_sizes:
-        for (matrix, gaps, alphabet), x in (
-                ((scores.BLOSUM62, Gaps(-11, -1), AA), 0),
-                ((*dna, DNA), 20), ((scores.BLOSUM62, Gaps(-11, -1), AA), 100)):
-            pairs = structural_pairs(rng, alphabet, 96, 700)
-            dropped += big_vs_plain(pairs, size, matrix, gaps, x)[0]
-            checked += len(pairs)
-    gdrop, gtop = big_vs_plain(grow[:8], (512, 8192), *dna, 1000,
-                               cap=16384)
-    over, n_capped = big_capped(50, 25)
-    if not dropped:
-        raise AssertionError("no big x-drop pair ended short of its ends")
-    print(f"[big-xdrop-vs-plain] {checked} pairs at "
-          f"{', '.join(map(str, big_sizes))} (protein x 0 and 100, DNA x 20): "
-          "best, position and overrun equal; "
-          f"{dropped} best positions short of (qlen, rlen); 8 of the "
-          f"growth pairs at (512, 8192) with x 1000 ({gdrop} short of their "
-          f"ends, blocks reached {sorted(set(gtop.tolist()))}); with a "
-          f"25-step cap on {n_capped} pairs, {over} of which overran")
-    phase("26, big x-drop kernel vs plain")
-
-    # 27. the big main path: the reference's <10 kbp 1%-10% band (128,
-    # 1024) on the JAX package's nanopore workload
-    # (run_results.py::bench_nanopore_band10k), global and x-drop
-    nano = load_nanopore_pairs(n_pairs=1024, max_len=10000, seed=1234)
-    ncap = max(max(len(q), len(r)) for q, r in nano)
-    what = ("nanopore-like 5000..9999 bases, 10% edits, NucMatrix(2, -4) "
-            "-6/-2, (128, 1024)")
-    nano_g, nano_x = {}, {}  # the plain version's, for phase 31
-    big_g = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
-                                   seq_cap=ncap, device=dev), nano, what,
-                      "big_align", bk.big_align_plain, bk.big_align,
-                      keep=nano_g)
-    phase("27, big_align main path")
-    big_x = main_path(BatchAligner(*dna, size=(128, 1024), batch=len(nano),
-                                   seq_cap=ncap, x_drop=50, device=dev), nano,
-                      f"{what}, x_drop 50", "big_align_xdrop",
-                      bk.big_align_plain, bk.big_align, keep=nano_x)
-    phase("27, big_align_xdrop main path")
-
-    # 28. uc30 at (32, 512) without trace, which pick_route sends to the
-    # big kernel
-    big_uc = main_path(
-        BatchAligner(scores.BLOSUM62, Gaps(-11, -1), size=(32, 512),
-                     batch=len(uc), seq_cap=512, device=dev), uc,
-        "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, 512)",
-        "big_align", bk.big_align_plain, bk.big_align)
-    phase("28, big_align uc30 (32, 512)")
-
-    # 29. growth: DNA pairs whose long random middles make the blocks grow
-    # to 4096 and 8192, at (512, 8192) with the whole code budget
-    gal = BatchAligner(*dna, size=(512, 8192), batch=len(grow), seq_cap=8175,
-                       device=dev)
-    if gal.cfg.seq_cap != 16384:
-        raise AssertionError(f"growth seq_cap {gal.cfg.seq_cap}")
-    grow_plain = {}  # the plain version's, for phase 32
-    big_gr, gtop = main_path(
-        gal, grow, "DNA growth pairs: a flank, a random middle of 1200..3200 "
-        "on both sides, a flank (5% edits), NucMatrix(2, -4) -6/-2, (512, "
-        "8192)", "big_align", bk.big_align_plain, bk.big_align, top=True,
-        keep=grow_plain)
-    reached = {int(t): int((gtop == t).sum()) for t in gtop.unique()}
-    if not {4096, 8192} <= set(reached):
-        raise AssertionError(f"growth pairs reached {reached}")
-    print(f"[big-growth] blocks reached (size: pairs) {reached}")
-    phase("29, big_align growth main path")
-    big_g = merged(big_g, big_uc, big_gr)
-
-    # 30. the big trace instances (csrc/big_trace.cu) vs the plain version:
-    # structural pairs at (64, 1024), (512, 1024) and (1024, 1024), global
-    # and x 20 and 100, 4 growth pairs at fixed (2048, 4096), and a reduced
-    # trace budget
-    def big_trace_vs_plain(pairs, size, matrix, gaps, x, cap=None,
-                           budget=None, **flags):
-        """big_align against big_align_plain with trace on the card, with
-        ``flags`` (the FLAGS instances'): equal outputs, step counts, word
-        counters, executed descriptors and words (local start's zero words
-        too), and equal CIGARs walked from both for the pairs that did not
-        overrun; returns (saves, restores, overruns, the tallest step)."""
-        cfg = big_cfg(pairs, size, matrix, x, cap, trace=True, **flags)
-        if budget:
-            cfg = with_trace_budget(cfg, budget)
-        pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
-        got = bk.big_align(*pk, cfg)
-        torch.cuda.synchronize()
-        want = bk.big_align_plain(*pk, cfg)
-        what = f"big trace {size} x_drop={x} {matrix.kind} {sorted(flags)}"
-        saves, restores = check_big_trace(got, want, what)
+        *want, top = bk.big_align_plain(*pk, cfg, top_size=True)
+        what = f"big profile {size} x_drop={x} {sorted(modes)}"
+        if not cfg.trace:
+            check_equal(got, want[0], what)
+            if got[:, -1].any():
+                raise AssertionError(f"{what}: a pair hit the step cap")
+            return top
+        check_big_trace(got, want, what)
         out = want[0].cpu()
-        done = (out[:, -1] == 0).nonzero()[:, 0].tolist()
-        ends = [(int(out[k, 1]), int(out[k, 2])) if lk.wide(cfg)
-                else (len(pairs[k][0]), len(pairs[k][1])) for k in done]
+        if out[:, -1].any():
+            raise AssertionError(f"{what}: a pair hit the step cap")
+        res = [api.AlignResult(int(o[0]), int(o[1]), int(o[2]))
+               if lk.wide(cfg) else api.AlignResult(int(o[0]), len(q),
+                                                    p.str_len)
+               for o, (q, p) in zip(out, pairs)]
+        ends = [(r.query_idx, r.reference_idx) for r in res]
+        walk_both(got, want, ends, None, what, cfg)
+        tr = block_trace(got, None, cfg)
+        cigars = tr.cigars_all(ends)
+        gaps = [profile_gap_rects(tr, b, c, r)
+                for b, (c, r) in enumerate(zip(cigars, res))]
+        check_profile_cigars(cigars, gaps, pairs, res, what, cigar_start(cfg))
+        return top
 
-        def sub(res):
-            return tuple(t[:, done] if t.dim() == 3 else t[done] for t in res)
-
-        walk_both(sub(got), sub(want), ends, matrix, what, cfg)
-        desc, steps = want[2], want[3]
-        ran = torch.arange(desc.shape[0], device=dev)[:, None] < steps
-        return (saves, restores, int(out[:, -1].sum()),
-                int(torch.where(ran, desc[:, :, 3], 0).max()))
-
-    checked, events, tall = 0, [0, 0], set()
-    for size in ((64, 1024), (512, 1024), (1024, 1024)):
-        for (matrix, gaps, alphabet), x in product(
-                ((scores.BLOSUM62, Gaps(-11, -1), AA), (*dna, DNA)),
-                (None, 20, 100)):
-            pairs = structural_pairs(rng, alphabet, 32, 700)
-            sv, rs, _, h = big_trace_vs_plain(pairs, size, matrix, gaps, x)
-            events[0] += sv
-            events[1] += rs
-            tall.add(h)
-            checked += len(pairs)
-    grown = big_trace_vs_plain(grow[:4], (2048, 4096), *dna, None)[3]
-    _, _, over, _ = big_trace_vs_plain(structural_pairs(rng, AA, 64, 600),
-                                       (32, 1024), scores.BLOSUM62,
-                                       Gaps(-11, -1), None, budget=6000)
-    if not 0 < over < 64 or not all(events) or grown != 4096:
-        raise AssertionError(f"big trace: {over} of 64 pairs overran the "
-                             f"budget; events {events}; growth steps to "
-                             f"{grown}")
-    tshapes = {(S, xd): bk.launch_shape(bk.BigKernelConfig(
-        16, S, 16384, x_drop=xd, trace=True))
-        for S in (512, 1024, 2048, 4096, 8192) for xd in (False, True)}
-    print("[big-shape] trace instances, global / x-drop: threads, dynamic "
+    prng = np.random.default_rng(2048)
+    pgrow = [p for m in (500, 800, 1100, 1400)
+             for p in consensus_growth_pairs(prng, 1, 150, m)]
+    # costs that vary by position, so that the down rects' C/R swap and R
+    # close and the warps' carries of a row's own costs show: two growth
+    # pairs and two whose queries miss a stretch of their profile
+    vrng = np.random.default_rng(2049)
+    pgrow += [p for m in (700, 1200)
+              for p in consensus_growth_pairs(vrng, 1, 150, m, varied=True)]
+    pgrow += deletion_profile_pairs(vrng)
+    top = profile_vs_plain_big(pgrow, (32, 2048))
+    for part in (top[:4], top[4:6]):
+        if not {1024, 2048} <= set(part.tolist()):
+            raise AssertionError(f"profile growth pairs reached {top}")
+    profile_vs_plain_big(pgrow, (32, 2048), 50)
+    pgrow4 = consensus_growth_pairs(prng, 2, 300, 2500)
+    top4 = profile_vs_plain_big(pgrow4, (512, 4096))
+    if 4096 not in top4.tolist():
+        raise AssertionError(f"profile growth pairs reached {top4.tolist()}")
+    print("[big-shape] profile instances (global, x-drop, trace, trace with "
+          "local start, x-drop trace with local start): threads, dynamic "
           "shared bytes and blocks per SM by max size: " + "; ".join(
-              f"{S}: {tshapes[S, False]} / {tshapes[S, True]}"
-              for S in (512, 1024, 2048, 4096, 8192)))
-    print(f"[big-trace-vs-plain] {checked} pairs at (64, 1024), (512, 1024) "
-          "and (1024, 1024) (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, "
-          "-4) -6/-2, lengths 0..700, structural indels), global and x 20 "
-          "and 100 (steps up to "
-          f"{max(tall)} rows), and 4 growth pairs at fixed (2048, 4096), "
-          "global: outputs, step counts, word counters, "
-          "descriptors and words equal, and the CIGARs walked from both; "
-          f"{events[0]} checkpoint saves and {events[1]} grow restores; under "
-          f"a budget of 6000 words on 64 pairs at (32, 1024), {over} of "
-          "which overran, the traces equal too")
-    phase("30, big trace instances vs plain")
-
-    # 31. the traced nanopore band: phase 27's pairs through
-    # align_all_trace in batches of 256, global and x 50, held against
-    # phase 27's non-trace instance and plain version; the CIGARs of the 32
-    # pairs with the fewest cells against the plain version's trace (whose
-    # time is its step count's, not its pair count's)
-    tkw = dict(size=(128, 1024), batch=256, seq_cap=ncap, device=dev)
-    nano_t = {}  # the CIGARs, for phase 34
-    big_t = trace_path(BatchAligner(*dna, trace=True, **tkw), nano, what,
-                       "big_align_trace", BatchAligner(*dna, **tkw),
-                       plain=nano_g, n_cmp=32, shortest=True, keep=nano_t)
-    big_xt = trace_path(
-        BatchAligner(*dna, trace=True, x_drop=50, **tkw), nano,
-        f"{what}, x_drop 50", "big_align_xdrop_trace",
-        BatchAligner(*dna, x_drop=50, **tkw), plain=nano_x, n_cmp=32,
-        shortest=True)
-
-    # 32. traced growth: two of phase 29's growth pairs whose blocks reach
-    # 4096 and two that reach 8192, at (512, 8192) with trace
-    pick = ([k for k in range(len(grow)) if gtop[k] == 4096][:2]
-            + [k for k in range(len(grow)) if gtop[k] == 8192][:2])
-    gkw = dict(size=(512, 8192), batch=4, seq_cap=8175, device=dev)
-    tal = BatchAligner(*dna, trace=True, **gkw)
-    big_gt = trace_path(
-        tal, [grow[k] for k in pick], "DNA growth pairs of phase 29 (two "
-        "reach 4096, two 8192), NucMatrix(2, -4) -6/-2, (512, 8192)",
-        "big_align_trace", BatchAligner(*dna, **gkw),
-        plain=dict(grow_plain, want=grow_plain["want"][pick],
-                   cells=grow_plain["cells"][pick], pairs=len(grow)))
-    tr = tal.trace()
-    heights = [int(tr.desc[: tr.steps[b], b, 3].max()) for b in range(4)]
-    if sorted(heights) != [4096, 4096, 8192, 8192]:
-        raise AssertionError(f"traced growth reached {heights}")
-    print(f"[big-trace-growth] traced steps reached {heights} rows")
-    big_t = merged(big_t, big_gt)
-
-    # 33. the big kernel's FLAGS instances (csrc/big_flags.cu,
-    # csrc/big_trace_flags.cu) vs the plain version: 32-pair structural
-    # batches at (128, 1024), (512, 1024) and (1024, 1024), each mode at
-    # two sizes or more, traced and not, x-drop where the mode allows it;
-    # two growth pairs at (512, 8192) with traced local start, the
-    # instance whose shared memory is the largest; the launch shapes
-    protein = (scores.BLOSUM62, Gaps(-11, -1))
-    local, fstart = dict(local_start=True), dict(free_query_start_gaps=True)
-    fend = dict(free_query_end_gaps=True)
-    flag_cases = {
-        (128, 1024): (("byte", None, False), ("byte", None, True),
-                      ("local", None, True), ("local", 20, False),
-                      ("fstart", 100, True), ("fend", None, True)),
-        (512, 1024): (("byte", None, True), ("local", 100, True),
-                      ("fstart", None, True), ("fend", None, False)),
-        (1024, 1024): (("byte", None, False), ("local", None, False),
-                       ("local", 20, True), ("fstart", 20, False),
-                       ("fstart", None, True), ("fend", None, True)),
-    }
-    checked, tall = 0, set()
-    for size, cases in flag_cases.items():
-        for k, (mode, x, tr) in enumerate(cases):
-            flags = {"byte": {}, "local": local, "fstart": fstart,
-                     "fend": fend}[mode]
-            if mode == "byte":
-                matrix, gaps = byte1, Gaps(-11, -1)
-                pairs = byte_pairs(rng, 32, 700)
-            else:
-                matrix, gaps = (protein, dna)[k % 2]
-                pairs = structural_pairs(rng, AA if k % 2 == 0 else DNA, 32,
-                                         700)
-            if mode == "fend":
-                pairs = [(q[: size[0] - 1], r) for q, r in pairs]
-            if tr:
-                tall.add(big_trace_vs_plain(pairs, size, matrix, gaps, x,
-                                            **flags)[3])
-            else:
-                big_vs_plain(pairs, size, matrix, gaps, x, **flags)
-            checked += len(pairs)
-    h8 = big_trace_vs_plain(grow[:2], (512, 8192), *dna, None, cap=16384,
-                            **local)[3]
-    if h8 != 8192 or max(tall) != 1024:
-        raise AssertionError(f"big flags: traced steps reached {max(tall)} "
-                             f"rows, the local-start growth pairs {h8}")
-    print("[big-shape] FLAGS instances (global, x-drop, trace without and "
-          "with local start, x-drop trace with local start): threads, "
-          "dynamic shared bytes and blocks per SM by max size: " + "; ".join(
               f"{S}: " + " / ".join(str(bk.launch_shape(bk.BigKernelConfig(
-                  16, S, 16384, x_drop=xd, trace=tr, **f)))
-                  for f, xd, tr in ((local, False, False),
-                                    (local, True, False), (fend, False, True),
-                                    (local, False, True), (local, True, True)))
-              for S in (1024, 4096, 8192)))
-    print(f"[big-flags-vs-plain] {checked} pairs at (128, 1024), (512, 1024) "
-          "and (1024, 1024): ByteMatrix(1, -1) -11/-1 (all 256 bytes, byte "
-          "0) global and traced; local start global, x 20 and 100, traced; "
-          "free start gaps traced, x 20 and 100; free end gaps (queries "
-          "shorter than the min size) global and traced; protein BLOSUM62 "
-          "-11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths 0..700, structural "
-          f"indels (steps up to {max(tall)} rows); and 2 growth pairs at "
-          f"(512, 8192) with traced local start (steps up to {h8} rows): "
-          "outputs equal, and traced step counts, word counters, "
-          "descriptors, words (the zero words too) and CIGARs")
-    phase("33, big FLAGS instances vs plain")
+                  16, S, 16384, x_drop=xd, trace=tr, profile=True,
+                  prof_cap=128, local_start=ls)))
+                  for xd, tr, ls in ((False, False, False),
+                                     (True, False, False),
+                                     (False, True, False),
+                                     (False, True, True), (True, True, True)))
+              for S in (1024, 2048, 4096, 8192)))
+    print(f"[big-profile-growth] 4 strong-consensus profiles (flanks of 150, "
+          "random middles of 500..1400), 2 more (middles of 700 and 1200) "
+          "whose gap opens and closes vary by position, and 2 such profiles "
+          "whose queries miss 70 and 80 positions, at (32, 2048), global "
+          f"(blocks reached {top.tolist()}) and x 50, and 2 (flanks of 300, "
+          f"middles of 2500) at (512, 4096) (blocks {top4.tolist()}): "
+          "kernel equal to the plain version")
+    phase("39, big profile growth vs plain")
 
-    # 34. the byte band: phase 27's pairs with ByteMatrix(2, -4), which on
-    # ACGT reads scores as NucMatrix(2, -4) does, so phase 27's plain
-    # version is this path's: every result and (traced) every CIGAR must
-    # equal phase 27's and 31's, pair for pair
-    bkw = dict(size=(128, 1024), seq_cap=ncap, device=dev)
-    bwhat = ("nanopore-like 5000..9999 bases, 10% edits, ByteMatrix(2, -4) "
-             "-6/-2, (128, 1024)")
-    big_b = main_path(BatchAligner(byte2, ngaps, batch=len(nano), **bkw),
-                      nano, bwhat, "big_align_byte", bk.big_align_plain,
-                      bk.big_align, plain=nano_g)
-    print(f"[big-byte-vs-nuc] {len(nano)} nanopore-like pairs: ByteMatrix(2, "
-          "-4) results equal NucMatrix(2, -4)'s (phase 27) pair for pair")
-    phase("34, big_align_byte main path")
-    big_bt = trace_path(
-        BatchAligner(byte2, ngaps, trace=True, batch=256, **bkw), nano,
-        bwhat, "big_align_byte_trace",
-        BatchAligner(byte2, ngaps, batch=256, **bkw), plain=nano_g, n_cmp=0,
-        like=nano_t["cigars"])
+    # 40. trace: the self-oracle pairs traced at (2048, 2048), global and
+    # (the first 1024) x 50, through ProfileAligner in batches of 256; the
+    # (32, 2048) pairs of phase 39 traced, global and x 50, against the plain
+    # version
+    tkw = dict(batch=256, **okw)
+    big_pt = profile_trace_path(
+        ProfileAligner((2048, 2048), trace=True, **tkw),
+        ProfileAligner((2048, 2048), **tkw), scop, owhat,
+        "big_align_profile_trace", n_cmp=256)
+    big_pxt = profile_trace_path(
+        ProfileAligner((2048, 2048), trace=True, x_drop=50, **tkw),
+        ProfileAligner((2048, 2048), x_drop=50, **tkw), scop[:1024],
+        f"{owhat}, x_drop 50", "big_align_profile_xdrop_trace", n_cmp=256)
+    for x in (None, 50):
+        profile_vs_plain_big(pgrow, (32, 2048), x, trace=True)
+    print("[big-profile-trace-growth] the 8 profiles of phase 39 at (32, "
+          "2048) traced, global and x 50: outputs, step counts, word "
+          "counters, descriptors, words and CIGARs equal the plain version's; "
+          "every CIGAR ends at its result and rescores")
+    phase("40, big profile trace")
 
-    # 35. local start with x_drop 50 on the same band: long-read
-    # extensions that may start anywhere
-    lkw = dict(size=(128, 1024), seq_cap=ncap, x_drop=50, device=dev,
-               **local)
-    lwhat = f"{what}, x_drop 50, local start"
-    nano_l = {}
-    big_fx = main_path(BatchAligner(*dna, batch=len(nano), **lkw), nano,
-                       lwhat, "big_align_flags_xdrop", bk.big_align_plain,
-                       bk.big_align, keep=nano_l)
-    phase("35, big_align_flags_xdrop main path")
-    big_fxt = trace_path(
-        BatchAligner(*dna, trace=True, batch=256, **lkw), nano, lwhat,
-        "big_align_flags_xdrop_trace", BatchAligner(*dna, batch=256, **lkw),
-        plain=nano_l, n_cmp=32, shortest=True)
+    # 41. the flags on the self-oracle pairs at (2048, 2048): local start
+    # (and, on 2048 of them, traced, and on 1024 traced with x 50); on 2048
+    # of them, which run the whole first rect, free query start gaps with x
+    # 50 and free query end gaps (every query is shorter than 2048); and
+    # against the plain version at (32, 2048) on the pairs of phase 39, local
+    # start traced and free start gaps
+    local = dict(local_start=True)
+    big_pf = merged(
+        profile_path(ProfileAligner((2048, 2048), batch=len(scop), **local,
+                                    **okw), scop, f"{owhat}, local start",
+                     "big_align_profile_flags"),
+        profile_path(ProfileAligner((2048, 2048), batch=2048,
+                                    free_query_end_gaps=True, **okw),
+                     scop[:2048], f"{owhat}, free query end gaps",
+                     "big_align_profile_flags"))
+    big_pfx = profile_path(
+        ProfileAligner((2048, 2048), batch=2048, x_drop=50,
+                       free_query_start_gaps=True, **okw), scop[:2048],
+        f"{owhat}, x_drop 50, free query start gaps",
+        "big_align_profile_flags_xdrop")
+    big_pft = profile_trace_path(
+        ProfileAligner((2048, 2048), trace=True, **local, **tkw),
+        ProfileAligner((2048, 2048), **local, **tkw), scop[:2048],
+        f"{owhat}, local start", "big_align_profile_flags_trace", n_cmp=256)
+    big_pfxt = profile_trace_path(
+        ProfileAligner((2048, 2048), trace=True, x_drop=50, **local, **tkw),
+        ProfileAligner((2048, 2048), x_drop=50, **local, **tkw), scop[:1024],
+        f"{owhat}, x_drop 50, local start",
+        "big_align_profile_flags_xdrop_trace", n_cmp=256)
+    profile_vs_plain_big(pgrow, (32, 2048), trace=True, **local)
+    profile_vs_plain_big(pgrow, (32, 2048), free_query_start_gaps=True)
+    print("[big-profile-flags-growth] the 8 profiles of phase 39 at (32, "
+          "2048) with traced local start and with free query start gaps: "
+          "kernel equal to the plain version")
+    phase("41, big profile flags")
 
-    # 36. glocal read-to-window: 1024 reads of 600..999 bases cut from the
-    # nanopore pairs, each against its reference window with 500..1499
-    # random bases of flank on either side, free query start and end gaps
-    # at (1024, 1024): the whole read aligns, the window's overhangs are
-    # free
-    win = read_window_pairs(np.random.default_rng(1234), nano)
-    wcap = max(len(r) for _, r in win)
-    gkw = dict(size=(1024, 1024), seq_cap=wcap, device=dev, **fstart, **fend)
-    gwhat = ("reads 600..999 of the nanopore-like pairs against their "
-             "windows with 500..1499 random bases of flank a side, "
-             "NucMatrix(2, -4) -6/-2, (1024, 1024), free query start and end "
-             "gaps")
-    glocal = {}
-    big_f = main_path(BatchAligner(*dna, batch=len(win), **gkw), win, gwhat,
-                      "big_align_flags", bk.big_align_plain, bk.big_align,
-                      keep=glocal)
-    phase("36, big_align_flags main path")
-    big_ft = trace_path(
-        BatchAligner(*dna, trace=True, batch=256, **gkw), win, gwhat,
-        "big_align_flags_trace", BatchAligner(*dna, batch=256, **gkw),
-        plain=glocal, n_cmp=256)
-
-    # 37. the (32, 512) band without trace, which pick_route sends to the
-    # big kernel: the uc30 pairs with ByteMatrix(1, -1), and with local
-    # start under BLOSUM62
-    ukw = dict(size=(32, 512), batch=len(uc), seq_cap=512, device=dev)
-    big_ub = main_path(
-        BatchAligner(byte1, Gaps(-11, -1), **ukw), uc,
-        "uc30 homologs 50-256 + indels, ByteMatrix(1, -1) -11/-1, (32, 512)",
-        "big_align_byte", bk.big_align_plain, bk.big_align)
-    big_ul = main_path(
-        BatchAligner(*protein, local_start=True, **ukw), uc,
-        "uc30 homologs 50-256 + indels, BLOSUM62 -11/-1, (32, 512), local "
-        "start", "big_align_flags", bk.big_align_plain, bk.big_align)
-    phase("37, big (32, 512) byte and local start")
-    big_b = merged(big_b, big_ub)
-    big_f = merged(big_f, big_ul)
+    # 42. align_profile_exp_all on 1024 of the self-oracle pairs over a
+    # (256, 2048) ladder, every level on kernel C, the self-oracle's score
+    # as the target (8 unreachable, so the last level runs)
+    exp_pairs = scop[:1024]
+    targets = self_oracle[:1024]
+    for k in range(8):
+        targets[k] = 1 << 30
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    exp_res, exp_min = align_profile_exp_all(
+        exp_pairs, targets, (256, 2048), batch=1024, seq_cap=acap + 16,
+        device=dev)
+    counts = expect_launches(lk, ak, "align_profile_exp_all past 512",
+                             "big_align_profile")
+    big_p["launches"] += counts["big_align_profile"]
+    settled = {}
+    for m in (256, 512, 1024, 2048, None):
+        idx = [k for k in range(len(exp_pairs)) if exp_min[k] == m]
+        settled[m] = len(idx)
+        if not idx:
+            continue
+        sub = [exp_pairs[k] for k in idx]
+        cfg = ProfileAligner((m or 2048, 2048), seq_cap=acap + 16,
+                             device=dev).cfg
+        want = bk.big_align_plain(*pack_profile(sub, cfg, dev), cfg).cpu()
+        for k, w in zip(idx, want):
+            if (exp_res[k].score != int(w[0])
+                    or (m is None) != (exp_res[k].score < targets[k])):
+                raise AssertionError(
+                    f"align_profile_exp_all past 512, pair {k} (min size "
+                    f"{m}): {exp_res[k]} vs plain {w.tolist()}, target "
+                    f"{targets[k]}")
+    print(f"[align_profile_exp_all-big] {len(exp_pairs)} SCOP-style pairs at "
+          "(256, 2048), target the (2048, 2048) self-oracle's score: settled "
+          f"per min size {settled}; every result equals the plain version "
+          "at its size; big_align_profile launches "
+          f"{counts['big_align_profile']}")
+    phase("42, align_profile_exp_all past 512")
 
     print(json.dumps({"kernels": [
         {
@@ -3115,6 +3458,19 @@ def main():
              ad_ft),
             ("adaptive_align_flags_xdrop_trace", "adaptive_flags",
              AD_ZERO_BIT, ad_fxt),
+            ("big_align_profile", "big_profile", C_PROFILE, big_p),
+            ("big_align_profile_xdrop", "big_profile", C_PROFILE, big_px),
+            ("big_align_profile_trace", "big_trace_profile",
+             C_PROFILE_TRACE, big_pt),
+            ("big_align_profile_xdrop_trace", "big_trace_profile",
+             C_PROFILE_TRACE, big_pxt),
+            ("big_align_profile_flags", "big_profile", C_PROFILE, big_pf),
+            ("big_align_profile_flags_xdrop", "big_profile", C_PROFILE,
+             big_pfx),
+            ("big_align_profile_flags_trace", "big_trace_profile",
+             C_PROFILE_TRACE, big_pft),
+            ("big_align_profile_flags_xdrop_trace", "big_trace_profile",
+             C_PROFILE_TRACE, big_pfxt),
             ("lane_align_profile_flags", "lane_profile_flags", LANE_FLAGS,
              lane_pf),
             ("lane_align_profile_flags_xdrop", "lane_profile_flags",

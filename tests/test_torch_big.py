@@ -147,8 +147,9 @@ def test_wrapper_devices_and_counts():
 
 
 def test_config_validation():
-    """Sizes, capacity and modes (profiles still raise; the ByteMatrix and
-    flag modes take the JAX configuration's exclusions); the block, the
+    """Sizes, capacity and modes (profiles take a table size, ``prof_cap``;
+    the ByteMatrix and flag modes take the JAX configuration's
+    exclusions); the block, the
     step cap and the trace budget are the JAX configuration's
     (``big_kernel.py:277-281``, its default slot budget in rows at seg 256,
     ``:311-320``, two words a row with local start)."""
@@ -159,8 +160,17 @@ def test_config_validation():
             bk.BigKernelConfig(*bad)
     with pytest.raises(ValueError):
         bk.BigKernelConfig(16, 1024, 2048, alpha=20)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 5d"):
+    with pytest.raises(ValueError, match="prof_cap"):
         bk.BigKernelConfig(16, 1024, 2048, profile=True)
+    for bad in (100, 128):
+        with pytest.raises(ValueError, match="prof_cap"):
+            bk.BigKernelConfig(16, 1024, 2048, prof_cap=bad,
+                               profile=bad == 100)
+    prof = bk.BigKernelConfig(16, 1024, 2048, profile=True, prof_cap=256,
+                              trace=True, local_start=True)
+    assert bk.library(prof) == "big_trace_profile"
+    assert prof.trace_budget == bk.BigKernelConfig(
+        16, 1024, 2048, trace=True, local_start=True).trace_budget
     # the JAX configuration's exclusions (big_kernel.py:218-234)
     for bad in [dict(byte_mode=True), dict(byte_mode=True, alpha=256,
                                            x_drop=True),

@@ -2,8 +2,8 @@
 against the JAX package's (its big kernel in interpret mode, on one small
 configuration), x-drop through the aligner, ``align_exp_all`` with a max
 past 512 against a ``BlockOracle`` ladder, the route choices, the
-ByteMatrix and flag modes against ``BlockOracle`` and the profile mode that
-still raises.  Every comparison is exact."""
+ByteMatrix and flag modes against ``BlockOracle``, and profiles in those
+modes.  Every comparison is exact."""
 
 import os
 
@@ -18,6 +18,7 @@ from block_aligner_tpu_torch.ops import big_kernel as bk
 from test_big_kernel import structural_pairs
 from test_torch_adaptive_kernel import protein_pairs
 from test_torch_api import fields, oracle_exp_all
+from test_torch_profile import to_jax
 
 if os.environ.get("PYTEST_XDIST_WORKER"):
     torch.set_num_threads(1)
@@ -110,8 +111,9 @@ def test_routes(size, trace, route):
 def test_later_modes_raise(kwargs):
     """The modes that raised on the big route before its FLAGS instances
     now route there and give ``BlockOracle``'s results on three pairs
-    (traced: its CIGARs too); profiles past 512 still raise, naming the
-    ROADMAP item that brings them."""
+    (traced: its CIGARs too); profiles past 512, which raised before kernel
+    C's profile mode, route there in the same modes (byte mode aside) and
+    give ``BlockOracle.align_profile``'s results on two pairs."""
     kw = dict(matrix=tba.BLOSUM62, gaps=GAPS, size=(128, 1024), batch=3,
               seq_cap=300, device="cpu")
     kw.update(kwargs)
@@ -138,9 +140,26 @@ def test_later_modes_raise(kwargs):
         if al.trace_mode:
             i, j = got.query_idx, got.reference_idx
             assert str(al.cigar(k, i, j)) == str(orc.cigar(i, j)), k
-    with pytest.raises(NotImplementedError,
-                       match="route 'big'.*ROADMAP.md queue 2 item 5d"):
-        tba.ProfileAligner((128, 1024), device="cpu")
+    if byte:
+        return
+    pal = tba.ProfileAligner((128, 1024), batch=2, seq_cap=300,
+                             device="cpu", **flags, trace=al.trace_mode)
+    assert pal.route == "big"
+    prof_pairs = chip_smoke.profile_pairs(rng, 6, 100)[4:]
+    if flags.get("free_query_end_gaps"):
+        prof_pairs = [(q[:100], p) for q, p in prof_pairs]
+    orc = jba.BlockOracle(trace=al.trace_mode, **flags)
+    for k, got in enumerate(pal.align_batch(prof_pairs)):
+        q, p = prof_pairs[k]
+        jp = to_jax(p)
+        orc.align_profile(jba.PaddedBytes.from_bytes(q, 1024, jp), jp,
+                          (128, 1024), 0)
+        want = orc.res()
+        assert (got.score, got.query_idx, got.reference_idx) == (
+            want.score, want.query_idx, want.reference_idx), k
+        if pal.trace_mode:
+            i, j = got.query_idx, got.reference_idx
+            assert str(pal.cigar(k, i, j)) == str(orc.cigar(i, j)), k
 
 
 def test_step_cap_raises():

@@ -688,7 +688,7 @@ def big_launch(lib, pk, cfg, x=-1):
         *([t.data_ptr() for t in bufs] or [None] * 4), B, cfg.seq_cap,
         cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps, pk.gaps[0],
         pk.gaps[1], x, cfg.trace_budget if cfg.trace else 0,
-        *lk.mode_args(pk.gaps, cfg), None)
+        *lk.mode_args(pk.gaps, cfg), cfg.prof_cap, None)
     assert err == 0
     return (out, *bufs) if cfg.trace else out
 
@@ -722,18 +722,19 @@ def test_big_kernel_source_matches_plain(emulated, size, setup, x):
 def test_big_entry_point_matches_binding(emulated):
     """The C signature of ``csrc/big_kernel.cu`` and its ctypes argument
     list agree (5 pointers for the inputs and the output, 4 for the trace
-    buffers, 13 ints, the stream); the entry point refuses sizes the big
+    buffers, 14 ints, the stream); the entry point refuses sizes the big
     route does not take, trace buffers in the library without trace and
     their absence in the trace library (``csrc/big_trace.cu``), and reports
     its launch shape (threads, dynamic shared bytes: 4 a row more with
     trace, and 1 more with local start's trace in
-    ``csrc/big_trace_flags.cu``)."""
+    ``csrc/big_trace_flags.cu`` and ``csrc/big_trace_profile.cu``; the
+    profile instances' planes are the others')."""
     src = (_build.CSRC / f"{bk.LIBRARY}.cu").read_text()
     sig = re.search(r'extern "C" int big_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
     lib, tlib = emulated[bk.LIBRARY], emulated[bk.TRACE_LIBRARY]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 9 + [False] * 13 + [True]
+        [True] * 9 + [False] * 14 + [True]
     assert len(lib.big_align_launch.argtypes) == len(params)
     assert _build.library_path(bk.LIBRARY).name.startswith("libbig_kernel-")
     cfg = bk.BigKernelConfig(16, 1024, 1152)
@@ -746,23 +747,29 @@ def test_big_entry_point_matches_binding(emulated):
                    (2048, 1024)]:
         assert lib.big_align_launch(
             *ptrs, None, None, None, None, 1, cfg.seq_cap, 32, lo, hi,
-            cfg.max_steps, -11, -1, -1, 0, 0, 0, 0, None) != 0
+            cfg.max_steps, -11, -1, -1, 0, 0, 0, 0, 0, None) != 0
     bufs = [out.data_ptr()] * 4
     assert lib.big_align_launch(*ptrs, *bufs, 1, cfg.seq_cap, 32, 16, 1024,
-                                cfg.max_steps, -11, -1, -1, 64, 0, 0, 0,
+                                cfg.max_steps, -11, -1, -1, 64, 0, 0, 0, 0,
                                 None) != 0
     assert tlib.big_align_launch(*ptrs, None, None, None, None, 1,
                                  cfg.seq_cap, 32, 16, 1024, cfg.max_steps,
-                                 -11, -1, -1, 64, 0, 0, 0, None) != 0
+                                 -11, -1, -1, 64, 0, 0, 0, 0, None) != 0
     assert tuple(big_launch(lib, pk, cfg)[0].tolist()) == (4, 0)
     shape = (ctypes.c_int * 3)()
     ftlib = emulated[bk.TRACE_FLAGS_LIBRARY]
+    plib = emulated[bk.PROFILE_LIBRARY]
+    ptlib = emulated[bk.TRACE_PROFILE_LIBRARY]
     for S, want in [(1024, (128, 20480)), (8192, (256, 163840))]:
         assert lib.big_launch_shape(S, 1, 0, ctypes.addressof(shape)) == 0
         assert tuple(shape)[:2] == want
         assert tlib.big_launch_shape(S, 1, 0, ctypes.addressof(shape)) == 0
         assert tuple(shape)[:2] == (want[0], want[1] // 20 * 24)
         assert ftlib.big_launch_shape(S, 0, 1, ctypes.addressof(shape)) == 0
+        assert tuple(shape)[:2] == (want[0], want[1] // 20 * 25)
+        assert plib.big_launch_shape(S, 1, 2, ctypes.addressof(shape)) == 0
+        assert tuple(shape)[:2] == want
+        assert ptlib.big_launch_shape(S, 0, 1, ctypes.addressof(shape)) == 0
         assert tuple(shape)[:2] == (want[0], want[1] // 20 * 25)
 
 
@@ -864,7 +871,10 @@ def test_big_entry_point_rejects_bad_modes(emulated):
     with x-drop or with a table side other than 256, local start with free
     start gaps, free end gaps with x-drop, an unknown flag, and any flag in
     the libraries without FLAGS; the FLAGS libraries take valid ones (byte
-    mode with local start among them)."""
+    mode with local start among them).  A profile table size (``prof_cap``)
+    is refused outside the profile libraries, and its absence or a size not
+    a multiple of 128 there, and so is byte mode with a profile; the
+    profile libraries take the flags."""
     cfg = bk.BigKernelConfig(16, 1024, 1152)
     pk = bk.pack_big([(b"A", b"A")], scores.BLOSUM62, cfg, Gaps(-11, -1),
                      "cpu")
@@ -876,13 +886,13 @@ def test_big_entry_point_rejects_bad_modes(emulated):
             torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32))
 
-    def call(name, alpha, x, flags, trace=False):
+    def call(name, alpha, x, flags, trace=False, prof_cap=0, packed=pk):
         ptrs = [t.data_ptr() for t in bufs] if trace else [None] * 4
         return emulated[name].big_align_launch(
-            pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
-            pk.table.data_ptr(), out.data_ptr(), *ptrs, 1, cfg.seq_cap,
-            alpha, 16, 1024, cfg.max_steps, -11, -1, x,
-            cfg.trace_budget if trace else 0, flags, 1, -1, None)
+            packed.codes.data_ptr(), packed.qlen.data_ptr(),
+            packed.rlen.data_ptr(), packed.table.data_ptr(), out.data_ptr(),
+            *ptrs, 1, cfg.seq_cap, alpha, 16, 1024, cfg.max_steps, -11, -1,
+            x, cfg.trace_budget if trace else 0, flags, 1, -1, prof_cap, None)
 
     F = bk.FLAGS_LIBRARY
     for alpha, x, flags in [(256, 10, 8), (32, 10, 8), (32, -1, 8),
@@ -894,3 +904,68 @@ def test_big_entry_point_rejects_bad_modes(emulated):
     assert call(F, 32, -1, 1) == 0 and tuple(out[0, :2].tolist()) == (4, 0)
     assert call(bk.TRACE_FLAGS_LIBRARY, 32, 10, 2, trace=True) == 0
     assert call(bk.TRACE_FLAGS_LIBRARY, 256, -1, 9, trace=True) == 0
+    # profiles: a table size only in the profile libraries, no byte mode
+    pcfg = bk.BigKernelConfig(16, 1024, 1152, profile=True, prof_cap=128)
+    ppk = pack_profile([(b"A", scores.AAProfile.from_bytes(
+        b"A", 16, 2, -1, -11, 0, -11, -1))], pcfg, "cpu")
+    P, PT = bk.PROFILE_LIBRARY, bk.TRACE_PROFILE_LIBRARY
+    for name, trace in [(F, False), (bk.LIBRARY, False),
+                        (bk.TRACE_LIBRARY, True)]:
+        assert call(name, 32, -1, 0, trace, prof_cap=128) != 0
+    for name, trace in [(P, False), (PT, True)]:
+        for alpha, flags, prof_cap in [(32, 0, 0), (32, 0, 100),
+                                       (256, 8, 128), (256, 9, 128)]:
+            assert call(name, alpha, -1, flags, trace, prof_cap, ppk) != 0
+    assert call(P, 32, -1, 0, prof_cap=128, packed=ppk) == 0
+    assert tuple(out[0, :2].tolist()) == (2, 0)
+    assert call(P, 32, 10, 1, prof_cap=128, packed=ppk) == 0
+    assert call(PT, 32, -1, 4, True, prof_cap=128, packed=ppk) == 0
+
+
+@pytest.mark.parametrize("size,mode,x,trace", [
+    ((128, 1024), "grow", -1, False), ((32, 512), None, 20, False),
+    ((32, 512), "grow", -1, True), ((128, 1024), None, 20, True),
+    ((128, 1024), "local", -1, True), ((32, 512), "fstart", -1, True),
+    ((128, 1024), "fend", -1, True),
+], ids=lambda v: str(v))
+def test_big_kernel_source_profile_matches_plain(emulated, size, mode, x,
+                                                 trace):
+    """The profile instances of the big kernel (``csrc/big_profile.cu``,
+    ``csrc/big_trace_profile.cu``) against the plain version on (query,
+    profile) pairs with gap opens and close costs that vary by position and
+    a few query bytes outside A..Z, in a table of ``prof_cap`` positions
+    (each profile's rows past rlen + 1 read as its pad): a strong-consensus
+    pair whose blocks grow to 1024 rows (eight slots a warp) and at (32,
+    512) to 512 traced (four warps of four slots), x 20, local start, free
+    start gaps and free end gaps, and two queries that miss a stretch of
+    their profile; outputs, and in trace mode step counts,
+    word counters, descriptors, words (local start's zero words too) and
+    the CIGARs walked from both."""
+    lo, hi = size
+    modes = {"local": dict(local_start=True),
+             "fstart": dict(free_query_start_gaps=True),
+             "fend": dict(free_query_end_gaps=True)}.get(mode, {})
+    rng = np.random.default_rng(hi + x + len(str(mode)) + trace)
+    pairs = (chip_smoke.profile_pairs(rng, 6, 200)
+             + chip_smoke.deletion_profile_pairs(rng))
+    if mode == "grow":
+        pairs = chip_smoke.consensus_growth_pairs(
+            rng, 1, 100, 500 if hi == 1024 else 300) + pairs[4:]
+    if mode == "fend":
+        pairs = [(q[: lo - 1], p) for q, p in pairs]
+    cfg = bk.BigKernelConfig(lo, hi, 1792, x_drop=x >= 0, trace=trace,
+                             profile=True, prof_cap=768, **modes)
+    pk = pack_profile(pairs, cfg, "cpu", x_drop=max(x, 0))
+    got = big_launch(emulated[bk.library(cfg)], pk, cfg, x)
+    want = bk.big_align_plain(*pk, cfg)
+    if mode == "grow":
+        assert int(bk.big_align_plain(*pk, cfg, top_size=True)[-1][0]) == hi
+    if not trace:
+        assert torch.equal(got, want)
+        return
+    chip_smoke.check_big_trace(got, want, f"profile {mode} {size}")
+    out = want[0]
+    ends = ([(int(o[1]), int(o[2])) for o in out] if lk.wide(cfg) else
+            [(len(q), p.str_len) for q, p in pairs])
+    chip_smoke.walk_both(got, want, ends, None, f"profile {mode} {size}",
+                         cfg)
