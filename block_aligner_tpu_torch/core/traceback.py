@@ -41,7 +41,8 @@ right rect.
 
 ``Trace`` replays the events into each pair's rect list and walks CIGARs
 from it, one pair at a time (``cigar``) or every pair of a batch at once in
-numpy (``cigars_all``).
+numpy (``cigars_all``); ``TraceParts`` does the same for a batch whose
+trace came back in parts (a long route's traced sub-batches, ``api.py``).
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ STEP_ = 8  # reference STEP (src/scan_block.rs:785)
 # descriptor flags
 F_RIGHT, F_START, F_SAVE, F_RESTORE = 1, 2, 4, 8
 
-__all__ = ["cigar_walk", "op_lut", "Rectangle", "Trace"]
+__all__ = ["cigar_walk", "op_lut", "Rectangle", "Trace", "TraceParts"]
 
 _OP_LUT_CACHE = None
 
@@ -494,6 +495,62 @@ class Trace:
             active = ((i > 0) | (j > 0)) & ~stopped
             need = active & ((i < bi) | (j < bj))
         return _runs_to_cigars(ops, n)
+
+
+class TraceParts:
+    """One batch's trace taken in parts, as a long route runs a traced
+    batch in sub-batches (``api.py``): ``pairs[k][l]`` is the batch index
+    of pair ``l`` of ``traces[k]``, or -1 where that pair stands for none
+    (it ran again in a later part).  It walks CIGARs as ``Trace`` does, each
+    pair in its part."""
+
+    def __init__(self, traces, pairs):
+        self.traces = list(traces)
+        self.pairs = [np.asarray(p, dtype=np.int64) for p in pairs]
+        n = sum(int((p >= 0).sum()) for p in self.pairs)
+        self.part = np.zeros(n, np.int64)
+        self.local = np.zeros(n, np.int64)
+        for k, idx in enumerate(self.pairs):
+            at = np.flatnonzero(idx >= 0)
+            self.part[idx[at]] = k
+            self.local[idx[at]] = at
+
+    def _at(self, b: int):
+        return self.traces[self.part[b]], int(self.local[b])
+
+    def blocks(self, b: int) -> List[Rectangle]:
+        tr, k = self._at(b)
+        return tr.blocks(k)
+
+    def cigar(self, b: int, i: int, j: int,
+              cigar: Optional[Cigar] = None) -> Cigar:
+        tr, k = self._at(b)
+        return tr.cigar(k, i, j, cigar)
+
+    def cigar_eq(self, b: int, q, r, i: int, j: int,
+                 cigar: Optional[Cigar] = None) -> Cigar:
+        tr, k = self._at(b)
+        return tr.cigar_eq(k, q, r, i, j, cigar)
+
+    def cigars_all(self, endpoints, *, eq: bool = False,
+                   seqs=None) -> List[Cigar]:
+        """``Trace.cigars_all`` over the parts: each part walks its pairs in
+        lockstep, a pair that stands for none or lies past
+        ``len(endpoints)`` from (0, 0), an empty walk."""
+        ij = np.asarray(endpoints, dtype=np.int64).reshape(-1, 2)
+        n = ij.shape[0]
+        out: List[Optional[Cigar]] = [None] * n
+        for tr, idx in zip(self.traces, self.pairs):
+            mine = (idx >= 0) & (idx < n)
+            ends = np.zeros((len(idx), 2), np.int64)
+            ends[mine] = ij[idx[mine]]
+            part_seqs = ([seqs[b] if m else (b"", b"")
+                          for b, m in zip(idx, mine)] if eq else None)
+            for b, m, c in zip(idx, mine,
+                               tr.cigars_all(ends, eq=eq, seqs=part_seqs)):
+                if m:
+                    out[b] = c
+        return out
 
 
 def _runs_to_cigars(ops, n: int) -> List[Cigar]:

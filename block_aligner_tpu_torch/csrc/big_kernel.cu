@@ -5,14 +5,19 @@
 // (ByteMatrix scoring and the local-start and free-query-gap flags, read at
 // run time) from csrc/big_flags.cu and csrc/big_trace_flags.cu, the
 // profile instances (with the flags read at run time) from
-// csrc/big_profile.cu and csrc/big_trace_profile.cu.
+// csrc/big_profile.cu and csrc/big_trace_profile.cu, and the 16384-row
+// instances (the FLAGS instances at max_size 16384) from csrc/big_16384.cu
+// and csrc/big_trace_16384.cu.
 //
 // Replaces: block_aligner_tpu/ops/big_kernel.py::build_big_engine (its
 // Pallas `kernel`) in global and in x-drop mode with a score table or a
 // ByteMatrix or a profile (sequence-to-PSSM), with the local-start,
 // free-query-start-gap and free-query-end-gap flags, with or without trace:
 // the grow / shrink /
-// checkpoint machine for 512 < max_size <= 8192, and (min, 512).  It
+// checkpoint machine for 512 < max_size <= 8192, and (min, 512); and the
+// same machine at 16384 rows on codes of any length, in place of the JAX
+// kernel's segmented mode (code windows, planes streamed from HBM) that its
+// long-sequence driver runs.  It
 // computes the same score (x-drop and free end gaps: the best score and its
 // position) and the same overrun flag, bit for bit; the
 // machine is the adaptive kernel's (csrc/adaptive_kernel.cu), described in
@@ -74,8 +79,8 @@
 //   same decisions from the same shared values;
 // * x-drop is a template flag.  Each column folds a warp's rows into one
 //   key per residue, value * (max_size / 16) + chunk (|key| < 2^25 at
-//   8192), kept in shared memory, and the step's end folds the 8 columns
-//   into each thread's tracker of its residue.
+//   8192, 2^26 at 16384), kept in shared memory, and the step's end folds
+//   the 8 columns into each thread's tracker of its residue.
 // * trace stages a row's word in shared memory (4 bytes a row more, 192 KB
 //   at 8192 in all) and writes it once at the step's end, coalesced.
 // * the FLAGS instances (BIG_FLAGS) read the modes from a run-time
@@ -109,8 +114,17 @@
 //   open and close.  Trace compares D with the gap-closed C and R, as the
 //   reference does, and so reproduces its down-to-right hand-off.  Rows
 //   read positions by index, so a restore still only moves the anchor.
-// Several pairs per block at small sizes, i16x2 arithmetic and the DPX
-// instructions are left to later work.
+// * the 16384-row instances (BIG_16384, which also reads the flags; no
+//   profile) do not fit the 20 S bytes in a block's 227 KB: the four
+//   checkpoint planes move to a per-pair scratch of 4 S i16 in global memory
+//   that the wrapper allocates (128 KB a pair, 16 MB at 128 pairs, inside
+//   the 50 MB L2), and with trace a row's word accumulates in place in the
+//   pair's trace buffer instead of a staged plane; local start's zero bits
+//   stay staged.  12 S bytes of shared memory (196608), 13 S with local
+//   start's trace (212992); the other instances compile the code they had.
+// Several pairs per block at small sizes, i16x2 arithmetic, the DPX
+// instructions and thread block clusters for the 16384-row planes are left
+// to later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,6 +162,23 @@ constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 #endif
 #if BIG_PROFILE && !BIG_FLAGS
 #error "the profile instances read the flags: define BIG_FLAGS too"
+#endif
+#ifndef BIG_16384
+// csrc/big_16384.cu and csrc/big_trace_16384.cu build the 16384-row
+// instances apart, with BIG_FLAGS and without BIG_PROFILE, behind the
+// preprocessor too
+#define BIG_16384 false
+#endif
+#if BIG_16384 && (!BIG_FLAGS || BIG_PROFILE)
+#error "the 16384-row instances read the flags and take no profile"
+#endif
+#if BIG_16384
+// the checkpoint planes: (B, 4, 16384) i16 of global scratch
+#define BIG_16384_PARAMS , short* __restrict__ scratch
+#define BIG_16384_ARGS , static_cast<short*>(scratch)
+#else
+#define BIG_16384_PARAMS
+#define BIG_16384_ARGS
 #endif
 // the run-time modes of the FLAGS instances (the `flags` argument)
 constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
@@ -214,13 +245,20 @@ struct ProfGaps {
 #endif
 
 // Warps a block of this max_size runs with, and its shared planes' bytes:
-// ten i16 planes of max_size rows, with trace a staged word a row, and with
-// local start's trace a staged byte of zero bits a row.
+// ten i16 planes of max_size rows (six in the 16384-row instances, whose
+// checkpoint planes are in global scratch), with trace a staged word a row
+// (not in the 16384-row instances), and with local start's trace a staged
+// byte of zero bits a row.
 inline int warps_for(int max_size) { return max_size >= 4096 ? 8 : 4; }
 inline size_t plane_bytes(int max_size, int flags) {
+#if BIG_16384
+  return (size_t)max_size *
+         (6 * sizeof(short) + (BIG_TRACE && (flags & LOCAL_START) ? 1 : 0));
+#else
   return (size_t)max_size *
          (10 * sizeof(short) + (BIG_TRACE ? sizeof(unsigned) : 0) +
           (BIG_TRACE && (flags & LOCAL_START) ? 1 : 0));
+#endif
 }
 
 // The four border planes: D planes 0 and 1, C / R planes 2 and 3; the
@@ -281,7 +319,8 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                  const int* __restrict__ table, int* __restrict__ out, int cap,
                  int alpha, int S, int min_size, int max_steps, int gopen,
                  int gext,
-                 int xdrop BIG_TRACE_PARAMS BIG_FLAGS_PARAMS BIG_PROFILE_PARAMS) {
+                 int xdrop BIG_TRACE_PARAMS BIG_FLAGS_PARAMS BIG_PROFILE_PARAMS
+                     BIG_16384_PARAMS) {
   extern __shared__ short planes[];
 #if BIG_PROFILE
   // a right rect's 8 entering profile rows
@@ -323,7 +362,11 @@ big_align_kernel(const uint8_t* __restrict__ codes,
 #else
   for (int k = tid; k < alpha * alpha; k += T) tab[k] = table[k];
 #endif
+#if BIG_16384
+  for (int k = tid; k < 4 * S; k += T) planes[k] = 0;
+#else
   for (int k = tid; k < 8 * S; k += T) planes[k] = 0;
+#endif
   if (tid == 0) score = 0;
   const uint8_t* qs = codes + (size_t)b * 2 * cap;
   const uint8_t* rs = qs + cap;
@@ -331,20 +374,36 @@ big_align_kernel(const uint8_t* __restrict__ codes,
 #endif
   Planes P{{planes, planes + S, planes + 2 * S, planes + 3 * S},
            {0, 0, 0, 0}, 0, S - 1};
+#if BIG_16384
+  // the checkpoint planes: the pair's 4 S rows of global scratch, zeroed
+  // as the shared ones are
+  short* const ckb = scratch + (size_t)b * 4 * S;
+  for (int k = tid; k < 4 * S; k += T) ckb[k] = 0;
+  short* const ck[4] = {ckb, ckb + S, ckb + 2 * S, ckb + 3 * S};
+  short* const DP = planes + 4 * S;  // a column's D before its R merge
+  short* const TL = planes + 5 * S;  // its scan within the warp
+#else
   short* const ck[4] = {planes + 4 * S, planes + 5 * S, planes + 6 * S,
                         planes + 7 * S};
   short* const DP = planes + 8 * S;  // a column's D before its R merge
   short* const TL = planes + 9 * S;  // its scan within the warp
+#endif
 #if BIG_TRACE
+#if !BIG_16384
   // a row's word of the step's cells, staged by the thread of the row
   unsigned* const WD = reinterpret_cast<unsigned*>(planes + 10 * S);
+#endif
   // the words written, the steps run, the checkpoint events of the next
   // step's descriptor
   int tpos = 0, nsteps = 0, pend = 0;
 #if BIG_FLAGS
   // local start: a row's zero bits, staged by the thread of the row; the
   // words a row writes a step
+#if BIG_16384
+  uint8_t* const ZB = reinterpret_cast<uint8_t*>(planes + 6 * S);
+#else
   uint8_t* const ZB = reinterpret_cast<uint8_t*>(planes + 12 * S);
+#endif
   const int tw = local ? 2 : 1;
 #endif
 #endif
@@ -592,7 +651,16 @@ big_align_kernel(const uint8_t* __restrict__ codes,
                                  (c == sat(P.at(P.aD(), r) + gopen)) << 2 |
                                  rin << 3;
 #endif
+#if BIG_16384
+            // the row's word accumulates in place at the pair's counter
+            if (r < h) {
+              unsigned* const wd = reinterpret_cast<unsigned*>(twords) +
+                                   (size_t)b * budget + tpos + r;
+              *wd = (w == 0 ? 0u : *wd) | nib << (4 * w);
+            }
+#else
             WD[r] = (w == 0 ? 0u : WD[r]) | nib << (4 * w);
+#endif
 #if BIG_FLAGS
             // local start: the cell restarted at the relative zero
             if (local)
@@ -667,12 +735,14 @@ big_align_kernel(const uint8_t* __restrict__ codes,
       }
     }
 #if BIG_TRACE
+#if !BIG_16384
     // the step's words, each written once by the thread that staged it
     if (active)
       for (int k = 0; k < NA; ++k) {
         const int r = r0 + k * 32 + lane;
         if (r < h) twords[(size_t)b * budget + tpos + r] = (int)WD[r];
       }
+#endif
 #if BIG_FLAGS
     // local start: the zero bits follow the step's h words
     if (local && active)
@@ -926,7 +996,8 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    void* steps, void* used, int B, int cap, int alpha,
                    int min_size, int max_size, int max_steps, int gopen,
                    int gext, int xdrop, int budget, int flags, int bmatch,
-                   int bmismatch, int prof_cap, cudaStream_t stream) {
+                   int bmismatch, int prof_cap, void* scratch,
+                   cudaStream_t stream) {
   const size_t smem = plane_bytes(max_size, flags);
   cudaError_t err = cudaFuncSetAttribute(
       big_align_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -935,14 +1006,19 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
   big_align_kernel<X><<<B, warps_for(max_size) * 32, smem, stream>>>(
       codes, qlen, rlen, table, out, cap, alpha, max_size, min_size,
       max_steps, gopen, gext,
-      xdrop BIG_TRACE_ARGS BIG_FLAGS_ARGS BIG_PROFILE_ARGS);
+      xdrop BIG_TRACE_ARGS BIG_FLAGS_ARGS BIG_PROFILE_ARGS BIG_16384_ARGS);
   return cudaGetLastError();
 }
 
 bool bad_sizes(int min_size, int max_size) {
   return min_size < 16 || (min_size & (min_size - 1)) || max_size < 512 ||
-         max_size > 8192 || (max_size & (max_size - 1)) ||
-         min_size > max_size || (min_size == max_size && max_size == 512);
+#if BIG_16384
+         max_size != 16384 ||
+#else
+         max_size > 8192 ||
+#endif
+         (max_size & (max_size - 1)) || min_size > max_size ||
+         (min_size == max_size && max_size == 512);
 }
 
 // The modes a library takes: none but in the FLAGS and profile libraries,
@@ -973,12 +1049,16 @@ bool bad_flags(int flags, bool xdrop) {
 // profile libraries take prof_cap > 0 (a multiple of 128), the others 0:
 // there codes (B, cap) uint8 are the queries' codes, table (B, prof_cap,
 // 8) int32 the profiles' words (ops/_profile.py), rlen the profiles'
-// lengths (each below prof_cap - 1), and alpha and gopen are not read.  One
+// lengths (each below prof_cap - 1), and alpha and gopen are not read.  The
+// 16384-row libraries (csrc/big_16384.cu, csrc/big_trace_16384.cu) take
+// max_size 16384 only and `scratch`, (B, 4, 16384) int16, which the kernel
+// overwrites; the others take max_size up to 8192 and a null scratch.  One
 // thread block per pair.  Returns the cudaError_t of the launch.
 extern "C" int big_align_launch(const void* codes, const void* qlen,
                                 const void* rlen, const void* table, void* out,
                                 void* words, void* desc, void* steps,
-                                void* used, int B, int cap, int alpha,
+                                void* used, void* scratch, int B, int cap,
+                                int alpha,
                                 int min_size, int max_size, int max_steps,
                                 int gopen, int gext, int x_drop, int budget,
                                 int flags, int match, int mismatch,
@@ -988,7 +1068,8 @@ extern "C" int big_align_launch(const void* codes, const void* qlen,
       ((flags & BYTE_MODE) ? alpha != 256 : alpha > MAX_ALPHA) ||
       bad_sizes(min_size, max_size) || bad_flags(flags, x_drop >= 0) ||
       traced != BIG_TRACE || (!BIG_TRACE && (words || desc || steps || used)) ||
-      (prof_cap > 0) != BIG_PROFILE || prof_cap < 0 || prof_cap % 128)
+      (prof_cap > 0) != BIG_PROFILE || prof_cap < 0 || prof_cap % 128 ||
+      (scratch != nullptr) != BIG_16384)
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
@@ -1000,11 +1081,11 @@ extern "C" int big_align_launch(const void* codes, const void* qlen,
              ? (int)launch<false>(c, q, r, t, o, words, desc, steps, used, B,
                                   cap, alpha, min_size, max_size, max_steps,
                                   gopen, gext, x_drop, budget, flags, match,
-                                  mismatch, prof_cap, st)
+                                  mismatch, prof_cap, scratch, st)
              : (int)launch<true>(c, q, r, t, o, words, desc, steps, used, B,
                                  cap, alpha, min_size, max_size, max_steps,
                                  gopen, gext, x_drop, budget, flags, match,
-                                 mismatch, prof_cap, st);
+                                 mismatch, prof_cap, scratch, st);
 }
 
 // The launch of a max_size's instance (x-drop if `x_drop`; the trace

@@ -70,6 +70,34 @@ def block_trace_buffers(out, cfg):
              used.data_ptr()))
 
 
+# The trace buffers one launch of a long route (``api.py``'s
+# ``LongBatchAligner``, ``LongAdaptiveAligner`` and ``BatchAligner``'s long
+# routes) may hold on the device: 4 GiB, a twentieth of the H100's 80 GB.  A
+# batch whose pairs' buffers take more runs in sub-batches
+# (``trace_sub_batch``); a sub-batch of one pair may pass it.  At 50 kbp a
+# pair takes ~26 MB at lane block 512 and ~53 MB at (512, 8192) with the
+# first budget of ``BigKernelConfig.walk_budget``, so 64 such pairs run in
+# one launch.
+LAUNCH_TRACE_BYTES = 4 << 30
+
+
+def pair_trace_bytes(cfg) -> int:
+    """Device bytes of one pair's trace buffers for ``cfg``: the big
+    kernel's ``trace_budget`` words and 5 descriptor fields a step, or the
+    dense layout's rows (``cfg.block``, twice with local start) and 4
+    fields a step."""
+    if hasattr(cfg, "trace_budget"):
+        return 4 * (cfg.trace_budget + DESC_FIELDS * cfg.max_steps)
+    rows = cfg.block * (2 if cfg.local_start else 1)
+    return 4 * cfg.max_steps * (rows + 4)
+
+
+def trace_sub_batch(cfg) -> int:
+    """How many pairs of ``cfg`` one launch traces within
+    ``LAUNCH_TRACE_BYTES`` (at least 1)."""
+    return max(1, LAUNCH_TRACE_BYTES // pair_trace_bytes(cfg))
+
+
 def compact_step(buf, used, word, h, ran, planes=1):
     """Write rows [0, h) of each of the ``planes`` words a row of one step's
     dense words ``word`` (B, planes * S) (local start: 2, the zero bits

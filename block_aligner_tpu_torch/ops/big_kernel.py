@@ -3,7 +3,7 @@ x-drop, with or without trace: the configuration, the packer, the plain
 PyTorch version and the wrapper of the CUDA kernel.
 
 Counterpart of ``block_aligner_tpu/ops/big_kernel.py``: ``build_big_engine``
-(512 < max_size <= 8192, and (min, 512)) in global and in x-drop mode, with
+(512 < max_size <= 16384, and (min, 512)) in global and in x-drop mode, with
 or without trace, scoring sequence pairs by a table or by byte equality
 (``cfg.byte_mode``), with or without the local-start and free-query-gap
 flags of ``ops/lane_kernel.py``, and for (query, profile) pairs.  Its
@@ -49,8 +49,17 @@ the flags read at run time (``csrc/big_profile.cu``,
 ``csrc/big_trace_profile.cu``), on the inputs of
 ``ops/_profile.py::pack_profile`` with the JAX big kernel's clamp contract:
 a table of ``cfg.prof_cap`` positions, every position past a profile's
-rlen + 1 read as rlen + 1, the all-zero pad.  The segmented 16384 band is
-a later slice of kernel C (ROADMAP queue 2 item 5e).
+rlen + 1 read as rlen + 1, the all-zero pad.
+
+Codes are read from global memory, so ``seq_cap`` has no cap of its own: the
+long-sequence classes of ``api.py`` size it, the step cap and the trace
+budget from each batch's longest pair, where the JAX kernel's segmented
+mode (``big_kernel.py:187-216``) streams per-pair code windows and its DP
+state between launches.  Max size 16384 (``percent_len``'s clamp; the JAX
+kernel's ``plane_stream``) runs in two libraries of its own
+(``csrc/big_16384.cu``, ``csrc/big_trace_16384.cu``, the flags read at run
+time, no profile) whose checkpoint planes live in a per-pair scratch the
+wrapper allocates, (B, 4, 16384) int16.
 """
 
 from __future__ import annotations
@@ -77,15 +86,22 @@ FLAGS_LIBRARY = "big_flags"  # its FLAGS instances, csrc/big_flags.cu
 TRACE_FLAGS_LIBRARY = "big_trace_flags"  # csrc/big_trace_flags.cu
 PROFILE_LIBRARY = "big_profile"  # its profile instances, csrc/big_profile.cu
 TRACE_PROFILE_LIBRARY = "big_trace_profile"  # csrc/big_trace_profile.cu
+# the 16384-row instances, csrc/big_16384.cu and csrc/big_trace_16384.cu
+ROWS16384_LIBRARY = "big_16384"
+TRACE_ROWS16384_LIBRARY = "big_trace_16384"
 LIBRARIES = (LIBRARY, TRACE_LIBRARY, FLAGS_LIBRARY, TRACE_FLAGS_LIBRARY,
-             PROFILE_LIBRARY, TRACE_PROFILE_LIBRARY)
-MAX_CAP = 16384  # code positions per sequence (JAX api.py:84-87)
+             PROFILE_LIBRARY, TRACE_PROFILE_LIBRARY, ROWS16384_LIBRARY,
+             TRACE_ROWS16384_LIBRARY)
+ROWS16384 = 16384  # the largest max_size (percent_len's clamp)
+# trace words a pair may write at most: the kernel's word counters and
+# budget are int32
+MAX_TRACE_WORDS = (1 << 31) - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class BigKernelConfig:
     min_size: int  # starting block size, a power of two >= 16
-    max_size: int  # S: block-size cap, a power of two in 512..8192
+    max_size: int  # S: block-size cap, a power of two in 512..16384
     seq_cap: int  # code positions per sequence (position 0 is the NULL row)
     alpha: int = 32  # score-table side: 32 for amino acids, 16 for
     # nucleotides, 256 in byte mode
@@ -98,20 +114,28 @@ class BigKernelConfig:
     profile: bool = False  # sequence-to-PSSM mode (ops/_profile.py)
     prof_cap: int = 0  # profile mode: the table's positions, a multiple
     # of 128 (JAX ``prof_cap``); 0 otherwise
+    budget: int = 0  # trace words a pair may write; 0: ``trace_budget``'s
+    # default
 
     def __post_init__(self):
         m, S = self.min_size, self.max_size
-        if (m & (m - 1) or S & (S - 1) or m < 16 or not 512 <= S <= 8192
+        if (m & (m - 1) or S & (S - 1) or m < 16 or not 512 <= S <= ROWS16384
                 or m > S or m == S == 512):
             raise ValueError(
                 "the big kernel takes powers of two min_size >= 16 and "
-                "max_size in 512..8192 with min < max, or min == max > 512, "
-                f"got ({m}, {S})")
-        if (self.seq_cap % 128
-                or not max(256, S + 2 * STEP) <= self.seq_cap <= MAX_CAP):
+                f"max_size in 512..{ROWS16384} with min < max, or min == max "
+                f"> 512, got ({m}, {S})")
+        if self.profile and S > 8192:
+            raise ValueError("the big kernel's profile instances take "
+                             f"max_size up to 8192, got {S}")
+        if self.seq_cap % 128 or self.seq_cap < max(256, S + 2 * STEP):
             raise ValueError(
-                f"seq_cap must be a multiple of 128 in max(256, max_size + "
-                f"{2 * STEP})..{MAX_CAP}, got {self.seq_cap}")
+                f"seq_cap must be a multiple of 128 and at least max(256, "
+                f"max_size + {2 * STEP}), got {self.seq_cap}")
+        if not 0 <= self.budget <= MAX_TRACE_WORDS:
+            raise ValueError(f"budget must be in 0..{MAX_TRACE_WORDS} (the "
+                             f"kernel counts words in int32), got "
+                             f"{self.budget}")
         if (self.prof_cap % 128 or (self.prof_cap < 128 if self.profile
                                     else self.prof_cap)):
             raise ValueError("prof_cap must be a multiple of 128, at least "
@@ -132,13 +156,33 @@ class BigKernelConfig:
 
     @property
     def trace_budget(self) -> int:
-        """Trace words (int32) a pair may write: the JAX kernel's default
-        slot budget (``eff_trace_slots`` x ``seg`` rows at seg 256,
-        ``big_kernel.py:311-320``), every step at the min size or 256 rows
-        and 8 steps at the max size, times the words a row takes (2 with
-        local start, ``trace_words``)."""
-        return trace_words(self) * (self.max_steps * max(self.min_size, 256)
-                                    + 8 * self.max_size)
+        """Trace words (int32) a pair may write: ``budget`` if set, else
+        the JAX kernel's default slot budget (``eff_trace_slots`` x ``seg``
+        rows at seg 256, ``big_kernel.py:311-320``), every step at the min
+        size or 256 rows and 8 steps at the max size, times the words a row
+        takes (2 with local start, ``trace_words``), at most
+        ``MAX_TRACE_WORDS``."""
+        return self.budget or min(MAX_TRACE_WORDS, trace_words(self) * (
+            self.max_steps * max(self.min_size, 256) + 8 * self.max_size))
+
+    def walk_budget(self, walk: int) -> int:
+        """A trace budget for pairs whose lengths sum to at most ``walk``:
+        twice the steps of a walk straight to their end, at the min size or
+        256 rows, and 8 steps at the max size, at most ``trace_budget``.
+        The JAX default allows a pair that fills ``seq_cap`` as much; a
+        pair that grows its block may pass it, and a long route runs it
+        again with more (``api.py``)."""
+        steps = 2 * (-(-walk // STEP))
+        return min(self.trace_budget, trace_words(self) * (
+            steps * max(self.min_size, 256) + 8 * self.max_size))
+
+    @property
+    def full_budget(self) -> int:
+        """Trace words a pair can write at most: every step at the max
+        size (no pair overruns a budget this large), or
+        ``MAX_TRACE_WORDS`` if that is less."""
+        return min(MAX_TRACE_WORDS,
+                   trace_words(self) * self.max_steps * self.max_size)
 
 
 def pack_big(pairs, matrix, cfg: BigKernelConfig, gaps, device,
@@ -169,7 +213,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of ``csrc/big_kernel.cu`` (any of its
     libraries)."""
     lib.big_align_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
     lib.big_align_launch.restype = ctypes.c_int
     lib.big_launch_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.big_launch_shape.restype = ctypes.c_int
@@ -181,7 +225,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def library(cfg: BigKernelConfig) -> str:
     """The name of the ``csrc/`` library that holds ``cfg``'s instance: the
     trace library with trace, the FLAGS library with byte mode or a flag,
-    the profile library (whose flags are read at run time) for profiles."""
+    the profile library (whose flags are read at run time) for profiles,
+    the 16384-row library (flags read at run time too) past 8192 rows."""
+    if cfg.max_size > 8192:
+        return TRACE_ROWS16384_LIBRARY if cfg.trace else ROWS16384_LIBRARY
     if cfg.profile:
         return TRACE_PROFILE_LIBRARY if cfg.trace else PROFILE_LIBRARY
     if flag_bits(cfg):
@@ -230,11 +277,13 @@ def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
 
     CPU tensors take ``big_align_plain``; CUDA tensors launch the kernel of
     ``csrc/big_kernel.cu`` (the library ``library`` names) on the current
-    stream, one thread block per pair, or raise.  The wrapper counts its
-    launches by instance (``lane_kernel.COUNTERS``): ``big_align.launches``
-    (global), ``xdrop_launches``, ``trace_launches`` and
-    ``xdrop_trace_launches``, and the same with ``profile_``, ``byte_`` or
-    ``flags_`` (local start or free gaps) in front.
+    stream, one thread block per pair, or raise; past 8192 rows with a
+    scratch of (B, 4, 16384) int16 for the checkpoint planes.  The wrapper
+    counts its launches by instance (``lane_kernel.COUNTERS``):
+    ``big_align.launches`` (global), ``xdrop_launches``, ``trace_launches``
+    and ``xdrop_trace_launches``, and the same with ``profile_``,
+    ``byte_`` or ``flags_`` (local start or free gaps) in front, and
+    ``rows16384_`` in front of all past 8192 rows.
 
     In profile mode (``cfg.profile``) the inputs are those of
     ``ops/_profile.py::pack_profile``: codes (B, seq_cap) of the queries,
@@ -252,12 +301,15 @@ def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
                  else (out, (None,) * 4))
     if B == 0:
         return res
+    scratch = (torch.empty((B, 4, cfg.max_size), dtype=torch.int16,
+                           device=dev) if cfg.max_size > 8192 else None)
     lib = _lib(library(cfg))
     with torch.cuda.device(dev):
         launch_shape(cfg)  # raises where shared memory cannot hold it
         err = lib.big_align_launch(
             codes.data_ptr(), qlen.data_ptr(), rlen.data_ptr(),
-            table.data_ptr(), out.data_ptr(), *ptrs, B, cfg.seq_cap,
+            table.data_ptr(), out.data_ptr(), *ptrs,
+            None if scratch is None else scratch.data_ptr(), B, cfg.seq_cap,
             cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps,
             int(gaps[0]), int(gaps[1]), x_value(gaps, cfg),
             cfg.trace_budget if cfg.trace else 0, *mode_args(gaps, cfg),

@@ -658,7 +658,8 @@ def count_launch(fn, cfg):
     """One more launch of ``fn``'s instance for ``cfg``."""
     flags = cfg.local_start or cfg.free_query_start_gaps \
         or cfg.free_query_end_gaps
-    name = (("profile_" if cfg.profile else "")
+    name = (("rows16384_" if getattr(cfg, "max_size", 0) > 8192 else "")
+            + ("profile_" if cfg.profile else "")
             + ("byte_" if cfg.byte_mode else "")
             + ("flags_" if flags else "")
             + ("xdrop_" if cfg.x_drop else "")
@@ -666,7 +667,8 @@ def count_launch(fn, cfg):
     setattr(fn, name, getattr(fn, name) + 1)
 
 
-COUNTERS = tuple(p + y + f + x + t + "launches" for p in ("", "profile_")
+COUNTERS = tuple(h + p + y + f + x + t + "launches"
+                 for h in ("", "rows16384_") for p in ("", "profile_")
                  for y in ("", "byte_") for f in ("", "flags_")
                  for x in ("", "xdrop_") for t in ("", "trace_"))
 

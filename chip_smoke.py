@@ -5,7 +5,7 @@
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, each reported on its own line, in this order: 1, 2 for the big
 kernel's libraries (seconds), 25-37 while the lane and adaptive libraries
-(minutes) build, 2's end, 3-24, 38-42:
+(minutes) build, 2's end, 3-24, 38-48:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile ``block_aligner_tpu_torch/csrc/{lane,adaptive}_kernel.cu``,
@@ -13,10 +13,11 @@ kernel's libraries (seconds), 25-37 while the lane and adaptive libraries
    libraries ``{lane,adaptive}_flags.cu`` and
    ``{lane,adaptive}_profile_flags.cu``, the big-block kernel
    ``big_kernel.cu``, its trace instances ``big_trace.cu``, its FLAGS
-   instances ``big_flags.cu`` and ``big_trace_flags.cu`` and its profile
-   instances ``big_profile.cu`` and ``big_trace_profile.cu`` into
+   instances ``big_flags.cu`` and ``big_trace_flags.cu``, its profile
+   instances ``big_profile.cu`` and ``big_trace_profile.cu`` and its
+   16384-row instances ``big_16384.cu`` and ``big_trace_16384.cu`` into
    ``build/`` (keyed on the sources), one ``nvcc -Xptxas -v`` each, all
-   fourteen started together, with the registers, stack and spills of
+   sixteen started together, with the registers, stack and spills of
    every kernel instance, each held to the counts pinned in
    ``chip_smoke_ptxas.txt`` once all are built; load the builds;
 3. lane kernel vs plain: the lane kernel against its plain PyTorch version
@@ -101,7 +102,9 @@ kernel's libraries (seconds), 25-37 while the lane and adaptive libraries
    traced; sequences and profiles; lane blocks 16, 32, 128, 512 and
    adaptive (32, 256) and (32, 512) (there with trace or profiles, and 2
    pairs that grow to 512): outputs, and with trace step counts,
-   descriptors, words (local start's zero bits) and CIGARs, equal;
+   descriptors, words (local start's zero bits) and CIGARs, equal, the
+   plain versions run in the CPU workers of phases 43-47 and held against
+   the kernels' outputs before phase 43;
 20. ByteMatrix main paths: 16384 pairs of 1000 random bytes 0..255 with
    k=100 mutations (``bench.rand_protein_pairs``' model over bytes, seed
    1234), ``ByteMatrix(1, -1)``, gaps -11/-1, block 32; the 7000 uc30 pairs
@@ -210,7 +213,45 @@ kernel's libraries (seconds), 25-37 while the lane and adaptive libraries
    39 traced local start and free start gaps against the plain version;
 42. ``align_profile_exp_all`` on 1024 of the self-oracle pairs over a
    (256, 2048) ladder, the self-oracle's score as the target (8
-   unreachable), every result held against the plain version at its size.
+   unreachable), every result held against the plain version at its size;
+43. (the plain versions of phases 43, 45 and 47 run on the host's CPU in
+   three niced worker processes, spawned once the builds are done, while
+   the card runs phases 3-42) the lane kernel on codes past 16384
+   positions (the TPU kernel's segmented windows, A7):
+   ``LongBatchAligner`` at block 512
+   (``nanopore_accuracy.rs``' 1% band for 50 kbp reads) against its plain
+   version on 2 ONT-like pairs of 17-20 kbp (``long_pairs``), global, x 100,
+   traced and x 100 traced (step counts, descriptors, words, CIGARs), and
+   on 2 (query, profile) pairs of 16.5-17.5k positions
+   (``long_profile_pairs``);
+44. the long lane main paths: 64 simulated ONT-like pairs of 25-50 kbp
+   with 10% edits (``examples_tpu/common.py::load_nanopore_pairs`` under a
+   name with no file), ``NucMatrix.new_simple(2, -4)``, gaps -6/-2, block
+   512, global and x 100, through ``align_staged`` and ``align_all``; each
+   traced on all 64 pairs (``align_batch``, sub-batches by
+   ``ops/_trace.py``'s byte budget), its results equal to the untraced
+   ones, the first 16 CIGARs spanning to their ends and rescoring, its
+   descriptors giving the cells of the bounds; the traced kernel timed
+   with the first trace budget ``align_batch`` gives it and with the JAX
+   default budget;
+45. the big kernel on codes past 16384 positions (its segmented windows):
+   ``LongAdaptiveAligner`` at (512, 8192) against its plain version on the
+   pairs of phase 43, global, x 100, traced and x 100 traced;
+46. the long adaptive main paths: phase 44's pairs at (512, 8192), global
+   and x 100, each traced as there;
+47. the 16384-row band (``percent_len``'s clamp): 2 growth pairs
+   (``growth_pairs_16384``) at (512, 16384) through the 16384-row
+   instances (``big_16384.cu``, ``big_trace_16384.cu``) against the plain
+   version, global (blocks must reach 16384), traced (step counts, word
+   counters, descriptors, words, CIGARs), with an x that ends no pair
+   before its block reaches 16384, traced with that x, traced with local
+   start (whose blocks reach 8192) and with ``ByteMatrix(2, -4)`` (results
+   equal the global band's); their launch shapes;
+48. the API: ``BatchAligner(seq_cap=65536)`` at (512, 8192) and (512, 512)
+   takes the "long" and "long_lane" routes and equals the long classes on
+   phase 44's pairs; ``align_exp_all`` over (128, 8192) at ``seq_cap``
+   65536 on 16 of them, each result equal to ``LongAdaptiveAligner`` at the
+   min size it reports.
 
 On every main path the kernels must have launched (their counts are set to
 0 just before the path and read just after) and every result must equal the
@@ -238,12 +279,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from itertools import product
 from types import SimpleNamespace
 
@@ -364,6 +406,15 @@ C_PROFILE_TRACE = "block_aligner_tpu/ops/big_kernel.py:1394"
 OPS_PER_CELL_BYTE = 1
 OPS_PER_CELL_LOCAL = 1
 OPS_PER_CELL_ZERO_BIT = 3
+# the TPU kernels' long-sequence modes: the lane kernel's segmented windows
+# (A7), kernel C's, and its HBM-streamed planes past 8192 rows
+A7_WINDOWS = "block_aligner_tpu/ops/lane_kernel.py:1192"
+C_WINDOWS = "block_aligner_tpu/ops/big_kernel.py:187"
+C_16384 = "block_aligner_tpu/ops/big_kernel.py:338"
+# the 16384-row band (phase 47): its min size, and an x that ends no pair
+# before its block reaches 16384 rows
+BAND_MIN = 512
+BAND_X = 50000
 
 
 def random_pairs(rng, alphabet, n, max_len):
@@ -669,6 +720,113 @@ def growth_pairs(rng, n):
     return pairs
 
 
+def growth_pairs_16384(rng, n):
+    """DNA pairs whose blocks grow to 16384 (``percent_len``'s clamp):
+    ``growth_pairs`` scaled up, a flank, a random middle of 6000..8000 bases
+    drawn apart for each side, and a second flank, the flanks with 5% edits
+    on the reference side."""
+    from examples_tpu.common import rand_mutate, rand_seq
+
+    pairs = []
+    for k in range(n):
+        a, m, c = ((600, 7000, 4000), (800, 6000, 3000), (400, 8000,
+                                                            3500))[k % 3]
+        A, C = rand_seq(rng, b"ACGT", a), rand_seq(rng, b"ACGT", c)
+        pairs.append((A + rand_seq(rng, b"ACGT", m) + C,
+                      rand_mutate(rng, A, a // 20, b"ACGT")
+                      + rand_seq(rng, b"ACGT", m)
+                      + rand_mutate(rng, C, c // 20, b"ACGT")))
+    return pairs
+
+
+def long_pairs(rng, n, lo, hi):
+    """ONT-like DNA pairs of lo..hi-1 bases with 10% edits
+    (``examples_tpu/common.py::load_nanopore_pairs``' simulation)."""
+    from examples_tpu.common import rand_mutate, rand_seq
+
+    pairs = []
+    for _ in range(n):
+        q = rand_seq(rng, b"ACGT", int(rng.integers(lo, hi)))
+        pairs.append((q, rand_mutate(rng, q, len(q) // 10, b"ACGT")))
+    return pairs
+
+
+def long_profile_pairs(rng, n, lo, hi):
+    """(query, profile) pairs of lo..hi-1 positions: ``profile_of`` a random
+    consensus, its query the consensus with len/10 substitutions."""
+    pairs = []
+    for _ in range(n):
+        cons = rng.choice(AA, size=int(rng.integers(lo, hi)))
+        q = cons.copy()
+        at = rng.integers(0, len(q), size=len(q) // 10)
+        q[at] = rng.choice(AA, size=len(at))
+        pairs.append((q.tobytes(), profile_of(rng, cons.tobytes())))
+    return pairs
+
+
+def plain_job(route, cfg, pack):
+    """Run in a worker process: the plain version of ``route``'s kernel on a
+    packed batch of CPU tensors, on one thread; returns its output and its
+    milliseconds.  On the big route the output ends with the largest
+    blocks reached (and without trace each pair's DP cells before them);
+    its trace keeps only the words each pair wrote and the executed
+    descriptors."""
+    import torch
+
+    from block_aligner_tpu_torch.ops import adaptive_kernel as ak
+    from block_aligner_tpu_torch.ops import big_kernel as bk
+    from block_aligner_tpu_torch.ops import lane_kernel as lk
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    if route == "big":
+        res = bk.big_align_plain(*pack, cfg, count_cells=not cfg.trace,
+                                 top_size=True)
+    else:
+        res = {"lane": lk.lane_align_plain,
+               "adaptive": ak.adaptive_align_plain}[route](*pack, cfg)
+    ms = (time.perf_counter() - t0) * 1e3
+    if route == "big" and cfg.trace:
+        out, words, desc, steps, used, top = res
+        res = (out, words[:, : int(used.max())].clone(),
+               desc[: int(steps.max())].clone(), steps, used, top)
+    return res, ms
+
+
+def instance(route, cfg):
+    """The name ``expect_launches`` gives the kernel instance that runs
+    ``cfg`` on ``route``."""
+    name = {"lane": "lane_align", "adaptive": "adaptive_align",
+            "big": "big_align"}[route]
+    if getattr(cfg, "max_size", 0) > 8192:
+        name += "_16384"
+    flags = (cfg.local_start or cfg.free_query_start_gaps
+             or cfg.free_query_end_gaps)
+    for mode, on in (("profile", cfg.profile), ("byte", cfg.byte_mode),
+                     ("flags", flags), ("xdrop", cfg.x_drop),
+                     ("trace", cfg.trace)):
+        if on:
+            name += "_" + mode
+    return name
+
+
+def trace_cells(tr, n):
+    """Each of the first ``n`` pairs' DP cells by a trace's executed
+    descriptors (a ``Trace`` or ``TraceParts``): 8 columns of its step's
+    height a step, (n,) int64."""
+    from block_aligner_tpu_torch.core.traceback import TraceParts
+
+    cells = np.zeros(n, np.int64)
+    parts = (zip(tr.traces, tr.pairs) if isinstance(tr, TraceParts)
+             else [(tr, np.arange(n))])
+    for t, idx in parts:
+        ran = np.arange(t.desc.shape[0])[:, None] < t.steps[None, :]
+        per = 8 * np.where(ran, t.desc[:, :, 3], 0).sum(0).astype(np.int64)
+        mine = (idx >= 0) & (idx < n)
+        cells[idx[mine]] = per[: len(idx)][mine]
+    return cells
+
+
 def read_window_pairs(rng, pairs, lo=600, hi=1000, flank=(500, 1500)):
     """Read-to-window pairs from long-read pairs ``(q, r)``: a read of
     lo..hi-1 bases cut from each ``r`` at a random start, and as its
@@ -743,13 +901,16 @@ def parse_ptxas(log, name):
     """The per-instance lines of a ``-Xptxas -v`` log of library ``name``;
     an instance of the flags libraries (``csrc/*_flags.cu``) is marked
     ``flags``, one of the big kernel's trace libraries (``csrc/big_trace.cu``,
-    ``csrc/big_trace_flags.cu``, ``csrc/big_trace_profile.cu``) ``trace``,
-    one of its profile libraries (``csrc/big_profile.cu``,
-    ``csrc/big_trace_profile.cu``, which read the flags too) ``profile,
-    flags``."""
+    ``csrc/big_trace_flags.cu``, ``csrc/big_trace_profile.cu``,
+    ``csrc/big_trace_16384.cu``) ``trace``, one of its profile libraries
+    (``csrc/big_profile.cu``, ``csrc/big_trace_profile.cu``, which read the
+    flags too) ``profile, flags``, one of its 16384-row libraries
+    (``csrc/big_16384.cu``, ``csrc/big_trace_16384.cu``, which read the
+    flags too) ``flags, 16384``."""
     profile = (", profile" if name.startswith("big") and "profile" in name
                else "")
-    flags = ", flags" if name.endswith("_flags") or profile else ""
+    rows = ", 16384" if name.endswith("16384") else ""
+    flags = ", flags" if name.endswith("_flags") or profile or rows else ""
     trace = ", trace" if name.startswith("big_trace") else ""
     lines, fn, frame = [], None, ""
     for line in log.splitlines():
@@ -764,7 +925,7 @@ def parse_ptxas(log, name):
                       r"ILb([01])E", line)
         if m:
             fn = (f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}{trace}"
-                  f"{profile}{flags}>")
+                  f"{profile}{flags}{rows}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -783,7 +944,7 @@ PINNED_PTXAS = "chip_smoke_ptxas.txt"
 
 
 def check_pinned_ptxas(reports):
-    """Every instance of the fourteen libraries must keep the registers, stack
+    """Every instance of the sixteen libraries must keep the registers, stack
     and spills pinned in ``chip_smoke_ptxas.txt`` (their sources' counts
     with this toolkit; a kernel edit must leave the other instances' counts
     alone).  A new ``nvcc`` may move them all: re-pin from a run of
@@ -863,11 +1024,12 @@ def expect_launches(lk, ak, what, *launched):
     for fn in wrappers(lk, ak):
         for c in lk.COUNTERS:
             name = fn.__name__ + "".join(
-                f"_{m}" for m in ("profile", "byte", "flags", "xdrop",
-                                  "trace") if f"{m}_" in c)
+                f"_{m}" for m in ("16384", "profile", "byte", "flags",
+                                  "xdrop", "trace") if f"{m}_" in c)
             counts[name] = getattr(fn, c)
     if any((counts[k] > 0) != (k in launched) for k in counts):
-        raise AssertionError(f"{what}: launches {counts}, expected only "
+        ran = {k: v for k, v in counts.items() if v}
+        raise AssertionError(f"{what}: launches {ran}, expected only "
                              f"{launched}")
     return counts
 
@@ -2003,6 +2165,64 @@ def main():
     check_pinned_ptxas(reports)
     phase("2, the lane and adaptive builds (after phases 25-37)")
 
+    # the plain versions of phases 43, 45 and 47 run on the host's CPU, in
+    # three worker processes at a lower priority, while the card runs
+    # phases 3-42 (after the builds, which take every core): each takes 4000
+    # to 12000 lockstep steps of a few small tensors, which run no faster on
+    # the card (a step at 16384 rows: 9.3 ms there, 7.3 ms on one CPU core)
+    from block_aligner_tpu_torch import LongAdaptiveAligner, LongBatchAligner
+    lrng = np.random.default_rng(43)  # phases 43-47 draw from their own
+    # kernel vs plain: 2 ONT-like pairs of 17-20 kbp (codes past 16384),
+    # 2 profile pairs past 16384 positions, 2 pairs growing to 16384 rows
+    cmp_pairs = long_pairs(lrng, 2, 17000, 20000)
+    prof_long = long_profile_pairs(lrng, 2, 16500, 17500)
+    band_pairs = growth_pairs_16384(np.random.default_rng(47), 2)
+
+    def lane_long(device=dev, **kw):
+        return LongBatchAligner(nuc, ngaps, 512, batch=64, device=device,
+                                **kw)
+
+    def prof_lane_long(device=dev, **kw):
+        return LongBatchAligner(scores.BLOSUM62, Gaps(-11, -1), 512,
+                                profile=True, device=device, **kw)
+
+    def ad_long(device=dev, **kw):
+        return LongAdaptiveAligner(nuc, ngaps, (512, 8192), batch=64,
+                                   device=device, **kw)
+
+    def band_long(device=dev, matrix=nuc, **kw):
+        return LongAdaptiveAligner(matrix, ngaps, (BAND_MIN, 16384),
+                                   batch=len(band_pairs), device=device, **kw)
+
+    long_checks = {
+        "lane": (lane_long, {}, cmp_pairs),
+        "lane_x": (lane_long, dict(x_drop=100), cmp_pairs),
+        "lane_t": (lane_long, dict(trace=True), cmp_pairs),
+        "lane_x_t": (lane_long, dict(x_drop=100, trace=True), cmp_pairs),
+        "lane_p": (prof_lane_long, {}, prof_long),
+        "ad": (ad_long, {}, cmp_pairs),
+        "ad_x": (ad_long, dict(x_drop=100), cmp_pairs),
+        "ad_t": (ad_long, dict(trace=True), cmp_pairs),
+        "ad_x_t": (ad_long, dict(x_drop=100, trace=True), cmp_pairs),
+        "band": (band_long, {}, band_pairs),
+        "band_x": (band_long, dict(x_drop=BAND_X), band_pairs),
+        "band_t": (band_long, dict(trace=True), band_pairs),
+        "band_x_t": (band_long, dict(x_drop=BAND_X, trace=True), band_pairs),
+        "band_l_t": (band_long, dict(local_start=True, trace=True),
+                     band_pairs),
+        "band_b": (band_long, dict(matrix=byte2), band_pairs),
+    }
+    cpu = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
+        "spawn"), initializer=os.nice, initargs=(10,))  # phase 19's too
+    plain_jobs = {}
+    # the longest first, so that the workers end together
+    for key, (make, kw, pairs) in sorted(
+            long_checks.items(), key=lambda kv: not kv[0].startswith("band")):
+        al = make(device="cpu", **kw)
+        pk = al._pack(pairs)
+        plain_jobs[key] = cpu.submit(plain_job, al.route, al._staged_cfg(pk),
+                                     pk)
+
     # 3. lane kernel vs plain version on the card (these launches are not
     # a main path's and are not counted)
     rng = np.random.default_rng(7)
@@ -2839,10 +3059,17 @@ def main():
                  ("free start gaps", dict(free_query_start_gaps=True), modes),
                  ("free end gaps", dict(free_query_end_gaps=True), two))
 
+    # the plain versions of phase 19 run in the CPU workers while the card
+    # goes on with phases 20-42; check_flags holds them against the kernels'
+    # outputs before phase 43
+    flag_checks = []
+
     def flags_vs_plain(cfg, pairs, x, what):
-        """A flags instance against its plain version on the same packed
-        pairs: equal outputs and, in trace mode, step counts, descriptors,
-        words (the zero bits of local start too) and CIGARs."""
+        """A flags instance on the card; its plain version on the same
+        packed pairs goes to a CPU worker (``plain_job``), and
+        ``check_flags`` holds the two: equal outputs and, in trace mode,
+        step counts, descriptors, words (the zero bits of local start too)
+        and CIGARs.  Returns the kernel's output."""
         lane = isinstance(cfg, lk.LaneKernelConfig)
         if cfg.profile:
             matrix, pk = None, pack_profile(pairs, cfg, dev, x_drop=x)
@@ -2851,19 +3078,34 @@ def main():
             pk = lk.pack_lane(pairs, matrix, cfg, Gaps(-11, -1), dev,
                               x_drop=x)
         got = (lk.lane_align if lane else ak.adaptive_align)(*pk, cfg)
-        torch.cuda.synchronize()
-        want = (lk.lane_align_plain if lane
-                else ak.adaptive_align_plain)(*pk, cfg)
-        if not cfg.trace:
-            check_equal(got, want, what)
-            return got
-        check_trace(got, want, what, lk.trace_words(cfg))
-        out = want[0].cpu().numpy()
-        ends = ([(int(o[1]), int(o[2])) for o in out] if lk.wide(cfg) else
-                [(len(q), r.str_len if cfg.profile else len(r))
-                 for q, r in pairs])
-        walk_both(got, want, ends, matrix, what, cfg)
+        host = type(pk)(*(t.cpu() if torch.is_tensor(t) else t for t in pk))
+        job = cpu.submit(plain_job, "lane" if lane else "adaptive", cfg,
+                         host)
+        if cfg.trace:
+            # the steps the pairs ran, all that the checks read
+            T = int(got[3].max())
+            mine = (got[0].cpu(), got[1][:T].cpu(), got[2][:T].cpu(),
+                    got[3].cpu())
+        else:
+            mine = got.cpu()
+        flag_checks.append((job, mine, cfg, pairs, matrix, what))
         return got
+
+    def check_flags():
+        """Phase 19's kernels against their plain versions from the
+        workers."""
+        for job, got, cfg, pairs, matrix, what in flag_checks:
+            want, _ = job.result()
+            if not cfg.trace:
+                check_equal(got, want, what)
+                continue
+            check_trace(got, want, what, lk.trace_words(cfg))
+            out = want[0].numpy()
+            ends = ([(int(o[1]), int(o[2])) for o in out] if lk.wide(cfg)
+                    else [(len(q), r.str_len if cfg.profile else len(r))
+                          for q, r in pairs])
+            walk_both(got, want, ends, matrix, what, cfg)
+        return len(flag_checks)
 
     def flag_pairs(cfg, grow):
         """32 pairs of lengths 0..200 for ``cfg``'s mode, and with ``grow``
@@ -2927,10 +3169,10 @@ def main():
           "ByteMatrix(1, -1) global and trace (all 256 bytes, byte 0, the "
           "golden pair); local start and free start gaps global, x-drop "
           "50, trace and x-drop trace; free end gaps (queries shorter than "
-          "S) global and trace; sequences and profiles: outputs equal, and "
-          "in trace mode step counts, descriptors, words (local start's "
-          f"zero bits too) and CIGARs; {dropped} x-drop best positions "
-          "short of the ends")
+          "S) global and trace; sequences and profiles, their plain "
+          "versions held at phase 43's start (outputs, and in trace mode "
+          "step counts, descriptors, words (local start's zero bits too) "
+          f"and CIGARs); {dropped} x-drop best positions short of the ends")
     checked = dropped = 0
     for size in ((32, 256), (32, 512)):
         c, d = flag_runs(size, flag_sets)
@@ -2939,9 +3181,8 @@ def main():
         raise AssertionError("no adaptive flags x-drop pair ended short")
     print(f"[adaptive-flags-vs-plain] {checked} pairs at (32, 256) and (32, "
           "512) in the same modes (at (32, 512) with trace or profiles "
-          "only, with 2 pairs whose blocks grow to 512): outputs equal, and "
-          "in trace mode step counts, descriptors, words and CIGARs; "
-          f"{dropped} x-drop best positions short of the ends")
+          "only, with 2 pairs whose blocks grow to 512), held as the lane "
+          f"ones; {dropped} x-drop best positions short of the ends")
     phase("19, byte and flags instances vs plain")
 
     # 20. the ByteMatrix main paths
@@ -3299,6 +3540,348 @@ def main():
           f"{counts['big_align_profile']}")
     phase("42, align_profile_exp_all past 512")
 
+    # 43-48. the long-sequence API (LongBatchAligner, LongAdaptiveAligner,
+    # BatchAligner's long routes) on resident codes past 16384 positions,
+    # and the big kernel's 16384-row instances
+    from block_aligner_tpu_torch.ops._trace import (LAUNCH_TRACE_BYTES,
+                                                    trace_sub_batch)
+    n_flags = check_flags()
+    print(f"[flags-vs-plain] phase 19's {n_flags} kernel runs equal their "
+          "plain versions (CPU workers)")
+    nano50 = load_nanopore_pairs("nanopore.50kbps", n_pairs=64,
+                                 max_len=50000, seed=1234)
+    n50 = len(nano50)
+    what50 = (f"{n50} ONT-like pairs of 25..50 kbp (10% edits), "
+              "NucMatrix(2, -4) -6/-2")
+
+    def long_vs_plain(key, what):
+        """A check of ``long_checks``: the aligner's kernel on its pairs
+        against the plain version's output from the worker process:
+        outputs, and with trace step counts, descriptors, words and
+        CIGARs.  Returns its max abs err, the plain version's ms and output
+        (``want``), and on the big route the largest blocks reached
+        (``top``), each pair's DP cells and, with trace, the checkpoint
+        saves and restores."""
+        make, kw, pairs = long_checks[key]
+        al = make(**kw)
+        staged = al._pack(pairs)
+        cfg = al._staged_cfg(staged)
+        kernel = {"lane": lk.lane_align, "adaptive": ak.adaptive_align,
+                  "big": bk.big_align}[al.route]
+        got = kernel(*staged, cfg)
+        got = tuple(t.cpu() for t in got) if cfg.trace else got.cpu()
+        want, plain_ms = plain_jobs[key].result()
+        top = cells = events = None
+        if al.route == "big":
+            *want, top = want
+            if not cfg.trace:
+                want, cells = want
+            want = tuple(want) if cfg.trace else want
+        if cfg.trace:
+            if al.route == "big":
+                events = check_big_trace(got, want, what)
+            else:
+                check_trace(got, want, what, lk.trace_words(cfg))
+            ends = ([(int(o[1]), int(o[2])) for o in want[0]]
+                    if lk.wide(cfg) else
+                    [(len(q), r.str_len if cfg.profile else len(r))
+                     for q, r in pairs])
+            walk_both(got, want, ends, al.matrix, what, cfg)
+            if al.route == "big":
+                cells = trace_cells(block_trace(got, al.matrix, cfg),
+                                    len(pairs))
+            got, want = got[0], want[0]
+        check_equal(got, want, what)
+        if al.route != "lane" and got[:, -1].any():
+            raise AssertionError(f"{what}: a pair hit the step cap")
+        return SimpleNamespace(err=0, plain_ms=plain_ms, want=want, top=top,
+                               cells=cells, events=events)
+
+    def long_main(make, work, what, x=None, n_cig=16):
+        """A long route's main path on ``work``: ``make(x_drop=x)``'s
+        ``align_staged`` and ``align_all`` with the launch counts reset just
+        before and read just after, timed (pack, kernel by CUDA events,
+        decode); then ``make(x_drop=x, trace=True)``'s ``align_batch`` on
+        every pair (sub-batches by the trace byte budget) with its counts:
+        its results must equal the untraced ones, the first ``n_cig``
+        CIGARs must span to their ends and rescore, and its descriptors
+        give each pair's DP cells for both bounds.  Returns the path's
+        numbers and the traced path's for the kernels line, and the
+        results."""
+        al = make(x_drop=x)
+        torch.cuda.synchronize()
+        reset_launches(lk, ak)
+        staged, pack_ms = host_ms(lambda: al._pack(work))
+        res, run_ms = host_ms(lambda: al.align_staged(staged))
+        res_all = al.align_all(work)
+        cfg = al._staged_cfg(staged)
+        name = instance(al.route, cfg)
+        launches = expect_launches(lk, ak, what, name)[name]
+        if res_all != res:
+            raise AssertionError(f"{what}: align_all disagrees with "
+                                 "align_staged")
+        kernel_ms = cuda_ms(lambda: al._dispatch(staged), 3)
+        out = al._dispatch(staged)
+        _, decode_ms = host_ms(lambda: al._decode(staged, out))
+        tal = make(x_drop=x, trace=True)
+        torch.cuda.synchronize()
+        reset_launches(lk, ak)
+        tres, tpath_ms = host_ms(lambda: tal.align_batch(work))
+        tstaged = tal._pack(work)
+        tcfg = tal._staged_cfg(tstaged)
+        tname = instance(tal.route, tcfg)
+        tlaunches = expect_launches(lk, ak, what, tname)[tname]
+        if tres != res:
+            raise AssertionError(f"{what}: traced results differ from the "
+                                 "untraced ones")
+        tr = tal.trace()
+        cells = trace_cells(tr, len(work))
+        cigars, walk_ms = host_ms(lambda: tr.cigars_all(
+            [(r.query_idx, r.reference_idx) for r in tres[:n_cig]]))
+        n_ops, _ = check_cigars(cigars, work[:n_cig], tres[:n_cig],
+                                tal.matrix, tal.gaps, f"{what}, traced")
+        kernel = {"lane": lk.lane_align, "adaptive": ak.adaptive_align,
+                  "big": bk.big_align}[tal.route]
+
+        def traced_ms(c):
+            """The traced kernel alone on ``work`` in sub-batches of
+            ``c``'s trace buffers (``trace_sub_batch``), launch by launch,
+            and the count of launches."""
+            n = trace_sub_batch(c)
+            return sum(cuda_ms(lambda: kernel(*api._rows(
+                tstaged, np.arange(k, min(k + n, len(work)))), c), 1)
+                for k in range(0, len(work), n)), -(-len(work) // n)
+
+        # the first launches as align_batch ran them (on the big route
+        # with the budget of the longest walk; retried pairs not timed),
+        # and on the big route with the JAX default budget
+        first = tal._trace_cfg(tstaged)
+        tkernel_ms, t_launches = traced_ms(first)
+        jax_budget = (f"; with the JAX default budget ({tcfg.trace_budget} "
+                      "words a pair): kernel {:.3f} ms in {} launches".format(
+                          *traced_ms(tcfg))
+                      if tal.route == "big" else "")
+        B = len(work)
+        n_cells = int(cells.sum())
+        codes = staged.codes.numel() + 4 * (2 * B + staged.table.numel())
+        bnd = max(codes / HBM_BYTES_PER_S * 1e3,
+                  n_cells * ops_per_cell(cfg) / int32_per_s * 1e3)
+        # each step writes its rows' words: a word for 8 cells
+        words = n_cells // 8 * lk.trace_words(tcfg)
+        t_ops = n_cells * ops_per_cell(tcfg) / int32_per_s * 1e3
+        t_bytes = (codes + 4 * words) / HBM_BYTES_PER_S * 1e3
+        numbers = {"launches": launches, "ms": kernel_ms, "bound_ms": bnd,
+                   "bound_by": "operations"}
+        tnumbers = {"launches": tlaunches, "ms": tkernel_ms,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes
+                    else "bytes"}
+        sc = np.array([r.score for r in res])
+        short = sum((r.query_idx, r.reference_idx) != (len(q), len(r_))
+                    for r, (q, r_) in zip(res, work))
+        print(f"[{name}-long] {B} pairs, {what}: align_staged and align_all "
+              f"agree; {name} launches {launches}; code capacity "
+              f"{cfg.seq_cap}, step cap {cfg.max_steps}; scores "
+              f"{sc.min()}..{sc.max()} (mean {sc.mean():.1f}); "
+              + (f"best short of (qlen, rlen) in {short}; " if x is not None
+                 else "")
+              + f"{n_cells} DP cells, {n_cells / B:.0f} per pair; traced: "
+              f"align_batch in launches of up to {trace_sub_batch(first)} "
+              f"pairs ({LAUNCH_TRACE_BYTES} trace bytes a launch at most"
+              + (f", a first budget of {first.trace_budget} words a pair"
+                 if tal.route == "big" else "") + f"), {tname} "
+              f"launches {tlaunches}, results equal the untraced ones, the "
+              f"first {n_cig} CIGARs span to their ends and rescore "
+              f"({n_ops} ops)")
+        print(f"[time] {card}: {name}, {what}: kernel "
+              f"{kernel_ms * 1e3 / B:.4f} us/pair ({kernel_ms:.3f} ms per "
+              f"launch of {B} pairs, CUDA events, mean of 3); bound "
+              f"{bnd:.4f} ms by operations; pack {pack_ms * 1e3 / B:.4f} "
+              f"us/pair; align_staged {run_ms * 1e3 / B:.4f} us/pair (decode "
+              f"{decode_ms * 1e3 / B:.4f}); traced ({tname}): kernel "
+              f"{tkernel_ms * 1e3 / B:.4f} us/pair ({tkernel_ms:.3f} ms in "
+              f"{t_launches} launches{jax_budget}), bound "
+              f"{tnumbers['bound_ms']:.4f} ms "
+              f"by {tnumbers['bound_by']}, align_batch (kernel, copy, "
+              f"replay) {tpath_ms * 1e3 / B:.4f} us/pair, walk "
+              f"(cigars_all) {walk_ms * 1e3 / n_cig:.4f} us/pair over "
+              f"{n_cig}")
+        return numbers, tnumbers, res
+
+    def long_numbers(main, vs):
+        """A kernels-line entry: the main path's launches, time and bound,
+        the kernel-vs-plain check's error and plain time (its pairs)."""
+        return {**main, "max_abs_err": vs.err, "plain_ms": vs.plain_ms}
+
+    # 43. the lane kernel on resident codes past 16384 positions (A7's
+    # windows): LongBatchAligner at block 512, nanopore_accuracy.rs's 1% band
+    # for 50 kbp, against its plain version on 2 pairs of 17-20 kbp, global,
+    # x 100 and traced, and on 2 profile pairs past 16384 positions
+    lvs = long_vs_plain("lane", "long lane 512")
+    lvs_x = long_vs_plain("lane_x", "long lane 512 x 100")
+    lvs_t = long_vs_plain("lane_t", "long lane 512 traced")
+    lvs_xt = long_vs_plain("lane_x_t", "long lane 512 x 100 traced")
+    lvs_p = long_vs_plain("lane_p", "long lane 512 profile")
+    lens = sorted(len(s) for pair in cmp_pairs for s in pair)
+    print(f"[long-lane-vs-plain] LongBatchAligner(block 512) on 2 pairs of "
+          f"{lens[0]}..{lens[-1]} bases (codes past 16384): global, x 100, "
+          "traced and x 100 traced (step counts, descriptors, words, "
+          "CIGARs) equal the plain version; profile pairs of "
+          f"{[p.str_len for _, p in prof_long]} positions too; plain (one "
+          f"CPU core each) {lvs.plain_ms:.1f} / {lvs_x.plain_ms:.1f} / "
+          f"{lvs_t.plain_ms:.1f} / {lvs_xt.plain_ms:.1f} / "
+          f"{lvs_p.plain_ms:.1f} ms")
+    phase("43, long lane kernel vs plain")
+
+    # 44. the long lane main paths: the 64 pairs at block 512, global (and
+    # traced) and x 100
+    ll, ll_t, ll_res = long_main(lane_long, nano50, f"{what50}, block 512")
+    phase("44, long lane main path")
+    ll_x, ll_xt, _ = long_main(lane_long, nano50,
+                               f"{what50}, block 512, x_drop 100", x=100)
+    phase("44, long lane x-drop main path")
+
+    # 45. the big kernel on resident codes past 16384 (C's segmented
+    # windows): LongAdaptiveAligner at (512, 8192) on the pairs of phase 43
+    avs = long_vs_plain("ad", "long (512, 8192)")
+    avs_x = long_vs_plain("ad_x", "long (512, 8192) x 100")
+    avs_t = long_vs_plain("ad_t", "long (512, 8192) traced")
+    avs_xt = long_vs_plain("ad_x_t", "long (512, 8192) x 100 traced")
+    print("[long-adaptive-vs-plain] LongAdaptiveAligner((512, 8192)) on the "
+          "2 pairs of phase 43: global, x 100, traced and x 100 traced (step "
+          "counts, word counters, descriptors, words, CIGARs) equal the "
+          f"plain version; plain (one CPU core each) {avs.plain_ms:.1f} / "
+          f"{avs_x.plain_ms:.1f} / {avs_t.plain_ms:.1f} / "
+          f"{avs_xt.plain_ms:.1f} ms")
+    phase("45, long adaptive kernel vs plain")
+
+    # 46. the long adaptive main paths: the 64 pairs at (512, 8192)
+    la, la_t, la_res = long_main(ad_long, nano50, f"{what50}, (512, 8192)")
+    phase("46, long adaptive main path")
+    la_x, la_xt, _ = long_main(ad_long, nano50,
+                               f"{what50}, (512, 8192), x_drop 100", x=100)
+    phase("46, long adaptive x-drop main path")
+
+    # 47. the 16384-row band: growth pairs whose blocks grow to 16384
+    # (percent_len's clamp), the 16384-row instances against the plain
+    # version, global, traced, x-drop, x-drop traced, traced local start
+    # (whose restarts keep the blocks at 8192) and ByteMatrix
+    shapes = {}
+    for x, tr, fl in ((False, False, 0), (True, False, 0), (False, True, 0),
+                      (True, True, 0), (False, True, 1)):
+        cfg = bk.BigKernelConfig(512, 16384, 16512, 16, x_drop=x, trace=tr,
+                                 local_start=bool(fl))
+        shapes[(x, tr, fl)] = bk.launch_shape(cfg)
+    print("[big-shape] the 16384-row instances (threads, dynamic shared "
+          "bytes, blocks per SM): global "
+          f"{shapes[(False, False, 0)]}, x-drop {shapes[(True, False, 0)]}, "
+          f"trace {shapes[(False, True, 0)]}, x-drop trace "
+          f"{shapes[(True, True, 0)]}, local start's trace "
+          f"{shapes[(False, True, 1)]}")
+    band_n, band_res = {}, {}
+    for key, mode in (("band", "global"), ("band_t", "trace"),
+                      ("band_x", "xdrop"), ("band_x_t", "xdrop_trace"),
+                      ("band_l_t", "local_trace"), ("band_b", "byte")):
+        make, kw, _ = long_checks[key]
+        al = make(**kw)
+        torch.cuda.synchronize()
+        reset_launches(lk, ak)
+        res = al.align_batch(band_pairs)
+        staged = al._pack(band_pairs)
+        cfg = al._staged_cfg(staged)
+        name = instance("big", cfg)
+        launches = expect_launches(lk, ak, f"16384 band {mode}", name)[name]
+        vs = long_vs_plain(key, f"16384 band {mode}")
+        want = vs.want
+        got = [(r.score, r.query_idx, r.reference_idx) for r in res]
+        band_res[mode] = res
+        if lk.wide(cfg):
+            err = int(np.abs(np.array(got) - want[:, :3].numpy()).max())
+        else:
+            err = int(np.abs(np.array(got)[:, 0] - want[:, 0].numpy()).max())
+        top = 8192 if cfg.local_start else 16384
+        if err or vs.top.tolist() != [top] * len(band_pairs):
+            raise AssertionError(f"16384 band {mode}: align_batch differs "
+                                 f"from the plain version ({err}) or blocks "
+                                 f"{vs.top.tolist()}")
+        if cfg.byte_mode and res != band_res["global"]:
+            raise AssertionError("16384 band: ByteMatrix(2, -4) differs from "
+                                 "NucMatrix(2, -4)")
+        if cfg.trace and not all(vs.events):
+            raise AssertionError("16384 band trace: no checkpoint save or "
+                                 "restore")
+        ms = cuda_ms(lambda: bk.big_align(*staged, cfg), 3)
+        bnd = int(vs.cells.sum()) * ops_per_cell(cfg) / int32_per_s * 1e3
+        band_n[mode] = {"launches": launches, "max_abs_err": err, "ms": ms,
+                        "plain_ms": vs.plain_ms, "bound_ms": bnd,
+                        "bound_by": "operations"}
+        print(f"[{name}] {len(band_pairs)} growth pairs of "
+              f"{[len(q) for q, _ in band_pairs]} bases at ({BAND_MIN}, "
+              "16384)" + (f", x_drop {BAND_X}" if cfg.x_drop else "")
+              + (", local start" if cfg.local_start else "")
+              + (", ByteMatrix(2, -4) (equal to NucMatrix(2, -4))"
+                 if cfg.byte_mode else "")
+              + ": align_batch equals the plain version; top_size "
+              f"{vs.top.tolist()}; {int(vs.cells.sum())} DP cells; {name} "
+              f"launches {launches}"
+              + (f"; {vs.events[0]} saves, {vs.events[1]} restores, step "
+                 "counts, word counters, descriptors, words and CIGARs equal"
+                 if cfg.trace else ""))
+        print(f"[time] {card}: {name}, 16384 band {mode}: kernel {ms:.3f} ms "
+              f"for {len(band_pairs)} pairs (CUDA events, mean of 3); bound "
+              f"{bnd:.4f} ms by operations; plain (one CPU core) "
+              f"{vs.plain_ms:.1f} ms")
+    phase("47, the 16384-row band")
+
+    # 48. the API: BatchAligner(seq_cap=65536) on both long routes equals the
+    # long classes, and align_exp_all past 16384 code positions
+    torch.cuda.synchronize()
+    reset_launches(lk, ak)
+    ba = BatchAligner(nuc, ngaps, size=(512, 8192), batch=n50,
+                      seq_cap=65536, device=dev)
+    bl = BatchAligner(nuc, ngaps, size=(512, 512), batch=n50, seq_cap=65536,
+                      device=dev)
+    if not (ba.long and bl.long and ba.route == "big" and bl.route == "lane"):
+        raise AssertionError("BatchAligner(seq_cap=65536) did not take the "
+                             "long routes")
+    if ba.align_all(nano50) != la_res or bl.align_all(nano50) != ll_res:
+        raise AssertionError("BatchAligner's long routes differ from the "
+                             "long classes")
+    counts = expect_launches(lk, ak, "BatchAligner long routes",
+                             "big_align", "lane_align")
+    ll["launches"] += counts["lane_align"]
+    la["launches"] += counts["big_align"]
+    exp_pairs = nano50[:16]
+    targets = [r.score for r in la_res[:16]]
+    targets[-1] += 1 << 20  # unreachable: the last level runs
+    reset_launches(lk, ak)
+    exp_res, exp_min = align_exp_all(nuc, ngaps, exp_pairs, targets,
+                                     (128, 8192), batch=16, seq_cap=65536,
+                                     device=dev)
+    counts = expect_launches(lk, ak, "align_exp_all past 16384",
+                             "big_align")
+    la["launches"] += counts["big_align"]
+    settled = {}
+    for m in sorted(set(exp_min) - {None}) + [None]:
+        idx = [k for k in range(16) if exp_min[k] == m]
+        settled[m] = len(idx)
+        if not idx:
+            continue
+        want = LongAdaptiveAligner(nuc, ngaps, (m or 8192, 8192),
+                                   device=dev).align_batch(
+                                       [exp_pairs[k] for k in idx])
+        if [exp_res[k] for k in idx] != want:
+            raise AssertionError(f"align_exp_all past 16384 at min {m} "
+                                 "differs from LongAdaptiveAligner")
+    print(f"[long-api] BatchAligner(seq_cap=65536) at (512, 8192) and (512, "
+          "512) takes the long routes and equals LongAdaptiveAligner and "
+          f"LongBatchAligner on the {n50} pairs; align_exp_all over (128, "
+          f"8192) at seq_cap 65536 on 16 of them (targets the (512, 8192) "
+          f"scores, 1 unreachable): settled per min size {settled}, each "
+          "equal to LongAdaptiveAligner at its size")
+    phase("48, the long API")
+    cpu.shutdown()
+
     print(json.dumps({"kernels": [
         {
             "name": "lane_align",
@@ -3484,6 +4067,46 @@ def main():
                LANE_ZERO_BIT if name.startswith("lane") else AD_FLAGS,
                numbers)
               for name, numbers in flag_traces.items()))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"block_aligner_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            **long_numbers(numbers, vs),
+            "library_ms": None,
+        }
+        for name, source, replaces, numbers, vs in (
+            ("lane_align_long", "lane_kernel", A7_WINDOWS, ll, lvs),
+            ("lane_align_long_xdrop", "lane_kernel", A7_WINDOWS, ll_x,
+             lvs_x),
+            ("lane_align_long_trace", "lane_kernel", A7_WINDOWS, ll_t,
+             lvs_t),
+            ("lane_align_long_xdrop_trace", "lane_kernel", A7_WINDOWS,
+             ll_xt, lvs_xt),
+            ("big_align_long", "big_kernel", C_WINDOWS, la, avs),
+            ("big_align_long_xdrop", "big_kernel", C_WINDOWS, la_x, avs_x),
+            ("big_align_long_trace", "big_trace", C_WINDOWS, la_t, avs_t),
+            ("big_align_long_xdrop_trace", "big_trace", C_WINDOWS, la_xt,
+             avs_xt))
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"block_aligner_tpu_torch/csrc/{source}.cu",
+            "replaces": C_16384,
+            **band_n[key],
+            "library_ms": None,
+        }
+        for name, source, key in (
+            ("big_align_16384", "big_16384", "global"),
+            ("big_align_16384_xdrop", "big_16384", "xdrop"),
+            ("big_align_16384_trace", "big_trace_16384", "trace"),
+            ("big_align_16384_xdrop_trace", "big_trace_16384",
+             "xdrop_trace"),
+            ("big_align_16384_flags_trace", "big_trace_16384",
+             "local_trace"),
+            ("big_align_16384_byte", "big_16384", "byte"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -117,44 +117,45 @@ def test_pick_route_matches_jax(args):
     assert tba.pick_route(lo, hi, cap, **kw) == jax_pick_route(lo, hi, cap, **kw)
 
 
-# the configurations the big route's FLAGS instances brought: they align
-# there now, as BlockOracle does
-PORTED = ("big", "trace_local_start", "byte", "big_trace",
-          "adaptive_local_start")
-
-
-@pytest.mark.parametrize("kwargs,ported", [
-    (dict(size=(64, 1024), free_query_start_gaps=True), True),
-    (dict(seq_cap=20000), False),
-    (dict(size=(64, 1024), trace=True, local_start=True), True),
-    (dict(seq_cap=20000, local_start=True), False),
-    (dict(free_query_start_gaps=True, use_lane_kernel=False), False),
-    (dict(free_query_end_gaps=True, mesh=object()), False),
-    (dict(matrix=tba.BYTES1, size=(64, 1024)), True),
-    (dict(mesh=object()), False),
-    (dict(use_lane_kernel=False), False),
-    (dict(size=(64, 1024), trace=True, matrix=tba.BYTES1), True),
-    (dict(size=(32, 512), local_start=True), True),
-    (dict(size=(16, 64), seq_cap=20000, free_query_end_gaps=True), False),
-    (dict(size=(32, 256), seq_cap=20000, matrix=tba.BYTES1), False),
+# the configurations the big route's FLAGS instances and the long routes
+# brought, by the kernel route they take: they align there now, as
+# BlockOracle does; the others raise
+@pytest.mark.parametrize("kwargs,route", [
+    (dict(size=(64, 1024), free_query_start_gaps=True), "big"),
+    (dict(seq_cap=20000), "lane"),
+    (dict(size=(64, 1024), trace=True, local_start=True), "big"),
+    (dict(seq_cap=20000, local_start=True), "lane"),
+    (dict(free_query_start_gaps=True, use_lane_kernel=False), None),
+    (dict(free_query_end_gaps=True, mesh=object()), None),
+    (dict(matrix=tba.BYTES1, size=(64, 1024)), "big"),
+    (dict(mesh=object()), None),
+    (dict(use_lane_kernel=False), None),
+    (dict(size=(64, 1024), trace=True, matrix=tba.BYTES1), "big"),
+    (dict(size=(32, 512), local_start=True), "big"),
+    (dict(size=(16, 64), seq_cap=20000, free_query_end_gaps=True), None),
+    (dict(size=(32, 256), seq_cap=20000, matrix=tba.BYTES1), "adaptive"),
 ], ids=["big", "long_lane", "trace_local_start", "local_start",
         "free_start", "free_end", "byte", "mesh", "engine",
         "big_trace", "adaptive_local_start",
         "adaptive_free_end", "adaptive_byte"])
-def test_unported_configurations_raise(kwargs, ported):
+def test_unported_configurations_raise(kwargs, route):
     """Configurations the port lacks raise ``NotImplementedError`` naming
-    their ROADMAP item; those the big route's ByteMatrix and flag
-    instances brought (``PORTED``) take the big route and give
+    their ROADMAP item (the engine, item 3, and a mesh, item 6); those the
+    big route's ByteMatrix and flag instances brought, and those past the
+    16384 code positions of the JAX kernels' VMEM that the long routes
+    brought (``seq_cap=20000``: "long_lane" on the lane kernel, "long" on
+    the adaptive kernel), take their kernel route and give
     ``BlockOracle``'s results (traced: its CIGARs) on two pairs."""
     kw = dict(matrix=tba.BLOSUM62, gaps=tba.Gaps(-11, -1), size=(32, 32),
               device="cpu")
     kw.update(kwargs)
-    if not ported:
+    if route is None:
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
             tba.BatchAligner(**kw)
         return
     al = tba.BatchAligner(**kw)
-    assert al.route == "big"
+    assert al.route == route
+    assert al.long == (kw.get("seq_cap", 1024) == 20000)
     pairs = homolog_pairs(5, 7)[5:]
     matrix = jba.BYTES1 if kw["matrix"] is tba.BYTES1 else jba.BLOSUM62
     flags = {k: v for k, v in kwargs.items()

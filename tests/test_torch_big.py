@@ -147,17 +147,44 @@ def test_wrapper_devices_and_counts():
 
 
 def test_config_validation():
-    """Sizes, capacity and modes (profiles take a table size, ``prof_cap``;
-    the ByteMatrix and flag modes take the JAX configuration's
-    exclusions); the block, the
+    """Sizes, capacity and modes (profiles take a table size, ``prof_cap``,
+    and blocks up to 8192; the ByteMatrix and flag modes take the JAX
+    configuration's exclusions); the code capacity has no cap of its own
+    (the long routes size it from each batch) and blocks reach 16384 rows
+    in the 16384-row libraries; the block, the
     step cap and the trace budget are the JAX configuration's
     (``big_kernel.py:277-281``, its default slot budget in rows at seg 256,
     ``:311-320``, two words a row with local start)."""
     for bad in [(16, 256, 1024), (16, 16384, 16384), (24, 1024, 2048),
                 (2048, 1024, 4096), (512, 512, 1024), (16, 1024, 1000),
-                (16, 1024, 1024), (16, 8192, 16512)]:
+                (16, 1024, 1024), (16, 32768, 33024)]:
         with pytest.raises(ValueError):
             bk.BigKernelConfig(*bad)
+    assert bk.library(bk.BigKernelConfig(16, 8192, 65536)) == "big_kernel"
+    for trace, name in ((False, "big_16384"), (True, "big_trace_16384")):
+        assert bk.library(bk.BigKernelConfig(
+            512, 16384, 16512, trace=trace, local_start=trace)) == name
+    with pytest.raises(ValueError, match="8192"):
+        bk.BigKernelConfig(16, 16384, 16512, profile=True, prof_cap=128)
+    big = bk.BigKernelConfig(16, 1024, 2048, trace=True)
+    assert bk.BigKernelConfig(16, 1024, 2048, trace=True,
+                              budget=600).trace_budget == 600
+    assert big.full_budget == big.max_steps * 1024 > big.trace_budget
+    # the long routes' first budget: twice a straight walk's steps at 256
+    # rows and 8 at the max size, at most the default
+    assert big.walk_budget(800) == 2 * 100 * 256 + 8 * 1024
+    assert big.walk_budget(10 ** 6) == big.trace_budget
+    # the kernel counts words in int32: budgets stop below 2^31
+    huge = bk.BigKernelConfig(512, 16384, 1 << 20, trace=True,
+                              local_start=True)
+    assert huge.full_budget == bk.MAX_TRACE_WORDS < (
+        2 * huge.max_steps * 16384)
+    assert bk.BigKernelConfig(16, 1024, 2048, trace=True,
+                              budget=bk.MAX_TRACE_WORDS).trace_budget == (
+        bk.MAX_TRACE_WORDS)
+    with pytest.raises(ValueError, match="int32"):
+        bk.BigKernelConfig(16, 1024, 2048, trace=True,
+                           budget=bk.MAX_TRACE_WORDS + 1)
     with pytest.raises(ValueError):
         bk.BigKernelConfig(16, 1024, 2048, alpha=20)
     with pytest.raises(ValueError, match="prof_cap"):

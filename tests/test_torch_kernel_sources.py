@@ -35,6 +35,7 @@ from test_torch_byte import rail_pairs
 
 EMULATION = r"""
 #pragma once
+#include <setjmp.h>
 #include <ucontext.h>
 #include <algorithm>
 #include <cstddef>
@@ -64,22 +65,30 @@ inline dim3 blockDim, gridDim;
 inline unsigned turn_ = 0;
 namespace emu {
 // Every CUDA thread of a block is a fiber on one host thread; a fiber
-// runs until it waits at a barrier, then the next one runs.
+// runs until it waits at a barrier, then the next one runs.  A fiber starts
+// on its own stack through swapcontext, and every later switch is a
+// _setjmp / _longjmp pair, which unlike swapcontext makes no system call
+// for the signal mask.
 struct Fiber {
   ucontext_t ctx;
+  jmp_buf jb;
   std::unique_ptr<char[]> stack;
   unsigned tid = 0, turn = 0;
-  bool done = false;
+  bool done = false, started = false;
 };
 inline ucontext_t sched_;
+inline jmp_buf sched_jb_;
 inline Fiber* cur_;
 inline std::function<void()>* body_;
 inline unsigned long progress_;  // barrier arrivals and finished fibers
-inline void yield_() { swapcontext(&cur_->ctx, &sched_); }
+inline void yield_() {
+  if (!_setjmp(cur_->jb)) _longjmp(sched_jb_, 1);
+}
 inline void entry_() {
   (*body_)();
   cur_->done = true;
   ++progress_;
+  _longjmp(sched_jb_, 1);
 }
 }  // namespace emu
 struct Barrier {
@@ -182,7 +191,7 @@ void launch(unsigned grid, unsigned block, F body) {
       Fiber& f = fibers[t];
       f.tid = t;
       f.turn = 0;
-      f.done = false;
+      f.done = f.started = false;
       getcontext(&f.ctx);
       f.ctx.uc_stack.ss_sp = f.stack.get();
       f.ctx.uc_stack.ss_size = kStack;
@@ -197,7 +206,11 @@ void launch(unsigned grid, unsigned block, F body) {
         cur_ = &f;
         threadIdx.x = f.tid;
         turn_ = f.turn;
-        swapcontext(&sched_, &f.ctx);
+        if (!_setjmp(sched_jb_)) {
+          if (f.started) _longjmp(f.jb, 1);
+          f.started = true;
+          swapcontext(&sched_, &f.ctx);
+        }
         f.turn = turn_;
         live += !f.done;
       }
@@ -259,8 +272,10 @@ def emulated(tmp_path_factory):
             else (_build.CSRC / f"{name}.cu").read_text())
         so = out / f"lib{name}.so"
         # all twelve compile at once
+        # no _FORTIFY_SOURCE: its _longjmp refuses to switch stacks
         builds[name] = (mod, so, subprocess.Popen(
-            [gxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
+            [gxx, "-std=c++17", "-O1", "-U_FORTIFY_SOURCE", "-shared", "-fPIC",
+             "-I",
              str(out), "-o", str(so), str(out / f"{name}.cpp")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     libs = {}
@@ -675,8 +690,11 @@ def big_launch(lib, pk, cfg, x=-1):
     ``cfg``'s flags; with ``cfg.trace`` (the libraries of
     ``csrc/big_trace.cu`` and ``csrc/big_trace_flags.cu``) it returns
     ``(out, words, desc, steps, used)``, the trace buffers filled with -5
-    where the kernel writes nothing."""
+    where the kernel writes nothing.  Past 8192 rows the checkpoint scratch
+    starts filled with junk, as ``torch.empty`` leaves it on the card."""
     B = pk.codes.shape[0]
+    scratch = (torch.full((B, 4, cfg.max_size), 0x5a5a, dtype=torch.int16)
+               if cfg.max_size > 8192 else None)
     out = torch.full((B, 4 if lk.wide(cfg) else 2), -7, dtype=torch.int32)
     bufs = ((torch.full((B, cfg.trace_budget), -5, dtype=torch.int32),
              torch.full((cfg.max_steps, B, 5), -5, dtype=torch.int32),
@@ -685,7 +703,8 @@ def big_launch(lib, pk, cfg, x=-1):
     err = lib.big_align_launch(
         pk.codes.data_ptr(), pk.qlen.data_ptr(), pk.rlen.data_ptr(),
         pk.table.data_ptr(), out.data_ptr(),
-        *([t.data_ptr() for t in bufs] or [None] * 4), B, cfg.seq_cap,
+        *([t.data_ptr() for t in bufs] or [None] * 4),
+        None if scratch is None else scratch.data_ptr(), B, cfg.seq_cap,
         cfg.alpha, cfg.min_size, cfg.max_size, cfg.max_steps, pk.gaps[0],
         pk.gaps[1], x, cfg.trace_budget if cfg.trace else 0,
         *lk.mode_args(pk.gaps, cfg), cfg.prof_cap, None)
@@ -722,19 +741,22 @@ def test_big_kernel_source_matches_plain(emulated, size, setup, x):
 def test_big_entry_point_matches_binding(emulated):
     """The C signature of ``csrc/big_kernel.cu`` and its ctypes argument
     list agree (5 pointers for the inputs and the output, 4 for the trace
-    buffers, 14 ints, the stream); the entry point refuses sizes the big
-    route does not take, trace buffers in the library without trace and
-    their absence in the trace library (``csrc/big_trace.cu``), and reports
-    its launch shape (threads, dynamic shared bytes: 4 a row more with
-    trace, and 1 more with local start's trace in
-    ``csrc/big_trace_flags.cu`` and ``csrc/big_trace_profile.cu``; the
-    profile instances' planes are the others')."""
+    buffers, the checkpoint scratch, 14 ints, the stream); the entry point
+    refuses sizes the big route does not take, trace buffers in the library
+    without trace and their absence in the trace library
+    (``csrc/big_trace.cu``), and reports its launch shape (threads, dynamic
+    shared bytes: 4 a row more with trace, and 1 more with local start's
+    trace in ``csrc/big_trace_flags.cu`` and ``csrc/big_trace_profile.cu``;
+    the profile instances' planes are the others').  The 16384-row
+    libraries (``csrc/big_16384.cu``, ``csrc/big_trace_16384.cu``) take
+    max size 16384 and a scratch only, and the others neither; their planes
+    take 12 bytes a row, 13 with local start's trace."""
     src = (_build.CSRC / f"{bk.LIBRARY}.cu").read_text()
     sig = re.search(r'extern "C" int big_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
     lib, tlib = emulated[bk.LIBRARY], emulated[bk.TRACE_LIBRARY]
     assert [p.startswith(("const void*", "void*")) for p in params] == \
-        [True] * 9 + [False] * 14 + [True]
+        [True] * 10 + [False] * 14 + [True]
     assert len(lib.big_align_launch.argtypes) == len(params)
     assert _build.library_path(bk.LIBRARY).name.startswith("libbig_kernel-")
     cfg = bk.BigKernelConfig(16, 1024, 1152)
@@ -746,13 +768,14 @@ def test_big_entry_point_matches_binding(emulated):
     for lo, hi in [(16, 256), (32, 16384), (512, 512), (24, 1024),
                    (2048, 1024)]:
         assert lib.big_align_launch(
-            *ptrs, None, None, None, None, 1, cfg.seq_cap, 32, lo, hi,
+            *ptrs, None, None, None, None, None, 1, cfg.seq_cap, 32, lo, hi,
             cfg.max_steps, -11, -1, -1, 0, 0, 0, 0, 0, None) != 0
     bufs = [out.data_ptr()] * 4
-    assert lib.big_align_launch(*ptrs, *bufs, 1, cfg.seq_cap, 32, 16, 1024,
+    assert lib.big_align_launch(*ptrs, *bufs, None, 1, cfg.seq_cap, 32, 16,
+                                1024,
                                 cfg.max_steps, -11, -1, -1, 64, 0, 0, 0, 0,
                                 None) != 0
-    assert tlib.big_align_launch(*ptrs, None, None, None, None, 1,
+    assert tlib.big_align_launch(*ptrs, None, None, None, None, None, 1,
                                  cfg.seq_cap, 32, 16, 1024, cfg.max_steps,
                                  -11, -1, -1, 64, 0, 0, 0, 0, None) != 0
     assert tuple(big_launch(lib, pk, cfg)[0].tolist()) == (4, 0)
@@ -771,6 +794,30 @@ def test_big_entry_point_matches_binding(emulated):
         assert tuple(shape)[:2] == want
         assert ptlib.big_launch_shape(S, 0, 1, ctypes.addressof(shape)) == 0
         assert tuple(shape)[:2] == (want[0], want[1] // 20 * 25)
+    tall = emulated[bk.ROWS16384_LIBRARY]
+    ttall = emulated[bk.TRACE_ROWS16384_LIBRARY]
+    for name, x, flags, want in [(lib, 0, 0, None), (tall, 1, 0, 196608),
+                                 (ttall, 0, 0, 196608),
+                                 (ttall, 1, 1, 212992)]:
+        err = name.big_launch_shape(16384, x, flags, ctypes.addressof(shape))
+        assert (err == 0) == (want is not None)
+        if want:
+            assert tuple(shape)[:2] == (256, want)
+    assert tall.big_launch_shape(8192, 0, 0, ctypes.addressof(shape)) != 0
+    scratch = torch.zeros((1, 4, 16384), dtype=torch.int16)
+    tcfg = bk.BigKernelConfig(16, 16384, 16512)
+    tpk = bk.pack_big([(b"A", b"A")], scores.BLOSUM62, tcfg, Gaps(-11, -1),
+                      "cpu")
+    for name, sp, hi, ok in [(tall, None, 16384, False),
+                             (tall, scratch.data_ptr(), 8192, False),
+                             (lib, scratch.data_ptr(), 8192, False),
+                             (tall, scratch.data_ptr(), 16384, True)]:
+        err = name.big_align_launch(
+            *(t.data_ptr() for t in tpk[:4]), out.data_ptr(), None, None,
+            None, None, sp, 1, tcfg.seq_cap, 32, 16, hi, tcfg.max_steps, -11,
+            -1, -1, 0, 0, 0, 0, 0, None)
+        assert (err == 0) == ok, (hi, ok)
+    assert tuple(out[0].tolist()) == (4, 0)
 
 
 @pytest.mark.parametrize("size,setup,x,budget", [
@@ -891,7 +938,8 @@ def test_big_entry_point_rejects_bad_modes(emulated):
         return emulated[name].big_align_launch(
             packed.codes.data_ptr(), packed.qlen.data_ptr(),
             packed.rlen.data_ptr(), packed.table.data_ptr(), out.data_ptr(),
-            *ptrs, 1, cfg.seq_cap, alpha, 16, 1024, cfg.max_steps, -11, -1,
+            *ptrs, None, 1, cfg.seq_cap, alpha, 16, 1024, cfg.max_steps, -11,
+            -1,
             x, cfg.trace_budget if trace else 0, flags, 1, -1, prof_cap, None)
 
     F = bk.FLAGS_LIBRARY
@@ -969,3 +1017,44 @@ def test_big_kernel_source_profile_matches_plain(emulated, size, mode, x,
             [(len(q), p.str_len) for q, p in pairs])
     chip_smoke.walk_both(got, want, ends, None, f"profile {mode} {size}",
                          cfg)
+
+
+@pytest.mark.parametrize("mode", ["global", "trace", "local_trace",
+                                  "xdrop_trace"])
+def test_big_kernel_source_16384_rows(emulated, mode):
+    """The 16384-row layout (``csrc/big_16384.cu``, ``csrc/big_trace_16384.cu``)
+    at (128, 16384) against the plain version: two protein pairs with an
+    insertion, whose blocks grow to 512 rows and restore from the
+    checkpoint planes in the global scratch (which starts as junk); with
+    trace the row words accumulate in the trace buffer itself, with local
+    start each step's zero words follow them from their shared staging,
+    and with x-drop (x 1000, past the insertion) the best and its position:
+    outputs, step counts, word counters, descriptors, words and the CIGARs
+    walked from both."""
+    rng = np.random.default_rng(16384)
+    pairs = []
+    for n, ins in ((300, 160), (360, 250)):
+        q = bytes(rng.choice(chip_smoke.AA, n).tolist())
+        r = q[: n // 2] + bytes(rng.choice(chip_smoke.AA, ins).tolist())
+        pairs.append((q, r + q[n // 2 :]))
+    trace = mode != "global"
+    x = 1000 if mode == "xdrop_trace" else -1
+    cfg = bk.BigKernelConfig(128, 16384, 17152, 32, trace=trace,
+                             x_drop=x >= 0,
+                             local_start=mode == "local_trace")
+    if trace:
+        cfg = chip_smoke.with_trace_budget(
+            cfg, lk.trace_words(cfg) << 17)
+    pk = bk.pack_big(pairs, scores.BLOSUM62, cfg, Gaps(-11, -1), "cpu",
+                     x_drop=max(x, 0))
+    got = big_launch(emulated[bk.library(cfg)], pk, cfg, x)
+    *want, top = bk.big_align_plain(*pk, cfg, top_size=True)
+    assert top.tolist() == [512, 512]
+    if not trace:
+        assert torch.equal(got, want[0])
+        return
+    saves, restores = chip_smoke.check_big_trace(got, tuple(want), mode)
+    assert saves > 0 and restores > 0
+    ends = ([(int(o[1]), int(o[2])) for o in want[0]] if lk.wide(cfg) else
+            [(len(q), len(r)) for q, r in pairs])
+    chip_smoke.walk_both(got, tuple(want), ends, scores.BLOSUM62, mode, cfg)
