@@ -13,16 +13,15 @@
 // Pallas `kernel`) in global and in x-drop mode with a score table or a
 // ByteMatrix or a profile (sequence-to-PSSM), with the local-start,
 // free-query-start-gap and free-query-end-gap flags, with or without trace:
-// the grow / shrink /
-// checkpoint machine for 512 < max_size <= 8192, and (min, 512); and the
-// same machine at 16384 rows on codes of any length, in place of the JAX
-// kernel's segmented mode (code windows, planes streamed from HBM) that its
-// long-sequence driver runs.  It
-// computes the same score (x-drop and free end gaps: the best score and its
-// position) and the same overrun flag, bit for bit; the
-// machine is the adaptive kernel's (csrc/adaptive_kernel.cu), described in
-// ops/adaptive_kernel.py, whose adaptive_align_plain, run on a
-// BigKernelConfig, is the plain PyTorch version of this kernel.
+// the grow / shrink / checkpoint machine for 512 < max_size <= 8192, and
+// (min, 512); and the same machine at 16384 rows on codes of any length, in
+// place of the JAX kernel's segmented mode (code windows, planes streamed
+// from HBM) that its long-sequence driver runs.  It computes the same score
+// (x-drop and free end gaps: the best score and its position) and the same
+// overrun flag, bit for bit; the machine is the adaptive kernel's
+// (csrc/adaptive_kernel.cu), described in ops/adaptive_kernel.py, whose
+// adaptive_align_plain, run on a BigKernelConfig, is the plain PyTorch
+// version of this kernel.
 //
 // Trace (ops/_trace.py, core/traceback.py): the reference's 4 bits a cell,
 // t | t2 << 2 (src/scan_block.rs:1166-1190), 8 columns a row's word, in a
@@ -31,100 +30,88 @@
 // lane start, column start, height, the counter before the step).  The
 // checkpoint save and restore decided at a step's end ride the next step's
 // flags, save before restore.  A step whose rows would pass the pair's word
-// budget stops the pair with the overrun flag, as the step cap does.  A
-// row's word is staged in shared memory by the thread that owns the row (a
-// thread holds up to 32 slots of rows) and written once at the step's end;
-// the R-open bit of row r belongs to row r + 1, so the first row of a slot
-// takes it from lane 31 of the slot before and the first row of a warp from
-// the warp above, whose R there is the scan's carry.
+// budget stops the pair with the overrun flag, as the step cap does.
 //
-// What bounds it: integer ALU work (a handful of adds and maxes per DP
-// cell) and latency: each of a rect's 8 columns per step depends on the
-// one before, each column carries a max-plus prefix scan down a block of up
-// to 8192 rows, and each step's decision depends on the last column.
-// Bytes are not the limit: a pair reads its codes and writes 8 or 16 bytes.
+// What bounds it: integer ALU work (a dozen adds and maxes per DP cell) and
+// latency: each of a rect's 8 columns per step depends on the one before,
+// each column carries a max-plus prefix scan down a block of up to 16384
+// rows, and each step's decision depends on the last column.  Bytes are not
+// the limit: a pair reads its codes and writes 8 or 16 bytes.
 //
-// What the design does about it:
-// * one thread block per pair, 4 warps (8 from max_size 4096), and each
-//   pair runs its own step loop until it freezes or x-drop ends it;
-// * the block state lives in shared memory, not registers: a block of
-//   8192 rows would need 256 registers a lane per border in a warp.  Every
-//   DP value is the reference's i16 (relative to ZERO = 2^14, saturating at
-//   both rails), so the borders are stored as i16 losslessly: the active
-//   column (D, C), the passive border (D, R) and the two checkpoint
-//   borders take 8 x max_size x 2 bytes, and two staging planes of a
-//   column (D before its vertical gaps, the scan within a warp) 4 x
-//   max_size bytes; 160 KB at 8192, sized at launch;
-// * per-step work tracks the current block size sz: a step of a rect of
-//   height h gives each warp NA = max(1, h / (32 W)) slots of 32 rows,
-//   the warps in order (warp w holds rows [32 NA w, 32 NA (w + 1))), and
-//   warps past h idle at the barriers.  Row r sits in lane r % 32, so its
-//   16-residue class (the x-drop tracker's) is lane % 16 in every layout;
+// The layout before this one gave a pair a block of 4 or 8 warps whatever
+// the height it ran at, one row a thread in 32-row slots, and staged every
+// cell of a column in shared memory twice, behind a block barrier a column:
+// at the band's 128 rows every per-column overhead was paid per cell.  What
+// this design does about it:
+// * threads per pair are fitted to the configuration: a pair takes G warps,
+//   G = min_size / 128 within 1..4 (4 rows a thread at the min size, where a
+//   pair runs most), raised so that no thread holds more rows than its
+//   registers do (MAX_ROWS: 64 in the global library, 4 warps at 8192, and
+//   32 in the others, 8 warps at 8192 and 16 at 16384), chosen by measured
+//   time.  A block of 128 threads carries 4 pairs of one warp or 2 of two;
+//   wider pairs take a block each.  A pair whose column one warp holds
+//   synchronises with __syncwarp only; a pair of several warps meets at a named barrier of its
+//   own (bar.sync 1 + pair, 32 G), once a column for the warps' scan
+//   carries, so pairs that end at different steps never hang one another;
+// * at a rect of height h each thread owns the contiguous rows [k t, k t +
+//   k), k = h / (32 G) (or one row and idle threads when h < 32 G), and
+//   keeps their D and C in registers for the step: loaded once from the
+//   ring planes at the step's start, 16 bytes at a time, 8 columns computed
+//   in registers, written back once at its end.  The step body is a
+//   template on k, dispatched once a step; its rows unroll, its columns do
+//   not.  A row's code (a profile down rect's gap word) is read once a
+//   step.  The diagonal into a row is a register move, into a thread's
+//   first row one shuffle;
 // * the column's vertical-gap scan R[p] = max_{q <= p} (v[q] + e (p - q))
-//   runs in three levels: a warp shuffle scan of each slot, the slots of a
-//   warp chained through lane 31, and the warps chained through shared
-//   memory after one barrier a column (a segment ending in t composes with
-//   the carry c before it as max(t_local, c + e (loc + 1))).  It equals
+//   runs in three levels, each once a column: a serial max-plus over the
+//   thread's k rows (its aggregate), a 5-level shuffle scan of the
+//   threads' aggregates, and with several warps their carries through
+//   shared memory behind the pair's barrier; the rows' values follow from
+//   the carry in a second serial pass that recomputes each cell's
+//   candidates instead of storing them.  All of it is int32, so it equals
 //   the reference's saturating chunked scan: every candidate below the i16
 //   rail loses to the zero correction e ((row % 8) + 1);
-// * the passive border shifts by 8 rows a step and a shrink halves the
-//   block by moving its rows: both only move a plane's base (each plane
-//   is a ring of max_size rows), and a swap of the borders only swaps
-//   which planes are active; a checkpoint save or restore copies the
-//   block's rows, and a restore resets the bases;
+// * trackers and trace words are built per step, not per column: x-drop
+//   keeps each of the thread's residues' best (value, column, chunk) over
+//   the step's 8 columns in registers, folded across the pair once a step;
+//   a row's trace word (and local start's zero bits) stays in a register
+//   and is written once at the step's end;
+// * the ring planes stay in shared memory as i16 (every DP value is the
+//   reference's i16, relative to ZERO = 2^14, saturating at both rails): the
+//   active column (D, C), the passive border (D, R) and the two checkpoint
+//   borders, 16 bytes a row of max_size a pair (8 in the 16384-row
+//   instances, whose checkpoint planes are a per-pair scratch of 4 max_size
+//   i16 in global memory that the wrapper allocates).  A shift moves a
+//   plane's base by 8 rows and a shrink by half a block, so 8-row groups
+//   stay 16-byte aligned; a swap of the borders only swaps which planes are
+//   active; a checkpoint save or restore copies the block's rows;
 // * scores come from the table in shared memory by both codes, so a
-//   restore only moves the anchor; the TPU's code-keyed score fetch, which
-//   needs a symmetric table, does not exist here;
-// * the pair's scalar state is replicated in every thread, which takes the
-//   same decisions from the same shared values;
-// * x-drop is a template flag.  Each column folds a warp's rows into one
-//   key per residue, value * (max_size / 16) + chunk (|key| < 2^25 at
-//   8192, 2^26 at 16384), kept in shared memory, and the step's end folds
-//   the 8 columns into each thread's tracker of its residue.
-// * trace stages a row's word in shared memory (4 bytes a row more, 192 KB
-//   at 8192 in all) and writes it once at the step's end, coalesced.
+//   restore only moves the anchor.  The pair's scalar state is replicated
+//   in every thread, which takes the same decisions from the same values;
 // * the FLAGS instances (BIG_FLAGS) read the modes from a run-time
 //   argument.  Byte mode compares the two codes and never reads a table.
 //   Local start and free start gaps restart cells at the relative zero of
 //   the step's offset, clamp16(ZERO - off), taken after the step's rebase
-//   or restore.  Free end gaps run the x-drop tracker's per-column keys
-//   without x-drop, for the one residue a decision reads (row qlen's,
-//   qlen % 16): a key 2 D + (the row's 16-row chunk reaches past qlen), so
-//   the column's max and whether a row past qlen holds it fold in one max.
-//   Local start's trace has a second word a row, the 8 zero bits of the
-//   row (D == the relative zero), staged as one byte a row (1 byte a row
-//   more, 200 KB at 8192 in all) and written after the step's h words.
+//   or restore.  Free end gaps track row qlen's residue: per column a key 2
+//   D + (the row's 16-row chunk reaches past qlen), so the column's max and
+//   whether a row past qlen holds it fold in one max.  Local start's trace
+//   has a second word a row, its 8 zero bits (D == the relative zero),
+//   written after the step's h words;
 // * the profile instances (BIG_PROFILE, which also reads the flags) score a
 //   query against a table of 8 words a profile position (7 words of biased
 //   score bytes by query code, and the gap word open_C | open_R << 8 |
 //   close_C << 16; ops/_profile.py), clamping every profile position to
-//   rlen + 1, whose word is the all-zero pad (the JAX big kernel's
-//   contract), so the table holds the profile's own rows, not rlen +
-//   max_size.  A right rect (lanes = query rows, columns = profile
-//   positions) stages its 8 entering rows in shared memory once a step
-//   (256 bytes), and each row's thread picks its query code's byte; the
-//   column's gap costs are the same for every row.  A down rect's lane is a
-//   profile position: its thread reads its row's score word by the
-//   entering query code and its gap word from global memory, which L1
-//   keeps across the step's 8 columns; C and R swap their open costs, and
-//   R closes before the merge into D (a right rect closes C).  S gap words
-//   are not staged: at 8192 rows local start's trace already takes 200 KB.
-//   The vertical-gap scan is the same three levels; only its open term is
-//   the row's own, and the warps' carries take each warp's last row's R
-//   open and close.  Trace compares D with the gap-closed C and R, as the
-//   reference does, and so reproduces its down-to-right hand-off.  Rows
-//   read positions by index, so a restore still only moves the anchor.
-// * the 16384-row instances (BIG_16384, which also reads the flags; no
-//   profile) do not fit the 20 S bytes in a block's 227 KB: the four
-//   checkpoint planes move to a per-pair scratch of 4 S i16 in global memory
-//   that the wrapper allocates (128 KB a pair, 16 MB at 128 pairs, inside
-//   the 50 MB L2), and with trace a row's word accumulates in place in the
-//   pair's trace buffer instead of a staged plane; local start's zero bits
-//   stay staged.  12 S bytes of shared memory (196608), 13 S with local
-//   start's trace (212992); the other instances compile the code they had.
-// Several pairs per block at small sizes, i16x2 arithmetic, the DPX
-// instructions and thread block clusters for the 16384-row planes are left
-// to later work.
+//   rlen + 1, whose word is the all-zero pad, so the table holds the
+//   profile's own rows.  A right rect (lanes = query rows, columns = profile
+//   positions) stages its 8 entering rows in shared memory once a step; a
+//   down rect's row is a profile position, whose gap word its thread loads
+//   once a step and whose score it reads by the column's query code.  C and
+//   R swap their open costs there, and R closes before the merge into D (a
+//   right rect closes C).  Trace compares D with the gap-closed C and R, as
+//   the reference does, and so reproduces its down-to-right hand-off.
+// What is left: thread block clusters to split one pair of 8192 or 16384
+// rows across SMs for batches of such pairs smaller than the card, i16x2
+// arithmetic and the DPX instructions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,16 +125,15 @@ constexpr int POS = 32767;
 constexpr int INT_MIN_ = -2147483647 - 1;
 constexpr int FAR = -(1 << 30);     // below every scan value, far from overflow
 constexpr int MAX_ALPHA = 32;
-constexpr int MAX_WARPS = 8;
 constexpr int SUFFIX = STEP / 4;    // shrink suffix rows
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SMALL_PAIRS = 4;      // pairs a 128-thread block of 1-warp pairs
 // rect phases; the initial rect is a GROW_R with psz == 0
 constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 
 #ifndef BIG_TRACE
-// csrc/big_trace.cu builds the trace instances apart.  Their code is
-// compiled in by the preprocessor, so that this library's instances compile
-// exactly the code they had.
+// csrc/big_trace.cu builds the trace instances apart, behind the
+// preprocessor
 #define BIG_TRACE false
 #endif
 #ifndef BIG_FLAGS
@@ -172,6 +158,12 @@ constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 #if BIG_16384 && (!BIG_FLAGS || BIG_PROFILE)
 #error "the 16384-row instances read the flags and take no profile"
 #endif
+#ifndef BIG_NAMED_SYNC
+// the named barrier `id` of `n` threads (a host-side build of this source
+// may define its own)
+#define BIG_NAMED_SYNC(id, n) \
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory")
+#endif
 #if BIG_16384
 // the checkpoint planes: (B, 4, 16384) i16 of global scratch
 #define BIG_16384_PARAMS , short* __restrict__ scratch
@@ -180,6 +172,17 @@ constexpr int DIR_R = 0, DIR_D = 1, DIR_GD = 2, DIR_GR = 3;
 #define BIG_16384_PARAMS
 #define BIG_16384_ARGS
 #endif
+// The rows a thread holds at most, and so a pair's warps at the max size.
+// The threshold is the register budget, 255 a thread: a pair's rows past
+// it go to more warps, not to shared memory.  64 rows (4 warps at 8192)
+// in the global and x-drop library alone, whose 64-row instances spill
+// under 100 bytes and run the 50 kbp reads faster than 32 rows and 8
+// warps do, their steps at 512 rows holding 4 rows a thread, not 2; 32
+// rows (8 warps at 8192, 16 at 16384) in the seven others, whose 64-row
+// instances spill 0.7 to 3 KB (traced growth ran 1.6x slower on one) and
+// whose 16384 band ran faster at 16 warps than at 8 (PERF.md section 6).
+constexpr int MAX_ROWS = BIG_TRACE || BIG_FLAGS ? 32 : 64;
+constexpr int MAX_WARPS = (BIG_16384 ? 16384 : 8192) / (32 * MAX_ROWS);
 // the run-time modes of the FLAGS instances (the `flags` argument)
 constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
 #if BIG_FLAGS
@@ -218,14 +221,32 @@ constexpr int F_RIGHT = 1, F_START = 2, F_SAVE = 4, F_RESTORE = 8;
 __device__ __forceinline__ int sat(int x) { return max(x, NEG); }
 __device__ __forceinline__ int sat2(int x) { return min(max(x, NEG), POS); }
 
+// An int the optimizer cannot see through: comparing a register array's
+// index with it keeps a select among the array's entries a select (the
+// compiler would otherwise copy the array to local memory and index it).
+__device__ __forceinline__ int opaque(int v) {
+  asm("" : "+r"(v));
+  return v;
+}
+
+// ... that it cannot move out of a loop either: what a step's column
+// derives from a row's loop-invariant word is derived again each column,
+// and not held in registers across the step, one copy a row.
+__device__ __forceinline__ int fresh(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
 #if BIG_PROFILE
-// The score of query code `code` in a profile position's row: byte code % 4
-// of word code / 4, biased by 128; codes past 27 score -128 (as
-// csrc/adaptive_kernel.cu's prof_score).
-__device__ __forceinline__ int prof_score(const int* row, int code) {
-  const int word = row[min(code >> 2, PROF_WORDS - 1)];
-  return code < 4 * (PROF_WORDS - 1) ? ((word >> (8 * (code & 3))) & 255) - 128
-                                     : -128;
+// The byte of query code `code` in a profile position's row of 8 words:
+// the score of code c < 28 is byte c, biased by 128; a code past 27 reads
+// byte 31, the gap word's top byte, which is 0 (ops/_profile.py), and so
+// scores -128 (as csrc/adaptive_kernel.cu's prof_score).
+__device__ __forceinline__ int prof_byte(int code) {
+  return code < 4 * (PROF_WORDS - 1) ? code : 4 * PROF_WORDS - 1;
+}
+__device__ __forceinline__ int prof_score(const int* row, int byte) {
+  return (int)reinterpret_cast<const uint8_t*>(row)[byte] - 128;
 }
 
 // A profile position's gap costs for one cell (reference:
@@ -244,22 +265,21 @@ struct ProfGaps {
 };
 #endif
 
-// Warps a block of this max_size runs with, and its shared planes' bytes:
-// ten i16 planes of max_size rows (six in the 16384-row instances, whose
-// checkpoint planes are in global scratch), with trace a staged word a row
-// (not in the 16384-row instances), and with local start's trace a staged
-// byte of zero bits a row.
-inline int warps_for(int max_size) { return max_size >= 4096 ? 8 : 4; }
-inline size_t plane_bytes(int max_size, int flags) {
-#if BIG_16384
-  return (size_t)max_size *
-         (6 * sizeof(short) + (BIG_TRACE && (flags & LOCAL_START) ? 1 : 0));
-#else
-  return (size_t)max_size *
-         (10 * sizeof(short) + (BIG_TRACE ? sizeof(unsigned) : 0) +
-          (BIG_TRACE && (flags & LOCAL_START) ? 1 : 0));
-#endif
+// A pair's warps: G = min_size / 128 within 1..4, at least max_size /
+// (32 MAX_ROWS) (no thread holds more than MAX_ROWS rows); pairs a block:
+// 4 of one warp, 2 of two, else 1.
+inline int pair_warps(int min_size, int max_size) {
+  return max(min(max(min_size / 128, 1), 4), max_size / (32 * MAX_ROWS));
 }
+inline int block_pairs(int warps) { return max(1, SMALL_PAIRS / warps); }
+// the largest rows a thread holds at this configuration: the kernel instance
+inline int rows_max(int min_size, int max_size) {
+  return max_size / (32 * pair_warps(min_size, max_size));
+}
+// A pair's shared planes, in shorts: the four border planes and, but in the
+// 16384-row instances, the four checkpoint planes, each max_size rows.
+constexpr int PLANES = BIG_16384 ? 4 : 8;
+inline size_t pair_shorts(int max_size) { return (size_t)max_size * PLANES; }
 
 // The four border planes: D planes 0 and 1, C / R planes 2 and 3; the
 // active border is D plane `a` and C plane 2 + a, the passive one the
@@ -288,17 +308,140 @@ struct Pair {  // one pair's step-machine state, the same in every thread
   int vm, ai, aj, gdmax, gdbi, gdbj, xbi, xbj, xiter;
 };
 
+// A thread's place in its pair and the pair's constants.
+struct Lanes {
+  int gt, lane, wi, gw, G, T, bar;  // thread, lane, warp in the pair and
+                                    // in the block, warps, threads, barrier
+  int S, mask, cap, alpha, gopen, gext, ql, rl, chunks, log_ch;
+  const uint8_t* qs;  // the query's codes
+#if BIG_PROFILE
+  const int* pw;  // the profile's words
+  const int* prow;  // a right rect's 8 entering profile rows
+  int pmax;
+#else
+  const uint8_t* rs;  // the reference's codes
+  const int* tab;
+#endif
+#if BIG_FLAGS
+  bool local, fstart, fend, byte;
+  int bmatch, bmismatch;
+#endif
+#if BIG_TRACE
+  int* tw;  // the pair's trace words
+#endif
+};
+
+// One step's values, the same in every thread of the pair.
+struct Step {
+  int h, sz, psz, cpos, ls, cstart, oa, cvec, frt, fridx, tpos;
+  bool shift, right_or, origin, fra;
+#if BIG_FLAGS
+  int rz;
+  bool ins0;
+#endif
+};
+
+// The pair's warps meet: a warp's lanes, or the pair's named barrier.
+__device__ __forceinline__ void pair_sync(const Lanes& L) {
+  if (L.G == 1)
+    __syncwarp();
+  else
+    BIG_NAMED_SYNC(L.bar, L.T);
+}
+
+// K rows of a ring plane from `start` (a multiple of min(K, 8)) into
+// ints, 16 bytes a load from 8 rows on; the rows of an 8-row group never
+// wrap.
+template <int K>
+__device__ __forceinline__ void load_rows(const short* p, int start, int mask,
+                                          int (&v)[K]) {
+  if constexpr (K >= 8) {
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j) {
+      const int4 x =
+          *reinterpret_cast<const int4*>(p + ((start + 8 * j) & mask));
+      const int u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[8 * j + 2 * q] = (short)u[q];
+        v[8 * j + 2 * q + 1] = u[q] >> 16;
+      }
+    }
+  } else if constexpr (K == 4) {
+    const int2 x = *reinterpret_cast<const int2*>(p + start);
+    v[0] = (short)x.x;
+    v[1] = x.x >> 16;
+    v[2] = (short)x.y;
+    v[3] = x.y >> 16;
+  } else if constexpr (K == 2) {
+    const int x = *reinterpret_cast<const int*>(p + start);
+    v[0] = (short)x;
+    v[1] = x >> 16;
+  } else {
+    v[0] = p[start];
+  }
+}
+
+__device__ __forceinline__ int pack2(int lo, int hi) {
+  return (lo & 0xffff) | (hi << 16);
+}
+
+// ... and back, the values i16 already.
+template <int K>
+__device__ __forceinline__ void store_rows(short* p, int start, int mask,
+                                           const int (&v)[K]) {
+  if constexpr (K >= 8) {
+#pragma unroll
+    for (int j = 0; j < K / 8; ++j) {
+      const int* u = v + 8 * j;
+      *reinterpret_cast<int4*>(p + ((start + 8 * j) & mask)) =
+          make_int4(pack2(u[0], u[1]), pack2(u[2], u[3]), pack2(u[4], u[5]),
+                    pack2(u[6], u[7]));
+    }
+  } else if constexpr (K == 4) {
+    *reinterpret_cast<int2*>(p + start) =
+        make_int2(pack2(v[0], v[1]), pack2(v[2], v[3]));
+  } else if constexpr (K == 2) {
+    *reinterpret_cast<int*>(p + start) = pack2(v[0], v[1]);
+  } else {
+    p[start] = (short)v[0];
+  }
+}
+
+// A thread's K trace words (or zero words) at `dst`, four at a time where
+// they are 16-byte aligned.
+template <int K>
+__device__ __forceinline__ void store_words(int* dst, const int (&v)[K]) {
+  if constexpr (K >= 4) {
+    if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+#pragma unroll
+      for (int j = 0; j < K / 4; ++j)
+        reinterpret_cast<int4*>(dst)[j] =
+            make_int4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) dst[i] = v[i];
+}
+
 // Checkpoint save of rows [0, sz): the column borders (D, C) and row
 // borders (D, R) of the rect just completed; `ro` says whether its lanes
-// were the query.  Row r is copied by thread r % T, as in the restore.
+// were the query.
 __device__ __forceinline__ void save_ckpt(Planes& P, short* const* ck,
-                                          bool ro, int sz, int tid, int T) {
-  for (int r = tid; r < sz; r += T) {
-    ck[0][r] = ro ? P.at(P.aD(), r) : P.at(P.pD(), r);
-    ck[1][r] = ro ? P.at(P.aC(), r) : P.at(P.pR(), r);
-    ck[2][r] = ro ? P.at(P.pD(), r) : P.at(P.aD(), r);
-    ck[3][r] = ro ? P.at(P.pR(), r) : P.at(P.aC(), r);
+                                          bool ro, int sz, const Lanes& L) {
+  const int q[4] = {ro ? P.aD() : P.pD(), ro ? P.aC() : P.pR(),
+                    ro ? P.pD() : P.aD(), ro ? P.pR() : P.aC()};
+  const short* src[4];
+  int base[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    src[k] = P.p[q[k]];
+    base[k] = P.base[q[k]];
   }
+  for (int r = L.gt; r < sz; r += L.T)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ck[k][r] = src[k][(base[k] + r) & P.mask];
 }
 
 // The tracker's best residue: the max over residues (returned), and at the
@@ -312,111 +455,544 @@ __device__ __forceinline__ int tracker_best(const Pair& m, int lane, int& ai,
   return cm;
 }
 
-template <bool XDROP>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
+// The x-drop keys of a thread's residues, folded over the warp: lane l
+// returns residue l % 16's.  With K < 16 rows thread t holds residues
+// (K t + j) % 16 in slots j, as does every lane congruent to t modulo
+// 16 / K; with K >= 16 it holds all 16, in slots j = residue.
+template <int K>
+__device__ __forceinline__ int fold_residues(int (&cand)[K < 16 ? K : 16],
+                                             int lane) {
+  constexpr int NS = K < 16 ? K : 16;
+  const int rho = lane & 15;
+  int v = INT_MIN_;
+  if constexpr (K >= 16) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int x = __reduce_max_sync(FULL, cand[j]);
+      if (opaque(j) == rho) v = x;
+    }
+  } else {
+#pragma unroll
+    for (int s = 16 / K; s < 32; s <<= 1)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        cand[j] = max(cand[j], __shfl_xor_sync(FULL, cand[j], s));
+    const int src = rho / K, slot = rho & (K - 1);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const int x = __shfl_sync(FULL, cand[j], src);
+      if (opaque(j) == slot) v = x;
+    }
+  }
+  return v;
+}
+
+// Shared arrays of a block, indexed by its warps (the pairs' warps in
+// order) or by its pairs.
+struct Shared {
+  int* wagg;  // [2][MAX_WARPS]: a warp's scan at its last row
+  int* wdp;   // ... and D before the scan there
+#if BIG_PROFILE
+  int* wt;    // ... its D plus R open
+  int* wcl;   // ... its close cost
+#endif
+  int* wkey;  // [MAX_WARPS][16]: x-drop keys by residue
+#if BIG_FLAGS
+  int* fkey;  // [STEP][MAX_WARPS]: free end gaps' keys by column
+#endif
+  int* score;  // [pair]: global mode's frozen cell
+};
+
+// One step of the pair at rect height h = K threads' rows (K = 1 with idle
+// threads where h < 32 G): rebase and load the thread's rows, run the 8
+// columns, write them back and the step's trace words.  Returns whether the
+// rect froze; sets `xk` (x-drop: the step's key of residue lane % 16 over
+// the warp's rows) and `corn` (a shift's next corner, in the pair's first
+// warp).
+template <bool XDROP, int K>
+__device__ __forceinline__ bool run_step(const Lanes& L, const Step& st,
+                                         Planes& P, Pair& m, const Shared& sh,
+                                         int& xk, int& corn) {
+  constexpr int NS = K < 16 ? K : 16;  // x-drop residue slots
+  const int r0 = L.gt * K;             // the thread's first row
+  const bool live = K > 1 || r0 < st.h;
+  const int gext = L.gext;
+  const int mask = L.mask;
+  int Dv[K], Cv[K];
+  int row7 = NEG;  // a shift's row 7 of the rebased passive D border
+  // the active border's rows, and for a shift the rebase of all four
+  // planes' (the passive ones are not read before the step's end)
+  if (live) {
+    load_rows<K>(P.p[P.aD()], (P.base[P.aD()] + r0) & mask, mask, Dv);
+    load_rows<K>(P.p[P.aC()], (P.base[P.aC()] + r0) & mask, mask, Cv);
+    if (st.shift) {
+      // offset rebase (reference: src/scan_block.rs:148-151)
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        Dv[i] = sat2(Dv[i] + st.oa);
+        Cv[i] = sat2(Cv[i] + st.oa);
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int pl = q ? P.pR() : P.pD();
+        const int at = (P.base[pl] + r0) & mask;
+        int pv[K];
+        load_rows<K>(P.p[pl], at, mask, pv);
+#pragma unroll
+        for (int i = 0; i < K; ++i) pv[i] = sat2(pv[i] + st.oa);
+        store_rows<K>(P.p[pl], at, mask, pv);
+        if (q == 0) row7 = pv[min(7, K - 1)];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) Dv[i] = Cv[i] = NEG;
+  }
+  // a shift's next corner, from the thread of row 7
+  if (st.shift) corn = __shfl_sync(FULL, row7, K >= 8 ? 0 : 7 / K);
+  // the rows' codes, 4 a register (profiles: the byte of each query code
+  // in a position's row; a down rect: the positions' gap words), and the 8
+  // columns'
+  int lc[(K + 3) / 4];
+#pragma unroll
+  for (int j = 0; j < (K + 3) / 4; ++j) lc[j] = 0;
+#if BIG_PROFILE
+  int gw[K];
+  if (st.right_or) {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      lc[i >> 2] |= prof_byte(L.qs[min(st.ls + r0 + i, L.cap - 1)])
+                    << (8 * (i & 3));
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      gw[i] = L.pw[(size_t)min(st.ls + r0 + i, L.pmax) * PROF_WORDS +
+                   PROF_WORDS - 1];
+  }
+  const uint8_t* cseq = L.qs;
+#else
+  const uint8_t* lseq = st.right_or ? L.qs : L.rs;
+  const uint8_t* cseq = st.right_or ? L.rs : L.qs;
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    lc[i >> 2] |= min((int)lseq[min(st.ls + r0 + i, L.cap - 1)], L.alpha - 1)
+                  << (8 * (i & 3));
+#endif
+  int ccw[2] = {0, 0};
+#pragma unroll
+  for (int w = 0; w < STEP; ++w)
+#if BIG_PROFILE
+    ccw[w >> 2] |= prof_byte(cseq[min(st.cstart + w, L.cap - 1)])
+                   << (8 * (w & 3));
+#else
+    ccw[w >> 2] |= min((int)cseq[min(st.cstart + w, L.cap - 1)], L.alpha - 1)
+                   << (8 * (w & 3));
+#endif
+  // the diagonal into the thread's first row: the entering column's row
+  // above (rebased as the thread above rebased it), or the corner
+  int up0 = __shfl_up_sync(FULL, Dv[K - 1], 1);
+  if (L.lane == 0) {
+    if (L.wi == 0) {
+      up0 = st.cvec;
+    } else {
+      up0 = P.at(P.aD(), r0 - 1);
+      if (st.shift) up0 = sat2(up0 + st.oa);
+    }
+  }
+  // the rows' zero correction e ((row % 8) + 1), clamped to the rail
+  const int zc0 = K >= 8 ? 0 : (r0 & 7);
+  int cand[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) cand[j] = INT_MIN_;
+#if BIG_TRACE
+  int wd[K];  // the rows' trace words
+#if BIG_FLAGS
+  int zb[(K + 3) / 4];  // ... and local start's zero bits, a byte a row
+#endif
+#endif
+  // the row of the rect's bottom cells, and where they go: a shift's
+  // passive border shifted by 8, a grow half's at row psz + cpos + w
+  const bool bottom = live && r0 + K - 1 == st.h - 1;
+  const int brow = st.shift ? st.sz : st.psz + st.cpos;
+  // the step's start reads of other rows are done before the first write
+  // into them (with several warps the first column's barrier does it)
+  if (L.G == 1) __syncwarp();
+
+  bool frozen = false;
+#pragma unroll 1
+  for (int w = 0; w < STEP; ++w) {
+    const int par = w & 1;
+    const int cc = (ccw[w >> 2] >> (8 * (w & 3))) & 255;
+#if BIG_PROFILE
+    // a right rect's column: its entering profile row and gap costs
+    const int* crow = L.prow + w * PROF_WORDS;
+    const ProfGaps gc(st.right_or ? crow[PROF_WORDS - 1] : 0, true, gext);
+#elif BIG_FLAGS
+    const int* trow = L.tab + (L.byte ? 0 : cc * L.alpha);
+#else
+    const int* trow = L.tab + cc * L.alpha;
+#endif
+    // pass 1: D before the vertical gaps, C, and the thread's scan of D +
+    // (open - extend) over its rows (its aggregate)
+    int prev = up0, agg = FAR;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int dold = Dv[i];
+      const int code = (fresh(lc[i >> 2]) >> (8 * (i & 3))) & 255;
+#if BIG_PROFILE
+      const ProfGaps g =
+          st.right_or ? gc : ProfGaps(fresh(gw[i]), false, gext);
+      int d = sat2(prev + (st.right_or
+                               ? prof_score(crow, code)
+                               : prof_score(L.pw + (size_t)min(fresh(st.ls) +
+                                                                   r0 + i,
+                                                               L.pmax) *
+                                                       PROF_WORDS,
+                                            cc)));
+      if (st.origin && w == 0 && i == 0 && r0 == 0) d = ZERO;  // the origin
+      if (L.local) d = max(d, st.rz);
+      else if (st.ins0 && i == 0 && r0 == 0) d = st.rz;
+      const int copen = sat2(dold + g.copen);
+      const int c = max(sat2(Cv[i] + gext), copen);
+      // a right rect closes C before the merge; C stays pre-close
+      d = max(d, st.right_or ? sat2(c + g.close) : c);
+      const int t = sat2(d + g.dopen);
+#else
+#if BIG_FLAGS
+      // byte mode compares the codes; the flags restart cells at the
+      // relative zero
+      int d = sat2(prev + (L.byte ? (code == cc ? L.bmatch : L.bmismatch)
+                                  : trow[code]));
+      if (st.origin && w == 0 && i == 0 && r0 == 0) d = ZERO;  // the origin
+      if (L.local) d = max(d, st.rz);
+      else if (st.ins0 && i == 0 && r0 == 0) d = st.rz;
+#else
+      int d = sat2(prev + trow[code]);
+      if (st.origin && w == 0 && i == 0 && r0 == 0) d = ZERO;  // the origin
+#endif
+      const int copen = sat(dold + L.gopen);
+      const int c = max(sat(Cv[i] + gext), copen);
+      d = max(d, c);
+      const int t = d + (L.gopen - gext);
+#endif
+#if BIG_TRACE
+      // t2's C-open bit; the rest of the nibble follows R
+      wd[i] = (w == 0 ? 0 : wd[i]) | (c == copen) << (4 * w + 2);
+#endif
+      prev = dold;
+      Cv[i] = c;
+      Dv[i] = d;
+      agg = max(t, agg + gext);
+    }
+    if (!live) agg = FAR;
+    // the threads' aggregates, scanned over the warp: a segment ending in t
+    // composes with the carry c before it as max(t, c + e rows)
+    int sc = agg;
+#pragma unroll
+    for (int dd = 1; dd < 32; dd <<= 1) {
+      const int o = __shfl_up_sync(FULL, sc, dd);
+      if (L.lane >= dd) sc = max(sc, o + gext * K * dd);
+    }
+    // the row above the thread's first: D before its R, (profiles) its D +
+    // R open and its close, and the scan there
+    const int dlast = Dv[K - 1];
+#if BIG_PROFILE
+    const ProfGaps gl =
+        st.right_or ? gc : ProfGaps(fresh(gw[K - 1]), false, gext);
+    const int tlast = sat2(dlast + gl.dopen);
+    int tA = __shfl_up_sync(FULL, tlast, 1);
+    int clA = __shfl_up_sync(FULL, gl.close, 1);
+#endif
+    int dA = __shfl_up_sync(FULL, dlast, 1);
+    int E = __shfl_up_sync(FULL, sc, 1);
+    int cw = FAR;  // the carry of the warps above
+    if (L.G > 1) {
+      if (L.lane == 31) {
+        sh.wagg[par * MAX_WARPS + L.gw] = sc;
+        sh.wdp[par * MAX_WARPS + L.gw] = dlast;
+#if BIG_PROFILE
+        sh.wt[par * MAX_WARPS + L.gw] = tlast;
+        sh.wcl[par * MAX_WARPS + L.gw] = gl.close;
+#endif
+      }
+      pair_sync(L);  // the warps' scans are visible
+      for (int v = L.gw - L.wi; v < L.gw; ++v)
+        cw = max(sh.wagg[par * MAX_WARPS + v], cw + gext * 32 * K);
+    }
+    if (L.lane == 0) {
+      E = cw;
+      if (L.wi > 0) {
+        dA = sh.wdp[par * MAX_WARPS + L.gw - 1];
+#if BIG_PROFILE
+        tA = sh.wt[par * MAX_WARPS + L.gw - 1];
+        clA = sh.wcl[par * MAX_WARPS + L.gw - 1];
+#endif
+      }
+    } else {
+      E = max(E, cw + gext * K * L.lane);
+    }
+    // that row's R and final D: the next column's diagonal into the
+    // thread's first row; with trace its R-open bit (0 above row 0)
+    const int RA = max(E, max(gext * ((r0 - 1) & 7) + gext, NEG));
+#if BIG_PROFILE
+    up0 = r0 == 0 ? NEG : max(dA, st.right_or ? RA : sat2(RA + clA));
+#if BIG_TRACE
+    int rin = r0 != 0 && RA == tA;
+#endif
+#else
+    up0 = r0 == 0 ? NEG : max(dA, RA);
+#if BIG_TRACE
+    int rin = r0 != 0 && RA == dA + L.gopen - gext;
+#endif
+#endif
+    // pass 2: R from the carry, and the final D
+    int run = E;
+#if BIG_FLAGS
+    int fk = INT_MIN_;  // free end gaps: the column's key of qlen's residue
+#endif
+    const int wch = w * L.chunks + (r0 >> 4);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int d = Dv[i];
+#if BIG_PROFILE
+      const ProfGaps g =
+          st.right_or ? gc : ProfGaps(fresh(gw[i]), false, gext);
+      const int t = sat2(d + g.dopen);
+#else
+      const int t = d + (L.gopen - gext);
+#endif
+      run = max(t, run + gext);
+      const int R = max(run, max(gext * (zc0 + (i & 7)) + gext, NEG));
+#if BIG_PROFILE
+      // a down rect closes R before the merge
+      const int re = st.right_or ? R : sat2(R + g.close);
+      const int D = max(d, re);
+#else
+      const int D = max(d, R);
+#endif
+#if BIG_TRACE
+      {
+        // t = (D == C) | (D == R) << 1, t2's R bit from the row above
+        const int c = Cv[i];
+#if BIG_PROFILE
+        // profile: D against the gap-closed C and R
+        wd[i] |= ((D == (st.right_or ? sat2(c + g.close) : c)) |
+                  (D == re) << 1 | rin << 3)
+                 << (4 * w);
+#else
+        wd[i] |= ((D == c) | (D == R) << 1 | rin << 3) << (4 * w);
+#endif
+        rin = R == t;
+#if BIG_FLAGS
+        // local start: the cell restarted at the relative zero
+        if (L.local)
+          zb[i >> 2] = (w == 0 && (i & 3) == 0 ? 0 : zb[i >> 2]) |
+                       (D == st.rz) << (8 * (i & 3) + w);
+#endif
+      }
+#endif
+      Dv[i] = D;
+      if (live) {
+        m.dmax = max(m.dmax, D);
+        if constexpr (XDROP) {
+          // (value, column, chunk), the latest column and highest chunk
+          // winning a tie
+          cand[i & (NS - 1)] = max(cand[i & (NS - 1)],
+                                   D * (L.S >> 1) + wch + (i >> 4));
+        }
+#if BIG_FLAGS
+        else if (L.fend) {
+          // D, and whether the row's chunk reaches past qlen
+          const int r = r0 + i;
+          if ((r & 15) == (L.ql & 15))
+            fk = max(fk, 2 * D + (st.ls + 16 * (r >> 4) + 16 > L.ql));
+        }
+#endif
+      }
+      if (i == K - 1 && bottom) {
+        // the rect's bottom cells into the passive border
+        P.p[P.pD()][(P.base[P.pD()] + brow + w) & mask] = (short)D;
+        P.p[P.pR()][(P.base[P.pR()] + brow + w) & mask] = (short)R;
+      }
+    }
+#if BIG_FLAGS
+    if (!XDROP && L.fend) {
+      // the column's key over the warp, for the step's end
+      fk = __reduce_max_sync(FULL, fk);
+      if (L.lane == 0) sh.fkey[w * MAX_WARPS + L.gw] = fk;
+    }
+    if (!XDROP && !L.fend && st.fra && w >= st.frt) {
+#else
+    if (!XDROP && st.fra && w >= st.frt) {
+#endif
+      // freeze: the rect covering (qlen, rlen) reached the last column;
+      // the frozen cell's score
+      const int fi = st.fridx - r0;
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        if (opaque(i) == fi && live) *sh.score = m.off + Dv[i] - ZERO;
+      frozen = true;
+      break;
+    }
+  }
+  // the step's rows back into the active border
+  if (live) {
+    store_rows<K>(P.p[P.aD()], (P.base[P.aD()] + r0) & mask, mask, Dv);
+    store_rows<K>(P.p[P.aC()], (P.base[P.aC()] + r0) & mask, mask, Cv);
+  }
+#if BIG_TRACE
+  // the step's words, at the pair's counter; local start's zero words
+  // follow the step's h words
+  if (live) {
+    store_words<K>(L.tw + st.tpos + r0, wd);
+#if BIG_FLAGS
+    if (L.local) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) wd[i] = (zb[i >> 2] >> (8 * (i & 3))) & 255;
+      store_words<K>(L.tw + st.tpos + st.h + r0, wd);
+    }
+#endif
+  }
+#endif
+  if constexpr (XDROP) {
+    xk = fold_residues<K>(cand, L.lane);
+    if (L.G > 1 && L.lane < 16) sh.wkey[L.gw * 16 + L.lane] = xk;
+  }
+  return frozen;
+}
+
+// KMAX: the most rows a thread holds.  The instances of at most 16 rows a
+// thread run 128 threads a block and, but with trace, are held to four
+// blocks an SM (128 registers), the profile instances to three (168): the
+// (2048, 2048) self-oracle's pairs take a block each, and at 16 rows a
+// thread would take more registers otherwise, two blocks an SM.
+template <bool XDROP, int KMAX>
+__global__ void __launch_bounds__(KMAX <= 16 ? 128 : MAX_WARPS * 32,
+                                  KMAX <= 16 && !BIG_TRACE
+                                      ? (BIG_PROFILE ? 3 : 4)
+                                      : 1)
 big_align_kernel(const uint8_t* __restrict__ codes,
                  const int* __restrict__ qlen, const int* __restrict__ rlen,
-                 const int* __restrict__ table, int* __restrict__ out, int cap,
-                 int alpha, int S, int min_size, int max_steps, int gopen,
-                 int gext,
+                 const int* __restrict__ table, int* __restrict__ out, int B,
+                 int cap, int alpha, int S, int G, int min_size,
+                 int max_steps, int gopen, int gext,
                  int xdrop BIG_TRACE_PARAMS BIG_FLAGS_PARAMS BIG_PROFILE_PARAMS
                      BIG_16384_PARAMS) {
-  extern __shared__ short planes[];
+  extern __shared__ __align__(16) short planes[];
 #if BIG_PROFILE
-  // a right rect's 8 entering profile rows
-  __shared__ int prow[STEP * PROF_WORDS];
-  // a warp's last row: its D plus R open, and its close cost
-  __shared__ int wdo[2][MAX_WARPS], wcl[2][MAX_WARPS];
+  // a right rect's 8 entering profile rows, by pair
+  __shared__ int prow[SMALL_PAIRS][STEP * PROF_WORDS];
+  __shared__ int wt[2 * MAX_WARPS], wcl[2 * MAX_WARPS];
 #else
   __shared__ int tab[MAX_ALPHA * MAX_ALPHA];
 #endif
-  __shared__ int wagg[2][MAX_WARPS];  // a warp's scan at its last row
-  __shared__ int wdp[2][MAX_WARPS];   // ... and D before the scan there
-  __shared__ int red[MAX_WARPS];      // the warps' rect maxima
-  __shared__ int tailD[STEP], tailR[STEP];  // a shift's bottom cells
-  // tracker keys (x-drop, and free end gaps in the FLAGS instances)
-  __shared__ int wkey[XDROP || BIG_FLAGS ? STEP : 1][MAX_WARPS][16];
-  __shared__ int score;  // global mode: the frozen cell's score
+  __shared__ int wagg[2 * MAX_WARPS], wdp[2 * MAX_WARPS];
+  __shared__ int red[MAX_WARPS];  // the warps' rect maxima
+  __shared__ int wkey[XDROP ? MAX_WARPS * 16 : 1];
+#if BIG_FLAGS
+  __shared__ int fkey[STEP * MAX_WARPS];
+#endif
+  __shared__ int score[SMALL_PAIRS];  // global mode: the frozen cell's score
 
-  const int T = blockDim.x, W = T >> 5;
+  const int T = 32 * G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x;
-#if BIG_PROFILE
-  // the modes (no byte mode); the pair's query codes (cap) and profile
-  // words (prof_cap, 8), every profile position clamped to rlen + 1
-  const bool local = flags & LOCAL_START, fstart = flags & FREE_START;
-  const bool fend = flags & FREE_END;
-  for (int k = tid; k < 8 * S; k += T) planes[k] = 0;
-  if (tid == 0) score = 0;
-  const uint8_t* qs = codes + (size_t)b * cap;
-  const int* pw = table + (size_t)b * prof_cap * PROF_WORDS;
-  const int ql = qlen[b], rl = rlen[b];
-  const int pmax = min(rl + 1, prof_cap - 1);
-#else
+  const int pp = warp / G;  // the pair in the block
+  const int b = blockIdx.x * (blockDim.x / T) + pp;
+  Lanes L;
+  L.gt = tid - pp * T;
+  L.lane = lane;
+  L.wi = warp - pp * G;
+  L.gw = warp;
+  L.G = G;
+  L.T = T;
+  L.bar = 1 + pp;
+  L.S = S;
+  L.mask = S - 1;
+  L.cap = cap;
+  L.alpha = alpha;
+  L.gopen = gopen;
+  L.gext = gext;
+  L.chunks = S >> 4;
+  L.log_ch = __ffs(L.chunks) - 1;
 #if BIG_FLAGS
   // the modes; byte mode has no table
-  const bool local = flags & LOCAL_START, fstart = flags & FREE_START;
-  const bool fend = flags & FREE_END, byte = flags & BYTE_MODE;
-  if (!byte)
-    for (int k = tid; k < alpha * alpha; k += T) tab[k] = table[k];
+  L.local = flags & LOCAL_START;
+  L.fstart = flags & FREE_START;
+  L.fend = flags & FREE_END;
+  L.byte = flags & BYTE_MODE;
+  L.bmatch = bmatch;
+  L.bmismatch = bmismatch;
+#endif
+#if BIG_PROFILE
+  L.prow = prow[pp];
 #else
-  for (int k = tid; k < alpha * alpha; k += T) tab[k] = table[k];
+#if BIG_FLAGS
+  if (!L.byte)
 #endif
-#if BIG_16384
-  for (int k = tid; k < 4 * S; k += T) planes[k] = 0;
+    for (int k = tid; k < alpha * alpha; k += blockDim.x) tab[k] = table[k];
+  L.tab = tab;
+#endif
+  __syncthreads();  // the table is in; a block's last pairs may be missing
+  if (b >= B) return;
+  Shared sh{wagg, wdp,
+#if BIG_PROFILE
+            wt, wcl,
+#endif
+            wkey,
+#if BIG_FLAGS
+            fkey,
+#endif
+            score + pp};
+  short* const pl = planes + (size_t)pp * PLANES * S;
+#if BIG_PROFILE
+  // the pair's query codes (cap) and profile words (prof_cap, 8), every
+  // profile position clamped to rlen + 1
+  L.qs = codes + (size_t)b * cap;
+  L.pw = table + (size_t)b * prof_cap * PROF_WORDS;
+  L.ql = qlen[b];
+  L.rl = rlen[b];
+  L.pmax = min(L.rl + 1, prof_cap - 1);
 #else
-  for (int k = tid; k < 8 * S; k += T) planes[k] = 0;
+  L.qs = codes + (size_t)b * 2 * cap;
+  L.rs = L.qs + cap;
+  L.ql = qlen[b];
+  L.rl = rlen[b];
 #endif
-  if (tid == 0) score = 0;
-  const uint8_t* qs = codes + (size_t)b * 2 * cap;
-  const uint8_t* rs = qs + cap;
-  const int ql = qlen[b], rl = rlen[b];
-#endif
-  Planes P{{planes, planes + S, planes + 2 * S, planes + 3 * S},
-           {0, 0, 0, 0}, 0, S - 1};
+  const int ql = L.ql, rl = L.rl;
 #if BIG_16384
+  for (int k = L.gt; k < 4 * S; k += T) pl[k] = 0;
   // the checkpoint planes: the pair's 4 S rows of global scratch, zeroed
   // as the shared ones are
   short* const ckb = scratch + (size_t)b * 4 * S;
-  for (int k = tid; k < 4 * S; k += T) ckb[k] = 0;
+  for (int k = L.gt; k < 4 * S; k += T) ckb[k] = 0;
   short* const ck[4] = {ckb, ckb + S, ckb + 2 * S, ckb + 3 * S};
-  short* const DP = planes + 4 * S;  // a column's D before its R merge
-  short* const TL = planes + 5 * S;  // its scan within the warp
 #else
-  short* const ck[4] = {planes + 4 * S, planes + 5 * S, planes + 6 * S,
-                        planes + 7 * S};
-  short* const DP = planes + 8 * S;  // a column's D before its R merge
-  short* const TL = planes + 9 * S;  // its scan within the warp
+  for (int k = L.gt; k < 8 * S; k += T) pl[k] = 0;
+  short* const ck[4] = {pl + 4 * S, pl + 5 * S, pl + 6 * S, pl + 7 * S};
 #endif
+  if (L.gt == 0) *sh.score = 0;
 #if BIG_TRACE
-#if !BIG_16384
-  // a row's word of the step's cells, staged by the thread of the row
-  unsigned* const WD = reinterpret_cast<unsigned*>(planes + 10 * S);
-#endif
+  L.tw = twords + (size_t)b * budget;
   // the words written, the steps run, the checkpoint events of the next
   // step's descriptor
   int tpos = 0, nsteps = 0, pend = 0;
 #if BIG_FLAGS
-  // local start: a row's zero bits, staged by the thread of the row; the
-  // words a row writes a step
-#if BIG_16384
-  uint8_t* const ZB = reinterpret_cast<uint8_t*>(planes + 6 * S);
-#else
-  uint8_t* const ZB = reinterpret_cast<uint8_t*>(planes + 12 * S);
-#endif
-  const int tw = local ? 2 : 1;
+  const int tw = L.local ? 2 : 1;  // the words a row writes a step
 #endif
 #endif
-  const int chunks = S >> 4, log_ch = __ffs(chunks) - 1;
-  const int zc = gext * ((lane & 7) + 1);  // the scan's zero correction
+  Planes P{{pl, pl + S, pl + 2 * S, pl + 3 * S}, {0, 0, 0, 0}, 0, S - 1};
+  const int chunks = L.chunks, log_ch = L.log_ch;
   // the reference's start state (src/scan_block.rs:291-317): a grow from
   // size 0, best 0, a virgin checkpoint at the origin
   Pair m{0, 0, 0, 0, min_size, 0, 0, DIR_GR, DIR_GR, NEG,
          0, 0, 0, 0, 0, 1, false, false, NEG,
          INT_MIN_, 0, 0, INT_MIN_, 0, 0, 0, 0, 0};
 
+  // probe: pair start (the `probe:` lines mark the sections that
+  // scripts_torch/probe_big_kernel.py times in a copy of this source)
   int s = 0;
   for (; s < max_steps && !m.done; ++s) {
+    // probe: step start
 #if BIG_TRACE
     // a step whose rows pass the budget stops the pair: an overrun
 #if BIG_FLAGS
@@ -426,391 +1002,162 @@ big_align_kernel(const uint8_t* __restrict__ codes,
 #endif
     ++nsteps;
 #endif
-    __syncthreads();  // the previous step's reads are done
-    const bool shift = m.dir == DIR_R || m.dir == DIR_D;
-    const bool right_or = m.dir == DIR_R || m.dir == DIR_GR;  // lanes = query
-    const int sz = m.sz;
+    Step st;
+    st.shift = m.dir == DIR_R || m.dir == DIR_D;
+    st.right_or = m.dir == DIR_R || m.dir == DIR_GR;  // lanes = query
+    const int sz = st.sz = m.sz;
+    st.psz = m.psz;
+    st.cpos = m.cpos;
+    st.h = m.dir == DIR_GD ? m.psz : sz;  // rect height
+    st.ls = st.right_or ? m.I : m.J;      // lane start
+    st.cstart = m.dir == DIR_R   ? m.J + sz - STEP
+                : m.dir == DIR_D ? m.I + sz - STEP
+                                 : (m.dir == DIR_GD ? m.I : m.J) + m.psz +
+                                       m.cpos;
+#if BIG_PROFILE
+    // a right rect's entering profile rows, before the step's barrier
+    if (st.right_or)
+      for (int k = L.gt; k < STEP * PROF_WORDS; k += T)
+        prow[pp][k] =
+            L.pw[(size_t)min(st.cstart + k / PROF_WORDS, L.pmax) * PROF_WORDS +
+                 k % PROF_WORDS];
+#endif
+    // the previous step's reads of the planes are done (and the profile
+    // rows are in)
+    pair_sync(L);
     if (m.rest) {
       // a grow starts down-oriented from the checkpoint's borders
       P.a = 0;
       P.base[0] = P.base[1] = P.base[2] = P.base[3] = 0;
-      for (int r = tid; r < sz; r += T) {
+      for (int r = L.gt; r < sz; r += T) {
         P.p[0][r] = ck[2][r];
         P.p[2][r] = ck[3][r];
         P.p[1][r] = ck[0][r];
         P.p[3][r] = ck[1][r];
       }
       m.rest = false;
+      pair_sync(L);  // the restored borders are visible
     }
-    int cvec = NEG;
-    if (shift) {
-      // offset rebase (reference: src/scan_block.rs:148-151) of both
-      // borders: the passive one is not read before the step's end, where
-      // the reference rebases it
-      const int oa = min(max(m.off - m.offmax, NEG), POS);
+    st.oa = 0;
+    st.cvec = NEG;
+    if (st.shift) {
+      // offset rebase of both borders, by each row's thread
+      st.oa = min(max(m.off - m.offmax, NEG), POS);
       m.off = m.offmax;
-      for (int r = tid; r < sz; r += T)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) P.at(q, r) = (short)sat2(P.at(q, r) + oa);
       if ((m.dir == DIR_R && m.pdir == DIR_D) ||
           (m.dir == DIR_D && m.pdir == DIR_R))
-        cvec = sat2(m.corn + oa);
+        st.cvec = sat2(m.corn + st.oa);
     }
 #if BIG_FLAGS
     // the relative zero of the step's (rebased or restored) offset, and
     // whether free start gaps re-seed row 0 (a right rect at query row 0)
-    const int rz = min(max(ZERO - m.off, NEG), POS);
-    const bool ins0 = fstart && right_or && m.I == 0;
+    st.rz = min(max(ZERO - m.off, NEG), POS);
+    st.ins0 = L.fstart && st.right_or && m.I == 0;
 #endif
     // the rect maximum restarts with each rect; GROW_R continues GROW_D's
     if (m.cpos == 0 && m.dir != DIR_GR) m.dmax = NEG;
-    const int h = m.dir == DIR_GD ? m.psz : sz;  // rect height
-    const int ls = right_or ? m.I : m.J;         // lane start
-    const int cstart = m.dir == DIR_R   ? m.J + sz - STEP
-                       : m.dir == DIR_D ? m.I + sz - STEP
-                                        : (m.dir == DIR_GD ? m.I : m.J) +
-                                              m.psz + m.cpos;
-    const int lane_len = right_or ? ql : rl;
-    const int col_len = right_or ? rl : ql;
+    const int lane_len = st.right_or ? ql : rl;
+    const int col_len = st.right_or ? rl : ql;
     // freeze predicate: never inside GROW_D
-    const bool fra = ls + h > lane_len && m.dir != DIR_GD;
-    const int frt = col_len - cstart;
-    const int fridx = min(max(lane_len - ls, 0), S - 1);
-    const bool origin = m.dir == DIR_GR && m.psz == 0 && m.cpos == 0 && m.J == 0;
+    st.fra = st.ls + st.h > lane_len && m.dir != DIR_GD;
+    st.frt = col_len - st.cstart;
+    st.fridx = min(max(lane_len - st.ls, 0), S - 1);
+    st.origin = m.dir == DIR_GR && m.psz == 0 && m.cpos == 0 && m.J == 0;
 #if BIG_TRACE
-    if (tid == 0) {
-      int* d = tdesc + ((size_t)s * gridDim.x + b) * 5;
-      d[0] = (right_or ? F_RIGHT : 0) | (m.cpos == 0 ? F_START : 0) | pend;
-      d[1] = ls;
-      d[2] = cstart;
-      d[3] = h;
+    st.tpos = tpos;
+    if (L.gt == 0) {
+      int* d = tdesc + ((size_t)s * B + b) * 5;
+      d[0] = (st.right_or ? F_RIGHT : 0) | (m.cpos == 0 ? F_START : 0) | pend;
+      d[1] = st.ls;
+      d[2] = st.cstart;
+      d[3] = st.h;
       d[4] = tpos;
     }
     pend = 0;
-#endif
-#if BIG_PROFILE
-    // a right rect's entering profile rows, for every thread of the block
-    if (right_or && tid < STEP * PROF_WORDS)
-      prow[tid] = pw[(size_t)min(cstart + tid / PROF_WORDS, pmax) * PROF_WORDS +
-                     tid % PROF_WORDS];
 #else
-    const uint8_t* lseq = right_or ? qs : rs;
-    const uint8_t* cseq = right_or ? rs : qs;
+    st.tpos = 0;
 #endif
     const int cpos_new = m.cpos + STEP;
-    const bool phase_done = cpos_new >= (shift ? STEP : sz - m.psz);
-    // this step's layout: NA slots of 32 rows a warp, the warps in order
-    const int NA = max(1, h / (32 * W));
-    const int rows_w = 32 * NA, r0 = warp * rows_w;
-    const bool active = r0 < h;
-    const int nwarps = min(W, (h + rows_w - 1) / rows_w);
-    __syncthreads();  // the restored or rebased borders are visible
-    // the diagonal into the warp's first row: the corner, or the row above
-    int diag_in = NEG;
-    if (active && lane == 0) diag_in = warp == 0 ? cvec : P.at(P.aD(), r0 - 1);
-    // a shift's next corner: row 7 of its rebased passive border
-    const int corn_next = shift ? P.at(P.pD(), STEP - 1) : m.corn;
+    const bool phase_done = cpos_new >= (st.shift ? STEP : sz - m.psz);
 
-    bool frozen = false;
-    for (int w = 0; w < STEP; ++w) {
-      const int par = w & 1;
-#if BIG_PROFILE
-      // a down rect's column: its query code
-      const int cc = qs[min(cstart + w, cap - 1)];
-#elif BIG_FLAGS
-      const int cc = min((int)cseq[min(cstart + w, cap - 1)], alpha - 1);
-      const int* trow = tab + (byte ? 0 : cc * alpha);
-#else
-      const int* trow =
-          tab + min((int)cseq[min(cstart + w, cap - 1)], alpha - 1) * alpha;
-#endif
-      if (active) {
-        // pass 1: D before the vertical gaps, C, and the scan of D + (open
-        // - extend) within the warp's rows
-        int up_last = diag_in, tcar = FAR, t = 0, d = 0;
-#if BIG_PROFILE
-        int dov = 0, clv = 0;  // the row's D plus R open, its close cost
-#endif
-        for (int k = 0; k < NA; ++k) {
-          const int r = r0 + k * 32 + lane;
-          const int dold = P.at(P.aD(), r), cold = P.at(P.aC(), r);
-          // the diagonal: row r - 1 of the previous column
-          int up = __shfl_up_sync(FULL, dold, 1);
-          if (lane == 0) up = up_last;
-          up_last = __shfl_sync(FULL, dold, 31);
-#if BIG_PROFILE
-          // a right rect's row scores its query code in the entering row; a
-          // down rect's row, a profile position, the entering query code in
-          // its own row
-          const int* row = right_or
-                               ? prow + w * PROF_WORDS
-                               : pw + (size_t)min(ls + r, pmax) * PROF_WORDS;
-          const ProfGaps g(row[PROF_WORDS - 1], right_or, gext);
-          d = sat2(up + prof_score(
-                            row, right_or ? (int)qs[min(ls + r, cap - 1)] : cc));
-          if (origin && w == 0 && r == 0) d = ZERO;  // the DP origin
-          if (local) d = max(d, rz);
-          else if (ins0 && r == 0) d = rz;
-          // a right rect closes C before the merge; C stays pre-close
-          const int c = max(sat2(cold + gext), sat2(dold + g.copen));
-          d = max(d, right_or ? sat2(c + g.close) : c);
-          t = dov = sat2(d + g.dopen);
-          clv = g.close;
-#else
-          const int lc = min((int)lseq[min(ls + r, cap - 1)], alpha - 1);
-#if BIG_FLAGS
-          // byte mode compares the codes; the flags restart cells at the
-          // relative zero
-          d = sat2(up + (byte ? (lc == cc ? bmatch : bmismatch) : trow[lc]));
-          if (origin && w == 0 && r == 0) d = ZERO;  // the DP origin
-          if (local) d = max(d, rz);
-          else if (ins0 && r == 0) d = rz;
-#else
-          d = sat2(up + trow[lc]);
-          if (origin && w == 0 && r == 0) d = ZERO;  // the DP origin
-#endif
-          const int c = max(sat(cold + gext), sat(dold + gopen));
-          d = max(d, c);
-          t = d + (gopen - gext);
-#endif
-#pragma unroll
-          for (int dd = 1; dd < 32; dd <<= 1) {
-            const int o = __shfl_up_sync(FULL, t, dd);
-            if (lane >= dd) t = max(t, o + gext * dd);
-          }
-          t = max(t, tcar + gext * (lane + 1));
-          tcar = __shfl_sync(FULL, t, 31);
-          P.at(P.aC(), r) = (short)c;
-          DP[r] = (short)d;
-          // below the rail a scan value loses to the zero correction
-          TL[r] = (short)max(t, NEG);
-        }
-        if (lane == 31) {
-          wagg[par][warp] = t;
-          wdp[par][warp] = d;
-#if BIG_PROFILE
-          wdo[par][warp] = dov;
-          wcl[par][warp] = clv;
-#endif
-        }
-      }
-      __syncthreads();  // the warps' scans are visible
-      if (active) {
-        // pass 2: the carry of the warps above, R, and the final D
-        int cw = FAR;
-        for (int v = 0; v < warp; ++v) cw = max(wagg[par][v], cw + gext * rows_w);
-        int key = INT_MIN_;
+    // probe: columns
+    // the step at K = h / T rows a thread
+    int xk = INT_MIN_, corn_next = m.corn;
+    bool frozen;
+    const int k = st.h / T;
+    if (k <= 1)
+      frozen = run_step<XDROP, 1>(L, st, P, m, sh, xk, corn_next);
+    else if (k == 2)
+      frozen = run_step<XDROP, 2>(L, st, P, m, sh, xk, corn_next);
+    else if (k == 4)
+      frozen = run_step<XDROP, 4>(L, st, P, m, sh, xk, corn_next);
+    else if (k == 8)
+      frozen = run_step<XDROP, 8>(L, st, P, m, sh, xk, corn_next);
+    else if (KMAX == 16 || k == 16)
+      frozen = run_step<XDROP, 16>(L, st, P, m, sh, xk, corn_next);
+    else if (KMAX == 32 || k == 32)
+      frozen = run_step<XDROP, (KMAX < 32 ? KMAX : 32)>(L, st, P, m, sh, xk,
+                                                         corn_next);
+    else
+      frozen = run_step<XDROP, KMAX>(L, st, P, m, sh, xk, corn_next);
+    // probe: step end
 #if BIG_TRACE
-        // the R-open bit (R == D + open - extend) of the row above the
-        // warp's first row, 0 above row 0; its R is max(cw, its zero
-        // correction e * 8)
-#if BIG_PROFILE
-        int rup = warp == 0 ? 0 : max(cw, gext * STEP) == wdo[par][warp - 1];
-#else
-        int rup = warp == 0 ? 0
-                            : max(cw, gext * STEP) ==
-                                  wdp[par][warp - 1] + gopen - gext;
-#endif
-#endif
-        for (int k = 0; k < NA; ++k) {
-          const int r = r0 + k * 32 + lane;
-          const int R =
-              max(max((int)TL[r], cw + gext * (k * 32 + lane + 1)), zc);
-#if BIG_PROFILE
-          // the row's gap costs again: a down rect closes R before the merge
-          const int* row = right_or
-                               ? prow + w * PROF_WORDS
-                               : pw + (size_t)min(ls + r, pmax) * PROF_WORDS;
-          const ProfGaps g(row[PROF_WORDS - 1], right_or, gext);
-          const int re = right_or ? R : sat2(R + g.close);
-          const int D = max((int)DP[r], re);
-#else
-          const int D = max((int)DP[r], R);
-#endif
-#if BIG_TRACE
-          {
-            // t = (D == C) | (D == R) << 1, t2 = (C == C_open) | R bit << 1
-            // with the R bit of the row above
-            const int c = P.at(P.aC(), r);
-#if BIG_PROFILE
-            // profile: D against the gap-closed C and R
-            const int ropen = R == sat2(DP[r] + g.dopen);
-            int rin = __shfl_up_sync(FULL, ropen, 1);
-            if (lane == 0) rin = rup;
-            rup = __shfl_sync(FULL, ropen, 31);
-            const unsigned nib = (D == (right_or ? sat2(c + g.close) : c)) |
-                                 (D == re) << 1 |
-                                 (c == sat2(P.at(P.aD(), r) + g.copen)) << 2 |
-                                 rin << 3;
-#else
-            const int ropen = R == DP[r] + gopen - gext;
-            int rin = __shfl_up_sync(FULL, ropen, 1);
-            if (lane == 0) rin = rup;
-            rup = __shfl_sync(FULL, ropen, 31);
-            const unsigned nib = (D == c) | (D == R) << 1 |
-                                 (c == sat(P.at(P.aD(), r) + gopen)) << 2 |
-                                 rin << 3;
-#endif
-#if BIG_16384
-            // the row's word accumulates in place at the pair's counter
-            if (r < h) {
-              unsigned* const wd = reinterpret_cast<unsigned*>(twords) +
-                                   (size_t)b * budget + tpos + r;
-              *wd = (w == 0 ? 0u : *wd) | nib << (4 * w);
-            }
-#else
-            WD[r] = (w == 0 ? 0u : WD[r]) | nib << (4 * w);
-#endif
 #if BIG_FLAGS
-            // local start: the cell restarted at the relative zero
-            if (local)
-              ZB[r] = (uint8_t)((w == 0 ? 0 : ZB[r]) | (D == rz) << w);
-#endif
-          }
-#endif
-          P.at(P.aD(), r) = (short)D;
-          if (r < h) {
-            m.dmax = max(m.dmax, D);
-#if BIG_FLAGS
-            if constexpr (XDROP) key = max(key, D * chunks + (r >> 4));
-            // free end gaps: D, and whether the row's chunk reaches past
-            // qlen
-            else if (fend)
-              key = max(key, 2 * D + (ls + 16 * (r >> 4) + 16 > ql));
+    tpos += tw * st.h;
 #else
-            if constexpr (XDROP) key = max(key, D * chunks + (r >> 4));
-#endif
-            if (r == h - 1) {
-              // the rect's bottom cells: staged for a shift, written into
-              // the passive border at row psz + cpos + w for a grow half
-              if (shift) {
-                tailD[w] = D;
-                tailR[w] = R;
-              } else {
-                P.at(P.pD(), m.psz + m.cpos + w) = (short)D;
-                P.at(P.pR(), m.psz + m.cpos + w) = (short)R;
-              }
-            }
-#if BIG_FLAGS
-            if (!XDROP && !fend && fra && w >= frt && r == fridx)
-#else
-            if (!XDROP && fra && w >= frt && r == fridx)
-#endif
-              score = m.off + D - ZERO;
-          }
-        }
-        // the next column's diagonal into the warp's first row: the final
-        // D of the row above it, whose R is the carry cw
-#if BIG_PROFILE
-        if (warp > 0) {
-          // a down rect's row above closes its R before the merge
-          const int ra = max(cw, gext * STEP);
-          diag_in = max(wdp[par][warp - 1],
-                        right_or ? ra : sat2(ra + wcl[par][warp - 1]));
-        } else {
-          diag_in = NEG;
-        }
-#else
-        diag_in = warp == 0 ? NEG
-                            : max(wdp[par][warp - 1], max(cw, gext * STEP));
-#endif
-#if BIG_FLAGS
-        if (XDROP || fend) {
-#else
-        if constexpr (XDROP) {
-#endif
-          // the residue's max over the warp's rows: lanes l and l ^ 16
-          key = max(key, __shfl_xor_sync(FULL, key, 16));
-          if (lane < 16) wkey[w][warp][lane] = key;
-        }
-      }
-#if BIG_FLAGS
-      if (!XDROP && !fend && fra && w >= frt) {
-#else
-      if (!XDROP && fra && w >= frt) {
-#endif
-        // freeze: the rect covering (qlen, rlen) reached the last column
-        frozen = true;
-        break;
-      }
-    }
-#if BIG_TRACE
-#if !BIG_16384
-    // the step's words, each written once by the thread that staged it
-    if (active)
-      for (int k = 0; k < NA; ++k) {
-        const int r = r0 + k * 32 + lane;
-        if (r < h) twords[(size_t)b * budget + tpos + r] = (int)WD[r];
-      }
-#endif
-#if BIG_FLAGS
-    // local start: the zero bits follow the step's h words
-    if (local && active)
-      for (int k = 0; k < NA; ++k) {
-        const int r = r0 + k * 32 + lane;
-        if (r < h) twords[(size_t)b * budget + tpos + h + r] = (int)ZB[r];
-      }
-    tpos += tw * h;
-#else
-    tpos += h;
+    tpos += st.h;
 #endif
 #endif
+    int cur_max = NEG;
     if (phase_done && m.dir != DIR_GD) {
       // the rect completes: each warp's part of its maximum
-      const int v = __reduce_max_sync(FULL, m.dmax);
-      if (lane == 0) red[warp] = v;
+      cur_max = __reduce_max_sync(FULL, m.dmax);
+      if (G > 1 && lane == 0) red[warp] = cur_max;
     }
-    __syncthreads();  // the step's cells, bottom cells and keys are visible
+    pair_sync(L);  // the step's cells, bottom cells and keys are visible
     if (frozen) {
       m.done = true;
       break;
     }
     if constexpr (XDROP) {
-      // the 16-residue tracker, column by column: the running max of
-      // residue lane % 16, reached last at the highest chunk and the latest
-      // column; a column whose max is NEG ties there at the last chunk, as
-      // in the plain version, whose rows past the height are NEG
-      const int rho = lane & 15;
-      for (int w = 0; w < STEP; ++w) {
-        int key = INT_MIN_;
-        for (int v = 0; v < nwarps; ++v) key = max(key, wkey[w][v][rho]);
-        const int cmax = key >> log_ch;
-        if (cmax >= m.vm) {
-          m.vm = cmax;
-          m.ai = ls + 16 * (cmax == NEG ? chunks - 1 : key & (chunks - 1));
-          m.aj = cstart + w;
-        }
+      // the 16-residue tracker: the step's best of residue lane % 16, at
+      // the latest column and the highest chunk of its value; a value of
+      // NEG ties there at the last chunk, as in the plain version, whose
+      // rows past the height are NEG
+      if (G > 1)
+        for (int v = warp - L.wi; v < warp - L.wi + G; ++v)
+          xk = max(xk, wkey[v * 16 + (lane & 15)]);
+      const int cmax = xk >> (log_ch + 3);
+      if (cmax >= m.vm) {
+        m.vm = cmax;
+        m.ai = st.ls + 16 * (cmax == NEG ? chunks - 1 : xk & (chunks - 1));
+        m.aj = st.cstart + ((xk >> log_ch) & (STEP - 1));
       }
 #if BIG_FLAGS
-    } else if (fend) {
+    } else if (L.fend) {
       // free end gaps: the running max of row qlen's residue, and the
       // latest column where a row of a chunk reaching past qlen equals it;
       // where the max is NEG the rows past the height (NEG in the plain
       // version) equal it too, the last chunk of which reaches past qlen
       // once ls + S does
-      const int rho = ql & 15;
       for (int w = 0; w < STEP; ++w) {
         int key = INT_MIN_;
-        for (int v = 0; v < nwarps; ++v) key = max(key, wkey[w][v][rho]);
+        for (int v = warp - L.wi; v < warp - L.wi + G; ++v)
+          key = max(key, fkey[w * MAX_WARPS + v]);
         const int cmax = key >> 1, vmn = max(m.vm, cmax);
-        if ((cmax >= m.vm && (key & 1)) || (vmn == NEG && ls + S > ql))
-          m.aj = cstart + w;
+        if ((cmax >= m.vm && (key & 1)) || (vmn == NEG && st.ls + S > ql))
+          m.aj = st.cstart + w;
         m.vm = vmn;
       }
 #endif
     }
-    if (shift) {
+    if (st.shift) {
       // a shift's end (reference: src/scan_block.rs:165-177, 349-355): keep
-      // row 7 as the next corner, shift the passive border by 8 and splice
-      // in the bottom cells
+      // row 7 as the next corner and shift the passive border by 8; its
+      // bottom cells are in
       m.corn = corn_next;
       P.base[P.pD()] += STEP;
       P.base[P.pR()] += STEP;
-      if (tid < STEP) {
-        P.at(P.pD(), sz - STEP + tid) = (short)tailD[tid];
-        P.at(P.pR(), sz - STEP + tid) = (short)tailR[tid];
-      }
-      __syncthreads();  // the spliced rows are visible
     }
     m.cpos = phase_done ? 0 : cpos_new;
     if (!phase_done) continue;
@@ -835,11 +1182,12 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     const int d0 = m.dir;
     const bool was_grow = d0 == DIR_GR;
     const bool ro = d0 == DIR_R || d0 == DIR_GR;
-    int cur_max = red[0];
-    for (int v = 1; v < W; ++v) cur_max = max(cur_max, red[v]);
+    if (G > 1)
+      for (int v = warp - L.wi; v < warp - L.wi + G; ++v)
+        cur_max = max(cur_max, red[v]);
 #if BIG_FLAGS
     // free end gaps: the rect maximum is row qlen's residue's
-    if (fend) cur_max = m.vm;
+    if (L.fend) cur_max = m.vm;
 #endif
     const int off_max = m.off + cur_max - ZERO;
     m.offmax = off_max;
@@ -855,7 +1203,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     }
     // a completed grow saves its doubled borders even without a new best
     // (reference: src/scan_block.rs:432-435)
-    if (save || (was_grow && sz < S)) save_ckpt(P, ck, ro, sz, tid, T);
+    if (save || (was_grow && sz < S)) save_ckpt(P, ck, ro, sz, L);
 #if BIG_TRACE
     if (save || (was_grow && sz < S)) pend |= F_SAVE;
 #endif
@@ -888,7 +1236,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
       }
     }
 #if BIG_FLAGS
-    if (fend) {
+    if (L.fend) {
       // the best of row qlen at its residue's column, even on grows; a
       // fresh tracker per rect; the end: both ends covered
       if (new_best) {
@@ -925,6 +1273,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         // shrink when the border suffix holds the rect maximum
         // (src/scan_block.rs:534-559)
         int suf = INT_MIN_;
+#pragma unroll
         for (int r = sz - SUFFIX; r < sz; ++r)
           suf = max(suf, max((int)P.at(P.aD(), r), (int)P.at(P.pD(), r)));
         shrink = suf >= cur_max;
@@ -940,7 +1289,7 @@ big_align_kernel(const uint8_t* __restrict__ codes,
         m.ckI = m.I;
         m.ckJ = m.J;
         m.ckOff = m.off;
-        save_ckpt(P, ck, ro, half, tid, T);
+        save_ckpt(P, ck, ro, half, L);
         ydi = 0;
 #if BIG_TRACE
         pend |= F_SAVE;
@@ -949,9 +1298,14 @@ big_align_kernel(const uint8_t* __restrict__ codes,
       // direction from the first 8 rows of both borders
       // (src/scan_block.rs:560-565)
       int ah = INT_MIN_, ph = INT_MIN_;
-      for (int r = 0; r < STEP; ++r) {
-        ah = max(ah, (int)P.at(P.aD(), r));
-        ph = max(ph, (int)P.at(P.pD(), r));
+      {
+        const short *da = P.p[P.aD()], *dp = P.p[P.pD()];
+        const int ba = P.base[P.aD()], bp = P.base[P.pD()];
+#pragma unroll
+        for (int r = 0; r < STEP; ++r) {
+          ah = max(ah, (int)da[(ba + r) & P.mask]);
+          ph = max(ph, (int)dp[(bp + r) & P.mask]);
+        }
       }
       const int right_max = ro ? ah : ph, down_max = ro ? ph : ah;
       const bool godown = forced_down || (free_rect && down_max > right_max);
@@ -965,8 +1319,9 @@ big_align_kernel(const uint8_t* __restrict__ codes,
     // rect's corner (src/scan_block.rs:541)
     m.pdir = shrink ? DIR_GD : d0;
   }
-  __syncthreads();  // the frozen cell's score is visible
-  if (tid == 0) {
+  pair_sync(L);  // the frozen cell's score is visible
+  // probe: pair end
+  if (L.gt == 0) {
 #if BIG_TRACE
     tsteps[b] = nsteps;
     tused[b] = tpos;
@@ -977,17 +1332,30 @@ big_align_kernel(const uint8_t* __restrict__ codes,
       out[4 * b + 2] = m.xbj;
       out[4 * b + 3] = m.done ? 0 : 1;
 #if BIG_FLAGS
-    } else if (fend) {
+    } else if (L.fend) {
       out[4 * b] = m.best;
       out[4 * b + 1] = m.xbi;
       out[4 * b + 2] = m.xbj;
       out[4 * b + 3] = m.done ? 0 : 1;
 #endif
     } else {
-      out[2 * b] = score;
+      out[2 * b] = *sh.score;
       out[2 * b + 1] = m.done ? 0 : 1;
     }
   }
+}
+
+// The instance of a configuration: by the most rows a thread holds, 16,
+// 32 or MAX_ROWS (the 16384-row libraries hold 32 only).
+template <bool X>
+auto instance(int min_size, int max_size) {
+  const int rows = rows_max(min_size, max_size);
+  auto kernel = big_align_kernel<X, MAX_ROWS>;
+  if constexpr (!BIG_16384) {
+    if (rows <= 32) kernel = big_align_kernel<X, 32>;
+    if (rows <= 16) kernel = big_align_kernel<X, 16>;
+  }
+  return kernel;
 }
 
 template <bool X>
@@ -998,13 +1366,15 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    int gext, int xdrop, int budget, int flags, int bmatch,
                    int bmismatch, int prof_cap, void* scratch,
                    cudaStream_t stream) {
-  const size_t smem = plane_bytes(max_size, flags);
+  const int G = pair_warps(min_size, max_size), P = block_pairs(G);
+  const size_t smem = P * pair_shorts(max_size) * sizeof(short);
+  const int threads = 32 * G * P, blocks = (B + P - 1) / P;
+  const auto kernel = instance<X>(min_size, max_size);
   cudaError_t err = cudaFuncSetAttribute(
-      big_align_kernel<X>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  big_align_kernel<X><<<B, warps_for(max_size) * 32, smem, stream>>>(
-      codes, qlen, rlen, table, out, cap, alpha, max_size, min_size,
+  kernel<<<blocks, threads, smem, stream>>>(
+      codes, qlen, rlen, table, out, B, cap, alpha, max_size, G, min_size,
       max_steps, gopen, gext,
       xdrop BIG_TRACE_ARGS BIG_FLAGS_ARGS BIG_PROFILE_ARGS BIG_16384_ARGS);
   return cudaGetLastError();
@@ -1052,8 +1422,9 @@ bool bad_flags(int flags, bool xdrop) {
 // lengths (each below prof_cap - 1), and alpha and gopen are not read.  The
 // 16384-row libraries (csrc/big_16384.cu, csrc/big_trace_16384.cu) take
 // max_size 16384 only and `scratch`, (B, 4, 16384) int16, which the kernel
-// overwrites; the others take max_size up to 8192 and a null scratch.  One
-// thread block per pair.  Returns the cudaError_t of the launch.
+// overwrites; the others take max_size up to 8192 and a null scratch.  A
+// pair takes 1 to 16 warps, several pairs a block (big_launch_shape).
+// Returns the cudaError_t of the launch.
 extern "C" int big_align_launch(const void* codes, const void* qlen,
                                 const void* rlen, const void* table, void* out,
                                 void* words, void* desc, void* steps,
@@ -1088,19 +1459,21 @@ extern "C" int big_align_launch(const void* codes, const void* qlen,
                                  mismatch, prof_cap, scratch, st);
 }
 
-// The launch of a max_size's instance (x-drop if `x_drop`; the trace
+// The launch of a configuration's instance (x-drop if `x_drop`; the trace
 // libraries' trace instance, the profile libraries' profile instance;
-// `flags` as in big_align_launch): shape[0]
-// threads a block, shape[1] bytes of dynamic shared memory, and shape[2]
-// blocks resident on an SM of the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int big_launch_shape(int max_size, int x_drop, int flags,
-                                int* shape) {
-  if (bad_sizes(16, max_size) || bad_flags(flags, x_drop))
+// `flags` as in big_align_launch): shape[0] threads a block, shape[1]
+// bytes of dynamic shared memory, shape[2] blocks resident on an SM of the
+// current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor), shape[3]
+// threads a pair, shape[4] pairs a block and shape[5] pairs an SM.
+extern "C" int big_launch_shape(int min_size, int max_size, int x_drop,
+                                int flags, int* shape) {
+  if (bad_sizes(min_size, max_size) || bad_flags(flags, x_drop))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = plane_bytes(max_size, flags);
-  const int threads = warps_for(max_size) * 32;
-  auto kernel = x_drop ? big_align_kernel<true> : big_align_kernel<false>;
+  const int G = pair_warps(min_size, max_size), P = block_pairs(G);
+  const size_t smem = P * pair_shorts(max_size) * sizeof(short);
+  const int threads = 32 * G * P;
+  const auto kernel = x_drop ? instance<true>(min_size, max_size)
+                             : instance<false>(min_size, max_size);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1110,6 +1483,9 @@ extern "C" int big_launch_shape(int max_size, int x_drop, int flags,
   shape[0] = threads;
   shape[1] = (int)smem;
   shape[2] = blocks;
+  shape[3] = 32 * G;
+  shape[4] = P;
+  shape[5] = blocks * P;
   return (int)err;
 }
 

@@ -25,8 +25,10 @@ segment) loop, packed ACT/PAS/CC planes, HBM checkpoint planes with
 DMA-staged blends, deferred swaps, saves, restores and shrinks, streamed
 code and DP planes, and the code-keyed score fetch that assumes a symmetric
 table) has no counterpart here: the CUDA kernel (``csrc/big_kernel.cu``)
-keeps a pair's borders and checkpoint in one thread block's shared memory
-and reads scores from the table by both codes.
+keeps a pair's borders and checkpoint in shared memory, each thread a
+contiguous run of a step's rows in registers, one to sixteen warps a pair
+and several pairs a block (``launch_shape``), and reads scores from the
+table by both codes.
 
 Trace takes a layout sized by the block that ran (``ops/_trace.py``), not
 the lane and adaptive kernels' dense (steps, B, max_size) words, which at
@@ -215,7 +217,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.big_align_launch.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
     lib.big_align_launch.restype = ctypes.c_int
-    lib.big_launch_shape.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.big_launch_shape.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.big_launch_shape.restype = ctypes.c_int
     lib.big_error_string.argtypes = [ctypes.c_int]
     lib.big_error_string.restype = ctypes.c_char_p
@@ -243,9 +245,10 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def launch_shape(cfg: BigKernelConfig):
-    """``(threads, dynamic shared bytes, thread blocks per SM)`` of one
-    launch of ``cfg``'s kernel instance on the current CUDA device, the
-    last from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.  Raises
+    """``(threads a block, dynamic shared bytes, blocks an SM, threads a
+    pair, pairs a block, pairs an SM)`` of one launch of ``cfg``'s kernel
+    instance on the current CUDA device, blocks an SM from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.  Raises
     ``ValueError`` where the device refuses the instance its shared memory
     (``cudaFuncSetAttribute`` past the 227 KB an H100 block may have)."""
     return _launch_shape(cfg, torch.cuda.current_device())
@@ -253,13 +256,13 @@ def launch_shape(cfg: BigKernelConfig):
 
 @functools.cache
 def _launch_shape(cfg: BigKernelConfig, device: int):
-    got = (ctypes.c_int * 3)()
+    got = (ctypes.c_int * 6)()
     lib = _lib(library(cfg))
-    err = lib.big_launch_shape(cfg.max_size, int(cfg.x_drop), flag_bits(cfg),
-                               ctypes.addressof(got))
+    err = lib.big_launch_shape(cfg.min_size, cfg.max_size, int(cfg.x_drop),
+                               flag_bits(cfg), ctypes.addressof(got))
     if err:
         raise ValueError(
-            f"the big kernel at max_size {cfg.max_size} (trace "
+            f"the big kernel at ({cfg.min_size}, {cfg.max_size}) (trace "
             f"{cfg.trace}, flags {flag_bits(cfg)}) cannot have the shared "
             f"memory its planes need a thread block on this device: "
             f"{lib.big_error_string(err).decode()}")
@@ -277,8 +280,9 @@ def big_align(codes, qlen, rlen, table, gaps, cfg: BigKernelConfig):
 
     CPU tensors take ``big_align_plain``; CUDA tensors launch the kernel of
     ``csrc/big_kernel.cu`` (the library ``library`` names) on the current
-    stream, one thread block per pair, or raise; past 8192 rows with a
-    scratch of (B, 4, 16384) int16 for the checkpoint planes.  The wrapper
+    stream, 1 to 16 warps a pair (``launch_shape``), or raise; past 8192
+    rows with a scratch of (B, 4, 16384) int16 for the checkpoint planes.
+    The wrapper
     counts its launches by instance (``lane_kernel.COUNTERS``):
     ``big_align.launches`` (global), ``xdrop_launches``, ``trace_launches``
     and ``xdrop_trace_launches``, and the same with ``profile_``,

@@ -160,7 +160,9 @@ kernel's libraries (seconds), 25-37 while the lane and adaptive libraries
    layout;
 32. traced growth: four of phase 29's growth pairs at (512, 8192), whose
    traced steps reach 4096 and 8192 rows, the CIGARs of the two with the
-   fewest cells against the plain version's;
+   fewest cells against the plain version's; and after phase 45 the
+   outputs, step counts, word counters, descriptors, words and CIGARs of
+   all four against the plain version's trace from a CPU worker;
 33. the big kernel's FLAGS instances (``csrc/big_flags.cu``,
    ``csrc/big_trace_flags.cu``) against the plain version: 32-pair
    structural batches at (128, 1024), (512, 1024) and (1024, 1024) with
@@ -168,10 +170,12 @@ kernel's libraries (seconds), 25-37 while the lane and adaptive libraries
    start global, x 20 / 100 and traced, free query start gaps traced and
    x 20 / 100, free query end gaps (queries shorter than the min size)
    global and traced, and 2 growth pairs at (512, 8192) with traced local
-   start, whose steps reach 8192 rows (the largest shared memory, 25 bytes
+   start, whose steps reach 8192 rows (the largest shared memory, 16 bytes
    a row): outputs, step counts, word counters, descriptors, words (the
    zero words too) and CIGARs equal; the FLAGS instances' launch shapes at
-   1024, 4096 and 8192 rows;
+   1024, 4096 and 8192 rows.  The plain versions of phases 25, 26, 30 and
+   33 run in the CPU workers (but under a capped step count or trace
+   budget) and are held against the kernels' outputs after phase 42;
 34. the byte band: phase 27's pairs with ``ByteMatrix(2, -4)``, -6/-2,
    global and (the first 512) traced (``align_all_trace`` in batches of
    256): on ACGT
@@ -920,12 +924,13 @@ def parse_ptxas(log, name):
             fn = (f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}"
                   f"{', trace' if m[4] == '1' else ''}"
                   f"{', profile' if m[5] == '1' else ''}{flags}>")
-        # csrc/big_kernel.cu's instances: x-drop or global
+        # csrc/big_kernel.cu's instances: x-drop or global, by the rows a
+        # thread holds at most
         m = re.search(r"Compiling entry function '\w*?\d(big_align_kernel)"
-                      r"ILb([01])E", line)
+                      r"ILb([01])ELi(\d+)E", line)
         if m:
-            fn = (f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}{trace}"
-                  f"{profile}{flags}{rows}>")
+            fn = (f"{m[1]}<{'x_drop' if m[2] == '1' else 'global'}, {m[3]} "
+                  f"rows{trace}{profile}{flags}{rows}>")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
         if m:
@@ -1559,7 +1564,8 @@ def main():
               f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
               f"align_staged {run_ms * 1e3 / B:.4f} us/pair (decode "
               f"{decode_ms * 1e3 / B:.4f}); plain "
-              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
+              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)"
+              + big_fill(al.cfg, B))
         numbers = {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
                    "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
         return (numbers, tops[0]) if top else numbers
@@ -1750,16 +1756,41 @@ def main():
               f"{t['walk'] * 1e3 / B:.4f}, align_all_trace "
               f"{path_ms * 1e3 / B:.4f}, plain {plain_ms * 1e3 / n_plain:.4f} "
               f"({plain_ms:.1f} ms for {n_plain} pairs; with trace, "
-              f"{n_cmp} pairs: {trace_plain_ms:.1f} ms)")
+              f"{n_cmp} pairs: {trace_plain_ms:.1f} ms)"
+              + big_fill(al.cfg, min(B, al.batch_size)))
         phase(f"{name}, {what}")
         return {"launches": launches, "max_abs_err": err, "ms": t["kernel"],
                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+    def big_fill(cfg, pairs):
+        """The big route's launch shape (``bk.launch_shape``) and the SM fill
+        of a launch of ``pairs`` pairs, min(1, pairs / (SMs x pairs an
+        SM)); empty for the other routes."""
+        if not isinstance(cfg, bk.BigKernelConfig):
+            return ""
+        _, _, blocks, tp, pb, ps = bk.launch_shape(cfg)
+        return (f"; {tp} threads a pair, {pb} pairs a block, {blocks} blocks "
+                f"and {ps} pairs an SM: SM fill "
+                f"{min(1.0, pairs / (sms * ps)):.3f} at {pairs} pairs a "
+                "launch")
 
     def merged(*paths):
         """One kernels-line entry for an instance that ran several paths:
         the launches of all, the numbers of the first."""
         return {**paths[0], "launches": sum(p["launches"] for p in paths),
                 "max_abs_err": max(p["max_abs_err"] for p in paths)}
+
+    # the CPU workers, at a lower priority: the plain versions of phases
+    # 25, 26, 30 and 33 run there while the card goes on, and their checks
+    # (``held``) wait until phase 42 has ended; then those of phases 19,
+    # 43, 45 and 47
+    cpu = ProcessPoolExecutor(4, mp_context=multiprocessing.get_context(
+        "spawn"), initializer=os.nice, initargs=(10,))
+    held = []
+
+    def on_host(pk):
+        """A packed batch's tensors on the host, for a worker."""
+        return type(pk)(*(t.cpu() if torch.is_tensor(t) else t for t in pk))
 
     # 25-26. the big kernel vs its plain version, global then x-drop: the
     # structural pairs at (32, 512), (64, 1024), (512, 1024) and (1024,
@@ -1781,19 +1812,24 @@ def main():
             x_drop=x is not None, byte_mode=matrix.kind == "byte", **modes)
 
     def big_vs_plain(pairs, size, matrix, gaps, x, cap=None, **flags):
-        """big_align against big_align_plain on the card, with ``flags``
-        (the FLAGS instances'); returns the pairs whose best lies short of
-        their ends and the largest block sizes reached."""
+        """big_align on the card against big_align_plain in a CPU worker,
+        with ``flags`` (the FLAGS instances'); returns a function that
+        waits for the plain version, holds the two equal and returns the
+        pairs whose best lies short of their ends and the largest block
+        sizes reached."""
         cfg = big_cfg(pairs, size, matrix, x, cap, **flags)
         pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
-        got = bk.big_align(*pk, cfg)
-        torch.cuda.synchronize()
-        want, top = bk.big_align_plain(*pk, cfg, top_size=True)
-        check_equal(got, want, f"big {size} x_drop={x} {matrix.kind} "
-                    f"{sorted(flags)}")
-        if got[:, -1].any():
-            raise AssertionError(f"big {size}: a pair hit the step cap")
-        return (x_dropped(got, pk) if x is not None else 0), top
+        got = bk.big_align(*pk, cfg).cpu()
+        job = cpu.submit(plain_job, "big", cfg, on_host(pk))
+
+        def check():
+            (want, _, top), _ = job.result()
+            check_equal(got, want, f"big {size} x_drop={x} {matrix.kind} "
+                        f"{sorted(flags)}")
+            if got[:, -1].any():
+                raise AssertionError(f"big {size}: a pair hit the step cap")
+            return (x_dropped(got, pk) if x is not None else 0), top
+        return check
 
     def big_capped(x, steps):
         cfg = with_step_cap(bk.BigKernelConfig(32, 1024, 1792,
@@ -1809,54 +1845,86 @@ def main():
                                  f"{steps} steps")
         return over, len(got)
 
-    shapes = {S: bk.launch_shape(bk.BigKernelConfig(16, S, 16384))
-              for S in (512, 1024, 2048, 4096, 8192)}
-    print("[big-shape] threads, dynamic shared bytes and blocks per SM "
-          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor) by max size: "
-          + "; ".join(f"{S}: {t}, {b}, {n}" for S, (t, b, n) in
-                      shapes.items()))
-    checked, tops = 0, set()
+    def big_shapes(what, sizes, sets=({},), **modes):
+        """A ``[big-shape]`` line: for each (min, max) size, the threads a
+        pair, pairs a block, blocks an SM
+        (cudaOccupancyMaxActiveBlocksPerMultiprocessor), pairs an SM,
+        threads a block and dynamic shared bytes of the instances that
+        ``modes`` with each keyword set of ``sets`` name (joined by
+        " / ")."""
+        print(f"[big-shape] {what}: threads a pair, pairs a block, blocks an "
+              "SM, pairs an SM (threads a block, dynamic shared bytes) by "
+              "(min, max) size: " + "; ".join(
+                  f"{size}: " + " / ".join(
+                      "{3}, {4}, {2}, {5} ({0}, {1})".format(
+                          *bk.launch_shape(bk.BigKernelConfig(
+                              *size, max(16512, size[1] + 128), **modes,
+                              **kw)))
+                      for kw in sets)
+                  for size in sizes))
+
+    big_shapes("global, x-drop", ((32, 512), (64, 1024), (128, 1024),
+                                  (256, 2048), (512, 1024), (1024, 1024),
+                                  (2048, 2048), (2048, 4096), (512, 8192)),
+               sets=[{}, {"x_drop": True}])
+    checks, checked = [], 0
     for size in big_sizes:
         for matrix, gaps, alphabet in ((scores.BLOSUM62, Gaps(-11, -1), AA),
                                        (*dna, DNA)):
             pairs = structural_pairs(rng, alphabet, 96, 700)
-            tops |= set(big_vs_plain(pairs, size, matrix, gaps, None)[1]
-                        .tolist())
+            checks.append(big_vs_plain(pairs, size, matrix, gaps, None))
             checked += len(pairs)
-    _, top = big_vs_plain(grow[:4], (2048, 4096), *dna, None)
+    grown = big_vs_plain(grow[:4], (2048, 4096), *dna, None)
     over, n_capped = big_capped(None, 40)
-    print(f"[big-vs-plain] {checked} pairs at {', '.join(map(str, big_sizes))}"
-          " (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths "
-          f"0..700, structural indels; blocks reached {sorted(tops)}), and 4 "
-          f"growth pairs at fixed (2048, 4096) (blocks {top.tolist()}): "
-          "score and overrun equal; with a 40-step cap on "
-          f"{n_capped} pairs, {over} of which overran; the lane and adaptive "
-          "instances keep their pinned ptxas counts (phase 2)")
-    phase("25, big kernel vs plain")
 
-    checked = dropped = 0
+    def hold_25(checks=checks, checked=checked, grown=grown, over=over,
+                n_capped=n_capped):
+        tops = set()
+        for check in checks:
+            tops |= set(check()[1].tolist())
+        _, top = grown()
+        print(f"[big-vs-plain] {checked} pairs at "
+              f"{', '.join(map(str, big_sizes))} (protein BLOSUM62 -11/-1 "
+              "and DNA NucMatrix(2, -4) -6/-2, lengths 0..700, structural "
+              f"indels; blocks reached {sorted(tops)}), and 4 growth pairs "
+              f"at fixed (2048, 4096) (blocks {top.tolist()}): score and "
+              f"overrun equal; with a 40-step cap on {n_capped} pairs, "
+              f"{over} of which overran; the lane and adaptive instances "
+              "keep their pinned ptxas counts (phase 2)")
+
+    held.append(hold_25)
+    phase("25, big kernel vs plain (held at phase 42's end)")
+
+    checks, checked = [], 0
     for size in big_sizes:
         for (matrix, gaps, alphabet), x in (
                 ((scores.BLOSUM62, Gaps(-11, -1), AA), 0),
                 ((*dna, DNA), 20), ((scores.BLOSUM62, Gaps(-11, -1), AA), 100)):
             pairs = structural_pairs(rng, alphabet, 96, 700)
-            dropped += big_vs_plain(pairs, size, matrix, gaps, x)[0]
+            checks.append(big_vs_plain(pairs, size, matrix, gaps, x))
             checked += len(pairs)
     # the growth pairs with the shorter middles and flanks (3700 and 4600
     # bases a side), whose plain run takes the fewest steps
-    gdrop, gtop = big_vs_plain([grow[k] for k in (1, 3, 5, 7)], (512, 8192),
-                               *dna, 1000, cap=16384)
+    grown = big_vs_plain([grow[k] for k in (1, 3, 5, 7)], (512, 8192),
+                         *dna, 1000, cap=16384)
     over, n_capped = big_capped(50, 25)
-    if not dropped:
-        raise AssertionError("no big x-drop pair ended short of its ends")
-    print(f"[big-xdrop-vs-plain] {checked} pairs at "
-          f"{', '.join(map(str, big_sizes))} (protein x 0 and 100, DNA x 20): "
-          "best, position and overrun equal; "
-          f"{dropped} best positions short of (qlen, rlen); 4 of the "
-          f"growth pairs at (512, 8192) with x 1000 ({gdrop} short of their "
-          f"ends, blocks reached {sorted(set(gtop.tolist()))}); with a "
-          f"25-step cap on {n_capped} pairs, {over} of which overran")
-    phase("26, big x-drop kernel vs plain")
+
+    def hold_26(checks=checks, checked=checked, grown=grown, over=over,
+                n_capped=n_capped):
+        dropped = sum(check()[0] for check in checks)
+        if not dropped:
+            raise AssertionError("no big x-drop pair ended short of its ends")
+        gdrop, gtop = grown()
+        print(f"[big-xdrop-vs-plain] {checked} pairs at "
+              f"{', '.join(map(str, big_sizes))} (protein x 0 and 100, DNA x "
+              f"20): best, position and overrun equal; {dropped} best "
+              "positions short of (qlen, rlen); 4 of the growth pairs at "
+              f"(512, 8192) with x 1000 ({gdrop} short of their ends, blocks "
+              f"reached {sorted(set(gtop.tolist()))}); with a 25-step cap on "
+              f"{n_capped} pairs, {over} of which overran")
+
+    held.append(hold_26)
+    phase("26, big x-drop kernel vs plain (held at phase 42's end)")
 
     # 27. the big main path: the reference's <10 kbp 1%-10% band (128,
     # 1024) on the JAX package's nanopore workload
@@ -1911,71 +1979,93 @@ def main():
     # trace budget
     def big_trace_vs_plain(pairs, size, matrix, gaps, x, cap=None,
                            budget=None, **flags):
-        """big_align against big_align_plain with trace on the card, with
-        ``flags`` (the FLAGS instances'): equal outputs, step counts, word
-        counters, executed descriptors and words (local start's zero words
-        too), and equal CIGARs walked from both for the pairs that did not
-        overrun; returns (saves, restores, overruns, the tallest step)."""
+        """big_align against big_align_plain with trace, with ``flags``
+        (the FLAGS instances'), the plain version in a CPU worker (on the
+        card under a reduced ``budget``, whose configuration does not
+        pickle); returns a function that waits for it and holds equal
+        outputs, step counts, word counters, executed descriptors and words
+        (local start's zero words too), and equal CIGARs walked from both
+        for the pairs that did not overrun, and returns (saves, restores,
+        overruns, the tallest step)."""
         cfg = big_cfg(pairs, size, matrix, x, cap, trace=True, **flags)
         if budget:
             cfg = with_trace_budget(cfg, budget)
         pk = bk.pack_big(pairs, matrix, cfg, gaps, dev, x or 0)
-        got = bk.big_align(*pk, cfg)
-        torch.cuda.synchronize()
-        want = bk.big_align_plain(*pk, cfg)
+        out, words, desc, steps, used = bk.big_align(*pk, cfg)
+        # the words below the counters and the steps run, all that the
+        # checks read
+        got = (out.cpu(), words[:, : int(used.max())].cpu(),
+               desc[: int(steps.max())].cpu(), steps.cpu(), used.cpu())
+        if budget:
+            plain = bk.big_align_plain(*pk, cfg)
+            plain = tuple(t.cpu() for t in plain)
+        else:
+            job = cpu.submit(plain_job, "big", cfg, on_host(pk))
         what = f"big trace {size} x_drop={x} {matrix.kind} {sorted(flags)}"
-        saves, restores = check_big_trace(got, want, what)
-        out = want[0].cpu()
-        done = (out[:, -1] == 0).nonzero()[:, 0].tolist()
-        ends = [(int(out[k, 1]), int(out[k, 2])) if lk.wide(cfg)
-                else (len(pairs[k][0]), len(pairs[k][1])) for k in done]
 
-        def sub(res):
-            return tuple(t[:, done] if t.dim() == 3 else t[done] for t in res)
+        def check():
+            want = plain if budget else tuple(job.result()[0][:5])
+            saves, restores = check_big_trace(got, want, what)
+            out = want[0]
+            done = (out[:, -1] == 0).nonzero()[:, 0].tolist()
+            ends = [(int(out[k, 1]), int(out[k, 2])) if lk.wide(cfg)
+                    else (len(pairs[k][0]), len(pairs[k][1])) for k in done]
 
-        walk_both(sub(got), sub(want), ends, matrix, what, cfg)
-        desc, steps = want[2], want[3]
-        ran = torch.arange(desc.shape[0], device=dev)[:, None] < steps
-        return (saves, restores, int(out[:, -1].sum()),
-                int(torch.where(ran, desc[:, :, 3], 0).max()))
+            def sub(res):
+                return tuple(t[:, done] if t.dim() == 3 else t[done]
+                             for t in res)
 
-    checked, events, tall = 0, [0, 0], set()
+            walk_both(sub(got), sub(want), ends, matrix, what, cfg)
+            desc, steps = want[2], want[3]
+            ran = torch.arange(desc.shape[0])[:, None] < steps
+            return (saves, restores, int(out[:, -1].sum()),
+                    int(torch.where(ran, desc[:, :, 3], 0).max()))
+        return check
+
+    checks, checked = [], 0
     protein_aa = (scores.BLOSUM62, Gaps(-11, -1), AA)
     for size in ((64, 1024), (512, 1024), (1024, 1024)):
         for (matrix, gaps, alphabet), x in product(
                 (protein_aa, (*dna, DNA)), (None, 20, 100)):
             pairs = structural_pairs(rng, alphabet, 32, 700)
-            sv, rs, _, h = big_trace_vs_plain(pairs, size, matrix, gaps, x)
+            checks.append(big_trace_vs_plain(pairs, size, matrix, gaps, x))
+            checked += len(pairs)
+    grown = big_trace_vs_plain(grow[:4], (2048, 4096), *dna, None)
+    budgeted = big_trace_vs_plain(structural_pairs(rng, AA, 64, 600),
+                                  (32, 1024), scores.BLOSUM62, Gaps(-11, -1),
+                                  None, budget=6000)
+    big_shapes("trace instances, global / x-drop",
+               ((32, 1024), (64, 1024), (128, 1024), (512, 1024),
+                (1024, 1024), (2048, 4096), (512, 8192)), trace=True,
+               sets=[{}, {"x_drop": True}])
+
+    def hold_30(checks=checks, checked=checked, grown=grown,
+                budgeted=budgeted):
+        events, tall = [0, 0], set()
+        for check in checks:
+            sv, rs, _, h = check()
             events[0] += sv
             events[1] += rs
             tall.add(h)
-            checked += len(pairs)
-    grown = big_trace_vs_plain(grow[:4], (2048, 4096), *dna, None)[3]
-    _, _, over, _ = big_trace_vs_plain(structural_pairs(rng, AA, 64, 600),
-                                       (32, 1024), scores.BLOSUM62,
-                                       Gaps(-11, -1), None, budget=6000)
-    if not 0 < over < 64 or not all(events) or grown != 4096:
-        raise AssertionError(f"big trace: {over} of 64 pairs overran the "
-                             f"budget; events {events}; growth steps to "
-                             f"{grown}")
-    tshapes = {(S, xd): bk.launch_shape(bk.BigKernelConfig(
-        16, S, 16384, x_drop=xd, trace=True))
-        for S in (512, 1024, 2048, 4096, 8192) for xd in (False, True)}
-    print("[big-shape] trace instances, global / x-drop: threads, dynamic "
-          "shared bytes and blocks per SM by max size: " + "; ".join(
-              f"{S}: {tshapes[S, False]} / {tshapes[S, True]}"
-              for S in (512, 1024, 2048, 4096, 8192)))
-    print(f"[big-trace-vs-plain] {checked} pairs at (64, 1024), (512, 1024) "
-          "and (1024, 1024) (protein BLOSUM62 -11/-1 and DNA NucMatrix(2, "
-          "-4) -6/-2, lengths 0..700, structural indels), global and x 20 "
-          "and 100 (steps up to "
-          f"{max(tall)} rows), and 4 growth pairs at fixed (2048, 4096), "
-          "global: outputs, step counts, word counters, "
-          "descriptors and words equal, and the CIGARs walked from both; "
-          f"{events[0]} checkpoint saves and {events[1]} grow restores; under "
-          f"a budget of 6000 words on 64 pairs at (32, 1024), {over} of "
-          "which overran, the traces equal too")
-    phase("30, big trace instances vs plain")
+        grew = grown()[3]
+        over = budgeted()[2]
+        if not 0 < over < 64 or not all(events) or grew != 4096:
+            raise AssertionError(f"big trace: {over} of 64 pairs overran the "
+                                 f"budget; events {events}; growth steps to "
+                                 f"{grew}")
+        print(f"[big-trace-vs-plain] {checked} pairs at (64, 1024), (512, "
+              "1024) and (1024, 1024) (protein BLOSUM62 -11/-1 and DNA "
+              "NucMatrix(2, -4) -6/-2, lengths 0..700, structural indels), "
+              f"global and x 20 and 100 (steps up to {max(tall)} rows), and "
+              "4 growth pairs at fixed (2048, 4096), global: outputs, step "
+              "counts, word counters, descriptors and words equal, and the "
+              f"CIGARs walked from both; {events[0]} checkpoint saves and "
+              f"{events[1]} grow restores; under a budget of 6000 words on "
+              f"64 pairs at (32, 1024), {over} of which overran, the traces "
+              "equal too")
+
+    held.append(hold_30)
+    phase("30, big trace instances vs plain (held at phase 42's end)")
 
     # 31. the traced nanopore band: the first 512 of phase 27's pairs
     # through align_all_trace in batches of 256, global and x 50, held
@@ -2003,7 +2093,9 @@ def main():
 
     # 32. traced growth: two of phase 29's growth pairs whose blocks reach
     # 4096 and two that reach 8192, at (512, 8192) with trace; the CIGARs of
-    # the two with the fewest cells against the plain version's trace
+    # the two with the fewest cells against the plain version's trace here,
+    # and the words, descriptors and CIGARs of all four against its trace
+    # from a CPU worker at phase 45 ("grow_t")
     pick = ([k for k in range(len(grow)) if gtop[k] == 4096][:2]
             + [k for k in range(len(grow)) if gtop[k] == 8192][:2])
     gkw = dict(size=(512, 8192), batch=4, seq_cap=8175, device=dev)
@@ -2041,7 +2133,7 @@ def main():
                        ("local", 20, True), ("fstart", 20, False),
                        ("fstart", None, True), ("fend", None, True)),
     }
-    checked, tall = 0, set()
+    checks, traced, checked = [], [], 0
     for size, cases in flag_cases.items():
         for k, (mode, x, tr) in enumerate(cases):
             flags = {"byte": {}, "local": local, "fstart": fstart,
@@ -2056,36 +2148,44 @@ def main():
             if mode == "fend":
                 pairs = [(q[: size[0] - 1], r) for q, r in pairs]
             if tr:
-                tall.add(big_trace_vs_plain(pairs, size, matrix, gaps, x,
-                                            **flags)[3])
+                traced.append(big_trace_vs_plain(pairs, size, matrix, gaps,
+                                                 x, **flags))
             else:
-                big_vs_plain(pairs, size, matrix, gaps, x, **flags)
+                checks.append(big_vs_plain(pairs, size, matrix, gaps, x,
+                                           **flags))
             checked += len(pairs)
-    h8 = big_trace_vs_plain(grow[:2], (512, 8192), *dna, None, cap=16384,
-                            **local)[3]
-    if h8 != 8192 or max(tall) != 1024:
-        raise AssertionError(f"big flags: traced steps reached {max(tall)} "
-                             f"rows, the local-start growth pairs {h8}")
-    print("[big-shape] FLAGS instances (global, x-drop, trace without and "
-          "with local start, x-drop trace with local start): threads, "
-          "dynamic shared bytes and blocks per SM by max size: " + "; ".join(
-              f"{S}: " + " / ".join(str(bk.launch_shape(bk.BigKernelConfig(
-                  16, S, 16384, x_drop=xd, trace=tr, **f)))
-                  for f, xd, tr in ((local, False, False),
-                                    (local, True, False), (fend, False, True),
-                                    (local, False, True), (local, True, True)))
-              for S in (1024, 4096, 8192)))
-    print(f"[big-flags-vs-plain] {checked} pairs at (128, 1024), (512, 1024) "
-          "and (1024, 1024): ByteMatrix(1, -1) -11/-1 (all 256 bytes, byte "
-          "0) global and traced; local start global, x 20 and 100, traced; "
-          "free start gaps traced, x 20 and 100; free end gaps (queries "
-          "shorter than the min size) global and traced; protein BLOSUM62 "
-          "-11/-1 and DNA NucMatrix(2, -4) -6/-2, lengths 0..700, structural "
-          f"indels (steps up to {max(tall)} rows); and 2 growth pairs at "
-          f"(512, 8192) with traced local start (steps up to {h8} rows): "
-          "outputs equal, and traced step counts, word counters, "
-          "descriptors, words (the zero words too) and CIGARs")
-    phase("33, big FLAGS instances vs plain")
+    grown = big_trace_vs_plain(grow[:2], (512, 8192), *dna, None, cap=16384,
+                               **local)
+    big_shapes("FLAGS instances (global, x-drop, trace without and with "
+               "local start, x-drop trace with local start)",
+               ((32, 512), (128, 1024), (512, 1024), (1024, 1024),
+                (512, 8192)),
+               sets=[dict(local), dict(local, x_drop=True),
+                     dict(fend, trace=True), dict(local, trace=True),
+                     dict(local, x_drop=True, trace=True)])
+
+    def hold_33(checks=checks, traced=traced, checked=checked, grown=grown):
+        for check in checks:
+            check()
+        tall = max(check()[3] for check in traced)
+        h8 = grown()[3]
+        if h8 != 8192 or tall != 1024:
+            raise AssertionError(f"big flags: traced steps reached {tall} "
+                                 f"rows, the local-start growth pairs {h8}")
+        print(f"[big-flags-vs-plain] {checked} pairs at (128, 1024), (512, "
+              "1024) and (1024, 1024): ByteMatrix(1, -1) -11/-1 (all 256 "
+              "bytes, byte 0) global and traced; local start global, x 20 "
+              "and 100, traced; free start gaps traced, x 20 and 100; free "
+              "end gaps (queries shorter than the min size) global and "
+              "traced; protein BLOSUM62 -11/-1 and DNA NucMatrix(2, -4) "
+              "-6/-2, lengths 0..700, structural indels (steps up to "
+              f"{tall} rows); and 2 growth pairs at (512, 8192) with traced "
+              f"local start (steps up to {h8} rows): outputs equal, and "
+              "traced step counts, word counters, descriptors, words (the "
+              "zero words too) and CIGARs")
+
+    held.append(hold_33)
+    phase("33, big FLAGS instances vs plain (held at phase 42's end)")
 
     # 34. the byte band: phase 27's pairs with ByteMatrix(2, -4), which on
     # ACGT reads scores as NucMatrix(2, -4) does, so phase 27's plain
@@ -2165,9 +2265,8 @@ def main():
     check_pinned_ptxas(reports)
     phase("2, the lane and adaptive builds (after phases 25-37)")
 
-    # the plain versions of phases 43, 45 and 47 run on the host's CPU, in
-    # three worker processes at a lower priority, while the card runs
-    # phases 3-42 (after the builds, which take every core): each takes 4000
+    # the plain versions of phases 43, 45 and 47 run in the CPU workers
+    # too, while the card runs phases 3-42: each takes 4000
     # to 12000 lockstep steps of a few small tensors, which run no faster on
     # the card (a step at 16384 rows: 9.3 ms there, 7.3 ms on one CPU core)
     from block_aligner_tpu_torch import LongAdaptiveAligner, LongBatchAligner
@@ -2194,7 +2293,12 @@ def main():
         return LongAdaptiveAligner(matrix, ngaps, (BAND_MIN, 16384),
                                    batch=len(band_pairs), device=device, **kw)
 
+    def grow_traced(device=dev, **kw):
+        return BatchAligner(nuc, ngaps, (512, 8192), batch=4, seq_cap=8175,
+                            trace=True, device=device, **kw)
+
     long_checks = {
+        "grow_t": (grow_traced, {}, [grow[k] for k in pick]),
         "lane": (lane_long, {}, cmp_pairs),
         "lane_x": (lane_long, dict(x_drop=100), cmp_pairs),
         "lane_t": (lane_long, dict(trace=True), cmp_pairs),
@@ -2212,8 +2316,6 @@ def main():
                      band_pairs),
         "band_b": (band_long, dict(matrix=byte2), band_pairs),
     }
-    cpu = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
-        "spawn"), initializer=os.nice, initargs=(10,))  # phase 19's too
     plain_jobs = {}
     # the longest first, so that the workers end together
     for key, (make, kw, pairs) in sorted(
@@ -2844,7 +2946,8 @@ def main():
               f"launch of {B} pairs, CUDA events, mean of 10); bound "
               f"{bnd:.4f} ms by {by}; pack {pack_ms * 1e3 / B:.4f} us/pair; "
               f"align_staged {run_ms * 1e3 / B:.4f} us/pair; plain "
-              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)")
+              f"{plain_ms * 1e3 / B:.4f} us/pair ({plain_ms:.1f} ms)"
+              + big_fill(al.cfg, B))
         phase(f"{name}, {what}")
         return {"launches": launches, "max_abs_err": err, "ms": kernel_ms,
                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
@@ -3033,7 +3136,8 @@ def main():
               f"(copy, replay, results) {t['decode'] * 1e3 / B:.4f}, walk "
               f"(cigars_all) {t['walk'] * 1e3 / B:.4f}, path "
               f"{t['path'] * 1e3 / B:.4f}, plain {plain_ms * 1e3 / B:.4f} "
-              f"({plain_ms:.1f} ms)")
+              f"({plain_ms:.1f} ms)"
+              + big_fill(al.cfg, min(B, al.batch_size)))
         phase(f"{name}, {what}")
         return {"launches": launches, "max_abs_err": err, "ms": t["kernel"],
                 "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
@@ -3424,17 +3528,13 @@ def main():
     top4 = profile_vs_plain_big(pgrow4, (512, 4096))
     if 4096 not in top4.tolist():
         raise AssertionError(f"profile growth pairs reached {top4.tolist()}")
-    print("[big-shape] profile instances (global, x-drop, trace, trace with "
-          "local start, x-drop trace with local start): threads, dynamic "
-          "shared bytes and blocks per SM by max size: " + "; ".join(
-              f"{S}: " + " / ".join(str(bk.launch_shape(bk.BigKernelConfig(
-                  16, S, 16384, x_drop=xd, trace=tr, profile=True,
-                  prof_cap=128, local_start=ls)))
-                  for xd, tr, ls in ((False, False, False),
-                                     (True, False, False),
-                                     (False, True, False),
-                                     (False, True, True), (True, True, True)))
-              for S in (1024, 2048, 4096, 8192)))
+    big_shapes("profile instances (global, x-drop, trace, trace with "
+               "local start, x-drop trace with local start)",
+               ((128, 1024), (32, 2048), (256, 2048), (2048, 2048),
+                (512, 4096)), profile=True, prof_cap=128,
+               sets=[{}, {"x_drop": True}, {"trace": True},
+                     {"trace": True, "local_start": True},
+                     {"x_drop": True, "trace": True, "local_start": True}])
     print(f"[big-profile-growth] 4 strong-consensus profiles (flanks of 150, "
           "random middles of 500..1400), 2 more (middles of 700 and 1200) "
           "whose gap opens and closes vary by position, and 2 such profiles "
@@ -3545,6 +3645,9 @@ def main():
     # and the big kernel's 16384-row instances
     from block_aligner_tpu_torch.ops._trace import (LAUNCH_TRACE_BYTES,
                                                     trace_sub_batch)
+    for hold in held:
+        hold()
+    phase("25, 26, 30 and 33: their plain versions from the CPU workers")
     n_flags = check_flags()
     print(f"[flags-vs-plain] phase 19's {n_flags} kernel runs equal their "
           "plain versions (CPU workers)")
@@ -3705,7 +3808,7 @@ def main():
               f"by {tnumbers['bound_by']}, align_batch (kernel, copy, "
               f"replay) {tpath_ms * 1e3 / B:.4f} us/pair, walk "
               f"(cigars_all) {walk_ms * 1e3 / n_cig:.4f} us/pair over "
-              f"{n_cig}")
+              f"{n_cig}" + big_fill(cfg, B))
         return numbers, tnumbers, res
 
     def long_numbers(main, vs):
@@ -3754,6 +3857,12 @@ def main():
           f"{avs_x.plain_ms:.1f} / {avs_t.plain_ms:.1f} / "
           f"{avs_xt.plain_ms:.1f} ms")
     phase("45, long adaptive kernel vs plain")
+    gvs = long_vs_plain("grow_t", "traced growth (512, 8192)")
+    print("[big-trace-growth-vs-plain] the 4 traced growth pairs of phase 32 "
+          f"(blocks to {sorted(gvs.top.tolist())} rows): outputs, step "
+          "counts, word counters, descriptors, words and CIGARs equal the "
+          f"plain version's (one CPU core, {gvs.plain_ms:.1f} ms)")
+    phase("32, traced growth vs plain (its plain trace from a worker)")
 
     # 46. the long adaptive main paths: the 64 pairs at (512, 8192)
     la, la_t, la_res = long_main(ad_long, nano50, f"{what50}, (512, 8192)")
@@ -3766,18 +3875,11 @@ def main():
     # (percent_len's clamp), the 16384-row instances against the plain
     # version, global, traced, x-drop, x-drop traced, traced local start
     # (whose restarts keep the blocks at 8192) and ByteMatrix
-    shapes = {}
-    for x, tr, fl in ((False, False, 0), (True, False, 0), (False, True, 0),
-                      (True, True, 0), (False, True, 1)):
-        cfg = bk.BigKernelConfig(512, 16384, 16512, 16, x_drop=x, trace=tr,
-                                 local_start=bool(fl))
-        shapes[(x, tr, fl)] = bk.launch_shape(cfg)
-    print("[big-shape] the 16384-row instances (threads, dynamic shared "
-          "bytes, blocks per SM): global "
-          f"{shapes[(False, False, 0)]}, x-drop {shapes[(True, False, 0)]}, "
-          f"trace {shapes[(False, True, 0)]}, x-drop trace "
-          f"{shapes[(True, True, 0)]}, local start's trace "
-          f"{shapes[(False, True, 1)]}")
+    big_shapes("the 16384-row instances (global, x-drop, trace, x-drop "
+               "trace, local start's trace)", ((BAND_MIN, 16384),),
+               sets=[{}, {"x_drop": True}, {"trace": True},
+                     {"x_drop": True, "trace": True},
+                     {"trace": True, "local_start": True}])
     band_n, band_res = {}, {}
     for key, mode in (("band", "global"), ("band_t", "trace"),
                       ("band_x", "xdrop"), ("band_x_t", "xdrop_trace"),
@@ -3830,7 +3932,7 @@ def main():
         print(f"[time] {card}: {name}, 16384 band {mode}: kernel {ms:.3f} ms "
               f"for {len(band_pairs)} pairs (CUDA events, mean of 3); bound "
               f"{bnd:.4f} ms by operations; plain (one CPU core) "
-              f"{vs.plain_ms:.1f} ms")
+              f"{vs.plain_ms:.1f} ms" + big_fill(cfg, len(band_pairs)))
     phase("47, the 16384-row band")
 
     # 48. the API: BatchAligner(seq_cap=65536) on both long routes equals the

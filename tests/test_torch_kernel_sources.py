@@ -51,12 +51,15 @@ using std::min;
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) alignas(n)
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
 // The running CUDA thread's state; the scheduler swaps it per fiber.
@@ -152,6 +155,13 @@ inline int __reduce_min_sync(unsigned, int v) {
 }
 inline void __syncwarp() { warp_().bar->arrive_and_wait(); }
 inline void __syncthreads() { block_->arrive_and_wait(); }
+// named barriers (bar.sync id, n): made at a block's first use of an id
+inline std::unique_ptr<Barrier>* named_;
+inline void named_sync_(int id, int n) {
+  if (!named_[id]) named_[id].reset(new Barrier(n));
+  named_[id]->arrive_and_wait();
+}
+#define BIG_NAMED_SYNC(id, n) named_sync_(id, n)
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -178,6 +188,8 @@ void launch(unsigned grid, unsigned block, F body) {
   for (auto& f : fibers) f.stack.reset(new char[kStack]);
   for (unsigned b = 0; b < grid; ++b) {
     Barrier all(block);
+    std::unique_ptr<Barrier> named[16];
+    named_ = named;
     std::vector<std::unique_ptr<Barrier>> bars;
     std::vector<Warp> ws(block / 32);
     for (auto& w : ws) {
@@ -236,9 +248,9 @@ LAUNCH = re.compile(r"(\w+)<<<(\w+), (WARPS \* 32), 0, stream>>>\((.*?)\);",
                     re.S)
 # csrc/big_kernel.cu: a launch with dynamic shared memory, and its
 # declaration
-BIG_LAUNCH = re.compile(r"(\w+<\w+>)<<<(\w+), (.*?), (\w+), stream>>>"
+BIG_LAUNCH = re.compile(r"(\w+)<<<(\w+), (\w+), (\w+), stream>>>"
                         r"\((.*?)\);", re.S)
-BIG_SHARED = "extern __shared__ short planes[];"
+BIG_SHARED = "extern __shared__ __align__(16) short planes[];"
 
 
 @pytest.fixture(scope="module")
@@ -716,14 +728,19 @@ def big_launch(lib, pk, cfg, x=-1):
     ((32, 512), "protein", -1), ((64, 1024), "dna", -1),
     ((32, 512), "protein", 50), ((128, 1024), "dna", 20),
     ((1024, 1024), "protein", -1), ((2048, 4096), "dna", -1),
+    ((256, 2048), "dna", -1), ((256, 2048), "protein", 30),
 ], ids=["32-512-protein", "64-1024-dna", "32-512-x-drop",
-        "128-1024-dna-x-drop", "1024-1024-protein", "2048-4096-dna"])
+        "128-1024-dna-x-drop", "1024-1024-protein", "2048-4096-dna",
+        "256-2048-dna", "256-2048-x-drop"])
 def test_big_kernel_source_matches_plain(emulated, size, setup, x):
     """Big-kernel instances against the plain version: edge cases, homologs
-    with indels and unrelated pairs (x-drop ends some early); at (32, 512)
-    a pair whose blocks grow to 512 rows (four warps of four slots), at
-    (1024, 1024) fixed blocks of 1024 rows (eight slots a warp), and at
-    (2048, 4096) the eight-warp instance."""
+    with indels and unrelated pairs, which freeze or end by x-drop at
+    different steps and heights beside each other in a block (4 one-warp
+    pairs a block at (32, 512), (64, 1024) and (128, 1024), 2 two-warp
+    pairs at (256, 2048), each pair's warps at a named barrier of their
+    own); at (32, 512) a pair whose blocks grow to 512 rows (16 rows a
+    thread), at (1024, 1024) fixed blocks of 1024 rows (four warps, 8 rows
+    a thread), and at (2048, 4096) four warps of 16 rows a thread."""
     matrix, gaps, alphabet = SETUPS[setup]
     rng = np.random.default_rng(size[1] + x)
     pairs = chip_smoke.structural_pairs(rng, alphabet, 8, 200)
@@ -744,13 +761,17 @@ def test_big_entry_point_matches_binding(emulated):
     buffers, the checkpoint scratch, 14 ints, the stream); the entry point
     refuses sizes the big route does not take, trace buffers in the library
     without trace and their absence in the trace library
-    (``csrc/big_trace.cu``), and reports its launch shape (threads, dynamic
-    shared bytes: 4 a row more with trace, and 1 more with local start's
-    trace in ``csrc/big_trace_flags.cu`` and ``csrc/big_trace_profile.cu``;
-    the profile instances' planes are the others').  The 16384-row
-    libraries (``csrc/big_16384.cu``, ``csrc/big_trace_16384.cu``) take
-    max size 16384 and a scratch only, and the others neither; their planes
-    take 12 bytes a row, 13 with local start's trace."""
+    (``csrc/big_trace.cu``), and reports its launch shape (threads a
+    block, dynamic shared bytes, blocks an SM, threads a pair, pairs a
+    block, pairs an SM): one warp a pair and 4 pairs a block at (16, 1024),
+    2 warps and 2 pairs at (256, 2048), 4 warps at (512, 1024) and (2048,
+    2048), at (512, 8192) 4 in the global library and 8 in the others, a
+    pair's planes 16 bytes a row in every mode
+    (trace, local start's trace and profiles stage nothing in shared
+    memory).  The 16384-row libraries (``csrc/big_16384.cu``,
+    ``csrc/big_trace_16384.cu``) take max size 16384 and a scratch only,
+    and the others neither; they run 16 warps a pair and their planes take
+    8 bytes a row."""
     src = (_build.CSRC / f"{bk.LIBRARY}.cu").read_text()
     sig = re.search(r'extern "C" int big_align_launch\((.*?)\)', src, re.S)
     params = [p.strip() for p in sig.group(1).split(",")]
@@ -779,31 +800,37 @@ def test_big_entry_point_matches_binding(emulated):
                                  cfg.seq_cap, 32, 16, 1024, cfg.max_steps,
                                  -11, -1, -1, 64, 0, 0, 0, 0, None) != 0
     assert tuple(big_launch(lib, pk, cfg)[0].tolist()) == (4, 0)
-    shape = (ctypes.c_int * 3)()
+    shape = (ctypes.c_int * 6)()
     ftlib = emulated[bk.TRACE_FLAGS_LIBRARY]
     plib = emulated[bk.PROFILE_LIBRARY]
     ptlib = emulated[bk.TRACE_PROFILE_LIBRARY]
-    for S, want in [(1024, (128, 20480)), (8192, (256, 163840))]:
-        assert lib.big_launch_shape(S, 1, 0, ctypes.addressof(shape)) == 0
-        assert tuple(shape)[:2] == want
-        assert tlib.big_launch_shape(S, 1, 0, ctypes.addressof(shape)) == 0
-        assert tuple(shape)[:2] == (want[0], want[1] // 20 * 24)
-        assert ftlib.big_launch_shape(S, 0, 1, ctypes.addressof(shape)) == 0
-        assert tuple(shape)[:2] == (want[0], want[1] // 20 * 25)
-        assert plib.big_launch_shape(S, 1, 2, ctypes.addressof(shape)) == 0
-        assert tuple(shape)[:2] == want
-        assert ptlib.big_launch_shape(S, 0, 1, ctypes.addressof(shape)) == 0
-        assert tuple(shape)[:2] == (want[0], want[1] // 20 * 25)
+    # (threads a block, shared bytes, blocks an SM (the emulation's 1),
+    # threads a pair, pairs a block, pairs an SM); at 8192 rows a thread
+    # of the global library holds 64 rows at most, of the others 32
+    for size, want in [((16, 1024), (128, 65536, 1, 32, 4, 4)),
+                       ((256, 2048), (128, 65536, 1, 64, 2, 2)),
+                       ((512, 1024), (128, 16384, 1, 128, 1, 1)),
+                       ((2048, 2048), (128, 32768, 1, 128, 1, 1)),
+                       ((512, 8192), (128, 131072, 1, 128, 1, 1))]:
+        for name, x, flags in [(lib, 1, 0), (tlib, 1, 0), (ftlib, 0, 1),
+                               (plib, 1, 2), (ptlib, 0, 1)]:
+            if size[1] == 8192 and name is not lib:
+                want = (256, 131072, 1, 256, 1, 1)
+            assert name.big_launch_shape(*size, x, flags,
+                                         ctypes.addressof(shape)) == 0
+            assert tuple(shape) == want, (size, flags)
     tall = emulated[bk.ROWS16384_LIBRARY]
     ttall = emulated[bk.TRACE_ROWS16384_LIBRARY]
-    for name, x, flags, want in [(lib, 0, 0, None), (tall, 1, 0, 196608),
-                                 (ttall, 0, 0, 196608),
-                                 (ttall, 1, 1, 212992)]:
-        err = name.big_launch_shape(16384, x, flags, ctypes.addressof(shape))
+    for name, x, flags, want in [(lib, 0, 0, None), (tall, 1, 0, 131072),
+                                 (ttall, 0, 0, 131072),
+                                 (ttall, 1, 1, 131072)]:
+        err = name.big_launch_shape(512, 16384, x, flags,
+                                    ctypes.addressof(shape))
         assert (err == 0) == (want is not None)
         if want:
-            assert tuple(shape)[:2] == (256, want)
-    assert tall.big_launch_shape(8192, 0, 0, ctypes.addressof(shape)) != 0
+            assert tuple(shape) == (512, want, 1, 512, 1, 1)
+    assert tall.big_launch_shape(512, 8192, 0, 0,
+                                 ctypes.addressof(shape)) != 0
     scratch = torch.zeros((1, 4, 16384), dtype=torch.int16)
     tcfg = bk.BigKernelConfig(16, 16384, 16512)
     tpk = bk.pack_big([(b"A", b"A")], scores.BLOSUM62, tcfg, Gaps(-11, -1),
@@ -822,23 +849,30 @@ def test_big_entry_point_matches_binding(emulated):
 
 @pytest.mark.parametrize("size,setup,x,budget", [
     ((32, 512), "protein", -1, None), ((128, 1024), "dna", 20, None),
-    ((64, 1024), "protein", -1, 600),
-], ids=["32-512-protein", "128-1024-dna-x-drop", "64-1024-budget"])
+    ((64, 1024), "protein", -1, 600), ((16, 1024), "protein", -1, None),
+], ids=["32-512-protein", "128-1024-dna-x-drop", "64-1024-budget",
+        "16-1024-every-k"])
 def test_big_kernel_source_trace_matches_plain(emulated, size, setup, x,
                                                budget):
     """The trace instances (``csrc/big_trace.cu``) against the plain
     version: outputs, step counts, word counters, the descriptors of every
     executed step and the words below each counter, and the CIGARs walked
-    from both.  At (32, 512) a pair grows to 512 rows (four warps of four
-    slots), so the R-open bit crosses slots and warps; at (128, 1024) it
-    crosses the four warps' single slots; under a budget of 600 words a
-    pair the two longest pairs overrun and the edge cases finish."""
+    from both.  At (32, 512) a pair grows to 512 rows (16 rows a thread),
+    so the R-open bit and the diagonal cross threads within rows of 1 to 16
+    a thread; under a budget of 600 words a pair the two longest pairs
+    overrun and the edge cases finish.  At (16, 1024) the pairs run every
+    height of the ladder and so every rows-a-thread step (16 of 32 lanes
+    idle at 16 rows, 1 to 32 rows a thread from 32 to 1024): one pair grows
+    to 1024 rows across a 600-residue insertion, one shrinks from 64 to
+    32."""
     matrix, gaps, alphabet = SETUPS[setup]
     rng = np.random.default_rng(size[1] + x + 1)
     pairs = chip_smoke.structural_pairs(rng, alphabet, 6, 200)
     if size == (32, 512):
         pairs = [grown_pairs()[0]] + pairs
-    cfg = bk.BigKernelConfig(*size, 1664 if size[1] == 512 else 2304,
+    if size == (16, 1024):
+        pairs = protein_pairs(1, 10) + grown_1024_pair()
+    cfg = bk.BigKernelConfig(*size, 1664 if size[1] == 512 else 3072,
                              32 if setup == "protein" else 16, x_drop=x >= 0,
                              trace=True)
     if budget:
@@ -861,6 +895,24 @@ def test_big_kernel_source_trace_matches_plain(emulated, size, setup, x,
         assert int(torch.where(ran, got[2][:, 0, 3], 0).max()) == 512
     if budget:
         assert 0 < int(out[:, -1].sum()) < len(pairs)
+    if size == (16, 1024):
+        heights = [got[2][: int(got[3][b]), b, 3].tolist()
+                   for b in range(len(pairs))]
+        assert set(sum(heights, [])) == {16 << k for k in range(7)}
+        assert any(b < a for h in heights for a, b in zip(h, h[1:]))
+
+
+def grown_1024_pair():
+    """A protein pair whose blocks grow to 1024 at (16, 1024): 300 and 700
+    residues with point mutations on the reference side, a random
+    600-residue insertion between them."""
+    from examples_tpu.common import rand_mutate, rand_seq
+
+    rng = np.random.default_rng(0)
+    aa = chip_smoke.AA.tobytes()
+    a, c = rand_seq(rng, aa, 300), rand_seq(rng, aa, 700)
+    return [(a + c, rand_mutate(rng, a, 10, aa) + rand_seq(rng, aa, 600)
+             + rand_mutate(rng, c, 30, aa))]
 
 
 @pytest.mark.parametrize("size,mode,x,trace", [
