@@ -21,37 +21,62 @@
 // scan down the block, a chain of dependent warp shuffles.  Bytes are not
 // the limit: a pair reads its codes once per step and writes 8 bytes.
 //
-// What the design does about it:
-// * one warp per pair, and each pair runs its own step loop and leaves as
-//   soon as its block freezes, so no pair waits for the longest one in a
-//   batch (the TPU kernel ran 128-pair lanes in lockstep);
-// * the S block rows sit in registers, S/32 contiguous rows per lane
-//   (S = 16 leaves half the warp idle), so the D00 diagonal shift is one
-//   shuffle per column and the prefix scan is serial inside a lane plus
-//   log2(lanes) shuffles across lanes;
+// The layout before this one gave every pair one warp, 16 rows a lane at
+// S = 512: a few long pairs left the card idle (64 reads on 16 SMs, one
+// warp a scheduler) while each column ran two 16-row passes and a 16-deep
+// dependent chain, and the S = 512 instances spilled.  What this design
+// does about it:
+// * a pair takes G warps, G = S / 128 within 1..4 (PAIR_WARPS: 1 up to 128
+//   rows, 2 at 256, 4 at 512), so a lane holds RPL = S / (32 G) <= 4
+//   contiguous rows in registers (S = 16 leaves half the warp idle).  A
+//   128-thread block carries 4 one-warp pairs, 2 two-warp pairs or 1 of
+//   four, so a batch smaller than the card lands on as many SMs as it has
+//   blocks.  Each pair runs its own step loop and leaves as soon as its
+//   block freezes, so no pair waits for the longest one in a batch (the
+//   TPU kernel ran 128-pair lanes in lockstep);
+// * the column's vertical-gap scan runs in three levels: serial over a
+//   lane's rows, log2(32) shuffles over the warp's lanes, and, with several
+//   warps, over the warps' aggregates through shared memory behind the
+//   pair's named barrier (bar.sync 1 + pair, 32 G threads), once a column.
+//   The same exchange carries D before R of each warp's last row (and, for
+//   profiles, its D plus R open and its close cost), from which the next
+//   warp's first lane derives that row's R, its final D (the next column's
+//   diagonal) and its R-open trace bit, so a column needs one barrier.  A
+//   one-warp pair synchronises with __syncwarp only;
+// * once a step the pair's warps meet again for the step's end: each warp
+//   posts its maximum, the first 8 rows' border maxima (warp 0), its
+//   x-drop key (below), the rebased passive rows the warp above shifts in,
+//   and the free-end gaps' column keys; every thread then takes the same
+//   decision from the same values;
+// * every add is int32 and saturates at the i16 rails only where it can
+//   reach them: the score add, the rebase and a profile's costs at both,
+//   the gap adds (costs <= 0, refused otherwise) at the lower rail alone,
+//   and the add-then-max chains (C = max(C + e, D + o), the in-lane scan,
+//   the shuffle scan's carries, R from the carry) are single DPX
+//   instructions (__viaddmax_s32, __vimax3_s32);
 // * the score table sits in shared memory and each lane looks up
 //   table[column code][own row code] directly, which replaces the TPU's
-//   packed score stacks and one-hot matrix products;
-// * many warps per SM hide the chain's latency: a warp's registers are
-//   its only state, so occupancy is set by registers alone.
+//   packed score stacks and one-hot matrix products.
 // X-drop is a template flag, so the global instances keep their code and
-// registers and the x-drop ones have no freeze.  The 16-residue tracker
-// (running max per residue class row % 16, reached last at the highest
-// 16-row chunk and the latest column) is kept per lane: a lane's rows lie
-// in one chunk, so each of its rows keeps its own running max and the
-// latest column that reached it, with no shuffle per column.  At a
-// decision the warp takes the max over lanes, then the latest column among
-// the lanes that reached it, then the highest chunk among those.  That is
-// the per-column rule of the JAX kernel: a running max only grows, so the
-// last column where the whole tracker is raised or reached again is the
-// last column where some lane reached the final max, and the lanes that
-// reached it there are exactly those whose own latest column it is.
+// the x-drop ones have no freeze.  The 16-residue tracker (running max per
+// residue class row % 16, reached last at the highest 16-row chunk and the
+// latest column) is kept per row: a lane's rows lie in one chunk, so each
+// of its rows keeps its own running max and the latest column that
+// reached it, with no shuffle per column.  At a decision each row holding
+// the step's maximum makes a key (15 - residue, column, chunk) whose
+// largest value over the pair is the lowest residue, then the latest
+// column, then the highest chunk.  That is the per-column rule of the JAX
+// kernel: a running max only grows, so the last column where the whole
+// tracker is raised or reached again is the last column where some row
+// reached the final max, and the rows that reached it there are exactly
+// those whose own latest column it is.
 // Trace is a template flag too.  Each lane ORs a cell's 4 bits into one
 // word per row it holds, column w at bits 4w..4w+3, and stores its words
-// once per step (S/32 contiguous rows per lane, so the warp's stores
-// coalesce); lane 0 stores the step's descriptor.  The R bit of a row is
-// the row above's R == D_open, one shuffle of the lane's packed bits per
-// column.  A freezing step stores the columns computed before it leaves.
+// once per step (contiguous rows per lane, so the pair's stores coalesce);
+// the pair's first thread stores the step's descriptor.  The R bit of a
+// row is the row above's R == D_open, one shuffle of the lane's packed
+// bits per column (across warps, from the exchange above).  A freezing
+// step stores the columns computed before it leaves.
 // Profile mode (sequence-to-PSSM, ops/_profile.py) is a fourth flag: the
 // profile plays the reference, one 32-byte row of 8 words per position.
 // A right step stages its 8 entering rows (256 bytes) in shared memory and
@@ -64,7 +89,7 @@
 // into D, and the trace bits compare D with the closed values.
 // ByteMatrix scoring and the three flags are built into libraries of their
 // own (LANE_FLAGS), whose instances read which of them apply from a
-// run-time argument (a branch the whole warp takes alike), so that four
+// run-time argument (a branch the whole pair takes alike), so that four
 // instances per size serve all of them.  Byte mode compares the lane's byte with the entering one in
 // place of the table fetch (no table is loaded; the codes are raw bytes,
 // alpha 256).  Local start raises each cell's D to the relative zero
@@ -73,13 +98,14 @@
 // adds one word per row and step after the S words of the 4-bit cells,
 // bit w the cell of column w whose D equals the relative zero.  Free end
 // gaps (query shorter than S) replace the freeze by the x-drop tracker cut
-// down to the residue qlen % 16: each column the warp takes the max of that
-// residue's rows into its running max, and the column becomes the best's
-// when a row of a chunk reaching past qlen equals it; the running max
-// drives the offset and the y-drop counter, the best is kept at each
-// decision, and a pair ends once its block covers both ends.
-// i16x2 packing, DPX instructions and several pairs per warp are left to
-// later work.
+// down to the residue qlen % 16: each column the pair takes the max of the
+// key 2 D + (the row's chunk reaches past qlen) over that residue's rows,
+// whose half is the column's max and whose low bit says whether a row of
+// a chunk past qlen holds it; the running max drives the offset and the
+// y-drop counter, the best is kept at each decision, and a pair ends once
+// its block covers both ends.
+// i16x2 packing and several pairs per warp at S = 16 are left to later
+// work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,14 +117,29 @@ constexpr int ZERO = 1 << 14;       // score bias
 constexpr int NEG = -32768;         // the i16 rails
 constexpr int POS = 32767;
 constexpr int INT_MIN_ = -2147483647 - 1;
+constexpr int FAR = -(1 << 30);     // below every scan value, far from overflow
 constexpr int MAX_ALPHA = 32;
-constexpr int WARPS = 4;            // pairs per thread block
+constexpr int BLOCK_WARPS = 4;      // warps a thread block
 constexpr unsigned FULL = 0xffffffffu;
 // profile words per position: 7 score words (4 biased bytes each, query
 // codes 0..27), then the gap word open_C | open_R << 8 | close_C << 16
 constexpr int PROF_WORDS = 8;
 // the run-time modes of the FLAGS instances (the `flags` argument)
 constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
+
+// A pair's warps at block S, chosen by time (PERF.md; the `warps` sweep of
+// scripts_torch/probe_big_kernel.py rewrites these two lines in copies):
+// WIDE_WARPS for a launch of at most FEW_PAIRS pairs an SM, which waits on
+// each column's chain, NARROW_WARPS for more, which waits on instructions
+// (every warp repeats the shuffle scan for its lanes' rows)
+template <int S> constexpr int WIDE_WARPS = S >= 512 ? 4 : 1;
+template <int S> constexpr int NARROW_WARPS = S >= 512 ? 2 : 1;
+constexpr int FEW_PAIRS = 1;
+// pairs a thread block of G-warp pairs: 4 of one warp, 2 of two, else 1
+template <int G>
+constexpr int BLOCK_PAIRS = G >= BLOCK_WARPS ? 1 : BLOCK_WARPS / G;
+template <int G>
+constexpr int BLOCK_THREADS = 32 * G * BLOCK_PAIRS<G>;
 
 #ifndef LANE_PROFILE
 // csrc/lane_profile.cu builds the profile instances apart, so that the
@@ -118,10 +159,18 @@ constexpr int LOCAL_START = 1, FREE_START = 2, FREE_END = 4, BYTE_MODE = 8;
 #else
 #define LANE_MODE_ARGS
 #endif
+#ifndef LANE_NAMED_SYNC
+// the named barrier `id` of `n` threads (a host-side build of this source
+// may define its own)
+#define LANE_NAMED_SYNC(id, n) \
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory")
+#endif
 
-// i16 saturation at both rails, as the reference's adds (the upper one
-// is reached where a block's columns run far without a rebase)
-__device__ __forceinline__ int sat(int x) { return min(max(x, NEG), POS); }
+// i16 saturation at both rails, for the adds that can reach the upper one
+// (a score or a profile cost, the rebase: a block's columns run far without
+// a rebase in the first S/8 steps).  An add of a gap cost (<= 0) to a value
+// at most POS clamps at the lower rail alone: __viaddmax_s32(x, c, NEG).
+__device__ __forceinline__ int sat2(int x) { return min(max(x, NEG), POS); }
 
 // The score of query code `code` in a profile position's row: byte code % 4
 // of word code / 4, biased by 128.  No word holds a code past 27, which
@@ -155,37 +204,106 @@ __device__ __forceinline__ int opaque(int v) {
   return v;
 }
 
-// Passive border shift: row r <- row r + 8, rows S-8..S-1 <- tail.
-template <int NL, int RPL>
-__device__ __forceinline__ void shift_tail(int (&x)[RPL], const int* tail,
-                                           int lane) {
+// The pair's threads meet: a warp's lanes, or the pair's named barrier.
+template <int G>
+__device__ __forceinline__ void pair_sync(int pair) {
+  if constexpr (G == 1)
+    __syncwarp();
+  else
+    LANE_NAMED_SYNC(1 + pair, 32 * G);
+}
+
+// Passive border shift, row r <- row r + 8, in two parts: inside the warp
+// (shift_rows, RPL rows a lane), and into the last 8 rows of the WL lanes
+// that hold rows, from `nxt`, the 8 rows after them (the next warp's
+// first, or the step's bottom cells: fill_rows).
+template <int RPL>
+__device__ __forceinline__ void shift_rows(int (&x)[RPL]) {
   if constexpr (RPL >= STEP) {
     int nx[RPL];
 #pragma unroll
-    for (int k = 0; k < RPL; ++k) {
-      if (k + STEP < RPL) {
-        nx[k] = x[k + STEP];
-      } else {
-        const int v = __shfl_down_sync(FULL, x[k + STEP - RPL], 1);
-        nx[k] = lane == NL - 1 ? tail[k + STEP - RPL] : v;
-      }
-    }
+    for (int k = 0; k < RPL; ++k)
+      nx[k] = k + STEP < RPL ? x[k + STEP]
+                             : __shfl_down_sync(FULL, x[k + STEP - RPL], 1);
 #pragma unroll
     for (int k = 0; k < RPL; ++k) x[k] = nx[k];
   } else {
-    constexpr int D = STEP / RPL;  // lanes per 8 rows
 #pragma unroll
-    for (int k = 0; k < RPL; ++k) {
-      const int v = __shfl_down_sync(FULL, x[k], D);
-      x[k] = (lane >= NL - D && lane < NL) ? tail[(lane - (NL - D)) * RPL + k]
-                                           : v;
+    for (int k = 0; k < RPL; ++k)
+      x[k] = __shfl_down_sync(FULL, x[k], STEP / RPL);
+  }
+}
+
+template <int WL, int RPL>
+__device__ __forceinline__ void fill_rows(int (&x)[RPL], const int* nxt,
+                                          int lane) {
+  if constexpr (RPL >= STEP) {
+    if (lane == WL - 1) {
+#pragma unroll
+      for (int k = RPL - STEP; k < RPL; ++k) x[k] = nxt[k + STEP - RPL];
+    }
+  } else {
+    constexpr int D = STEP / RPL;  // lanes per 8 rows
+    if (lane >= WL - D && lane < WL) {
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) x[k] = nxt[(lane - (WL - D)) * RPL + k];
     }
   }
 }
 
-template <int S, bool XDROP, bool TRACE, bool PROFILE>
-__global__ void __launch_bounds__(WARPS * 32)
-lane_align_kernel(const uint8_t* __restrict__ codes,
+// N (1..8, a power of two) codes of a sequence's row `p` of `cap` bytes
+// (8-byte aligned) from position `pos` (a multiple of N), each position
+// clamped to cap - 1, packed 4 a word: one load where they lie in the row.
+template <int N>
+__device__ __forceinline__ void load_codes(const uint8_t* p, int pos, int cap,
+                                           unsigned (&w)[(N + 3) / 4]) {
+  if (pos + N <= cap) {
+    if constexpr (N == 8) {
+      const int2 v = *reinterpret_cast<const int2*>(p + pos);
+      w[0] = (unsigned)v.x;
+      w[1] = (unsigned)v.y;
+    } else if constexpr (N == 4) {
+      w[0] = *reinterpret_cast<const unsigned*>(p + pos);
+    } else if constexpr (N == 2) {
+      w[0] = *reinterpret_cast<const unsigned short*>(p + pos);
+    } else {
+      w[0] = p[pos];
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (N + 3) / 4; ++j) w[j] = 0u;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      w[i >> 2] |= (unsigned)p[min(pos + i, cap - 1)] << (8 * (i & 3));
+  }
+}
+
+// Code i of the words of load_codes.
+__device__ __forceinline__ int code_at(unsigned w, int i) {
+  return (int)((w >> (8 * (i & 3))) & 255u);
+}
+
+// The x-drop key of this lane's rows that hold the step's maximum `cur`:
+// 15 - residue, the column from `base` and the 16-row chunk, so that the
+// largest key over the pair is the lowest residue, then the latest column,
+// then the highest chunk (-1: no such row).  The column lies within the
+// decision's window, the prologue's S columns or a step's 8.
+template <int RPL>
+__device__ __forceinline__ int xkey(const int (&vm)[RPL], const int (&vj)[RPL],
+                                    int cur, int row0, int base, bool on) {
+  int key = -1;
+#pragma unroll
+  for (int k = 0; k < RPL; ++k)
+    if (on && vm[k] == cur)
+      key = max(key, (15 - ((row0 + k) & 15)) << 14 | (vj[k] - base) << 5 |
+                         (row0 + k) >> 4);
+  return key;
+}
+
+// No __launch_bounds__: with one, ptxas spilled a few bytes in a dozen
+// instances to keep a register count below an occupancy step.
+template <int S, int G, bool XDROP, bool TRACE, bool PROFILE>
+__global__ void lane_align_kernel(const uint8_t* __restrict__ codes,
                   const int* __restrict__ qlen, const int* __restrict__ rlen,
                   const int* __restrict__ table, int* __restrict__ out,
                   int* __restrict__ twords, int4* __restrict__ tdesc,
@@ -196,14 +314,31 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
 #else
                   int max_steps, int gopen, int gext, int xdrop) {
 #endif
-  constexpr int NL = S < 32 ? S : 32;  // lanes holding block rows
-  constexpr int RPL = S / NL;          // rows per lane, contiguous
-  constexpr int PRO = S / STEP;        // prologue steps (the initial grow)
+  constexpr int NT = 32 * G;             // threads a pair
+  constexpr int NL = S < NT ? S : NT;    // threads holding block rows
+  constexpr int WL = NL < 32 ? NL : 32;  // ... of a warp
+  constexpr int RPL = S / NL;            // rows per lane, contiguous
+  constexpr int PRO = S / STEP;          // prologue steps (the initial grow)
+  constexpr int P = BLOCK_PAIRS<G>;      // pairs a block
+  constexpr int GW = G > 1 ? G * P : 1;  // the block's warps, several a pair
 
   __shared__ int tab[PROFILE ? 1 : MAX_ALPHA * MAX_ALPHA];
-  __shared__ int tails[WARPS][2][STEP];  // a step's bottom D and R cells
+  __shared__ int tails[P][2][STEP];  // a step's bottom D and R cells
   // profile: the profile rows of a right step's 8 entering columns
-  __shared__ int prows[WARPS][PROFILE ? STEP * PROF_WORDS : 1];
+  __shared__ int prows[P][PROFILE ? STEP * PROF_WORDS : 1];
+  // several warps a pair, by the column's parity: a warp's scan at its last
+  // row, and there D before R, (profiles) D plus R open and the close
+  __shared__ int wagg[2][GW], wdp[2][GW];
+  __shared__ int wt[2][PROFILE ? GW : 1], wcl[2][PROFILE ? GW : 1];
+  // ... and at a step's end: a warp's maximum, (warp 0) the first 8 rows'
+  // active and passive maxima, its x-drop key; the rebased passive D and R
+  // of its first 8 rows; the passive D of its last row; free end gaps' keys
+  // by column; global mode's frozen cell
+  __shared__ int wred[GW][4];
+  __shared__ int wfirst[GW][2][STEP];
+  __shared__ int wlast[GW];
+  __shared__ int fkeys[LANE_FLAGS ? STEP : 1][GW];
+  __shared__ int fscore[P];
 
 #if LANE_FLAGS
   // the modes of this launch
@@ -218,6 +353,7 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
     __syncthreads();
   }
 #else
+  constexpr bool byte = false;
   if constexpr (!PROFILE) {
     for (int k = threadIdx.x; k < alpha * alpha; k += blockDim.x)
       tab[k] = table[k];
@@ -226,14 +362,17 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
 #endif
 
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * WARPS + warp;
+  const int warp = threadIdx.x >> 5;  // in the block
+  const int pp = warp / G;            // the pair in the block
+  const int wi = warp - pp * G;       // the warp in the pair
+  const int gt = wi * 32 + lane;      // the thread in the pair
+  const int b = blockIdx.x * P + pp;
   if (b >= B) return;
-  int* tailD = tails[warp][0];
-  int* tailR = tails[warp][1];
-  int* prow = prows[warp];
-  const bool on = lane < NL;
-  const int row0 = lane * RPL;
+  int* tailD = tails[pp][0];
+  int* tailR = tails[pp][1];
+  int* prow = prows[pp];
+  const bool on = NL == NT || gt < NL;
+  const int row0 = gt * RPL;
   const int ql = qlen[b], rl = rlen[b];
   // profile: codes (B, cap) of the queries and table (B, cap, 8) of the
   // profiles' words; else codes (B, 2, cap) of both sequences
@@ -252,6 +391,9 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
     vj[k] = 0;
   }
   int xbest = 0, xbi = 0, xbj = 0, xiter = 0;
+  // several warps, in a warp's lane 0: the active D of the row above the
+  // warp's first, in the previous column
+  int upA = 0;
 
   int I = 0, J = 0, off = 0, offmax = 0, dir = 2, pdir = 2, corn = NEG;
   int ybest = -(1 << 30), yiter = 0, susp = 0, score = 0;
@@ -261,6 +403,16 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   bool fra = S > ql;
   int frt = rl, fridx = min(max(ql, 0), S - 1);
   int nsteps = 0;  // trace: the steps this pair executed
+  // sequences: the next step's codes, loaded a step ahead, by its direction:
+  // the lanes' and columns' codes of a right step (query rows from I,
+  // reference columns) and of a down step (reference rows from J, query
+  // columns); the first step's are the prologue's
+  constexpr int LW = (RPL + 3) / 4;
+  unsigned nlr[LW], nld[LW], ncr[2], ncd[2];
+  if constexpr (!PROFILE) {
+    load_codes<RPL>(qs, row0, cap, nlr);
+    load_codes<STEP>(rs, 0, cap, ncr);
+  }
 #if LANE_FLAGS
   // free end gaps: this lane's row of residue qlen % 16 (if it holds one:
   // its rows lie in one 16-row chunk), that row's chunk, the residue's
@@ -271,11 +423,12 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   int fvm = NEG, fj = 0;
 #endif
 
+  // probe: pair start (the `probe:` lines mark the sections that
+  // scripts_torch/probe_big_kernel.py times in a copy of this source)
   for (int s = 0; s < max_steps && !done; ++s) {
+    // probe: step start
     const bool in_pro = s < PRO;
     int oa = 0, cvec = NEG, lstart = 0, cpos0 = s * STEP;
-    const uint8_t* lseq = qs;
-    const uint8_t* cseq = rs;
 #if LANE_FLAGS
     int rz = ZERO;  // the relative zero of local start and free start gaps
 #endif
@@ -285,11 +438,12 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       off = offmax;
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
-        actD[k] = sat(actD[k] + oa);
-        actC[k] = sat(actC[k] + oa);
+        actD[k] = sat2(actD[k] + oa);
+        actC[k] = sat2(actC[k] + oa);
       }
+      if constexpr (G > 1) upA = sat2(upA + oa);
       const bool flip = (dir == 0 && pdir == 1) || (dir == 1 && pdir == 0);
-      cvec = flip ? sat(corn + oa) : NEG;
+      cvec = flip ? sat2(corn + oa) : NEG;
       const bool right = dir != 1;
       lstart = right ? I : J;
       cpos0 = (right ? J : I) + S - STEP;
@@ -297,8 +451,6 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       fra = lstart + S > lane_len;
       frt = col_len - cpos0;
       fridx = min(max(lane_len - lstart, 0), S - 1);
-      lseq = right ? qs : rs;
-      cseq = right ? rs : qs;
 #if LANE_FLAGS
       rz = min(max(ZERO - off, NEG), 32767);
 #endif
@@ -312,7 +464,7 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
     if constexpr (TRACE) {
       ++nsteps;
       // the step's rect descriptor; the prologue is one right rect at (0, 0)
-      if (lane == 0)
+      if (gt == 0)
         tdesc[(size_t)s * B + b] =
             in_pro ? make_int4(1 | (s == 0 ? 2 : 0), 0, cpos0, S)
                    : make_int4((dir != 1 ? 1 : 0) | 2, lstart, cpos0, S);
@@ -324,7 +476,12 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
 #endif
     }
     const bool right = in_pro || dir != 1;  // lanes are query rows
-    int lc[RPL], cc[STEP];
+    int lc[RPL], cc[STEP];  // profiles: the lanes' and columns' codes
+    // sequences: the columns' codes, packed (col(w) is column w's), and a
+    // column's table scores of the lane's rows
+    unsigned ccw[2];
+    auto col = [&](int w) { return min(code_at(ccw[w >> 2], w), alpha - 1); };
+    int sc[RPL];
     if constexpr (PROFILE) {
       // lanes are query rows on right steps and profile positions on down
       // steps (the profile is the reference)
@@ -338,26 +495,34 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
       if (right) {
         // the 8 entering positions' rows, 256 contiguous bytes
 #pragma unroll
-        for (int i = lane; i < STEP * PROF_WORDS; i += 32)
+        for (int i = gt; i < STEP * PROF_WORDS; i += NT)
           prow[i] = pw[(size_t)min(cpos0 + i / PROF_WORDS, cap - 1) *
                            PROF_WORDS + i % PROF_WORDS];
       }
-      __syncwarp();
+      pair_sync<G>(pp);
     } else {
+      // this step's codes, loaded by the step before
 #pragma unroll
       for (int k = 0; k < RPL; ++k)
-        lc[k] = on ? min((int)lseq[min(lstart + row0 + k, cap - 1)], alpha - 1)
-                   : 0;
+        lc[k] = min(code_at(right ? nlr[k >> 2] : nld[k >> 2], k), alpha - 1);
+      ccw[0] = right ? ncr[0] : ncd[0];
+      ccw[1] = right ? ncr[1] : ncd[1];
+      // and the next step's, whichever way it goes
+      load_codes<RPL>(qs, I + row0, cap, nlr);
+      load_codes<RPL>(rs, J + row0, cap, nld);
+      load_codes<STEP>(rs, s + 1 < PRO ? (s + 1) * STEP : J + S, cap, ncr);
+      load_codes<STEP>(qs, I + S, cap, ncd);
+      // the first column's scores (each column loads the next one's)
 #pragma unroll
-      for (int w = 0; w < STEP; ++w)
-        cc[w] = min((int)cseq[min(cpos0 + w, cap - 1)], alpha - 1);
+      for (int k = 0; k < RPL; ++k)
+        sc[k] = byte ? 0 : tab[col(0) * alpha + lc[k]];
     }
 
 #pragma unroll
     for (int w = 0; w < STEP; ++w) {
-      const int* trow = tab + cc[w] * alpha;
+      // probe: row pass
       int up = __shfl_up_sync(FULL, actD[RPL - 1], 1);
-      if (lane == 0) up = w == 0 ? cvec : NEG;
+      if (lane == 0) up = wi > 0 ? upA : w == 0 ? cvec : NEG;
       int D[RPL], C[RPL], T[RPL], CO[RPL];
       int DO[RPL], CL[RPL], CE[RPL];  // profile: D_open, close, closed C
 #pragma unroll
@@ -367,73 +532,120 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
           // down step's the row of its own position by the entering code
           const int* row = right ? prow + w * PROF_WORDS
                                  : pw + (size_t)lc[k] * PROF_WORDS;
-          int d = sat((k == 0 ? up : actD[k - 1]) +
-                      prof_score(row, right ? lc[k] : cc[w]));
-          if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // origin
+          int d = sat2((k == 0 ? up : actD[k - 1]) +
+                       prof_score(row, right ? lc[k] : cc[w]));
+          if (k == 0 && w == 0 && s == 0 && gt == 0) d = ZERO;  // origin
 #if LANE_FLAGS
           if (local) d = max(d, rz);
-          else if (ins0 && k == 0 && lane == 0) d = rz;
+          else if (ins0 && k == 0 && gt == 0) d = rz;
 #endif
           const ProfGaps g(row[PROF_WORDS - 1], right, gext);
-          const int co = sat(actD[k] + g.copen);
+          const int co = sat2(actD[k] + g.copen);
           DO[k] = g.dopen;
           CL[k] = g.close;
-          C[k] = max(sat(actC[k] + gext), co);
+          C[k] = __viaddmax_s32(actC[k], gext, co);
           // a right step closes C before the merge; C stays pre-close
-          CE[k] = right ? sat(C[k] + g.close) : C[k];
+          CE[k] = right ? sat2(C[k] + g.close) : C[k];
           D[k] = max(d, CE[k]);
           if constexpr (TRACE) CO[k] = co;
         } else {
 #if LANE_FLAGS
           // byte mode compares the codes; the flags restart cells at the
           // relative zero
-          int d = sat((k == 0 ? up : actD[k - 1]) +
-                      (byte ? (lc[k] == cc[w] ? bmatch : bmismatch)
-                            : trow[lc[k]]));
-          if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
+          int d = sat2((k == 0 ? up : actD[k - 1]) +
+                       (byte ? (lc[k] == col(w) ? bmatch : bmismatch)
+                             : sc[k]));
+          if (k == 0 && w == 0 && s == 0 && gt == 0) d = ZERO;  // DP origin
           if (local) d = max(d, rz);
-          else if (ins0 && k == 0 && lane == 0) d = rz;
+          else if (ins0 && k == 0 && gt == 0) d = rz;
 #else
-          int d = sat((k == 0 ? up : actD[k - 1]) + trow[lc[k]]);
-          if (k == 0 && w == 0 && s == 0 && lane == 0) d = ZERO;  // DP origin
+          int d = sat2((k == 0 ? up : actD[k - 1]) + sc[k]);
+          if (k == 0 && w == 0 && s == 0 && gt == 0) d = ZERO;  // DP origin
 #endif
-          const int co = sat(actD[k] + gopen);
-          C[k] = max(sat(actC[k] + gext), co);
+          const int co = __viaddmax_s32(actD[k], gopen, NEG);
+          C[k] = __viaddmax_s32(actC[k], gext, co);
           D[k] = max(d, C[k]);
           if constexpr (TRACE) CO[k] = co;
         }
       }
+      if constexpr (!PROFILE) {
+        // the next column's scores, loaded while this one's scan runs
+        if (w + 1 < STEP && !byte) {
+#pragma unroll
+          for (int k = 0; k < RPL; ++k)
+            sc[k] = tab[col(w + 1) * alpha + lc[k]];
+        }
+      }
+      // probe: lane scan
       // max-plus prefix scan of D + (open - extend) down the block (profile:
       // of D plus the cell's R open): serial inside the lane, log-step
-      // across lanes, then the zero correction
+      // across lanes and warps, then the zero correction
       if constexpr (PROFILE) {
 #pragma unroll
         for (int k = 0; k < RPL; ++k) {
-          DO[k] = sat(D[k] + DO[k]);
-          T[k] = k == 0 ? DO[k] : max(DO[k], T[k - 1] + gext);
+          DO[k] = sat2(D[k] + DO[k]);
+          T[k] = k == 0 ? DO[k] : __viaddmax_s32(T[k - 1], gext, DO[k]);
         }
       } else {
         T[0] = D[0] + (gopen - gext);
 #pragma unroll
         for (int k = 1; k < RPL; ++k)
-          T[k] = max(D[k] + (gopen - gext), T[k - 1] + gext);
+          T[k] = __viaddmax_s32(T[k - 1], gext, D[k] + (gopen - gext));
       }
+      // probe: shuffle scan
+      // (a lane below d gets its own carry back, which the add cannot raise)
       int carry = T[RPL - 1];
 #pragma unroll
-      for (int d = 1; d < NL; d <<= 1) {
-        const int o = __shfl_up_sync(FULL, carry, d);
-        if (lane >= d) carry = max(carry, o + gext * RPL * d);
+      for (int d = 1; d < WL; d <<= 1)
+        carry = __viaddmax_s32(__shfl_up_sync(FULL, carry, d),
+                               gext * RPL * d, carry);
+      // the scan at the row above the lane's first
+      int E = __shfl_up_sync(FULL, carry, 1);
+      if (lane == 0) E = FAR;
+      int rinA = 0;  // a warp's lane 0: the R-open bit of the row above
+      if constexpr (G > 1) {
+        const int par = w & 1;
+        if (lane == 31) {
+          wagg[par][warp] = carry;
+          wdp[par][warp] = D[RPL - 1];
+          if constexpr (PROFILE) {
+            wt[par][warp] = DO[RPL - 1];
+            wcl[par][warp] = CL[RPL - 1];
+          }
+        }
+        pair_sync<G>(pp);  // the warps' scans are visible
+        // every lane loads the warps' scans and the row above the warp's
+        // first (warp 0: its own last, unused) at once
+        const int w0 = warp - wi, above = wi > 0 ? warp - 1 : warp;
+        int agg[G];
+#pragma unroll
+        for (int v = 0; v < G; ++v) agg[v] = wagg[par][w0 + v];
+        const int dA = wdp[par][above];
+        int cw = FAR;  // the scan at the last row of the warp above
+#pragma unroll
+        for (int v = 0; v + 1 < G; ++v)
+          if (v < wi) cw = __viaddmax_s32(cw, gext * 32 * RPL, agg[v]);
+        E = lane == 0 ? cw : __viaddmax_s32(cw, gext * RPL * lane, E);
+        // that row's R and final D (the next column's diagonal into the
+        // warp's lane 0) and its R-open bit
+        const int RA = max(cw, gext * STEP);
+        if constexpr (PROFILE) {
+          upA = max(dA, right ? RA : sat2(RA + wcl[par][above]));
+          rinA = wi > 0 && RA == wt[par][above];
+        } else {
+          upA = max(dA, RA);
+          rinA = wi > 0 && RA == dA + (gopen - gext);
+        }
       }
-      const int prev = __shfl_up_sync(FULL, carry, 1);
+      // probe: second pass
       int nib[RPL], rbits = 0;
 #pragma unroll
       for (int k = 0; k < RPL; ++k) {
-        const int t = lane > 0 ? max(T[k], prev + gext * (k + 1)) : T[k];
-        T[k] = max(t, zc[k]);  // R
+        T[k] = __vimax3_s32(T[k], E + gext * (k + 1), zc[k]);  // R
         if constexpr (PROFILE) {
           // a down step closes R before the merge; the bits compare D with
           // the closed C and R
-          const int re = right ? T[k] : sat(T[k] + CL[k]);
+          const int re = right ? T[k] : sat2(T[k] + CL[k]);
           if constexpr (TRACE) {
             const int dn = max(D[k], re);
             nib[k] = (dn == CE[k]) | (dn == re) << 1 | (C[k] == CO[k]) << 2;
@@ -458,18 +670,23 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
 #endif
         actD[k] = D[k];
         actC[k] = C[k];
-        if (on) dmax = max(dmax, D[k]);
+      }
+      if (on) {
+#pragma unroll
+        for (int k = 0; k + 1 < RPL; k += 2)
+          dmax = __vimax3_s32(dmax, D[k], D[k + 1]);
+        if constexpr (RPL % 2 == 1) dmax = max(dmax, D[RPL - 1]);
       }
       if constexpr (TRACE) {
         // bit k: the R bit of the row above row0 + k (0 above row 0)
         const int up_bits = __shfl_up_sync(FULL, rbits, 1);
         const int above =
-            rbits << 1 | (lane > 0 ? (up_bits >> (RPL - 1)) & 1 : 0);
+            rbits << 1 | (lane > 0 ? (up_bits >> (RPL - 1)) & 1 : rinA);
 #pragma unroll
         for (int k = 0; k < RPL; ++k)
           wd[k] |= (unsigned)(nib[k] | ((above >> k) & 1) << 3) << (4 * w);
       }
-      if (lane == NL - 1) {
+      if (gt == NL - 1) {
         tailD[w] = D[RPL - 1];
         tailR[w] = T[RPL - 1];
       }
@@ -484,17 +701,21 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         }
 #if LANE_FLAGS
       } else if (fend) {
-        // free end gaps: residue qlen % 16's max into its running max; the
-        // column is the best's when a row of a chunk reaching past qlen
-        // equals it
+        // free end gaps: the column's key of residue qlen % 16, 2 D + (the
+        // row's chunk reaches past qlen), into the running max; the column
+        // is the best's when a row past qlen holds the new max
         int v = D[0];
 #pragma unroll
         for (int k = 1; k < RPL; ++k)
           if (opaque(k) == fidx) v = D[k];
-        fvm = max(fvm, __reduce_max_sync(FULL, fhas ? v : INT_MIN_));
-        if (__any_sync(FULL, fhas && v == fvm &&
-                                 lstart + 16 * fchunk + 16 > ql))
-          fj = cpos0 + w;
+        const int key = __reduce_max_sync(
+            FULL, fhas ? 2 * v + (lstart + 16 * fchunk + 16 > ql) : INT_MIN_);
+        if constexpr (G == 1) {
+          if ((key >> 1) >= fvm && (key & 1)) fj = cpos0 + w;
+          fvm = max(fvm, key >> 1);
+        } else if (lane == 0) {
+          fkeys[w][warp] = key;  // folded at the step's end
+        }
 #endif
       } else {
         // freeze: the block covering (qlen, rlen) reached the last column
@@ -505,12 +726,16 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
 #pragma unroll
           for (int k = 1; k < RPL; ++k)
             if (k == idx) v = D[k];
-          score = off + __shfl_sync(FULL, v, src) - ZERO;
+          if constexpr (G == 1)
+            score = off + __shfl_sync(FULL, v, src) - ZERO;
+          else if (gt == src)
+            fscore[pp] = off + v - ZERO;
           done = true;
           break;
         }
       }
     }
+    // probe: step end
 #if LANE_FLAGS
     if constexpr (TRACE) {
       if (on) {
@@ -542,8 +767,71 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
     }
 #endif
     if (done) break;
-    __syncwarp();  // the step's tail cells are visible to the warp
+    const bool decide = s >= PRO - 1;
+    const bool shift = s >= PRO;  // a decided step after the prologue's last
+    if (shift) {
+      // the passive border's rebase; several warps post their first 8 rows
+      // for the warp above; then row r <- row r + 8 inside the warp (its
+      // last 8 rows come after the barrier); the pre-splice row 7 is the
+      // next step's corner (each warp's own row 7: its lane 0's diagonal if
+      // the borders swap)
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) {
+        pasD[k] = sat2(pasD[k] + oa);
+        pasR[k] = sat2(pasR[k] + oa);
+      }
+      if constexpr (G > 1) {
+#pragma unroll
+        for (int k = 0; k < RPL; ++k) {
+          if (lane * RPL + k < STEP) {
+            wfirst[warp][0][lane * RPL + k] = pasD[k];
+            wfirst[warp][1][lane * RPL + k] = pasR[k];
+          }
+        }
+      }
+      corn = __shfl_sync(FULL, pasD[7 % RPL], 7 / RPL);
+      shift_rows<RPL>(pasD);
+      shift_rows<RPL>(pasR);
+    }
+    if constexpr (G > 1) {
+      if (decide) {
+        // each warp's part of the decision: its maximum, (warp 0) the first
+        // 8 rows of both borders, its x-drop key
+        const int wmax = __reduce_max_sync(FULL, dmax);
+        if (lane == 0) wred[warp][0] = wmax;
+        if (wi == 0) {
+          int ah = INT_MIN_, ph = INT_MIN_;
+#pragma unroll
+          for (int k = 0; k < RPL; ++k) {
+            if (row0 + k < STEP) {
+              ah = max(ah, actD[k]);
+              ph = max(ph, pasD[k]);
+            }
+          }
+          ah = __reduce_max_sync(FULL, ah);
+          ph = __reduce_max_sync(FULL, ph);
+          if (lane == 0) {
+            wred[warp][1] = ah;
+            wred[warp][2] = ph;
+          }
+        }
+        if constexpr (XDROP) {
+          const int key = __reduce_max_sync(
+              FULL, xkey<RPL>(vm, vj, wmax, row0, in_pro ? 0 : cpos0, on));
+          if (lane == 0) wred[warp][3] = key;
+        }
+      }
+      // the row handed down when the prologue's borders swap
+      if (lane == 31 && s == PRO - 1) wlast[warp] = pasD[RPL - 1];
+    }
+    pair_sync<G>(pp);  // the step's tail cells (and the warps' parts) are in
 
+    if (shift) {
+      // the warp's last 8 rows: the next warp's first, or the bottom cells
+      const bool last = G == 1 || wi == G - 1;
+      fill_rows<WL, RPL>(pasD, last ? tailD : wfirst[warp + 1][0], lane);
+      fill_rows<WL, RPL>(pasR, last ? tailR : wfirst[warp + 1][1], lane);
+    }
     if (in_pro) {
       // the prologue's bottom cells fill passive rows 8s..8s+7
 #pragma unroll
@@ -555,25 +843,51 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         }
       }
     }
-    if (s >= PRO - 1) {
-      if (s != PRO - 1) {
+#if LANE_FLAGS
+    if constexpr (G > 1 && !XDROP) {
+      if (fend) {
+        // the step's columns' keys over the pair's warps, in column order
+#pragma unroll 1
+        for (int w = 0; w < STEP; ++w) {
+          int key = INT_MIN_;
+#pragma unroll
+          for (int v = 0; v < G; ++v) key = max(key, fkeys[w][warp - wi + v]);
+          if ((key >> 1) >= fvm && (key & 1)) fj = cpos0 + w;
+          fvm = max(fvm, key >> 1);
+        }
+      }
+    }
+#endif
+    if (decide) {
+      int cur, ah = INT_MIN_, ph = INT_MIN_;
+      if constexpr (G == 1) {
+#if LANE_FLAGS
+        // free end gaps: the rebase and the y-drop counter follow row
+        // qlen's residue
+        cur = fend ? fvm : __reduce_max_sync(FULL, dmax);
+#else
+        cur = __reduce_max_sync(FULL, dmax);
+#endif
+        // the first 8 rows of both borders, for the direction
 #pragma unroll
         for (int k = 0; k < RPL; ++k) {
-          pasD[k] = sat(pasD[k] + oa);
-          pasR[k] = sat(pasR[k] + oa);
+          if (row0 + k < STEP) {
+            ah = max(ah, actD[k]);
+            ph = max(ph, pasD[k]);
+          }
         }
-        // the pre-splice row 7 is the next step's corner
-        corn = __shfl_sync(FULL, pasD[7 % RPL], 7 / RPL);
-        shift_tail<NL, RPL>(pasD, tailD, lane);
-        shift_tail<NL, RPL>(pasR, tailR, lane);
-      }
+        ah = __reduce_max_sync(FULL, ah);
+        ph = __reduce_max_sync(FULL, ph);
+      } else {
+        cur = INT_MIN_;
+#pragma unroll
+        for (int v = 0; v < G; ++v) cur = max(cur, wred[warp - wi + v][0]);
 #if LANE_FLAGS
-      // free end gaps: the rebase and the y-drop counter follow row qlen's
-      // residue
-      const int cur = fend ? fvm : __reduce_max_sync(FULL, dmax);
-#else
-      const int cur = __reduce_max_sync(FULL, dmax);
+        if (fend) cur = fvm;
 #endif
+        ah = wred[warp - wi][1];
+        ph = wred[warp - wi][2];
+      }
       const int off_max = off + cur - ZERO;
       dmax = INT_MIN_;
       offmax = off_max;
@@ -602,19 +916,19 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
           // the new best's position: the lowest residue holding the
           // step's max, then the latest column and the highest chunk
           // reaching it (reference: src/avx2.rs:269-274)
-          int rlow = 16;
+          const int base = in_pro ? 0 : cpos0;
+          int key = -1;
+          if constexpr (G == 1) {
+            key = __reduce_max_sync(FULL,
+                                    xkey<RPL>(vm, vj, cur, row0, base, on));
+          } else {
 #pragma unroll
-          for (int k = 0; k < RPL; ++k)
-            if (on && vm[k] == cur) rlow = min(rlow, (row0 + k) & 15);
-          const int r = __reduce_min_sync(FULL, rlow);
-          int col = INT_MIN_;
-#pragma unroll
-          for (int k = 0; k < RPL; ++k)
-            if (on && ((row0 + opaque(k)) & 15) == r && vm[k] == cur)
-              col = vj[k];
-          const int bj = __reduce_max_sync(FULL, col);
-          const int ch = __reduce_max_sync(FULL, col == bj ? row0 >> 4 : -1);
-          const int bi = lstart + 16 * ch + r;
+            for (int v = 0; v < G; ++v)
+              if (wred[warp - wi + v][0] == cur)
+                key = max(key, wred[warp - wi + v][3]);
+          }
+          const int bi = lstart + 16 * (key & 31) + 15 - (key >> 14);
+          const int bj = base + ((key >> 5) & 511);
           xbest = off_max;
           xbi = dir != 1 ? bi : bj;
           xbj = dir != 1 ? bj : bi;
@@ -633,16 +947,6 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
         }
       }
       // direction from the first 8 rows of both borders
-      int ah = INT_MIN_, ph = INT_MIN_;
-#pragma unroll
-      for (int k = 0; k < RPL; ++k) {
-        if (row0 + k < STEP) {
-          ah = max(ah, actD[k]);
-          ph = max(ph, pasD[k]);
-        }
-      }
-      ah = __reduce_max_sync(FULL, ah);
-      ph = __reduce_max_sync(FULL, ph);
       const bool right_now = dir != 1;
       const int right_max = right_now ? ah : ph;
       const int down_max = right_now ? ph : ah;
@@ -665,12 +969,23 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
           pasD[k] = d;
           pasR[k] = c;
         }
+        // the row above a warp's first: the new active border's
+        if constexpr (G > 1)
+          if (wi > 0) upA = shift ? corn : wlast[warp - 1];
       }
       dir = new_dir;
     }
-    __syncwarp();  // tail cells read before the next step writes them
+    if constexpr (G == 1)
+      __syncwarp();  // tail cells read before the next step writes them
   }
-  if (lane == 0) {
+  if constexpr (G > 1 && !XDROP) {
+    if (done) {
+      pair_sync<G>(pp);  // the frozen cell's score is in
+      score = fscore[pp];
+    }
+  }
+  // probe: pair end
+  if (gt == 0) {
     if constexpr (TRACE) tsteps[b] = nsteps;
     if constexpr (XDROP) {
       out[4 * b] = xbest;
@@ -691,22 +1006,86 @@ lane_align_kernel(const uint8_t* __restrict__ codes,
   }
 }
 
+// The instance of block S and G warps a pair, x-drop or global, traced or
+// not.
+template <int S, int G>
+auto instance(bool xdrop, bool trace) {
+  constexpr bool P = LANE_PROFILE;
+  return trace ? (xdrop ? lane_align_kernel<S, G, true, true, P>
+                        : lane_align_kernel<S, G, false, true, P>)
+               : (xdrop ? lane_align_kernel<S, G, true, false, P>
+                        : lane_align_kernel<S, G, false, false, P>);
+}
+
+// The SMs of the current device (1 if it cannot say).
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 1;
+  return n;
+}
+
+// The warps a pair takes in a launch of B pairs at block S.
+template <int S>
+int launch_warps(int B) {
+  return B <= FEW_PAIRS * sm_count() ? WIDE_WARPS<S> : NARROW_WARPS<S>;
+}
+
+template <int S, int G>
+cudaError_t launch_g(const uint8_t* codes, const int* qlen, const int* rlen,
+                     const int* table, int* out, int* twords, int4* tdesc,
+                     int* tsteps, int B, int cap, int alpha, int max_steps,
+                     int gopen, int gext, int xdrop, int flags, int bmatch,
+                     int bmismatch, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((B + BLOCK_PAIRS<G> - 1) / BLOCK_PAIRS<G>);
+  const int threads = BLOCK_THREADS<G>;
+  auto kernel = instance<S, G>(xdrop >= 0, twords != nullptr);
+  kernel<<<grid, threads, 0, stream>>>(
+      codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
+      max_steps, gopen, gext, xdrop LANE_MODE_ARGS);
+  return cudaGetLastError();
+}
+
 template <int S>
 cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
                    const int* table, int* out, int* twords, int4* tdesc,
                    int* tsteps, int B, int cap, int alpha, int max_steps,
                    int gopen, int gext, int xdrop, int flags, int bmatch,
                    int bmismatch, cudaStream_t stream) {
-  constexpr bool P = LANE_PROFILE;
-  const unsigned grid = (unsigned)((B + WARPS - 1) / WARPS);
-  auto kernel = twords ? (xdrop < 0 ? lane_align_kernel<S, false, true, P>
-                                    : lane_align_kernel<S, true, true, P>)
-                       : (xdrop < 0 ? lane_align_kernel<S, false, false, P>
-                                    : lane_align_kernel<S, true, false, P>);
-  kernel<<<grid, WARPS * 32, 0, stream>>>(
+  if constexpr (WIDE_WARPS<S> != NARROW_WARPS<S>) {
+    if (launch_warps<S>(B) == WIDE_WARPS<S>)
+      return launch_g<S, WIDE_WARPS<S>>(
+          codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
+          max_steps, gopen, gext, xdrop, flags, bmatch, bmismatch, stream);
+  }
+  return launch_g<S, NARROW_WARPS<S>>(
       codes, qlen, rlen, table, out, twords, tdesc, tsteps, B, cap, alpha,
-      max_steps, gopen, gext, xdrop LANE_MODE_ARGS);
-  return cudaGetLastError();
+      max_steps, gopen, gext, xdrop, flags, bmatch, bmismatch, stream);
+}
+
+// A launch's shape (lane_launch_shape) at block S and G warps a pair.
+template <int S, int G>
+cudaError_t shape_g(bool xdrop, bool trace, int* got) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, instance<S, G>(xdrop, trace), BLOCK_THREADS<G>, 0);
+  got[0] = BLOCK_THREADS<G>;
+  got[1] = blocks;
+  got[2] = G;
+  got[3] = BLOCK_PAIRS<G>;
+  got[4] = blocks * BLOCK_PAIRS<G>;
+  return err;
+}
+
+template <int S>
+cudaError_t shape_of(int B, bool xdrop, bool trace, int* got) {
+  if constexpr (WIDE_WARPS<S> != NARROW_WARPS<S>) {
+    if (launch_warps<S>(B) == WIDE_WARPS<S>)
+      return shape_g<S, WIDE_WARPS<S>>(xdrop, trace, got);
+  }
+  return shape_g<S, NARROW_WARPS<S>>(xdrop, trace, got);
 }
 
 }  // namespace
@@ -725,7 +1104,9 @@ cudaError_t launch(const uint8_t* codes, const int* qlen, const int* rlen,
 // query start gaps 2, free query end gaps 4 (out (B, 4) as in x-drop, no
 // x-drop) and byte mode 8 (codes are raw bytes, alpha 256, table not read,
 // match and mismatch scores `match` / `mismatch`; no x-drop, no profile).
-// Returns the launch's cudaError_t.
+// The gap costs gopen and gext must be <= 0: the kernel's gap adds clamp at
+// the lower rail only.  A pair takes launch_warps<block>(B) warps
+// (lane_launch_shape).  Returns the launch's cudaError_t.
 extern "C" int lane_align_launch(const void* codes, const void* qlen,
                                  const void* rlen, const void* table,
                                  void* out, void* words, void* desc,
@@ -740,7 +1121,8 @@ extern "C" int lane_align_launch(const void* codes, const void* qlen,
       (flags && !LANE_FLAGS) ||
       ((flags & LOCAL_START) && (flags & FREE_START)) ||
       ((flags & FREE_END) && x_drop >= 0) ||
-      (byte && (x_drop >= 0 || LANE_PROFILE)))
+      (byte && (x_drop >= 0 || LANE_PROFILE)) || gext > 0 ||
+      (!LANE_PROFILE && gopen > 0))
     return (int)cudaErrorInvalidValue;
   const auto* c = static_cast<const uint8_t*>(codes);
   const auto* q = static_cast<const int*>(qlen);
@@ -758,6 +1140,26 @@ extern "C" int lane_align_launch(const void* codes, const void* qlen,
     case 128: return (int)launch<128>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
     case 256: return (int)launch<256>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
     case 512: return (int)launch<512>(c, q, r, t, o, tw, td, ts, B, cap, alpha, max_steps, gopen, gext, x_drop, flags, match, mismatch, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The launch shape of a launch of B pairs at block `block` (x-drop if
+// `x_drop`, traced if `trace`) on the current device: shape[0] threads a
+// block, shape[1] blocks resident on an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), shape[2] warps a pair,
+// shape[3] pairs a block, shape[4] pairs an SM.  Returns the query's
+// cudaError_t.
+extern "C" int lane_launch_shape(int block, int B, int x_drop, int trace,
+                                 int* shape) {
+  const bool x = x_drop, tr = trace;
+  switch (block) {
+    case 16: return (int)shape_of<16>(B, x, tr, shape);
+    case 32: return (int)shape_of<32>(B, x, tr, shape);
+    case 64: return (int)shape_of<64>(B, x, tr, shape);
+    case 128: return (int)shape_of<128>(B, x, tr, shape);
+    case 256: return (int)shape_of<256>(B, x, tr, shape);
+    case 512: return (int)shape_of<512>(B, x, tr, shape);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -55,7 +55,8 @@ the block covers both ends.
 The TPU's layout work (pairs in 128 lanes, banks, row splits, packed score
 stacks scored on the MXU, VMEM budgets) does not exist here: the plain
 version runs all pairs in lockstep under masks on (B, S) int32 tensors, and
-the kernel runs one warp per pair (``csrc/lane_kernel.cu``).
+the kernel runs a pair on one warp, or at block 512 on 4 warps (a batch of
+at most one pair an SM) or 2 (``csrc/lane_kernel.cu``, ``launch_shape``).
 """
 
 from __future__ import annotations
@@ -535,6 +536,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lane_align_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     lib.lane_align_launch.restype = ctypes.c_int
+    lib.lane_launch_shape.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.lane_launch_shape.restype = ctypes.c_int
     lib.lane_error_string.argtypes = [ctypes.c_int]
     lib.lane_error_string.restype = ctypes.c_char_p
     return lib
@@ -559,6 +562,28 @@ LIBRARIES = tuple(f"{k}_{v}" for k in ("lane", "adaptive")
 def _lib(name: str) -> ctypes.CDLL:
     """A library of the lane kernel (``library``), built and bound."""
     return bind(_build.load(name))
+
+
+def launch_shape(cfg: LaneKernelConfig, pairs: int):
+    """``(threads a block, blocks an SM, warps a pair, pairs a block, pairs
+    an SM)`` of a launch of ``pairs`` pairs at ``cfg`` on the current CUDA
+    device, blocks an SM from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``.
+    A pair takes 4 warps at block 512 in a launch of at most one pair an
+    SM and 2 in a larger one, 1 at every other block; a 128-thread block
+    carries 4, 2 or 1 pairs."""
+    return _launch_shape(cfg, pairs, torch.cuda.current_device())
+
+
+@functools.cache
+def _launch_shape(cfg: LaneKernelConfig, pairs: int, device: int):
+    got = (ctypes.c_int * 5)()
+    lib = _lib(library("lane", cfg))
+    err = lib.lane_launch_shape(cfg.block, pairs, int(cfg.x_drop),
+                                int(cfg.trace), ctypes.addressof(got))
+    if err:
+        raise RuntimeError(f"lane kernel shape query failed: "
+                           f"{lib.lane_error_string(err).decode()}")
+    return tuple(got)
 
 
 def x_value(gaps, cfg) -> int:
@@ -614,7 +639,8 @@ def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
 
     CPU tensors take ``lane_align_plain``; CUDA tensors launch the kernel of
     ``csrc/lane_kernel.cu`` (the library ``library`` names) on the current
-    stream or raise.  The wrapper counts its launches by instance (``COUNTERS``):
+    stream (its warps a pair: ``launch_shape``), or raise (also on a
+    positive gap cost, or codes not 8-byte aligned).  The wrapper counts its launches by instance (``COUNTERS``):
     ``lane_align.launches`` (global), ``xdrop_launches``,
     ``trace_launches`` and ``xdrop_trace_launches``, and the same with
     ``profile_``, ``byte_`` or ``flags_`` (local start or free gaps) in
@@ -626,6 +652,12 @@ def lane_align(codes, qlen, rlen, table, gaps, cfg: LaneKernelConfig):
         raise ValueError(f"no lane kernel for device {dev}")
     B = codes.shape[0]
     check_inputs(codes, qlen, rlen, table, cfg)
+    if codes.data_ptr() % 8:
+        raise ValueError("codes must be 8-byte aligned")
+    if int(gaps[1]) > 0 or (not cfg.profile and int(gaps[0]) > 0):
+        # the kernel clamps its gap adds at the lower i16 rail only
+        raise ValueError(f"the lane kernel takes gap costs <= 0, got "
+                         f"({int(gaps[0])}, {int(gaps[1])})")
     out = torch.empty((B, 4 if wide(cfg) else 2), dtype=torch.int32,
                       device=dev)
     res, ptrs = trace_buffers(out, cfg, cfg.block * trace_words(cfg))

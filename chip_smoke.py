@@ -918,12 +918,15 @@ def parse_ptxas(log, name):
     trace = ", trace" if name.startswith("big_trace") else ""
     lines, fn, frame = [], None, ""
     for line in log.splitlines():
+        # the lane kernel's instances name their warps a pair too
         m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
-                      r"ILi(\d+)ELb([01])ELb([01])ELb([01])E", line)
+                      r"ILi(\d+)E(?:Li(\d+)E)?Lb([01])ELb([01])ELb([01])E",
+                      line)
         if m:
-            fn = (f"{m[1]}<{m[2]}, {'x_drop' if m[3] == '1' else 'global'}"
-                  f"{', trace' if m[4] == '1' else ''}"
-                  f"{', profile' if m[5] == '1' else ''}{flags}>")
+            fn = (f"{m[1]}<{m[2]}, {m[3] + ' warps, ' if m[3] else ''}"
+                  f"{'x_drop' if m[4] == '1' else 'global'}"
+                  f"{', trace' if m[5] == '1' else ''}"
+                  f"{', profile' if m[6] == '1' else ''}{flags}>")
         # csrc/big_kernel.cu's instances: x-drop or global, by the rows a
         # thread holds at most
         m = re.search(r"Compiling entry function '\w*?\d(big_align_kernel)"
@@ -1774,6 +1777,16 @@ def main():
                 f"{min(1.0, pairs / (sms * ps)):.3f} at {pairs} pairs a "
                 "launch")
 
+    def lane_shape(what, cfg, pairs):
+        """A ``[lane-shape]`` line: the lane kernel's launch shape at
+        ``cfg`` (``lk.launch_shape``) and the SM fill of a launch of
+        ``pairs`` pairs, min(1, pairs / (SMs x pairs an SM))."""
+        threads, blocks, warps, pb, ps = lk.launch_shape(cfg, pairs)
+        print(f"[lane-shape] {what}: {warps} warps a pair, "
+              f"{pb} pairs a block, {threads} threads a block, {blocks} "
+              f"blocks and {ps} pairs an SM: SM fill "
+              f"{min(1.0, pairs / (sms * ps)):.3f} at {pairs} pairs a launch")
+
     def merged(*paths):
         """One kernels-line entry for an instance that ran several paths:
         the launches of all, the numbers of the first."""
@@ -2499,6 +2512,7 @@ def main():
           f"on all {B} pairs ({plain_ms:.1f} ms, host clock)")
     print(f"[time] {card}: 512-pair subset: plain {plain512_ms * 1e3 / 512:.4f} "
           f"us/pair, kernel {kernel512_ms * 1e3 / 512:.4f} us/pair")
+    lane_shape("lane main path (phase 5), block 32", cfg, B)
     lane_plain_ms = plain_ms
     phase("5, lane main path")
 
@@ -3809,6 +3823,8 @@ def main():
               f"replay) {tpath_ms * 1e3 / B:.4f} us/pair, walk "
               f"(cigars_all) {walk_ms * 1e3 / n_cig:.4f} us/pair over "
               f"{n_cig}" + big_fill(cfg, B))
+        if al.route == "lane":
+            lane_shape(what, cfg, B)
         return numbers, tnumbers, res
 
     def long_numbers(main, vs):

@@ -162,8 +162,24 @@ inline void named_sync_(int id, int n) {
   named_[id]->arrive_and_wait();
 }
 #define BIG_NAMED_SYNC(id, n) named_sync_(id, n)
+#define LANE_NAMED_SYNC(id, n) named_sync_(id, n)
+// Hopper's DPX instructions
+inline int __viaddmax_s32(int a, int b, int c) { return std::max(a + b, c); }
+inline int __vimax3_s32(int a, int b, int c) {
+  return std::max(std::max(a, b), c);
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// an emulated device of 16 SMs
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 16;
+  return cudaSuccess;
+}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
@@ -244,8 +260,8 @@ void launch_shared(unsigned grid, unsigned block, size_t bytes, F body) {
 }  // namespace emu
 """
 
-LAUNCH = re.compile(r"(\w+)<<<(\w+), (WARPS \* 32), 0, stream>>>\((.*?)\);",
-                    re.S)
+LAUNCH = re.compile(r"(\w+)<<<(\w+), (WARPS \* 32|threads), 0, stream>>>"
+                    r"\((.*?)\);", re.S)
 # csrc/big_kernel.cu: a launch with dynamic shared memory, and its
 # declaration
 BIG_LAUNCH = re.compile(r"(\w+)<<<(\w+), (\w+), (\w+), stream>>>"
@@ -417,6 +433,73 @@ def test_lane_kernel_source_x_drop_matches_plain(emulated, S, setup, x):
     assert chip_smoke.x_dropped(got, pk) > 0
 
 
+def test_lane_kernel_source_x_drop_ties_across_warps(emulated):
+    """At S = 512 a pair takes 4 warps.  With gap costs of 0 a block's
+    maximum spreads down its columns, so at the decision every 16-row
+    chunk of the block ties: the best's position is the highest chunk's,
+    in the pair's last warp (query row 496 of the first block), equal to
+    the plain version's."""
+    pairs = chip_smoke.random_pairs(np.random.default_rng(512), chip_smoke.DNA,
+                                    8, 400)
+    cfg = lk.LaneKernelConfig(512, 1024, 16, x_drop=True)
+    pk = lk.pack_lane(pairs, scores.NW1, cfg, Gaps(0, 0), "cpu", x_drop=30)
+    got = launch(emulated["lane_kernel"].lane_align_launch, pk,
+                 torch.full((len(pairs), 4), -7, dtype=torch.int32),
+                 len(pairs), cfg.seq_cap, cfg.alpha, cfg.block, cfg.max_steps,
+                 x=30)
+    assert torch.equal(got, lk.lane_align_plain(*pk, cfg))
+    assert int(got[:, 1].max()) >= 3 * 128  # a row of the fourth warp
+
+
+def test_lane_launch_shape(emulated):
+    """At S = 512 a pair takes 4 warps in a launch of at most one pair an
+    SM (16 on the emulated device) and 2 in a larger one; 1 at S <= 256; a
+    block holds 128 threads."""
+    got = (ctypes.c_int * 5)()
+    fn = emulated["lane_kernel"].lane_launch_shape
+    for block, B, warps, pairs in ((512, 16, 4, 1), (512, 17, 2, 2),
+                                   (256, 3, 1, 4), (32, 5000, 1, 4)):
+        assert fn(block, B, 0, 0, ctypes.addressof(got)) == 0
+        assert (got[0], got[2], got[3]) == (128, warps, pairs)
+    assert fn(48, 1, 0, 0, ctypes.addressof(got)) != 0
+
+
+@pytest.mark.parametrize("mode", ["global", "x-drop-trace", "local-trace",
+                                  "profile-x-drop-trace"])
+def test_lane_kernel_source_two_warp_pairs(emulated, mode):
+    """A launch of more pairs than the emulated device's 16 SMs at S = 512
+    takes 2 warps a pair, 8 rows a lane: global, x-drop traced, local start
+    traced (its zero-bit words) and a profile x-drop traced on pairs that
+    run past the block, equal to the plain version's."""
+    rng = np.random.default_rng(len(mode))
+    profile = mode.startswith("profile")
+    x = 50 if "x-drop" in mode else -1
+    cfg = lk.LaneKernelConfig(512, 1664, x_drop=x >= 0, trace=True,
+                              profile=profile,
+                              local_start=mode.startswith("local"))
+    if mode == "global":
+        cfg = lk.LaneKernelConfig(512, 1664)
+    if profile:
+        pairs = chip_smoke.profile_pairs(rng, 20, 900)
+        pk = pack_profile(pairs, cfg, "cpu", x_drop=max(x, 0))
+    else:
+        pairs = chip_smoke.structural_pairs(rng, chip_smoke.AA, 20, 900)
+        pk = lk.pack_lane(pairs, scores.BLOSUM62, cfg, Gaps(-11, -1), "cpu",
+                          x_drop=max(x, 0))
+    tw = lk.trace_words(cfg)
+    bufs = poisoned_trace(cfg, len(pairs), 512 * tw) if cfg.trace else None
+    fn = emulated[lk.library("lane", cfg)].lane_align_launch
+    got = launch(fn, pk, torch.full((len(pairs), 4 if x >= 0 else 2), -7,
+                                    dtype=torch.int32),
+                 len(pairs), cfg.seq_cap, cfg.alpha, cfg.block, cfg.max_steps,
+                 x=x, trace=bufs, cfg=cfg)
+    want = lk.lane_align_plain(*pk, cfg)
+    if cfg.trace:
+        chip_smoke.check_trace((got, *bufs), want, mode, tw)
+    else:
+        assert torch.equal(got, want)
+
+
 def poisoned_trace(cfg, B, rows):
     """Trace buffers of a launch, filled with -5 where the kernel writes
     nothing (unwritten device memory holds anything)."""
@@ -521,15 +604,20 @@ def test_entry_points_reject_bad_arguments(emulated):
 
 @pytest.mark.parametrize("S,x,trace", [
     (32, -1, False), (16, 50, False), (64, 20, False), (32, -1, True),
-    (16, 50, True),
-], ids=["32-global", "16-x-drop", "64-x-drop", "32-trace", "16-x-drop-trace"])
+    (16, 50, True), (512, 50, True),
+], ids=["32-global", "16-x-drop", "64-x-drop", "32-trace", "16-x-drop-trace",
+        "512-x-drop-trace"])
 def test_lane_kernel_source_profile_matches_plain(emulated, S, x, trace):
     """Profile instances: profiles with varied gap opens and nonzero close
     costs, a few query bytes outside A..Z; outputs (and in trace mode step
-    counts, descriptors and words) equal the plain version's."""
-    pairs = chip_smoke.profile_pairs(np.random.default_rng(S + x), 12, 120)
-    cfg = lk.LaneKernelConfig(S, 768, x_drop=x >= 0, trace=trace,
-                              profile=True)
+    counts, descriptors and words) equal the plain version's.  At S = 512
+    (4 warps a pair) the pairs run past the block, so down steps close R
+    across the warps' boundaries."""
+    long = S == 512
+    pairs = chip_smoke.profile_pairs(np.random.default_rng(S + x),
+                                     6 if long else 12, 1000 if long else 120)
+    cfg = lk.LaneKernelConfig(S, 1664 if long else 768, x_drop=x >= 0,
+                              trace=trace, profile=True)
     pk = pack_profile(pairs, cfg, "cpu", x_drop=max(x, 0))
     bufs = poisoned_trace(cfg, len(pairs), S) if trace else None
     got = launch(emulated["lane_profile"].lane_align_launch, pk,
@@ -603,6 +691,8 @@ FLAG_MODES = {"byte": dict(byte_mode=True), "local": dict(local_start=True),
     ((32, 128), "fend", -1, True, False),
     ((16, 64), "fstart", -1, True, True),
     ((32, 512), "local", -1, True, False),
+    ((512, 512), "local", -1, True, False),
+    ((256, 256), "fend", -1, True, False),
 ], ids=lambda v: str(v))
 def test_kernel_source_flags_match_plain(emulated, size, mode, x, trace,
                                          profile):
