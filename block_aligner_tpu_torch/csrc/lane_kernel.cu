@@ -26,23 +26,32 @@
 // warp a scheduler) while each column ran two 16-row passes and a 16-deep
 // dependent chain, and the S = 512 instances spilled.  What this design
 // does about it:
-// * a pair takes G warps, G = S / 128 within 1..4 (PAIR_WARPS: 1 up to 128
-//   rows, 2 at 256, 4 at 512), so a lane holds RPL = S / (32 G) <= 4
-//   contiguous rows in registers (S = 16 leaves half the warp idle).  A
-//   128-thread block carries 4 one-warp pairs, 2 two-warp pairs or 1 of
-//   four, so a batch smaller than the card lands on as many SMs as it has
-//   blocks.  Each pair runs its own step loop and leaves as soon as its
+// * a pair takes G warps, and a lane holds RPL = S / (32 G) contiguous rows
+//   in registers (S = 16 leaves half the warp idle).  G is 1 up to 256
+//   rows; at 512 it is 4 (4 rows a lane) in a launch of at most one pair an
+//   SM and 2 (8 rows a lane) in a larger one, both instances built and the
+//   choice made at launch (WIDE_WARPS, NARROW_WARPS, FEW_PAIRS: by time,
+//   PERF.md).  A 128-thread block carries 4 one-warp pairs, 2 two-warp
+//   pairs or 1 of four, so a batch smaller than the card lands on as many
+//   SMs as it has blocks.  Each pair runs its own step loop and leaves as soon as its
 //   block freezes, so no pair waits for the longest one in a batch (the
 //   TPU kernel ran 128-pair lanes in lockstep);
 // * the column's vertical-gap scan runs in three levels: serial over a
-//   lane's rows, log2(32) shuffles over the warp's lanes, and, with several
+//   lane's rows, over the warp's 32 lanes in three rounds of shuffles
+//   issued together (3, 3 and 2 lanes up: 8 shuffles, of which only three
+//   wait in a row, where a log-step scan waits on six), and, with several
 //   warps, over the warps' aggregates through shared memory behind the
 //   pair's named barrier (bar.sync 1 + pair, 32 G threads), once a column.
 //   The same exchange carries D before R of each warp's last row (and, for
 //   profiles, its D plus R open and its close cost), from which the next
 //   warp's first lane derives that row's R, its final D (the next column's
-//   diagonal) and its R-open trace bit, so a column needs one barrier.  A
-//   one-warp pair synchronises with __syncwarp only;
+//   diagonal) and its R-open trace bit, so a column needs one barrier.
+//   With several warps, where a column waits on this chain, every other
+//   lane derives its next diagonal the same way, from the scan and a
+//   shuffle issued before it, so the chain holds no shuffle after the
+//   second pass (UP_FROM_SCAN), and each warp reduces its aggregate for
+//   the exchange while its shuffles run (EARLY_TOTAL).  A one-warp pair
+//   synchronises with __syncwarp only;
 // * once a step the pair's warps meet again for the step's end: each warp
 //   posts its maximum, the first 8 rows' border maxima (warp 0), its
 //   x-drop key (below), the rebased passive rows the warp above shifts in,
@@ -321,6 +330,16 @@ __global__ void lane_align_kernel(const uint8_t* __restrict__ codes,
   constexpr int PRO = S / STEP;          // prologue steps (the initial grow)
   constexpr int P = BLOCK_PAIRS<G>;      // pairs a block
   constexpr int GW = G > 1 ? G * P : 1;  // the block's warps, several a pair
+  // Two cuts of a column's chain where a pair of several warps waits on it
+  // (one warp of a full card waits on its instructions instead; by time,
+  // PERF.md): a lane takes the next column's diagonal (the final D of the
+  // row above its first) from the column's scan and that row's D before R,
+  // shuffled early, not by a shuffle after the column (not in profile
+  // mode: its 2-warp x-drop trace instance spilled); and a warp reduces
+  // its scan at its last row, the warps' exchange, from its lanes' own
+  // while the shuffles run (not with trace, which it slowed)
+  constexpr bool UP_FROM_SCAN = G > 1 && !PROFILE;
+  constexpr bool EARLY_TOTAL = G > 1 && !TRACE;
 
   __shared__ int tab[PROFILE ? 1 : MAX_ALPHA * MAX_ALPHA];
   __shared__ int tails[P][2][STEP];  // a step's bottom D and R cells
@@ -518,10 +537,13 @@ __global__ void lane_align_kernel(const uint8_t* __restrict__ codes,
         sc[k] = byte ? 0 : tab[col(0) * alpha + lc[k]];
     }
 
+    int upn = 0;  // UP_FROM_SCAN: the next column's up
 #pragma unroll
     for (int w = 0; w < STEP; ++w) {
       // probe: row pass
-      int up = __shfl_up_sync(FULL, actD[RPL - 1], 1);
+      int up = UP_FROM_SCAN && w > 0
+                   ? upn
+                   : __shfl_up_sync(FULL, actD[RPL - 1], 1);
       if (lane == 0) up = wi > 0 ? upA : w == 0 ? cvec : NEG;
       int D[RPL], C[RPL], T[RPL], CO[RPL];
       int DO[RPL], CL[RPL], CE[RPL];  // profile: D_open, close, closed C
@@ -568,6 +590,8 @@ __global__ void lane_align_kernel(const uint8_t* __restrict__ codes,
           if constexpr (TRACE) CO[k] = co;
         }
       }
+      int dpa = 0;  // UP_FROM_SCAN: the row above the lane's first, D before R
+      if constexpr (UP_FROM_SCAN) dpa = __shfl_up_sync(FULL, D[RPL - 1], 1);
       if constexpr (!PROFILE) {
         // the next column's scores, loaded while this one's scan runs
         if (w + 1 < STEP && !byte) {
@@ -594,19 +618,47 @@ __global__ void lane_align_kernel(const uint8_t* __restrict__ codes,
       }
       // probe: shuffle scan
       // (a lane below d gets its own carry back, which the add cannot raise)
-      int carry = T[RPL - 1];
+      int carry = T[RPL - 1], E;
+      const int g1 = gext * RPL;  // the gap extended over a lane's rows
+      if constexpr (EARLY_TOTAL) {
+        // the warp's scan at its last row: its lanes' own, each carried
+        // down to it
+        const int tot = __reduce_max_sync(FULL, T[RPL - 1] + g1 * (31 - lane));
+        if (lane == 31) wagg[w & 1][warp] = tot;
+      }
+      if constexpr (WL == 32) {
+        // three rounds: the scan over 4 lanes, over 16, then at the row
+        // above the lane's first (the lane's own carry masked out)
+        const int a1 = __shfl_up_sync(FULL, carry, 1);
+        const int a2 = __shfl_up_sync(FULL, carry, 2);
+        const int a3 = __shfl_up_sync(FULL, carry, 3);
+        carry = __vimax3_s32(__viaddmax_s32(a1, g1, carry), a2 + 2 * g1,
+                             a3 + 3 * g1);
+        const int b1 = __shfl_up_sync(FULL, carry, 4);
+        const int b2 = __shfl_up_sync(FULL, carry, 8);
+        const int b3 = __shfl_up_sync(FULL, carry, 12);
+        carry = __vimax3_s32(__viaddmax_s32(b1, 4 * g1, carry), b2 + 8 * g1,
+                             b3 + 12 * g1);
+        const int e1 = __shfl_up_sync(FULL, carry, 1);
+        const int e2 = __shfl_up_sync(FULL, carry, 17);
+        E = lane == 0 ? FAR : lane < 17 ? e1 : __viaddmax_s32(e2, 16 * g1, e1);
+        // the scan at the lane's last row, for the warps' exchange
+        if constexpr (G > 1 && !EARLY_TOTAL)
+          carry = __viaddmax_s32(E, g1, T[RPL - 1]);
+      } else {
+        // log2(WL) rounds of one shuffle
 #pragma unroll
-      for (int d = 1; d < WL; d <<= 1)
-        carry = __viaddmax_s32(__shfl_up_sync(FULL, carry, d),
-                               gext * RPL * d, carry);
-      // the scan at the row above the lane's first
-      int E = __shfl_up_sync(FULL, carry, 1);
-      if (lane == 0) E = FAR;
+        for (int d = 1; d < WL; d <<= 1)
+          carry = __viaddmax_s32(__shfl_up_sync(FULL, carry, d), g1 * d, carry);
+        // the scan at the row above the lane's first
+        E = __shfl_up_sync(FULL, carry, 1);
+        if (lane == 0) E = FAR;
+      }
       int rinA = 0;  // a warp's lane 0: the R-open bit of the row above
       if constexpr (G > 1) {
         const int par = w & 1;
         if (lane == 31) {
-          wagg[par][warp] = carry;
+          if constexpr (!EARLY_TOTAL) wagg[par][warp] = carry;
           wdp[par][warp] = D[RPL - 1];
           if constexpr (PROFILE) {
             wt[par][warp] = DO[RPL - 1];
@@ -636,6 +688,12 @@ __global__ void lane_align_kernel(const uint8_t* __restrict__ codes,
           upA = max(dA, RA);
           rinA = wi > 0 && RA == dA + (gopen - gext);
         }
+      }
+      if constexpr (UP_FROM_SCAN) {
+        // the next column's diagonal: the row above's final D, the max of
+        // its D before R and its R (the scan E there, or its zero
+        // correction)
+        upn = __vimax3_s32(dpa, E, gext * (((row0 - 1) & 7) + 1));
       }
       // probe: second pass
       int nib[RPL], rbits = 0;

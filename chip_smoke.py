@@ -1787,6 +1787,21 @@ def main():
               f"blocks and {ps} pairs an SM: SM fill "
               f"{min(1.0, pairs / (sms * ps)):.3f} at {pairs} pairs a launch")
 
+    # at block 512 the lane kernel gives a pair 4 warps in a launch of at
+    # most one pair an SM and 2 in a larger one (csrc/lane_kernel.cu):
+    # phases 3, 11, 15 and 19 hold each instance there at both, the larger
+    # batches of wide_n pairs drawn from wide_rng
+    warps_held = {}
+    wide_rng = np.random.default_rng(512)
+    wide_n = sms + 8
+
+    def held_warps(cfg, pairs):
+        """Note the warps a pair of a lane launch of ``pairs`` at block
+        512 takes, under its instance's name."""
+        if cfg.block == 512:
+            warps_held.setdefault(instance("lane", cfg), set()).add(
+                lk.launch_shape(cfg, len(pairs))[2])
+
     def merged(*paths):
         """One kernels-line entry for an instance that ran several paths:
         the launches of all, the numbers of the first."""
@@ -2349,14 +2364,18 @@ def main():
             cfg = lk.LaneKernelConfig(
                 S, -(-(1 + 600 + S + 16) // 128) * 128,
                 32 if matrix.kind == "aa" else 16)
-            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev)
-            got = lk.lane_align(*pk, cfg)
-            torch.cuda.synchronize()
-            check_equal(got, lk.lane_align_plain(*pk, cfg),
-                        f"at S={S} {matrix.kind}")
-            checked += len(pairs)
+            # at 512 the 192 pairs take 2 warps a pair, their first 64 4
+            for batch in (pairs, pairs[:64]) if S == 512 else (pairs,):
+                pk = lk.pack_lane(batch, matrix, cfg, gaps, dev)
+                got = lk.lane_align(*pk, cfg)
+                torch.cuda.synchronize()
+                check_equal(got, lk.lane_align_plain(*pk, cfg),
+                            f"at S={S} {matrix.kind}, {len(batch)} pairs")
+                held_warps(cfg, batch)
+                checked += len(batch)
     print(f"[lane-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
-          "(protein and DNA, lengths 0..600): score and suspect equal")
+          "(protein and DNA, lengths 0..600; at 512 192 pairs and their "
+          "first 64): score and suspect equal")
     n_gold = check_goldens(GOLDEN, BatchAligner, Gaps, scores, dev)
     print(f"[lane-golden] {n_gold} pinned reference scores equal "
           "(incl. README example NW1 -2/-1 block 32 -> 7)")
@@ -2406,17 +2425,21 @@ def main():
             cfg = lk.LaneKernelConfig(
                 S, -(-(1 + 600 + S + 16) // 128) * 128,
                 32 if matrix.kind == "aa" else 16, x_drop=True)
-            pk = lk.pack_lane(pairs, matrix, cfg, gaps, dev, x_drop=x)
-            got = lk.lane_align(*pk, cfg)
-            torch.cuda.synchronize()
-            check_equal(got, lk.lane_align_plain(*pk, cfg),
-                        f"x-drop at S={S} {matrix.kind}")
-            checked += len(pairs)
-            dropped += x_dropped(got, pk)
+            for batch in (pairs, pairs[:64]) if S == 512 else (pairs,):
+                pk = lk.pack_lane(batch, matrix, cfg, gaps, dev, x_drop=x)
+                got = lk.lane_align(*pk, cfg)
+                torch.cuda.synchronize()
+                check_equal(got, lk.lane_align_plain(*pk, cfg),
+                            f"x-drop at S={S} {matrix.kind}, {len(batch)} "
+                            "pairs")
+                held_warps(cfg, batch)
+                checked += len(batch)
+                dropped += x_dropped(got, pk)
     if not dropped:
         raise AssertionError("no lane x-drop pair ended short of its ends")
     print(f"[lane-xdrop-vs-plain] {checked} pairs at S in 16,32,64,256,512 "
-          "(protein x 50 and DNA x 100, lengths 0..600): best, position and "
+          "(protein x 50 and DNA x 100, lengths 0..600; at 512 192 pairs "
+          "and their first 64): best, position and "
           f"suspect equal; {dropped} best positions short of (qlen, rlen)")
 
     checked = dropped = 0
@@ -2703,11 +2726,21 @@ def main():
                     32 if matrix.kind == "aa" else 16, x_drop=xd, trace=True)
                 kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x if xd else 0,
                                       f"lane trace S={S} x_drop={xd}")
+                held_warps(cfg, pairs)
+                checked += len(pairs)
+                if S < 512:
+                    continue
+                pairs = random_pairs(wide_rng, alphabet, wide_n, 400)
+                kernel_vs_plain_trace(cfg, pairs, matrix, gaps, x if xd else 0,
+                                      f"lane trace S={S} x_drop={xd}, "
+                                      f"{wide_n} pairs", walk=False)
+                held_warps(cfg, pairs)
                 checked += len(pairs)
     print(f"[lane-trace-vs-plain] {checked} pairs at S in 16,32,64,256,512, "
-          "global and x-drop (protein x 50 and DNA x 100, lengths 0..400): "
-          "outputs, step counts, descriptors and words of every executed "
-          "step equal, and the CIGARs walked from both")
+          "global and x-drop (protein x 50 and DNA x 100, lengths 0..400; "
+          f"at 512 also {wide_n} pairs, not walked): outputs, step counts, "
+          "descriptors and words of every executed step equal, and the "
+          "CIGARs walked from both")
     checked, saves, restores = 0, 0, 0
     ladders_t = ladders + ((32, 512),)
     for lo, hi in ladders_t:
@@ -2824,16 +2857,22 @@ def main():
         for xd, tr in modes:
             cfg = lk.LaneKernelConfig(S, -(-(1 + 400 + S + 16) // 128) * 128,
                                       x_drop=xd, trace=tr, profile=True)
-            pairs = profile_pairs(rng, 96, 400)
-            got, pk, _ = profile_vs_plain(cfg, pairs, 50 if xd else 0,
-                                          f"lane profile S={S} x_drop={xd} "
-                                          f"trace={tr}")
-            checked += len(pairs)
-            dropped += x_dropped(got[0] if tr else got, pk) if xd else 0
+            batches = [profile_pairs(rng, 96, 400)]
+            if S == 512:
+                batches.append(profile_pairs(wide_rng, wide_n, 400))
+            for pairs in batches:
+                got, pk, _ = profile_vs_plain(
+                    cfg, pairs, 50 if xd else 0,
+                    f"lane profile S={S} x_drop={xd} trace={tr}, "
+                    f"{len(pairs)} pairs")
+                held_warps(cfg, pairs)
+                checked += len(pairs)
+                dropped += x_dropped(got[0] if tr else got, pk) if xd else 0
     if not dropped:
         raise AssertionError("no lane profile x-drop pair ended short")
     print(f"[lane-profile-vs-plain] {checked} (query, profile) pairs at S in "
-          "16,32,128,512, global, x-drop 50, trace and x-drop trace (lengths "
+          f"16,32,128,512 (at 512 96 and {wide_n} pairs), global, x-drop 50, "
+          "trace and x-drop trace (lengths "
           "0..400, gap opens -13..-9 and close costs -3..0 varying by "
           "position, odd query bytes): outputs equal, and in trace mode step "
           f"counts, descriptors, words and CIGARs; {dropped} x-drop best "
@@ -3225,18 +3264,18 @@ def main():
             walk_both(got, want, ends, matrix, what, cfg)
         return len(flag_checks)
 
-    def flag_pairs(cfg, grow):
-        """32 pairs of lengths 0..200 for ``cfg``'s mode, and with ``grow``
-        2 whose adaptive blocks grow to 512; free end gaps cut the queries
-        short of the min size."""
+    def flag_pairs(cfg, grow, n=32, draw=rng):
+        """``n`` pairs of lengths 0..200 for ``cfg``'s mode from ``draw``,
+        and with ``grow`` 2 whose adaptive blocks grow to 512; free end gaps
+        cut the queries short of the min size."""
         if cfg.byte_mode:
-            pairs = byte_pairs(rng, 32, 200)
+            pairs = byte_pairs(draw, n, 200)
         elif cfg.profile:
-            pairs = profile_pairs(rng, 32, 200) + (
-                grow_profile_pairs(rng, 2) if grow else [])
+            pairs = profile_pairs(draw, n, 200) + (
+                grow_profile_pairs(draw, 2) if grow else [])
         else:
-            pairs = structural_pairs(rng, AA, 32, 200) + (
-                grow_to_512_pairs(rng, 2, 560, 300) if grow else [])
+            pairs = structural_pairs(draw, AA, n, 200) + (
+                grow_to_512_pairs(draw, 2, 560, 300) if grow else [])
         if cfg.free_query_end_gaps:
             pairs = [(q[: cfg.min_size - 1], r) for q, r in pairs]
         return pairs
@@ -3259,13 +3298,20 @@ def main():
                     cfg = (lk.LaneKernelConfig(hi, cap, alpha, **kw)
                            if lo == hi else
                            ak.AdaptiveKernelConfig(lo, hi, cap, alpha, **kw))
-                    pairs = flag_pairs(cfg, hi == 512 and lo < hi)
-                    got = flags_vs_plain(
-                        cfg, pairs, 50 if xd else 0,
-                        f"{label} {size} profile={prof} x_drop={xd} "
-                        f"trace={tr}")
-                    checked += len(pairs)
-                    if xd:
+                    batches = [flag_pairs(cfg, hi == 512 and lo < hi)]
+                    if lo == hi == 512:
+                        batches.append(flag_pairs(cfg, False, wide_n,
+                                                  wide_rng))
+                    for pairs in batches:
+                        got = flags_vs_plain(
+                            cfg, pairs, 50 if xd else 0,
+                            f"{label} {size} profile={prof} x_drop={xd} "
+                            f"trace={tr}, {len(pairs)} pairs")
+                        if lo == hi:
+                            held_warps(cfg, pairs)
+                        checked += len(pairs)
+                        if not xd:
+                            continue
                         dropped += x_dropped(got[0] if tr else got,
                                              SimpleNamespace(
                                                  qlen=torch.tensor(
@@ -3283,7 +3329,8 @@ def main():
         checked, dropped = checked + c, dropped + d
     if not dropped:
         raise AssertionError("no lane flags x-drop pair ended short")
-    print(f"[lane-flags-vs-plain] {checked} pairs at S in 16,32,128,512: "
+    print(f"[lane-flags-vs-plain] {checked} pairs at S in 16,32,128,512 "
+          f"(at 512 32 and {wide_n} pairs): "
           "ByteMatrix(1, -1) global and trace (all 256 bytes, byte 0, the "
           "golden pair); local start and free start gaps global, x-drop "
           "50, trace and x-drop trace; free end gaps (queries shorter than "
@@ -3665,6 +3712,15 @@ def main():
     n_flags = check_flags()
     print(f"[flags-vs-plain] phase 19's {n_flags} kernel runs equal their "
           "plain versions (CPU workers)")
+    one_count = sorted(k for k, v in warps_held.items() if len(v) < 2)
+    if one_count:
+        raise AssertionError(f"at block 512 {one_count} ran at one warps "
+                             "count only")
+    print(f"[lane-warps] block 512: each of the {len(warps_held)} lane "
+          "instances of phases 3, 11, 15 and 19 equal to its plain version "
+          "at " + " and ".join(map(str, sorted(set().union(
+              *warps_held.values())))) + " warps a pair: "
+          + ", ".join(sorted(warps_held)))
     nano50 = load_nanopore_pairs("nanopore.50kbps", n_pairs=64,
                                  max_len=50000, seed=1234)
     n50 = len(nano50)

@@ -30,9 +30,10 @@ the shares, not the kernel times, are the result.
 - ``warps``: kernel A's global instances at blocks 256 and 512 rebuilt
   with each of several warps a pair (the ``WIDE_WARPS`` and
   ``NARROW_WARPS`` lines of the copy rewritten; no counters), timed with
-  CUDA events on the 64 reads at blocks 256 and 512 and on 132 to 2048
-  random protein pairs of 1000 residues (one pair an SM to a batch that
-  fills the card), every variant's results equal.
+  CUDA events on phase 44's reads in launches of 64, 256 (the long API's
+  default batch) and 528 pairs and on 132 to 2048 random protein pairs of
+  1000 residues (one pair an SM to a batch that fills the card), every
+  variant's results equal.
 - ``sass``: kernel A's instances of ``csrc/lane_kernel.cu`` compiled to a
   cubin with the build's flags, and per instance the count of the DPX
   instructions (``VIADDMNMX``, ``VIMNMX3``), of two-operand ``IMNMX`` and of
@@ -151,12 +152,7 @@ def compile_all(jobs, report=False):
 
 
 def load(path, bind):
-    lib = ctypes.CDLL(path)
-    try:
-        bind(lib)
-    except AttributeError:
-        # a lane source from before its shape query: the launch is bound
-        lib.lane_error_string.restype = ctypes.c_char_p
+    lib = bind(ctypes.CDLL(path))
     if hasattr(lib, "probe_read"):
         lib.probe_read.argtypes = [ctypes.c_void_p]
     return lib
@@ -192,10 +188,11 @@ def card():
         check=True).stdout.strip().splitlines()[0]
 
 
-def long_reads():
+def long_reads(n=64):
+    """Phase 44's reads, the first ``n`` of its stream."""
     from examples_tpu.common import load_nanopore_pairs
 
-    return load_nanopore_pairs("nanopore.50kbps", n_pairs=64, max_len=50000,
+    return load_nanopore_pairs("nanopore.50kbps", n_pairs=n, max_len=50000,
                                seed=1234)
 
 
@@ -299,10 +296,11 @@ def sweep_warps(args):
                          only_blocks(WARPS.sub(rule, src), (S,))))
     built = compile_all(jobs, report=True)
     dev = torch.device("cuda")
-    reads = long_reads()
+    reads = long_reads(528)
     full = rand_protein_pairs(np.random.default_rng(1234), 2048, 1000, 100)
     for S, gs in variants.items():
-        work = {"64 reads": lane_work(S, reads, dev, long=True)}
+        work = {f"{n} reads": lane_work(S, reads[:n], dev, long=True)
+                for n in (64, 256, 528)}
         for n in (132, 264, 528, 2048):
             work[f"{n} protein pairs"] = lane_work(S, full[:n], dev)
         seen = {}
